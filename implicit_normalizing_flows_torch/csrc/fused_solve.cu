@@ -1,0 +1,536 @@
+// Hopper (sm_90a) kernels of the forward Broyden solve.
+//
+// Replaces the TPU kernel implicit_normalizing_flows_tpu/ops/fused_solve.py
+// ::fused_broyden_solve (_solve_kernel :773, _broyden_in_kernel :538,
+// _make_eval :245). The TPU kernel runs one example's whole solve per grid
+// step with the Broyden state and the 512 x HW intermediates resident in up
+// to 110 MiB of VMEM. An H100 SM has 227 KB of shared memory, so the solve is
+// re-cut into a host-driven loop over four batched kernels; every launch
+// works on a list of ACTIVE example indices kept on the device, so an
+// example that converged, stalled or broke costs no further conv work:
+//
+//   conv3x3_in   [swish(b0)] -> conv3x3 c->mid + b1 -> swish(b1)   (im2col GEMM)
+//   conv1x1_mid  mid->mid product + b2 -> swish(b2)                (tiled GEMM)
+//   conv3x3_out  conv3x3 mid->c + b3, fused with the residual
+//                out = base + sgn * net - sub   (g = x_embed - net(z) - z)
+//   broyden_step one block per active example: secant contractions over the
+//                nstep written U/V planes, writes plane nstep (NaN scrub),
+//                best iterate, protective break, stall exit, done, next
+//                update; appends the example to the next active list.
+//                Its phase argument also runs the solve's initialisation and
+//                the precision ladder's re-arm.
+//
+// Precision: every product honours mode 0 f32 (FP32 FMAs), 1 bf16 (hi*hi),
+// 2 tf32 (hi*hi + hi*lo + lo*hi), 3 tf32x (+ lo*lo), with hi/lo the bf16
+// round-to-nearest split of each operand (__float2bfloat16_rn), exactly the
+// reference's _make_dot/_make_wdot error model. Products of two bf16 values
+// are exact in FP32, so only the order of the f32 sums differs. Weight-side
+// splits are prepared once per solve by the caller (w_hi / w_lo).
+//
+// What bounds them on H100: the two GEMM-shaped convs (conv1x1_mid is
+// ~90% of the MACs: 268M of 296M per example per net eval at 32x32) are
+// bound by FP32 CUDA-core operations (3-4 FMAs per MAC in the split modes);
+// the design keeps them in 64x64 shared-memory tiles with a 4x4 register
+// micro-tile so each loaded element feeds 16 FMAs. broyden_step is bound by
+// the bytes of the U/V planes it streams (2 x nstep x D floats per example).
+// mma/wgmma (the bf16 split maps onto bf16 tensor cores) is later work.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+
+namespace {
+
+enum { MODE_F32 = 0, MODE_BF16 = 1, MODE_TF32 = 2, MODE_TF32X = 3 };
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ void split(float v, int mode, float& hi, float& lo) {
+  if (mode == MODE_F32) { hi = v; lo = 0.f; return; }
+  hi = bf16_round(v);
+  lo = (mode >= MODE_TF32) ? bf16_round(v - hi) : 0.f;
+}
+
+template <int MODE>
+__device__ __forceinline__ float mac(float acc, float ah, float al, float bh, float bl) {
+  acc = fmaf(ah, bh, acc);
+  if (MODE >= MODE_TF32) {
+    acc = fmaf(ah, bl, acc);
+    acc = fmaf(al, bh, acc);
+  }
+  if (MODE == MODE_TF32X) acc = fmaf(al, bl, acc);
+  return acc;
+}
+
+__device__ __forceinline__ float swish(float t, float beta) {
+  return t * (1.f / (1.f + expf(-t * beta))) * (1.0f / 1.1f);
+}
+
+// ---------------------------------------------------------------------------
+// GEMM-shaped convs: out[slot][m][p] = swish(sum_k W[m][k] * Bop[k][p] + b[m])
+// SRC 0: Bop = im2col of [swish_b0](inp[idx[slot]]) (conv3x3, K = C*9,
+//        k = ci*9 + ky*3 + kx, the natural OIHW flattening of W)
+// SRC 1: Bop = inp[slot] (K x HW, conv1x1)
+constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4, GEMM_THREADS = 256;
+
+template <int MODE, int SRC>
+__global__ void __launch_bounds__(GEMM_THREADS) conv_gemm_swish_kernel(
+    const float* __restrict__ w_hi, const float* __restrict__ w_lo,
+    const float* __restrict__ bias, int M, int K,
+    const float* __restrict__ inp, const int* __restrict__ idx,
+    const int* __restrict__ count, int C, int H, int W, int preact,
+    float beta_pre, float beta_post, float* __restrict__ out) {
+  const int slot = blockIdx.z;
+  if (slot >= *count) return;
+  const int HW = H * W;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const float* src = (SRC == 0) ? inp + (size_t)idx[slot] * C * HW
+                                : inp + (size_t)slot * K * HW;
+  __shared__ float As[2][BK][BM];
+  __shared__ float Bs[2][BK][BN];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    for (int i = tid; i < BM * BK; i += GEMM_THREADS) {
+      const int mm = i / BK, kk = i % BK, m = m0 + mm, k = k0 + kk;
+      float h = 0.f, l = 0.f;
+      if (m < M && k < K) {
+        h = w_hi[(size_t)m * K + k];
+        if (MODE >= MODE_TF32) l = w_lo[(size_t)m * K + k];
+      }
+      As[0][kk][mm] = h;
+      As[1][kk][mm] = l;
+    }
+    for (int i = tid; i < BK * BN; i += GEMM_THREADS) {
+      const int kk = i / BN, nn = i % BN, k = k0 + kk, p = n0 + nn;
+      float v = 0.f;
+      if (k < K && p < HW) {
+        if (SRC == 0) {
+          const int ci = k / 9, d = k % 9;
+          const int yy = p / W + d / 3 - 1, xx = p % W + d % 3 - 1;
+          if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
+            v = src[(size_t)ci * HW + yy * W + xx];
+            if (preact) v = swish(v, beta_pre);
+          }
+        } else {
+          v = src[(size_t)k * HW + p];
+        }
+      }
+      float h, l;
+      split(v, MODE, h, l);
+      Bs[0][kk][nn] = h;
+      Bs[1][kk][nn] = l;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float ah[TM], al[TM], bh[TN], bl[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        ah[i] = As[0][kk][ty * TM + i];
+        al[i] = As[1][kk][ty * TM + i];
+      }
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        bh[j] = Bs[0][kk][tx * TN + j];
+        bl[j] = Bs[1][kk][tx * TN + j];
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          acc[i][j] = mac<MODE>(acc[i][j], ah[i], al[i], bh[j], bl[j]);
+    }
+    __syncthreads();
+  }
+  float* o = out + (size_t)slot * M * HW;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty * TM + i;
+    if (m >= M) continue;
+    const float b = bias[m];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int p = n0 + tx * TN + j;
+      if (p < HW) o[(size_t)m * HW + p] = swish(acc[i][j] + b, beta_post);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// conv3x3 mid -> C with the residual epilogue. One thread per (pixel, group
+// of 4 output channels); the group's weights for a chunk of MC mid channels
+// sit in shared memory, each split activation feeds 4 output channels.
+constexpr int OUT_THREADS = 128, OUT_CO = 4, OUT_MC = 64;
+
+template <int MODE>
+__global__ void __launch_bounds__(OUT_THREADS) conv3x3_out_kernel(
+    const float* __restrict__ w_hi, const float* __restrict__ w_lo,
+    const float* __restrict__ bias, const float* __restrict__ t2,
+    const int* __restrict__ idx, const int* __restrict__ count, int C, int MID,
+    int H, int W, const float* __restrict__ base, float sgn,
+    const float* __restrict__ sub, float* __restrict__ out) {
+  const int slot = blockIdx.z;
+  if (slot >= *count) return;
+  const int HW = H * W;
+  const int co0 = blockIdx.y * OUT_CO;
+  const int p = blockIdx.x * OUT_THREADS + threadIdx.x;
+  const bool valid = p < HW;
+  const int y = valid ? p / W : 0, x = valid ? p % W : 0;
+  const float* src = t2 + (size_t)slot * MID * HW;
+  __shared__ float ws[2][OUT_MC][9][OUT_CO];
+  float acc[OUT_CO];
+#pragma unroll
+  for (int j = 0; j < OUT_CO; ++j) acc[j] = 0.f;
+
+  for (int mc0 = 0; mc0 < MID; mc0 += OUT_MC) {
+    for (int i = threadIdx.x; i < OUT_MC * 9 * OUT_CO; i += OUT_THREADS) {
+      const int j = i % OUT_CO, d = (i / OUT_CO) % 9, mm = i / (OUT_CO * 9);
+      const int co = co0 + j, m = mc0 + mm;
+      float h = 0.f, l = 0.f;
+      if (co < C && m < MID) {
+        const size_t off = ((size_t)co * MID + m) * 9 + d;
+        h = w_hi[off];
+        if (MODE >= MODE_TF32) l = w_lo[off];
+      }
+      ws[0][mm][d][j] = h;
+      ws[1][mm][d][j] = l;
+    }
+    __syncthreads();
+    if (valid) {
+      const int mend = min(OUT_MC, MID - mc0);
+      for (int mm = 0; mm < mend; ++mm) {
+        const float* plane = src + (size_t)(mc0 + mm) * HW;
+#pragma unroll
+        for (int d = 0; d < 9; ++d) {
+          const int yy = y + d / 3 - 1, xx = x + d % 3 - 1;
+          float v = 0.f;
+          if (yy >= 0 && yy < H && xx >= 0 && xx < W) v = __ldg(plane + yy * W + xx);
+          float h, l;
+          split(v, MODE, h, l);
+#pragma unroll
+          for (int j = 0; j < OUT_CO; ++j)
+            acc[j] = mac<MODE>(acc[j], ws[0][mm][d][j], ws[1][mm][d][j], h, l);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (!valid) return;
+  const size_t e = (size_t)idx[slot];
+#pragma unroll
+  for (int j = 0; j < OUT_CO; ++j) {
+    const int co = co0 + j;
+    if (co >= C) continue;
+    const size_t off = (e * C + co) * HW + p;
+    float o = base[off] + sgn * (acc[j] + bias[co]);
+    if (sub != nullptr) o -= sub[off];
+    out[off] = o;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// broyden_step: one block per active example (_broyden_in_kernel body).
+constexpr int STEP_THREADS = 512, STEP_WARPS = STEP_THREADS / 32, KMAX = 64;
+enum { PHASE_INIT = 0, PHASE_STEP = 1, PHASE_REARM = 2 };
+// per-example int state: [nstep, best_step, prot, done]; float state:
+// [best_obj, best_snap, init_obj]
+enum { I_NSTEP = 0, I_BEST_STEP = 1, I_PROT = 2, I_DONE = 3, NI = 4 };
+enum { F_BEST_OBJ = 0, F_BEST_SNAP = 1, F_INIT_OBJ = 2, NF = 3 };
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Block-wide sums in two steps: every thread calls stage(v, i) for the same
+// sequence of i (warp sums land in part[i][warp]); finish(first, n, red) then
+// leaves red[i] = the block's sum of value i for first <= i < n, readable by
+// every thread. The tree order is fixed, so the sums are deterministic.
+struct BlockSums {
+  float (*part)[STEP_WARPS];
+  __device__ void stage(float v, int i) const {
+    const float s = warp_sum(v);
+    if (threadIdx.x % 32 == 0) part[i][threadIdx.x / 32] = s;
+  }
+  __device__ void finish(int first, int n, float* red) const {
+    __syncthreads();
+    for (int i = first + threadIdx.x; i < n; i += STEP_THREADS) {
+      float s = 0.f;
+      for (int w = 0; w < STEP_WARPS; ++w) s += part[i][w];
+      red[i] = s;
+    }
+    __syncthreads();
+  }
+};
+
+__global__ void __launch_bounds__(STEP_THREADS) broyden_step_kernel(
+    int phase, const int* __restrict__ idx_in, const int* __restrict__ cnt_in,
+    int* __restrict__ idx_out, int* __restrict__ cnt_out, float* Z, float* G,
+    float* UPD, float* ZN, const float* __restrict__ GN, float* BZ, float* BG,
+    float* U, float* V, int* istate, float* fstate, int D, int K, float eps,
+    int cap, int patience, float rtol, float guard_eps, int newton) {
+  const int slot = blockIdx.x;
+  if (slot >= *cnt_in) return;
+  const size_t e = (size_t)idx_in[slot];
+  const int tid = threadIdx.x;
+  float* z = Z + e * D;
+  float* g = G + e * D;
+  float* upd = UPD + e * D;
+  float* zn = ZN + e * D;
+  const float* gn = GN + e * D;
+  float* bz = BZ + e * D;
+  float* bg = BG + e * D;
+  float* Ue = U + e * (size_t)K * D;
+  float* Ve = V + e * (size_t)K * D;
+  int* ist = istate + e * NI;
+  float* fst = fstate + e * NF;
+
+  __shared__ float part[3 * KMAX + 2][STEP_WARPS];
+  __shared__ float red[3 * KMAX + 2];
+  const BlockSums sums{part};
+  constexpr int R_LAST = 3 * KMAX + 1;  // scratch slot of the late sums
+  __shared__ float sc[1];  // improved flag of PHASE_STEP
+  const int nk = ist[I_NSTEP];  // planes written so far (never wraps)
+
+  if (phase == PHASE_INIT) {
+    float ss = 0.f;
+    for (int j = tid; j < D; j += STEP_THREADS) ss += gn[j] * gn[j];
+    sums.stage(ss, 0);
+    sums.finish(0, 1, red);
+    const float obj = sqrtf(red[0]);
+    for (int j = tid; j < D; j += STEP_THREADS) {
+      const float zj = zn[j], gj = gn[j], u = newton ? gj : -gj;
+      z[j] = zj; g[j] = gj; bz[j] = zj; bg[j] = gj; upd[j] = u; zn[j] = zj + u;
+    }
+    if (tid == 0) {
+      const int done = obj < eps;
+      ist[I_NSTEP] = 0; ist[I_BEST_STEP] = 0; ist[I_PROT] = 0; ist[I_DONE] = done;
+      fst[F_BEST_OBJ] = obj; fst[F_BEST_SNAP] = obj; fst[F_INIT_OBJ] = obj;
+      if (!done && 0 < cap) idx_out[atomicAdd(cnt_out, 1)] = (int)e;
+    }
+    return;
+  }
+
+  if (phase == PHASE_REARM) {
+    // continue from the best iterate with the residual g_b re-evaluated at
+    // the stage precision; update = g_b - sum_k U_k <V_k, g_b>
+    float ss = 0.f;
+    for (int j = tid; j < D; j += STEP_THREADS) ss += gn[j] * gn[j];
+    sums.stage(ss, 0);
+    for (int k = 0; k < nk; ++k) {
+      const float* vk = Ve + (size_t)k * D;
+      float s = 0.f;
+      for (int j = tid; j < D; j += STEP_THREADS) s += vk[j] * gn[j];
+      sums.stage(s, k + 1);
+    }
+    sums.finish(0, nk + 1, red);
+    const float obj = sqrtf(red[0]);
+    for (int j = tid; j < D; j += STEP_THREADS) {
+      float uvg = 0.f;
+      for (int k = 0; k < nk; ++k) uvg += Ue[(size_t)k * D + j] * red[k + 1];
+      const float gj = gn[j], bzj = bz[j], u = gj - uvg;
+      z[j] = bzj; g[j] = gj; bg[j] = gj; upd[j] = u; zn[j] = bzj + u;
+    }
+    if (tid == 0) {
+      const int done = ist[I_PROT] || obj < eps;
+      ist[I_DONE] = done;
+      fst[F_BEST_OBJ] = obj; fst[F_BEST_SNAP] = obj;
+      if (!done && nk < cap) idx_out[atomicAdd(cnt_out, 1)] = (int)e;
+    }
+    return;
+  }
+
+  // PHASE_STEP: z_new = zn, g_new = gn, delta_z = upd, delta_g = gn - g.
+  // Pass A: ||g_new||^2 and the 3 nk contractions <V_k,dg>, <V_k,g_new>,
+  // <U_k,dz>.
+  {
+    float ss = 0.f;
+    for (int j = tid; j < D; j += STEP_THREADS) ss += gn[j] * gn[j];
+    sums.stage(ss, 0);
+  }
+  for (int k = 0; k < nk; ++k) {
+    const float* uk = Ue + (size_t)k * D;
+    const float* vk = Ve + (size_t)k * D;
+    float a = 0.f, b = 0.f, c = 0.f;
+    for (int j = tid; j < D; j += STEP_THREADS) {
+      const float gj = gn[j], dg = gj - g[j];
+      a += vk[j] * dg;
+      b += vk[j] * gj;
+      c += uk[j] * upd[j];
+    }
+    sums.stage(a, 1 + 3 * k);
+    sums.stage(b, 2 + 3 * k);
+    sums.stage(c, 3 + 3 * k);
+  }
+  sums.finish(0, 3 * nk + 1, red);
+  const int nstep = nk + 1;
+  if (tid == 0) {
+    const float obj = sqrtf(red[0]);
+    float best_obj = fst[F_BEST_OBJ], best_snap = fst[F_BEST_SNAP];
+    const float init_obj = fst[F_INIT_OBJ];
+    const int improved = obj < best_obj;
+    if (improved) { best_obj = obj; ist[I_BEST_STEP] = nstep; }
+    const int bad = !isfinite(obj) || obj > init_obj * 1e6f;
+    const int prot = ist[I_PROT] || bad;
+    int done = bad || obj < eps;
+    if (patience > 0) {
+      const int at_check = (nstep % patience) == 0;
+      int stalled = at_check && best_obj > best_snap * (1.0f - rtol);
+      if (guard_eps > 0.f) stalled = stalled && best_obj < guard_eps;
+      done = done || stalled;
+      if (at_check) best_snap = best_obj;
+    }
+    ist[I_NSTEP] = nstep; ist[I_PROT] = prot; ist[I_DONE] = done;
+    fst[F_BEST_OBJ] = best_obj; fst[F_BEST_SNAP] = best_snap;
+    sc[0] = (float)improved;
+    if (!done && nstep < cap) idx_out[atomicAdd(cnt_out, 1)] = (int)e;
+  }
+  // Pass B: UVd, UVg, vT; staged in plane nk of U (UVd) and V (vT), UVg in
+  // zn after z <- z_new.
+  float* u_new = Ue + (size_t)nk * D;
+  float* v_new = Ve + (size_t)nk * D;
+  float pd = 0.f;
+  for (int j = tid; j < D; j += STEP_THREADS) {
+    const float dz = upd[j], dg = gn[j] - g[j];
+    float uvd = 0.f, uvg = 0.f, vt = -dz;
+    for (int k = 0; k < nk; ++k) {
+      const float uk = Ue[(size_t)k * D + j], vk = Ve[(size_t)k * D + j];
+      uvd += uk * red[1 + 3 * k];
+      uvg += uk * red[2 + 3 * k];
+      vt += vk * red[3 + 3 * k];
+    }
+    z[j] = zn[j];
+    zn[j] = uvg;
+    u_new[j] = uvd;
+    v_new[j] = vt;
+    pd += vt * dg;
+  }
+  sums.stage(pd, R_LAST);
+  sums.finish(R_LAST, R_LAST + 1, red);
+  const float denom = red[R_LAST];
+  const bool improved = sc[0] != 0.f;
+  // Pass C: u = (dz - (-dg + UVd)) / denom, scrub, write plane nk.
+  float pe = 0.f;
+  for (int j = tid; j < D; j += STEP_THREADS) {
+    const float dz = upd[j], gj = gn[j], dg = gj - g[j];
+    float u = (dz - (-dg + u_new[j])) / denom;
+    float vt = v_new[j];
+    vt = isfinite(vt) ? vt : 0.f;
+    u = isfinite(u) ? u : 0.f;
+    u_new[j] = u;
+    v_new[j] = vt;
+    pe += vt * gj;
+    g[j] = gj;
+    if (improved) { bz[j] = z[j]; bg[j] = gj; }
+  }
+  sums.stage(pe, R_LAST);
+  sums.finish(R_LAST, R_LAST + 1, red);
+  const float vg = red[R_LAST];
+  // Pass D: update = -(-g_new + UVg) - u <vT, g_new>; next trial point.
+  for (int j = tid; j < D; j += STEP_THREADS) {
+    const float u = -(-g[j] + zn[j]) - u_new[j] * vg;
+    upd[j] = u;
+    zn[j] = z[j] + u;
+  }
+}
+
+template <int MODE>
+cudaError_t launch_gemm(int src, const float* w_hi, const float* w_lo,
+                        const float* bias, int M, int K, const float* inp,
+                        const int* idx, const int* count, int B, int C, int H,
+                        int W, int preact, float beta_pre, float beta_post,
+                        float* out, cudaStream_t stream) {
+  dim3 grid((H * W + BN - 1) / BN, (M + BM - 1) / BM, B);
+  if (src == 0)
+    conv_gemm_swish_kernel<MODE, 0><<<grid, GEMM_THREADS, 0, stream>>>(
+        w_hi, w_lo, bias, M, K, inp, idx, count, C, H, W, preact, beta_pre,
+        beta_post, out);
+  else
+    conv_gemm_swish_kernel<MODE, 1><<<grid, GEMM_THREADS, 0, stream>>>(
+        w_hi, w_lo, bias, M, K, inp, idx, count, C, H, W, preact, beta_pre,
+        beta_post, out);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_gemm(int mode, int src, const float* w_hi,
+                          const float* w_lo, const float* bias, int M, int K,
+                          const float* inp, const int* idx, const int* count,
+                          int B, int C, int H, int W, int preact,
+                          float beta_pre, float beta_post, float* out,
+                          cudaStream_t s) {
+  switch (mode) {
+    case MODE_F32: return launch_gemm<MODE_F32>(src, w_hi, w_lo, bias, M, K, inp, idx, count, B, C, H, W, preact, beta_pre, beta_post, out, s);
+    case MODE_BF16: return launch_gemm<MODE_BF16>(src, w_hi, w_lo, bias, M, K, inp, idx, count, B, C, H, W, preact, beta_pre, beta_post, out, s);
+    case MODE_TF32: return launch_gemm<MODE_TF32>(src, w_hi, w_lo, bias, M, K, inp, idx, count, B, C, H, W, preact, beta_pre, beta_post, out, s);
+    case MODE_TF32X: return launch_gemm<MODE_TF32X>(src, w_hi, w_lo, bias, M, K, inp, idx, count, B, C, H, W, preact, beta_pre, beta_post, out, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Every entry point launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() right after its launch (0 on success).
+
+int imnf_conv3x3_in(int mode, int preact, const float* w_hi,
+                    const float* w_lo, const float* bias, float beta0,
+                    float beta1, const float* inp, const int* idx,
+                    const int* count, int B, int C, int H, int W, int mid,
+                    float* out, void* stream) {
+  return (int)dispatch_gemm(mode, 0, w_hi, w_lo, bias, mid, C * 9, inp, idx,
+                            count, B, C, H, W, preact, beta0, beta1, out,
+                            (cudaStream_t)stream);
+}
+
+int imnf_conv1x1_mid(int mode, const float* w_hi, const float* w_lo,
+                     const float* bias, float beta2, const float* inp,
+                     const int* count, int B, int mid, int H, int W,
+                     float* out, void* stream) {
+  return (int)dispatch_gemm(mode, 1, w_hi, w_lo, bias, mid, mid, inp, nullptr,
+                            count, B, mid, H, W, 0, 0.f, beta2, out,
+                            (cudaStream_t)stream);
+}
+
+int imnf_conv3x3_out(int mode, const float* w_hi, const float* w_lo,
+                     const float* bias, const float* t2, const int* idx,
+                     const int* count, int B, int C, int mid, int H, int W,
+                     const float* base, float sgn, const float* sub,
+                     float* out, void* stream) {
+  dim3 grid((H * W + OUT_THREADS - 1) / OUT_THREADS, (C + OUT_CO - 1) / OUT_CO, B);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (mode) {
+    case MODE_F32: conv3x3_out_kernel<MODE_F32><<<grid, OUT_THREADS, 0, s>>>(w_hi, w_lo, bias, t2, idx, count, C, mid, H, W, base, sgn, sub, out); break;
+    case MODE_BF16: conv3x3_out_kernel<MODE_BF16><<<grid, OUT_THREADS, 0, s>>>(w_hi, w_lo, bias, t2, idx, count, C, mid, H, W, base, sgn, sub, out); break;
+    case MODE_TF32: conv3x3_out_kernel<MODE_TF32><<<grid, OUT_THREADS, 0, s>>>(w_hi, w_lo, bias, t2, idx, count, C, mid, H, W, base, sgn, sub, out); break;
+    case MODE_TF32X: conv3x3_out_kernel<MODE_TF32X><<<grid, OUT_THREADS, 0, s>>>(w_hi, w_lo, bias, t2, idx, count, C, mid, H, W, base, sgn, sub, out); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+int imnf_broyden_step(int phase, const int* idx_in, const int* cnt_in,
+                      int* idx_out, int* cnt_out, float* Z, float* G,
+                      float* UPD, float* ZN, const float* GN, float* BZ,
+                      float* BG, float* U, float* V, int* istate,
+                      float* fstate, int B, int D, int K, float eps, int cap,
+                      int patience, float rtol, float guard_eps, int newton,
+                      void* stream) {
+  if (K > KMAX) return (int)cudaErrorInvalidValue;
+  broyden_step_kernel<<<B, STEP_THREADS, 0, (cudaStream_t)stream>>>(
+      phase, idx_in, cnt_in, idx_out, cnt_out, Z, G, UPD, ZN, GN, BZ, BG, U, V,
+      istate, fstate, D, K, eps, cap, patience, rtol, guard_eps, newton);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,516 @@
+"""Forward Broyden solve ``z : x + g_x(x) = z + g_z(z)`` with its CUDA kernels.
+
+Port of ``ops/fused_solve.py::fused_broyden_solve`` / ``_solve_kernel`` of
+the JAX package (TPU kernel at ``fused_solve.py:1921``). The TPU kernel keeps
+one example's whole solve in VMEM; on Hopper the solve is a host-driven loop
+over four batched kernels of ``csrc/fused_solve.cu`` (that file's header
+says what bounds each on an H100 and what its design does about it):
+
+* ``conv3x3_in``  ``[swish(b0)] -> conv3x3 c->mid + b1 -> swish(b1)``
+* ``conv1x1_mid`` ``mid->mid + b2 -> swish(b2)``
+* ``conv3x3_out`` ``conv3x3 mid->c + b3`` fused with the residual
+* ``broyden_step`` secant update, best iterate, protective break, stall
+  exit, next direction (also the init and the ladder's re-arm)
+
+Every launch works on a device-resident list of active example indices, so
+an example that is done costs no further work (per-example early exit).
+The host reads one count per iteration (the number of still-active
+examples) to decide whether to go on.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+PyTorch version for CPU tensors; a CUDA tensor never falls back. Each
+wrapper counts its launches in ``<wrapper>.launches``.
+:func:`fused_broyden_solve_plain` is the whole solve with the plain versions
+forced, on any device: the CPU tests and the card's check compare against it.
+
+Semantics kept per example (``_broyden_in_kernel``, ``fused_solve.py:538``):
+warm start, Newton first step, best-iterate return with the residual at the
+best iterate, tolerance ``eps * sqrt(D)`` on the true D, protective break at
+1e6x the initial objective, stall exit (patience, rtol, guard), NaN scrub,
+and the precision ladder (``:725-770``): at each stage start, re-arm the
+still-unconverged, unbroken examples from their best iterate, with
+``x_embed`` and the residual re-evaluated at the stage precision and the
+secant planes kept. The TPU lane packing (``reps``) and K-packing are tile
+devices, not semantics, and are not ported.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["fused_broyden_solve", "fused_broyden_solve_plain",
+           "FusedSolveResult", "conv3x3_in", "conv1x1_mid", "conv3x3_out",
+           "broyden_step", "KERNELS", "launch_counts", "reset_launch_counts",
+           "prep_weights", "norm_ladder"]
+
+PROTECT_THRES = 1e6  # reference: broyden.py:150
+MODES = {"f32": 0, "bf16": 1, "tf32": 2, "tf32x": 3}
+PHASE_INIT, PHASE_STEP, PHASE_REARM = 0, 1, 2
+KMAX = 64  # largest threshold broyden_step takes (its shared-memory rows)
+
+
+class FusedSolveResult(NamedTuple):
+    result: torch.Tensor      # (B, c, H, W) best iterate
+    gx: torch.Tensor          # (B, c, H, W) residual at the best iterate
+    nstep: torch.Tensor       # (B,) int32 per-example iterations
+    diff: torch.Tensor        # (B,) best objective
+    prot_break: torch.Tensor  # (B,) bool
+    converged: torch.Tensor   # (B,) bool
+
+
+def norm_ladder(threshold, tail_mode, tail_start):
+    """(modes, starts) of the precision ladder (``_norm_ladder``,
+    ``fused_solve.py:205-233``): threshold 30, start 15 -> (15, 22)."""
+    if tail_mode is None:
+        return (), ()
+    modes = tuple(m for m in (tail_mode.split(",") if isinstance(tail_mode, str)
+                              else tail_mode) if m)
+    if not modes:
+        return (), ()
+    if isinstance(tail_start, (tuple, list)):
+        if len(tail_start) != len(modes):
+            raise ValueError("tail_start tuple must match tail_mode stages")
+        return modes, tuple(min(int(v), threshold) for v in tail_start)
+    s = threshold // 2 if tail_start is None else int(tail_start)
+    starts = []
+    for _ in modes:
+        starts.append(min(int(s), threshold))
+        s = s + max(1, (threshold - s) // 2)
+    return modes, tuple(starts)
+
+
+def swish(t, beta):
+    """The solve kernel's swish (``fused_solve.py:236-237``): multiplies by
+    f32(1/1.1), as the CUDA epilogues do."""
+    return t * torch.sigmoid(t * beta) * (1.0 / 1.1)
+
+
+def _bf16(a):
+    return a.to(torch.bfloat16).to(torch.float32)
+
+
+def _split(a, mode):
+    """(hi, lo) bf16 round-to-nearest split (``_split_hi_lo``); lo is None
+    for the single-pass modes."""
+    if mode == "f32":
+        return a, None
+    hi = _bf16(a)
+    return hi, (_bf16(a - hi) if mode in ("tf32", "tf32x") else None)
+
+
+def prep_weights(data, mode):
+    """Weight-side precision prep, once per solve and mode (``_make_wdot``):
+    ``{'w1'|'w2'|'w3': (hi, lo)}`` in the natural OIHW layout."""
+    return {k: tuple(None if t is None else t.float().contiguous()
+                     for t in _split(data[k].detach().float(), mode))
+            for k in ("w1", "w2", "w3")}
+
+
+def _mconv(x, wp, mode, padding):
+    """conv2d at the precision model: f32, or hi*hi + hi*lo + lo*hi
+    (+ lo*lo) on the bf16 split with f32 accumulation."""
+    w_hi, w_lo = wp
+    if mode == "f32":
+        return F.conv2d(x, w_hi, padding=padding)
+    x_hi, x_lo = _split(x, mode)
+    out = F.conv2d(x_hi, w_hi, padding=padding)
+    if mode in ("tf32", "tf32x"):
+        out = out + F.conv2d(x_hi, w_lo, padding=padding)
+        out = out + F.conv2d(x_lo, w_hi, padding=padding)
+        if mode == "tf32x":
+            out = out + F.conv2d(x_lo, w_lo, padding=padding)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the library
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "imnf_conv3x3_in": [_I, _I, _P, _P, _P, _F, _F, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _P, _P],
+    "imnf_conv1x1_mid": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P, _P],
+    "imnf_conv3x3_out": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                         _F, _P, _P, _P],
+    "imnf_broyden_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _F, _I, _P],
+}
+
+
+def _lib():
+    from . import cuda_build
+
+    lib = cuda_build.load("fused_solve")
+    for fn, args in _ARGTYPES.items():
+        f = getattr(lib, fn)
+        if f.argtypes is None:
+            f.argtypes, f.restype = args, ctypes.c_int
+    return lib
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_cuda(**tensors):
+    dev = None
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if not t.is_cuda:
+            raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+        if dev is not None and t.device != dev:
+            raise ValueError(f"{name}: on {t.device}, other operands on {dev}")
+        dev = t.device
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
+        if t.dtype not in (torch.float32, torch.int32):
+            raise ValueError(f"{name}: dtype {t.dtype} not taken")
+
+
+def _launch(fn, *args):
+    rc = getattr(_lib(), fn)(*args, _ptr_stream())
+    if rc != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with error {rc}")
+
+
+def _ptr_stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# the four kernels' wrappers. Active-list convention: idx (B,) int32 holds
+# example indices, count (1,) int32 how many of them are live; the nets'
+# intermediates t1/t2 (B, mid, HW) are indexed by slot (position in idx).
+
+def _conv3x3_in_plain(inp, idx, count, wp, b1, betas, preact, mode, out):
+    n = int(count.item())
+    B, c, H, W = inp.shape
+    h = inp.index_select(0, idx[:n].long())
+    if preact:
+        h = swish(h, betas[0])
+    y = swish(_mconv(h, wp, mode, 1) + b1[None, :, None, None], betas[1])
+    out[:n] = y.reshape(n, -1, H * W)
+
+
+def conv3x3_in(inp, idx, count, wp, b1, betas, preact, mode, out):
+    """out[s] = swish(conv3x3([swish](inp[idx[s]])) + b1, beta1) for live
+    slots s. inp (B, c, H, W); out (B, mid, H*W); wp = (w_hi, w_lo) of the
+    (mid, c, 3, 3) kernel; betas (3,) host floats or a tensor."""
+    if not inp.is_cuda:
+        return _conv3x3_in_plain(inp, idx, count, wp, b1, betas, preact, mode, out)
+    B, c, H, W = inp.shape
+    mid = wp[0].shape[0]
+    _check_cuda(inp=inp, idx=idx, count=count, w_hi=wp[0], w_lo=wp[1], b1=b1,
+                out=out)
+    b = [float(v) for v in betas]
+    _launch("imnf_conv3x3_in", MODES[mode], int(preact), _ptr(wp[0]),
+            _ptr(wp[1]), _ptr(b1), b[0], b[1], _ptr(inp), _ptr(idx),
+            _ptr(count), B, c, H, W, mid, _ptr(out))
+    conv3x3_in.launches += 1
+
+
+def _conv1x1_mid_plain(t1, count, wp, b2, beta2, mode, out, H, W):
+    n = int(count.item())
+    mid = t1.shape[1]
+    h = t1[:n].reshape(n, mid, H, W)
+    y = swish(_mconv(h, wp, mode, 0) + b2[None, :, None, None], beta2)
+    out[:n] = y.reshape(n, mid, H * W)
+
+
+def conv1x1_mid(t1, count, wp, b2, beta2, mode, out, H, W):
+    """out[s] = swish(W2 @ t1[s] + b2, beta2) for live slots s."""
+    if not t1.is_cuda:
+        return _conv1x1_mid_plain(t1, count, wp, b2, beta2, mode, out, H, W)
+    B, mid, HW = t1.shape
+    _check_cuda(t1=t1, count=count, w_hi=wp[0], w_lo=wp[1], b2=b2, out=out)
+    _launch("imnf_conv1x1_mid", MODES[mode], _ptr(wp[0]), _ptr(wp[1]),
+            _ptr(b2), float(beta2), _ptr(t1), _ptr(count), B, mid, H, W,
+            _ptr(out))
+    conv1x1_mid.launches += 1
+
+
+def _conv3x3_out_plain(t2, idx, count, wp, b3, mode, base, sgn, sub, out, H, W):
+    n = int(count.item())
+    e = idx[:n].long()
+    mid = t2.shape[1]
+    y = _mconv(t2[:n].reshape(n, mid, H, W), wp, mode, 1) + b3[None, :, None, None]
+    o = base.index_select(0, e) + sgn * y.reshape(n, -1)
+    if sub is not None:
+        o = o - sub.index_select(0, e)
+    out[e] = o
+
+
+def conv3x3_out(t2, idx, count, wp, b3, mode, base, sgn, sub, out, H, W):
+    """out[idx[s]] = base[idx[s]] + sgn * (conv3x3(t2[s]) + b3)
+    [- sub[idx[s]]] for live slots s; base/sub/out are (B, D) with
+    D = c*H*W (the residual g = x_embed - g_z(z) - z, or x_embed = x +
+    g_x(x))."""
+    if not t2.is_cuda:
+        return _conv3x3_out_plain(t2, idx, count, wp, b3, mode, base, sgn,
+                                  sub, out, H, W)
+    B, mid, HW = t2.shape
+    c = wp[0].shape[0]
+    _check_cuda(t2=t2, idx=idx, count=count, w_hi=wp[0], w_lo=wp[1], b3=b3,
+                base=base, sub=sub, out=out)
+    _launch("imnf_conv3x3_out", MODES[mode], _ptr(wp[0]), _ptr(wp[1]),
+            _ptr(b3), _ptr(t2), _ptr(idx), _ptr(count), B, c, mid, H, W,
+            _ptr(base), float(sgn), _ptr(sub), _ptr(out))
+    conv3x3_out.launches += 1
+
+
+def _broyden_step_plain(phase, idx_in, cnt_in, idx_out, cnt_out, st, *, eps,
+                        cap, patience, rtol, guard_eps, newton):
+    n = int(cnt_in.item())
+    e = idx_in[:n].long()
+    Z, G, UPD, ZN, GN, BZ, BG, U, V, ist, fst = (
+        st[k] for k in ("Z", "G", "UPD", "ZN", "GN", "BZ", "BG", "U", "V",
+                        "ist", "fst"))
+    gn = GN[e]
+    nk = ist[e, 0]
+    obj = torch.linalg.vector_norm(gn, dim=1)
+    kmax = int(nk.max().item()) if n else 0
+    live = torch.arange(kmax, device=gn.device)[None, :] < nk[:, None]
+
+    def contract(planes, vec):  # (n, k) coefficients <plane_k, vec>, k < nk
+        return torch.where(live, torch.einsum("nkd,nd->nk", planes, vec), 0.0)
+
+    def combine(coef, planes):  # sum_k coef_k plane_k
+        return torch.einsum("nk,nkd->nd", coef, planes)
+
+    if phase == PHASE_INIT:
+        z = ZN[e]
+        upd = gn if newton else -gn
+        done = obj < eps
+        for buf, val in ((Z, z), (G, gn), (BZ, z), (BG, gn), (UPD, upd),
+                         (ZN, z + upd)):
+            buf[e] = val
+        nstep = torch.zeros_like(nk)
+        zero = torch.zeros_like(nk)
+        ist[e] = torch.stack([zero, zero, zero, done.int()], 1)
+        fst[e] = torch.stack([obj, obj, obj], 1)
+    elif phase == PHASE_REARM:
+        bz = BZ[e]
+        Ue, Ve = U[e, :kmax], V[e, :kmax]
+        upd = gn - combine(contract(Ve, gn), Ue)
+        for buf, val in ((Z, bz), (G, gn), (BG, gn), (UPD, upd), (ZN, bz + upd)):
+            buf[e] = val
+        done = (ist[e, 2] > 0) | (obj < eps)
+        ist[e, 3] = done.int()
+        fst[e, 0] = obj
+        fst[e, 1] = obj
+        nstep = nk
+    else:
+        zn, dz, dg = ZN[e], UPD[e], gn - G[e]
+        nstep = nk + 1
+        best_obj, best_snap, init_obj = fst[e].unbind(1)
+        improved = obj < best_obj
+        best_obj = torch.where(improved, obj, best_obj)
+        best_step = torch.where(improved, nstep, ist[e, 1])
+        bad = ~torch.isfinite(obj) | (obj > init_obj * PROTECT_THRES)
+        prot = (ist[e, 2] > 0) | bad
+        done = bad | (obj < eps)
+        if patience > 0:
+            at_check = (nstep % patience) == 0
+            stalled = at_check & (best_obj > best_snap * (1.0 - rtol))
+            if guard_eps > 0:
+                stalled = stalled & (best_obj < guard_eps)
+            done = done | stalled
+            best_snap = torch.where(at_check, best_obj, best_snap)
+        Ue, Ve = U[e, :kmax], V[e, :kmax]
+        uvd = combine(contract(Ve, dg), Ue)
+        uvg = combine(contract(Ve, gn), Ue)
+        vt = -dz + combine(contract(Ue, dz), Ve)
+        denom = torch.sum(vt * dg, 1, keepdim=True)
+        u = (dz - (-dg + uvd)) / denom
+        vt = torch.where(torch.isfinite(vt), vt, 0.0)
+        u = torch.where(torch.isfinite(u), u, 0.0)
+        cols = nk.long()
+        U[e, cols] = u
+        V[e, cols] = vt
+        upd = -(-gn + uvg) - u * torch.sum(vt * gn, 1, keepdim=True)
+        imp = improved[:, None]
+        BZ[e] = torch.where(imp, zn, BZ[e])
+        BG[e] = torch.where(imp, gn, BG[e])
+        for buf, val in ((Z, zn), (G, gn), (UPD, upd), (ZN, zn + upd)):
+            buf[e] = val
+        ist[e] = torch.stack([nstep, best_step, prot.int(), done.int()], 1)
+        fst[e] = torch.stack([best_obj, best_snap, init_obj], 1)
+    keep = e[~done & (nstep < cap)]
+    idx_out[:len(keep)] = keep.int()
+    cnt_out.fill_(len(keep))
+
+
+def broyden_step(phase, idx_in, cnt_in, idx_out, cnt_out, st, *, eps, cap,
+                 patience, rtol, guard_eps, newton):
+    """One Broyden iteration (``phase`` PHASE_STEP), the initialisation
+    (PHASE_INIT) or a ladder re-arm (PHASE_REARM) for every live example
+    of ``idx_in``; the still-active examples are written to ``idx_out`` /
+    ``cnt_out``. ``st`` holds the solver state (see :func:`_solve`)."""
+    if not st["Z"].is_cuda:
+        return _broyden_step_plain(phase, idx_in, cnt_in, idx_out, cnt_out, st,
+                                   eps=eps, cap=cap, patience=patience,
+                                   rtol=rtol, guard_eps=guard_eps,
+                                   newton=newton)
+    B, K, D = st["U"].shape
+    if K > KMAX:
+        raise ValueError(f"threshold {K} > {KMAX} is not taken by broyden_step")
+    _check_cuda(idx_in=idx_in, cnt_in=cnt_in, idx_out=idx_out, cnt_out=cnt_out,
+                **st)
+    cnt_out.zero_()
+    _launch("imnf_broyden_step", phase, _ptr(idx_in), _ptr(cnt_in),
+            _ptr(idx_out), _ptr(cnt_out),
+            *(_ptr(st[k]) for k in ("Z", "G", "UPD", "ZN", "GN", "BZ", "BG",
+                                    "U", "V", "ist", "fst")),
+            B, D, K, eps, cap, patience, rtol, guard_eps, int(newton))
+    broyden_step.launches += 1
+
+
+KERNELS = {"conv3x3_in": conv3x3_in, "conv1x1_mid": conv1x1_mid,
+           "conv3x3_out": conv3x3_out, "broyden_step": broyden_step}
+_PLAIN = {"conv3x3_in": _conv3x3_in_plain, "conv1x1_mid": _conv1x1_mid_plain,
+          "conv3x3_out": _conv3x3_out_plain, "broyden_step": _broyden_step_plain}
+for _fn in KERNELS.values():
+    _fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the solve
+
+def _solve(x, data_x, data_z, ops, *, threshold, eps, stall_patience,
+           stall_rtol, stall_guard, newton_init, warm_start, mode, tail_mode,
+           tail_start, line_search):
+    if line_search:
+        raise NotImplementedError("line_search is not ported to the fused solve yet")
+    if mode not in MODES:
+        raise ValueError(f"unknown precision mode {mode!r}; valid: {sorted(MODES)}")
+    B, c, H, W = x.shape
+    HW, D, K = H * W, c * H * W, int(threshold)
+    dev = x.device
+    # thresholds as the reference compares them: python floats cast to f32
+    eps_i = float(eps) * D ** 0.5
+    eps_f = float(torch.tensor(eps_i, dtype=torch.float32))
+    guard_eps = (float(torch.tensor(stall_guard * eps_i, dtype=torch.float32))
+                 if stall_guard is not None else 0.0)
+    patience = int(stall_patience) if stall_patience is not None else 0
+    modes, starts = norm_ladder(K, tail_mode, tail_start)
+    for m in modes:
+        if m not in MODES:
+            raise ValueError(f"unknown precision stage {m!r}")
+    caps = ([starts[0]] if modes else []) + [
+        starts[j + 1] if j + 1 < len(starts) else K for j in range(len(modes))]
+    if not modes:
+        caps = [K]
+    nets = {}
+    for name, data in (("x", data_x), ("z", data_z)):
+        nets[name] = dict(
+            b1=data["b1"].detach().float().contiguous(),
+            b2=data["b2"].detach().float().contiguous(),
+            b3=data["b3"].detach().float().contiguous(),
+            betas=[float(v) for v in data["betas"].detach().float().cpu()],
+            preact=bool(data["preact"]), data=data, prepped={})
+    mid = data_z["w2"].shape[0]
+
+    zeros = lambda *s, dt=torch.float32: torch.zeros(*s, device=dev, dtype=dt)
+    X = x.detach().float().reshape(B, D).contiguous()
+    st = {k: zeros(B, D) for k in ("Z", "G", "UPD", "ZN", "GN", "BZ", "BG")}
+    st["U"], st["V"] = zeros(B, K, D), zeros(B, K, D)
+    st["ist"], st["fst"] = zeros(B, 4, dt=torch.int32), zeros(B, 3)
+    XE = zeros(B, D)
+    T1, T2 = zeros(B, mid, HW), zeros(B, mid, HW)
+    lists = [zeros(B, dt=torch.int32), zeros(B, dt=torch.int32)]
+    counts = [zeros(1, dt=torch.int32), zeros(1, dt=torch.int32)]
+
+    def net(name, m, inp, idx, cnt, base, sgn, sub, out):
+        nd = nets[name]
+        if m not in nd["prepped"]:
+            nd["prepped"][m] = prep_weights(nd["data"], m)
+        wp = nd["prepped"][m]
+        ops["conv3x3_in"](inp.view(B, c, H, W), idx, cnt, wp["w1"], nd["b1"],
+                          nd["betas"], nd["preact"], m, T1)
+        ops["conv1x1_mid"](T1, cnt, wp["w2"], nd["b2"], nd["betas"][2], m, T2, H, W)
+        ops["conv3x3_out"](T2, idx, cnt, wp["w3"], nd["b3"], m, base, sgn, sub,
+                           out, H, W)
+
+    def step(phase, cap):
+        ops["broyden_step"](phase, lists[0], counts[0], lists[1], counts[1], st,
+                            eps=eps_f, cap=cap, patience=patience,
+                            rtol=float(stall_rtol), guard_eps=guard_eps,
+                            newton=bool(newton_init))
+        lists.reverse()
+        counts.reverse()
+        return int(counts[0].item())  # the one host read per iteration
+
+    def run(m, cap, n):
+        while n > 0:
+            net("z", m, st["ZN"], lists[0], counts[0], XE, -1.0, st["ZN"], st["GN"])
+            n = step(PHASE_STEP, cap)
+
+    stage_modes = (mode,) + tuple(modes)
+    lists[0].copy_(torch.arange(B, dtype=torch.int32, device=dev))
+    counts[0].fill_(B)
+    net("x", mode, X, lists[0], counts[0], X, 1.0, None, XE)
+    if warm_start:
+        st["ZN"].copy_(X)
+    net("z", mode, st["ZN"], lists[0], counts[0], XE, -1.0, st["ZN"], st["GN"])
+    run(mode, caps[0], step(PHASE_INIT, caps[0]))
+    for m, cap in zip(stage_modes[1:], caps[1:]):
+        need = (st["ist"][:, 2] == 0) & (st["fst"][:, 0] >= eps_f)
+        e = need.nonzero().flatten().int()
+        if len(e) == 0:
+            break  # stages nest: nobody needs a later one either
+        lists[0][:len(e)] = e
+        counts[0].fill_(len(e))
+        net("x", m, X, lists[0], counts[0], X, 1.0, None, XE)
+        net("z", m, st["BZ"], lists[0], counts[0], XE, -1.0, st["BZ"], st["GN"])
+        run(m, cap, step(PHASE_REARM, cap))
+
+    ist, fst = st["ist"], st["fst"]
+    diff = fst[:, 0].clone()
+    return FusedSolveResult(
+        result=st["BZ"].reshape(B, c, H, W), gx=st["BG"].reshape(B, c, H, W),
+        nstep=ist[:, 0].clone(), diff=diff, prot_break=ist[:, 2] > 0,
+        converged=diff < eps_f)
+
+
+def fused_broyden_solve(x, data_x, data_z, *, threshold, eps, stall_patience,
+                        stall_rtol, stall_guard=None, newton_init=False,
+                        warm_start=False, mode="tf32", tail_mode=None,
+                        tail_start=None, line_search=False) -> FusedSolveResult:
+    """Solve ``z : x + g_x(x) = z + g_z(z)`` per example.
+
+    x: (B, c, H, W); data_x / data_z: ``LipschitzNet.conv_forward_data``
+    dicts of the embedding net (evaluated at x) and the solved net.
+    mode: phase-1 precision 'f32' | 'tf32' | 'tf32x' | 'bf16';
+    tail_mode / tail_start: the precision ladder (:func:`norm_ladder`).
+    CUDA tensors run the kernels, CPU tensors their plain versions."""
+    return _solve(x, data_x, data_z, KERNELS, threshold=threshold, eps=eps,
+                  stall_patience=stall_patience, stall_rtol=stall_rtol,
+                  stall_guard=stall_guard, newton_init=newton_init,
+                  warm_start=warm_start, mode=mode, tail_mode=tail_mode,
+                  tail_start=tail_start, line_search=line_search)
+
+
+def fused_broyden_solve_plain(x, data_x, data_z, **kwargs) -> FusedSolveResult:
+    """:func:`fused_broyden_solve` with every kernel replaced by its plain
+    PyTorch version, on whatever device ``x`` lies."""
+    kwargs.setdefault("stall_guard", None)
+    kwargs.setdefault("newton_init", False)
+    kwargs.setdefault("warm_start", False)
+    kwargs.setdefault("mode", "tf32")
+    kwargs.setdefault("tail_mode", None)
+    kwargs.setdefault("tail_start", None)
+    kwargs.setdefault("line_search", False)
+    return _solve(x, data_x, data_z, _PLAIN, **kwargs)

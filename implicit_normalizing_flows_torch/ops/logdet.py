@@ -1,0 +1,135 @@
+"""Log-determinant estimation of the evaluation path.
+
+Counterpart of the eval subset of ``ops/logdet.py`` of the JAX package:
+Rademacher probes, the Russian-roulette truncation with its coefficients
+(``logdet.py:65-135``) and the **basic** power-series estimator
+(``logdet.py:278-297``): ``sum_k (-1)^(k+1)/k * coeff(k) * <eps, J^k eps>``
+via repeated autograd vector-Jacobian products. The series stops at
+``n_power``: the coefficients beyond it are exactly 0.
+
+Every random draw comes from a :class:`Draws`, which either samples from a
+``torch.Generator`` or replays numbers handed to it (the tests replay the
+JAX package's own draws).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+
+class Draws:
+    """Source of the evaluation path's random numbers.
+
+    ``Draws(generator)`` samples; ``Draws(replay={...})`` hands out recorded
+    arrays in order, per kind: ``'uniform'`` (dequantisation noise),
+    ``'rademacher'`` (probes, ±1) and ``'roulette'`` (truncation draws)."""
+
+    def __init__(self, generator: torch.Generator | None = None, replay=None):
+        self.generator = generator
+        self.replay = ({k: list(v) for k, v in replay.items()}
+                       if replay is not None else None)
+
+    def _recorded(self, kind, shape, device, dtype):
+        t = torch.as_tensor(np.array(self.replay[kind].pop(0))).to(device=device, dtype=dtype)
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"replayed {kind} draw has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        return t
+
+    def _gen_device(self, device):
+        gd = self.generator.device if self.generator is not None else None
+        return device if gd is None or gd.type == torch.device(device).type else gd
+
+    def uniform(self, shape, device):
+        if self.replay is not None:
+            return self._recorded("uniform", shape, device, torch.float32)
+        return torch.rand(shape, generator=self.generator,
+                          device=self._gen_device(device)).to(device)
+
+    def rademacher(self, shape, device):
+        if self.replay is not None:
+            return self._recorded("rademacher", shape, device, torch.float32)
+        bits = torch.randint(0, 2, shape, generator=self.generator,
+                             device=self._gen_device(device)).to(device)
+        return bits.float() * 2 - 1
+
+    def roulette(self, n_dist, n, geom_p, lamb, device):
+        """(n,) int64 truncation draws: Poisson(lamb) or Geometric(p) on
+        {1, 2, ...} (numpy's ``geometric``)."""
+        if self.replay is not None:
+            return self._recorded("roulette", (n,), device, torch.int64)
+        dev = self._gen_device(device)
+        if n_dist == "poisson":
+            rate = torch.full((n,), float(lamb), device=dev)
+            return torch.poisson(rate, generator=self.generator).long().to(device)
+        if n_dist == "geometric":
+            tiny = torch.finfo(torch.float32).tiny
+            u = torch.rand((n,), generator=self.generator, device=dev) * (1 - tiny) + tiny
+            k = torch.floor(torch.log(u) / math.log1p(-float(geom_p))) + 1
+            return torch.clamp(k, min=1).long().to(device)
+        raise ValueError(f"unknown n_dist {n_dist}")
+
+
+def geometric_1mcdf(p, k, offset):
+    """P(n >= k - offset), 1 for k <= offset (implicit_block.py:461-467)."""
+    kk = torch.clamp(k - offset, min=1)
+    return torch.where(k <= offset, torch.ones((), device=k.device),
+                       (1.0 - p) ** torch.clamp(kk - 1, min=0).float())
+
+
+def poisson_1mcdf(lamb, k, offset, max_k):
+    """P(n >= k - offset) for Poisson (implicit_block.py:470-483), as the
+    JAX package's vectorised cumulative sum up to ``max_k``."""
+    i = torch.arange(0, max_k + 1, dtype=torch.float32, device=k.device)
+    lamb = torch.as_tensor(lamb, dtype=torch.float32, device=k.device)
+    log_terms = i * torch.log(torch.clamp(lamb, min=1e-20)) - torch.lgamma(i + 1.0)
+    cum = torch.cumsum(torch.exp(log_terms), 0)
+    kk = torch.clamp(k - offset, 1, max_k + 1)
+    s = cum[torch.clamp(kk - 1, max=max_k)]
+    return torch.where(k <= offset, torch.ones((), device=k.device),
+                       1.0 - torch.exp(-lamb) * s)
+
+
+def sample_n_dist(draws: Draws, n_dist, n_samples, geom_p, lamb, offset,
+                  series_cap, device):
+    """Roulette coefficients of the evaluation path (``sample_n_dist``,
+    ``logdet.py:97-135`` with ``train=False``, offset ``n_exact_terms_test``).
+
+    Returns ``(coeffs, n_power, n_draws)``: ``coeffs`` has length
+    ``offset + series_cap`` with ``coeffs[k-1]`` multiplying term k and
+    zero beyond ``n_power = max(n_draws) + offset`` (a host int)."""
+    cap = offset + series_cap
+    n_draws = torch.clamp(draws.roulette(n_dist, n_samples, geom_p, lamb, device),
+                          max=series_cap)
+    n_power = int(n_draws.max().item()) + offset
+    ks = torch.arange(1, cap + 1, device=device)
+    geom_p = torch.as_tensor(geom_p, dtype=torch.float32, device=device)
+    if n_dist == "geometric":
+        rcdf = geometric_1mcdf(geom_p, ks, offset)
+    else:
+        rcdf = poisson_1mcdf(lamb, ks, offset, series_cap)
+    frac = torch.mean((n_draws[None, :] >= (ks[:, None] - offset)).float(), 1)
+    coeffs = torch.where(ks <= n_power, frac / rcdf, torch.zeros((), device=device))
+    return coeffs.float(), n_power, n_draws
+
+
+def basic_logdet_estimator(net, x, vareps, coeffs, n_power):
+    """(B,) ``sum_{k<=n_power} (-1)^(k+1)/k coeff(k) <J^k eps, eps>`` with J
+    the Jacobian of ``net`` at ``x`` (transposed powers via autograd VJPs,
+    which leave the trace unchanged)."""
+    cap = coeffs.shape[0]
+    ks = torch.arange(1, cap + 1, device=x.device)
+    signs = torch.where(ks % 2 == 1, 1.0, -1.0)
+    weights = signs / ks.float() * coeffs
+    dims = tuple(range(1, x.ndim))
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        y = net(xg)
+        v = vareps
+        acc = torch.zeros(x.shape[0], device=x.device)
+        for k in range(min(n_power, cap)):
+            v = torch.autograd.grad(y, xg, v, retain_graph=k + 1 < n_power)[0]
+            acc = acc + weights[k] * torch.sum(v * vareps, dim=dims)
+    return acc.detach()

@@ -1,0 +1,76 @@
+"""Induced-norm power iteration for the (2, 2) norms the CIFAR recipe uses
+(vnorms ``2222``). Counterpart of ``ops/power_iter.py:163-250`` of the JAX
+package: ``sigma = <u, W v>`` is differentiable w.r.t. ``W``; ``u``/``v`` are
+refreshed out of band by the power iteration (the EMA-eval sigma refresh,
+``train_img.py:479-481``)."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+MAX_POWER_ITERS = 200  # reference cap: mixed_lipschitz.py:99,284,336
+
+
+def l2_normalize(v):
+    return v / torch.clamp(torch.linalg.vector_norm(v), min=1e-12)
+
+
+def conv_apply(weight, x, padding):
+    """NCHW stride-1 conv2d with symmetric int padding."""
+    return F.conv2d(x, weight, padding=padding)
+
+
+def conv_transpose_apply(weight, y, padding):
+    """Adjoint of :func:`conv_apply` for stride 1."""
+    return F.conv_transpose2d(y, weight, padding=padding)
+
+
+def dense_sigma(weight, u, v):
+    return torch.dot(u, weight @ v)
+
+
+def conv_sigma(weight, u, v, x_shape, padding):
+    """sigma = <u, conv(v)> (mixed_lipschitz.py:378-380)."""
+    wv = conv_apply(weight, v.reshape(x_shape), padding)
+    return torch.dot(u.reshape(-1), wv.reshape(-1))
+
+
+def _run(step, u, v, n_iterations, atol, rtol):
+    """Fixed budget, or the reference's adaptive test with a 200 cap
+    (mixed_lipschitz.py:114-120)."""
+    if n_iterations is not None:
+        for _ in range(n_iterations):
+            u, v = step(u, v)
+        return u, v
+    if atol is None or rtol is None:
+        raise ValueError("Need one of n_iterations or (atol, rtol).")
+    for _ in range(MAX_POWER_ITERS):
+        new_u, new_v = step(u, v)
+        err_u = torch.linalg.vector_norm(new_u - u) / new_u.numel() ** 0.5
+        err_v = torch.linalg.vector_norm(new_v - v) / new_v.numel() ** 0.5
+        done = bool((err_u < atol + rtol * new_u.max())
+                    & (err_v < atol + rtol * new_v.max()))
+        u, v = new_u, new_v
+        if done:
+            break
+    return u, v
+
+
+@torch.no_grad()
+def induced_norm_dense(weight, u, v, n_iterations=None, atol=None, rtol=None):
+    def step(u, v):
+        u2 = l2_normalize(weight @ v)
+        return u2, l2_normalize(weight.T @ u2)
+    return _run(step, u, v, n_iterations, atol, rtol)
+
+
+@torch.no_grad()
+def induced_norm_conv(weight, u, v, x_shape, out_shape, padding,
+                      n_iterations=None, atol=None, rtol=None):
+    """Power iteration through a kxk conv as one linear operator
+    (mixed_lipschitz.py:328-376)."""
+    def step(u, v):
+        u2 = l2_normalize(conv_apply(weight, v.reshape(x_shape), padding).reshape(-1))
+        v_s = conv_transpose_apply(weight, u2.reshape(out_shape), padding)
+        return u2, l2_normalize(v_s.reshape(-1))
+    return _run(step, u, v, n_iterations, atol, rtol)
