@@ -92,9 +92,10 @@ def build_model(dev):
     model = ImplicitFlow((BATCH, 3, SIZE, SIZE), n_blocks=[2, 2, 2],
                          intermediate_dim=512, init_layer=LogitTransform(0.05),
                          actnorm=True, coeff=0.9, vnorms="2222", n_dist="poisson",
-                         kernels="3-1-3", preact=True, sn_atol=1e-3, sn_rtol=1e-3)
+                         kernels="3-1-3", preact=True, sn_atol=1e-3, sn_rtol=1e-3,
+                         device=dev)
     load_jax_checkpoint(model, load_npz_tree(CKPT))
-    return model.to(dev).eval()
+    return model.eval()
 
 
 def capture_block_inputs(model, step, x_u8, draws):
@@ -217,38 +218,53 @@ def check_kernels(blocks, mode="tf32"):
 
 
 def check_solves(blocks):
-    """Phase 3: whole solve, kernels vs plain, per scale and mode."""
+    """Phase 3: whole solve, kernels vs plain, per scale and mode.
+
+    Both are solves of the same map whose iterates differ only through
+    float sums in another order. At the production tolerance (eps 1e-6,
+    about 1e-6 per element) the split modes sit at their own rounding
+    floor (about 2^-18 per product), so which iteration first dips under
+    the tolerance is noise there: those runs are held to equal converged and
+    protective-break flags and close roots. Per-example iteration counts
+    must agree within one where the tolerance lies above the floor: in f32,
+    and in the split modes at eps 1e-5."""
     from implicit_normalizing_flows_torch.ops import fused_solve as fs
 
-    kw = dict(threshold=30, eps=1e-6, stall_patience=5, stall_rtol=0.05,
-              stall_guard=3.0, newton_init=True, warm_start=True)
-    configs = [("f32", {}), ("tf32", {}), ("tf32x", {}),
-               ("tf32", dict(tail_mode=("tf32x", "f32"), tail_start=15))]
+    kw = dict(threshold=30, stall_patience=5, stall_rtol=0.05, stall_guard=3.0,
+              newton_init=True, warm_start=True)
+    ladder = lambda start: dict(tail_mode=("tf32x", "f32"), tail_start=start)
+    configs = [("f32", 1e-6, {}), ("tf32", 1e-6, {}), ("tf32x", 1e-6, {}),
+               ("tf32", 1e-6, ladder(15)), ("tf32", 1e-5, {}),
+               ("tf32x", 1e-5, {}), ("tf32", 1e-5, ladder(6))]
     for s, (block, x) in enumerate(blocks):
         dx = block.nnet_x.conv_forward_data()
         dz = block.nnet_z.conv_forward_data()
         with torch.no_grad():
-            for mode, extra in configs:
+            for mode, eps, extra in configs:
                 t0 = time.perf_counter()
-                rk = fs.fused_broyden_solve(x, dx, dz, mode=mode, **kw, **extra)
+                rk = fs.fused_broyden_solve(x, dx, dz, mode=mode, eps=eps, **kw, **extra)
                 torch.cuda.synchronize()
                 tk = time.perf_counter() - t0
                 t0 = time.perf_counter()
-                rp = fs.fused_broyden_solve_plain(x, dx, dz, mode=mode, **kw, **extra)
+                rp = fs.fused_broyden_solve_plain(x, dx, dz, mode=mode, eps=eps,
+                                                  **kw, **extra)
                 torch.cuda.synchronize()
                 tp = time.perf_counter() - t0
                 dz_max = float((rk.result - rp.result).abs().max())
-                label = mode + ("+ladder" if extra else "")
+                dn = (rk.nstep - rp.nstep).abs().long()
+                label = f"{mode}{'+ladder' if extra else ''} eps {eps:g}"
                 log(f"solve scale{s} {label}: max|dz| {dz_max:.3e} "
+                    f"|d nstep| counts {torch.bincount(dn).tolist()} "
                     f"nstep mean {rk.nstep.float().mean():.2f}/{rp.nstep.float().mean():.2f} "
                     f"converged {rk.converged.float().mean():.3f}/{rp.converged.float().mean():.3f} "
                     f"prot {int(rk.prot_break.sum())}/{int(rp.prot_break.sum())} "
                     f"s {tk:.3f}/{tp:.3f} (kernels/plain)")
                 assert torch.isfinite(rk.result).all()
                 assert torch.equal(rk.prot_break, rp.prot_break), (s, label)
-                # both are solves to eps*sqrt(D) of the same map; their
-                # iterates differ only through float sums in another order
-                assert dz_max <= 1e-3, (s, label, dz_max)
+                assert torch.equal(rk.converged, rp.converged), (s, label)
+                assert dz_max <= 5e-4, (s, label, dz_max)
+                if mode == "f32" or eps > 1e-6:
+                    assert int(dn.max()) <= 1, (s, label, int(dn.max()))
 
 
 def profile_batch(model, step, x_u8, draws):
@@ -322,7 +338,8 @@ def main():
 
     model = build_model(dev)
     step = make_image_eval_step(model, imagesize=SIZE)
-    x_u8 = torch.from_numpy(synthetic_structured(BATCH, 3, SIZE, SIZE, seed=1)).to(dev)
+    # a host tensor, as a user hands it over: the step moves it to the card
+    x_u8 = torch.from_numpy(synthetic_structured(BATCH, 3, SIZE, SIZE, seed=1))
     draws = lambda i: Draws(torch.Generator(device=dev).manual_seed(1000 + i))
 
     # phase 2: kernels vs plain at each scale's real inputs

@@ -2,8 +2,8 @@
 
 Mirror of ``implicit_normalizing_flows_tpu/config.py:25-142`` restricted to
 the fields the forward solve reads, with the same ``IMNF_*`` environment
-names and defaults. Resolution order: an override installed with
-:func:`set_kernel_config`, else the environment, else the defaults below.
+names and defaults: each field is read from its environment variable, else
+takes the default below.
 
 There is no kernel gate here: the CUDA kernels run for CUDA tensors and
 their plain PyTorch versions for CPU tensors (``ops.fused_solve``).
@@ -68,23 +68,10 @@ def _coerce(f, raw):
     return raw
 
 
-def from_env() -> KernelConfig:
+def kernel_config() -> KernelConfig:
     kwargs = {}
     for f in fields(KernelConfig):
         raw = os.environ.get(_ENV_BY_FIELD[f.name])
         if raw is not None:
             kwargs[f.name] = _coerce(f, raw)
     return replace(KernelConfig(), **kwargs)
-
-
-_override: KernelConfig | None = None
-
-
-def set_kernel_config(cfg: KernelConfig | None) -> None:
-    """Install a process-wide config (None falls back to the environment)."""
-    global _override
-    _override = cfg
-
-
-def kernel_config() -> KernelConfig:
-    return _override if _override is not None else from_env()

@@ -8,9 +8,9 @@ from torch import nn
 
 
 class Swish(nn.Module):
-    def __init__(self):
+    def __init__(self, device=None):
         super().__init__()
-        self.beta = nn.Parameter(torch.full((1,), 0.5))
+        self.beta = nn.Parameter(torch.full((1,), 0.5, device=device))
 
     def slope(self):
         """softplus(beta) as a 0-d tensor."""

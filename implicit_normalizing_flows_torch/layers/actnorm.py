@@ -10,10 +10,10 @@ from .protocol import Flow
 
 
 class ActNorm2d(Flow):
-    def __init__(self, num_features):
+    def __init__(self, num_features, device=None):
         super().__init__()
-        self.weight = nn.Parameter(torch.zeros(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.weight = nn.Parameter(torch.zeros(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
 
     def forward(self, x, logpx=None, draws=None):
         y = (x + self.bias[None, :, None, None]) * torch.exp(self.weight[None, :, None, None])

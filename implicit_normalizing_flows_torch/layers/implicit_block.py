@@ -87,12 +87,13 @@ class ImplicitBlock(Flow):
 
     def __init__(self, nnet_x, nnet_z, geom_p=0.5, lamb=2.0, n_dist="geometric",
                  n_samples=1, n_exact_terms_test=20, series_cap=24,
-                 eps_forward=1e-6, threshold=30, warm_start=False):
+                 eps_forward=1e-6, threshold=30, warm_start=False, device=None):
         super().__init__()
         self.nnet_x, self.nnet_z = nnet_x, nnet_z
         # geom_p stored in logit space like the reference (implicit_block.py:144)
-        self.geom_p = nn.Parameter(torch.tensor(math.log(geom_p) - math.log1p(-geom_p)))
-        self.lamb = nn.Parameter(torch.tensor(float(lamb)))
+        self.geom_p = nn.Parameter(torch.tensor(
+            math.log(geom_p) - math.log1p(-geom_p), device=device))
+        self.lamb = nn.Parameter(torch.tensor(float(lamb), device=device))
         self.n_dist, self.n_samples = n_dist, n_samples
         self.n_exact_terms_test, self.series_cap = n_exact_terms_test, series_cap
         kc = kernel_config()
@@ -106,7 +107,7 @@ class ImplicitBlock(Flow):
             newton_init=kc.newton_init, line_search=kc.line_search)
         # [nstep, converged, prot_break, rms_over_tol, converged_3eps] of
         # the last forward
-        self.solver_diag = torch.zeros(5)
+        self.solver_diag = torch.zeros(5, device=device)
 
     @torch.no_grad()
     def solve(self, x):

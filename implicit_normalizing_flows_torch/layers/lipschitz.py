@@ -19,7 +19,7 @@ from ..ops import power_iter as pi
 class InducedNormConv(nn.Module):
     def __init__(self, in_channels, out_channels, kernel_size, input_hw,
                  coeff=0.97, n_iterations=None, atol=None, rtol=None,
-                 generator=None):
+                 generator=None, device=None):
         super().__init__()
         k = kernel_size
         self.in_channels, self.out_channels = in_channels, out_channels
@@ -32,16 +32,20 @@ class InducedNormConv(nn.Module):
         self.out_shape = (1, out_channels, h, w)
         self.is_1x1 = k == 1
         # torch's conv default init == the JAX package's kaiming_uniform
-        # (a=sqrt(5)): U(-1/sqrt(fan_in), +1/sqrt(fan_in)) for weight and bias
+        # (a=sqrt(5)): U(-1/sqrt(fan_in), +1/sqrt(fan_in)) for weight and bias.
+        # Drawn on the generator's device, so a seed gives the same weights
+        # on every device.
         bound = 1.0 / math.sqrt(in_channels * k * k)
-        u01 = lambda *s: torch.rand(*s, generator=generator)
+        gdev = generator.device if generator is not None else None
+        u01 = lambda *s: torch.rand(*s, generator=generator, device=gdev).to(device)
+        normal = lambda n: torch.randn(n, generator=generator, device=gdev).to(device)
         self.weight = nn.Parameter((u01(out_channels, in_channels, k, k) * 2 - 1) * bound)
         self.bias = nn.Parameter((u01(out_channels) * 2 - 1) * bound)
         nu, nv = ((out_channels, in_channels) if self.is_1x1 else
                   (out_channels * h * w, in_channels * h * w))
-        self.register_buffer("u", pi.l2_normalize(torch.randn(nu, generator=generator)))
-        self.register_buffer("v", pi.l2_normalize(torch.randn(nv, generator=generator)))
-        self.register_buffer("sigma", torch.zeros(()))
+        self.register_buffer("u", pi.l2_normalize(normal(nu)))
+        self.register_buffer("v", pi.l2_normalize(normal(nv)))
+        self.register_buffer("sigma", torch.zeros((), device=device))
 
     def _sigma(self, w):
         if self.is_1x1:

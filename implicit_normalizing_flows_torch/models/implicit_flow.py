@@ -17,21 +17,22 @@ from ..layers import (ActNorm2d, ImplicitBlock, InducedNormConv, LipschitzNet,
 
 
 def build_conv_net(initial_size, idim, kernels, coeff, n_iterations, preact,
-                   sn_atol, sn_rtol, first_resblock=True, generator=None):
+                   sn_atol, sn_rtol, first_resblock=True, generator=None,
+                   device="cuda"):
     """``build_nnet`` (implicit_flow.py:362-399) with swish activations and
     (2, 2) induced norms: ``[swish] conv k0 · swish · conv k1 · swish · conv
-    k2``, stride 1, same padding."""
+    k2``, stride 1, same padding, built on ``device``."""
     c, h, w = initial_size
     ks = list(map(int, kernels.split("-")))
     conv = lambda cin, cout, k: InducedNormConv(
         cin, cout, k, (h, w), coeff=coeff, n_iterations=n_iterations,
-        atol=sn_atol, rtol=sn_rtol, generator=generator)
+        atol=sn_atol, rtol=sn_rtol, generator=generator, device=device)
     items = []
     if not first_resblock and preact:
-        items.append(Swish())
-    items += [conv(c, idim, ks[0]), Swish()]
+        items.append(Swish(device))
+    items += [conv(c, idim, ks[0]), Swish(device)]
     for k in ks[1:-1]:
-        items += [conv(idim, idim, k), Swish()]
+        items += [conv(idim, idim, k), Swish(device)]
     items.append(conv(idim, c, ks[-1]))
     return LipschitzNet(items)
 
@@ -43,35 +44,37 @@ class StackedImplicitBlocks(SequentialFlow):
                  n_blocks=1, actnorm=False, coeff=0.9, n_lipschitz_iters=None,
                  sn_atol=None, sn_rtol=None, n_dist="geometric", n_samples=1,
                  kernels="3-1-3", preact=False, first_resblock=True,
-                 generator=None):
+                 generator=None, device="cuda"):
         chain = []
         if init_layer is not None:
             chain.append(init_layer)
         if first_resblock and actnorm:
-            chain.append(ActNorm2d(initial_size[0]))
+            chain.append(ActNorm2d(initial_size[0], device))
         for i in range(n_blocks):
             mk = lambda: build_conv_net(
                 initial_size, idim, kernels, coeff, n_lipschitz_iters, preact,
                 sn_atol, sn_rtol, first_resblock=first_resblock and i == 0,
-                generator=generator)
+                generator=generator, device=device)
             chain.append(ImplicitBlock(mk(), mk(), n_dist=n_dist,
-                                       n_samples=n_samples))
+                                       n_samples=n_samples, device=device))
             if actnorm:
-                chain.append(ActNorm2d(initial_size[0]))
+                chain.append(ActNorm2d(initial_size[0], device))
         if squeeze:
             chain.append(SqueezeLayer(2))
         super().__init__(chain)
 
 
 class ImplicitFlow(nn.Module):
-    """Full multiscale model (implicit_flow.py:280-561), forward only."""
+    """Full multiscale model (implicit_flow.py:280-561), forward only, with
+    its parameters and buffers on ``device`` (the card unless the caller
+    asks for another)."""
 
     def __init__(self, input_size, n_blocks=(16, 16), intermediate_dim=64,
                  factor_out=False, init_layer=None, actnorm=False, coeff=0.9,
                  vnorms="2222", n_lipschitz_iters=None, sn_atol=None,
                  sn_rtol=None, n_dist="geometric", n_samples=1, kernels="3-1-3",
                  activation_fn="swish", fc_end=False, preact=False,
-                 first_resblock=True, generator=None):
+                 first_resblock=True, generator=None, device="cuda"):
         super().__init__()
         if factor_out or fc_end or not first_resblock:
             raise NotImplementedError(
@@ -94,7 +97,7 @@ class ImplicitFlow(nn.Module):
                 n_lipschitz_iters=n_lipschitz_iters, sn_atol=sn_atol,
                 sn_rtol=sn_rtol, n_dist=n_dist, n_samples=n_samples,
                 kernels=kernels, preact=preact, first_resblock=i == 0,
-                generator=generator))
+                generator=generator, device=device))
             c, h, w = c * 4, h // 2, w // 2
         self.transforms = nn.ModuleList(scales)
 

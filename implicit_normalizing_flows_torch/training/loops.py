@@ -41,12 +41,15 @@ def make_image_eval_step(model, *, im_dim=3, imagesize=32, nvals=256):
     """Returns ``step(x_u8, draws) -> metrics`` with ``bpd_vec`` (B,),
     ``bpd``, ``logpz``, ``delta_logp``, ``z`` and the pooled solver stats.
     ``draws`` (``ops.logdet.Draws``) supplies the dequantisation noise, the
-    probes and the roulette draws."""
+    probes and the roulette draws. The images are moved to the model's
+    device."""
     dim = imagesize * imagesize * im_dim
+    device = next(model.parameters()).device
 
     @torch.no_grad()
     def step(x_u8, draws):
-        x = dequantize(x_u8, draws.uniform(x_u8.shape, x_u8.device), nvals)
+        x_u8 = torch.as_tensor(x_u8, device=device)
+        x = dequantize(x_u8, draws.uniform(x_u8.shape, device), nvals)
         zeros = torch.zeros(x.shape[0], device=x.device)
         z, delta_logp = model(x, zeros, draws)
         logpz = standard_normal_logprob(z)

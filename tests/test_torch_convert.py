@@ -34,7 +34,7 @@ FLAGSHIP = dict(n_blocks=[2, 2, 2], intermediate_dim=512, actnorm=True,
 
 def flagship_torch(batch=1):
     return ImplicitFlow((batch, 3, 32, 32), init_layer=LogitTransform(0.05),
-                        factor_out=False, fc_end=False, **FLAGSHIP)
+                        factor_out=False, fc_end=False, device="cpu", **FLAGSHIP)
 
 
 def flagship_jax(batch=1):

@@ -103,11 +103,27 @@ def test_small_flow_eval_matches_jax(monkeypatch):
     params, state = (jax.tree.map(np.asarray, v[k]) for k in ("params", "state"))
 
     ref, rec = run_jax_eval(monkeypatch, jmodel, params, state, x_u8, size)
-    model = ImplicitFlow((B, 3, size, size), init_layer=LogitTransform(0.05), **SMALL)
+    model = ImplicitFlow((B, 3, size, size), init_layer=LogitTransform(0.05),
+                         device="cpu", **SMALL)
     model.load_state_dict(jax_variables_to_torch(params, state), strict=True)
     got = run_port_eval(model, x_u8, rec, size)
     assert_eval_match(ref, rec, got)
     assert len(rec["roulette"]) == 2  # one per implicit block
+
+
+def test_model_defaults_to_the_card():
+    """Without ``device`` the model is built on the card: here, with no
+    CUDA device, that fails loudly instead of falling back to the CPU."""
+    make = lambda **kw: ImplicitFlow((2, 3, 8, 8), init_layer=LogitTransform(0.05),
+                                     **SMALL, **kw)
+    if torch.cuda.is_available():
+        assert all(p.is_cuda for p in make().parameters())
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            make()
+    model = make(device="cpu")
+    assert all(p.device.type == "cpu" for p in model.parameters())
+    assert all(b.device.type == "cpu" for b in model.buffers())
 
 
 def test_flagship_checkpoint_eval_matches_jax(monkeypatch):

@@ -22,7 +22,7 @@ def make_pair(preact, c=3, hw=8, idim=16, seed=1, sn_tol=None):
     x0 = jax.numpy.zeros((1, c, hw, hw))
     v = jnet.init(jax.random.PRNGKey(seed), x0)
     tnet = build_conv_net((c, hw, hw), idim, "3-1-3", 0.9, 3, preact, sn_tol,
-                          sn_tol, first_resblock=first)
+                          sn_tol, first_resblock=first, device="cpu")
     to_np = lambda t: jax.tree.map(np.asarray, t)
     sd = jax_variables_to_torch({"nnet_x": to_np(v["params"])},
                                 {"nnet_x": to_np(v["state"])})
