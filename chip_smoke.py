@@ -3,20 +3,39 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. build the CUDA kernels of the forward solve from csrc/ with nvcc;
-  2. each kernel against its plain PyTorch version at the CIFAR-10
-     flagship's shapes (all three scales, batch 64, the committed
-     checkpoint's weights, the blocks' real inputs): max error and time
-     (CUDA events), with the plain version's time, the least time the card
-     could take (bound) and one PyTorch library call's time for comparison;
-  3. the whole fused solve against its plain version, per scale and mode;
+  1. build the CUDA kernels (csrc/fused_solve.cu and csrc/implicit_grad.cu,
+     one nvcc each, in parallel);
+  2. each forward-solve kernel against its plain PyTorch version at the
+     CIFAR-10 flagship's shapes (all three scales, batch 64, the committed
+     checkpoint's weights, the blocks' real inputs): max error and device
+     time, with the plain version's time, the least time the card could take
+     (bound) and one PyTorch library call's time for comparison;
+  3. the whole fused forward solve against its plain version, per scale and
+     mode;
   4. the flagship evaluation (bits/dim of 64 structured-synthetic images,
-     seed 1) through the port's entry points, with every kernel's launch
-     count over that run, and the bpd of the plain path on the same draws.
+     seed 1) through the port's entry points, with the forward-solve
+     kernels' launch counts over that run, and the plain path's bpd on the
+     same draws;
+  5. each implicit-gradient kernel (backward solve, re-attachment VJP)
+     against its plain version at the flagship's shapes, on the blocks' real
+     inputs and cotangents captured from one training step, in bf16 and f32:
+     max error, device time, plain time, bound and a library call's time;
+     in bf16 also the control, the plain version in mode f32 on the same
+     inputs against the bf16 one, which must lie above the limit;
+  6. the whole backward solve and the whole re-attachment VJP against their
+     plain versions, per scale and mode, each rounding mode with its
+     control;
+  7. the main path: flagship training steps (batch 64, --mem-eff True) from
+     the committed checkpoint with Adam, warmup, power iteration and EMA as
+     the benchmark sets them: 5 settle and 5 timed steps with every kernel's
+     launch count over them, a time breakdown of one step and a profiled
+     step, then one step's loss and gradients (cosine and norm ratio per
+     tensor) with the plain versions forced against the kernels' on the same
+     state and draws.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
-it lists the kernels as JSON. Without a CUDA device it exits non-zero and
-prints no result.
+it lists the kernels as JSON, the line before that the card's name and
+power limit. Without a CUDA device it exits non-zero and prints no result.
 """
 import json
 import math
@@ -29,14 +48,34 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(HERE, "experiments", "cifar10_long_r4", "bench_ckpt.npz")
-TPU_KERNEL = "implicit_normalizing_flows_tpu/ops/fused_solve.py:1921"
-SOURCE = "implicit_normalizing_flows_torch/csrc/fused_solve.cu"
+TPU_SOLVE = "implicit_normalizing_flows_tpu/ops/fused_solve.py:1921"
+TPU_BWD = "implicit_normalizing_flows_tpu/ops/fused_solve.py:930"
+TPU_REATTACH = "implicit_normalizing_flows_tpu/ops/fused_solve.py:1226"
+SOURCES = {"fused_solve": "implicit_normalizing_flows_torch/csrc/fused_solve.cu",
+           "implicit_grad": "implicit_normalizing_flows_torch/csrc/implicit_grad.cu"}
 # H100 SXM published peaks (dense): HBM bytes/s, FP32 (CUDA cores) and bf16
 # tensor-core FLOP/s
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 PASSES = {"f32": 1, "bf16": 1, "tf32": 3, "tf32x": 4}
 BATCH, SIZE = 64, 32
 EVAL_BATCHES = 3
+SETTLE_STEPS, TIMED_STEPS = 5, 5
+# Limits of phase 5 (max|kernel - plain| over max|plain|) and phase 6
+# (rel_norm). A kernel and its plain version round the same operands (an
+# operand computed on load, swish or swish', is the plain version's to the
+# bit) and sum exact products, so they differ by the order of float32 sums
+# (up to 65,536 terms), in every mode. Whole functions chain kernels: an
+# intermediate one float32 ulp apart rounds to another bfloat16 where it
+# sits on a tie, which moves a few entries. Each rounding mode's limit lies
+# below its control, the plain version in mode f32 on the same inputs
+# against the mode's: what a kernel that skipped the rounding would read.
+# tf32's three-pass split sits within about 2^-16 of float32, below the sum
+# order's noise: its control reads under its limit, which bounds only that
+# noise.
+KERNEL_TOL = {"f32": 1e-4, "bf16": 2e-5}
+BWD_TOL = {"bf16": 2e-4}
+REATTACH_TOL = {"bf16": 2e-5, "tf32": 2e-5}
+NO_ROUNDING = ("rv_wgrad_reduce", "rv_chan_sums")  # sums only: no mode
 
 
 def log(*a):
@@ -54,19 +93,37 @@ def _self_ms(e):
                    getattr(e, "self_cuda_time_total", 0)) / 1e3
 
 
+def is_port_kernel(name):
+    """A kernel of csrc/ (by its symbol in the profiler)."""
+    return any(k in name for k in ("imnf::", "broyden_step", "wgrad", "chan_sums"))
+
+
 def device_ms(fn, reps=10):
     """Mean device time per call of fn(i), i < reps: the summed time of the
     CUDA kernels it launches (torch.profiler), so host launch latency and
-    syncs between calls are not counted."""
+    syncs between calls are not counted. Now and then the profiler records
+    no kernel for a run: it is repeated, and after three such runs the
+    calls are timed with CUDA events instead (launch gaps included)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)  # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fn(i)
-        torch.cuda.synchronize()
-    return sum(_self_ms(e) for e in _kernel_events(prof)) / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fn(i)
+            torch.cuda.synchronize()
+        ms = sum(_self_ms(e) for e in _kernel_events(prof)) / reps
+        if ms > 0:
+            return ms
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for i in range(reps):
+        fn(i)
+    end.record()
+    end.synchronize()
+    log("  (the profiler recorded no kernel three times: CUDA events)")
+    return start.elapsed_time(end) / reps
 
 
 def bound_ms(nbytes, macs, mode):
@@ -84,6 +141,8 @@ def rel_err(a, b):
 
 
 def build_model(dev):
+    """The flagship (run_cifar10.sh's recipe, --mem-eff True) on the
+    committed checkpoint."""
     from implicit_normalizing_flows_torch.layers import LogitTransform
     from implicit_normalizing_flows_torch.models import ImplicitFlow
     from implicit_normalizing_flows_torch.training import (load_jax_checkpoint,
@@ -93,9 +152,10 @@ def build_model(dev):
                          intermediate_dim=512, init_layer=LogitTransform(0.05),
                          actnorm=True, coeff=0.9, vnorms="2222", n_dist="poisson",
                          kernels="3-1-3", preact=True, sn_atol=1e-3, sn_rtol=1e-3,
+                         n_exact_terms=10, neumann_grad=True, grad_in_forward=True,
                          device=dev)
     load_jax_checkpoint(model, load_npz_tree(CKPT))
-    return model.eval()
+    return model
 
 
 def capture_block_inputs(model, step, x_u8, draws):
@@ -303,13 +363,473 @@ def profile_batch(model, step, x_u8, draws):
         f"{wall - sum(solve_ms):.1f} ms")
     events = _kernel_events(prof)
     busy = sum(_self_ms(e) for e in events)
-    ours = sum(_self_ms(e) for e in events if "broyden_step" in e.key
-               or "conv_gemm_swish" in e.key or "conv3x3_out" in e.key)
+    ours = sum(_self_ms(e) for e in events if is_port_kernel(e.key))
     log(f"profile batch: wall {wall:.1f} ms, device busy {busy:.1f} ms, idle share "
         f"{1 - busy / wall:.3f}, solve kernels {ours:.1f} ms, other device work "
         f"{busy - ours:.1f} ms")
     for e in sorted(events, key=_self_ms, reverse=True)[:15]:
         log(f"  {_self_ms(e):9.2f} ms  x{e.count:<5d} {e.key[:110]}")
+
+
+def rel_max(a, b):
+    """max|a - b| over max|b| (the relative-to-max error of a whole tensor)."""
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30))
+
+
+def rel_norm(a, b, base=None):
+    """||a - b|| over ||b - base||: the error of a whole function's output
+    relative to the part of it that products make (u - grad of a backward
+    solve, d_x - u of a re-attachment). An iterate one float32 ulp apart
+    rounds to another bfloat16 at a few ties and moves a few entries; a
+    skipped rounding moves them all."""
+    b = b.double()
+    ref = b if base is None else b - base.double()
+    return float((a.double() - b).norm() / ref.norm().clamp(min=1e-300))
+
+
+def capture_grad_inputs(step, x_u8, draws):
+    """The implicit gradient's real inputs at each scale's last block, from
+    one training step's gradient: {c: dict(block, grad, z, x, z_hat, u,
+    data_x, data_z)} keyed by the scale's channel count."""
+    from implicit_normalizing_flows_torch.layers import ImplicitBlock, implicit_block
+
+    seen = {}
+    orig_bwd, orig_re = ImplicitBlock.backward_solve, implicit_block.fused_reattach_vjp
+    det = lambda d: {k: (v.detach().clone() if torch.is_tensor(v) else v) for k, v in d.items()}
+
+    def rec_bwd(self, grad, z):
+        seen.setdefault(grad.shape[1], {}).setdefault("bwd", dict(
+            block=self, grad=grad.detach().float().clone(), z=z.detach().clone()))
+        return orig_bwd(self, grad, z)
+
+    def rec_re(x, z_hat, u, data_x, data_z, mode):
+        seen.setdefault(x.shape[1], {}).setdefault("re", dict(
+            x=x.detach().clone(), z_hat=z_hat.clone(), u=u.clone(),
+            data_x=det(data_x), data_z=det(data_z)))
+        return orig_re(x, z_hat, u, data_x, data_z, mode=mode)
+
+    ImplicitBlock.backward_solve = rec_bwd
+    implicit_block.fused_reattach_vjp = rec_re
+    try:
+        step.grads(x_u8, draws)
+    finally:
+        ImplicitBlock.backward_solve = orig_bwd
+        implicit_block.fused_reattach_vjp = orig_re
+    return {c: dict(**v["bwd"], **v["re"]) for c, v in sorted(seen.items())}
+
+
+def nbytes(*ts):
+    """Bytes of the tensors, each moved once (None skips)."""
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def check_grad_kernels(cap, modes=("bf16", "f32")):
+    """Phase 5: every implicit-gradient kernel vs its plain version at each
+    scale's shapes, on the captured inputs, in each mode: error, device
+    time, plain time, bound and a cuDNN call's time at the mode's dtype; in
+    bf16 also the control (the plain version in mode f32 on the same inputs
+    against the bf16 one). Every reading is printed before the limits are
+    checked. Returns the bf16 rows (the training default)."""
+    from implicit_normalizing_flows_torch.ops import implicit_grad as ig
+    from implicit_normalizing_flows_torch.ops.fused_solve import prep_weight, swish
+
+    F = torch.nn.functional
+    rows, fails = {}, []
+    for s, (c, d) in enumerate(cap.items()):
+        x, u, G = d["x"], d["u"], d["grad"]
+        B, _, H, W = x.shape
+        HW, D, dev = H * W, c * H * W, x.device
+        idx = torch.arange(B, dtype=torch.int32, device=dev)
+        cnt = torch.full((1,), B, dtype=torch.int32, device=dev)
+        dx = d["data_x"]
+        b0, b1, b2 = (float(v) for v in dx["betas"].cpu())
+        preact = dx["preact"]
+        act0 = "swish" if preact else "id"
+        mid = dx["w2"].shape[0]
+        w1, w2, w3 = (dx[k].float() for k in ("w1", "w2", "w3"))
+        bb1, bb2 = dx["b1"].float().contiguous(), dx["b2"].float().contiguous()
+        U, Gf = u.reshape(B, D).contiguous(), G.reshape(B, D).contiguous()
+        new = lambda *shape: torch.zeros(*shape, device=dev)
+        S, _ = ig.wgrad_splits(mid, mid, B * HW, "w2")
+        for mode in modes:
+            dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+            # the linearisation as the backward solve takes it: s0/s1/s2 in
+            # the mode's dtype, read as stored
+            s0, s1, s2, w1c, w2c, w3c = d["block"].nnet_z.conv_chain_data(d["z"], dtype)
+            S0 = s0.reshape(B, D).contiguous()
+            S1, S2 = (t.reshape(B, mid, HW).contiguous() for t in (s1, s2))
+            src = (ig.transpose_weights(w1c.float(), w2c.float(), w3c.float())
+                   + (w1, w2) + ig.transpose_weights(w1, w2, w3))
+            # (jt3, jt2, jt1, f1, f2, t3, t2, t1) prepared for mode m
+            prep = lambda m: [prep_weight(w, m) for w in src]
+            jt3, jt2, jt1, f1, f2, t3, t2, t1 = prep(mode)
+            # plain outputs first: each later kernel takes the plain result
+            # of the one before as its input
+            P = {k: new(B, mid, HW) for k in ("T2", "T1", "H1", "H2", "C2", "C1")}
+            P.update(R=new(B, D), C0=new(B, D), part=new(S, mid, mid),
+                     dW2=new(mid, mid), sums=new(mid), db=new(mid),
+                     db_k=new(mid), db_p=new(mid))
+            ig._jt_conv3x3_in_plain(u, idx, cnt, jt3, S2, mode, P["T2"])
+            ig._jt_conv1x1_mid_plain(P["T2"], idx, cnt, jt2, S1, mode, P["T1"], H, W)
+            ig._jt_conv3x3_out_plain(P["T1"], idx, cnt, jt1, S0, mode, U, Gf, P["R"], H, W)
+            ig._rv_conv3x3_in_plain(x, idx, cnt, f1, bb1, 1.0, b0, act0, mode, P["H1"])
+            ig._rv_conv1x1_mid_plain(P["H1"], P["H1"], cnt, f2, bb2, 1.0, b1, "swish",
+                                     mode, P["H2"], H, W)
+            ig._rv_conv3x3_in_plain(u, idx, cnt, t3, None, 1.0, 0.0, "id", mode, P["C2"])
+            ig._rv_conv1x1_mid_plain(P["C2"], P["H2"], cnt, t2, None, 1.0, b2, "dswish",
+                                     mode, P["C1"], H, W)
+            ig._rv_conv3x3_out_plain(P["C1"], P["H1"], b1, idx, cnt, t1, mode, P["C0"], H, W)
+            ig._rv_wgrad_plain(P["C2"], P["H2"], b2, P["H1"], b1, "w2", mode, P["part"], H, W)
+            ig._rv_wgrad_reduce_plain(P["part"], 1.0, P["dW2"])
+            ig._rv_chan_sums_plain(P["C2"], P["H2"], b2, 1.0, None, P["sums"], P["db"], None)
+            lib = lambda t: t.to(dtype)  # the library call at the mode's dtype
+
+            def cases(m, wt):
+                """name: (kernel, plain, library call, output shape, the
+                other tensors moved (weights once: f32 and bf16 read no lo
+                split), MACs), at mode m with weights wt."""
+                jt3, jt2, jt1, f1, f2, t3, t2, t1 = wt
+                return {
+                    "jt_conv3x3_in": (
+                        lambda o: ig.jt_conv3x3_in(u, idx, cnt, jt3, S2, m, o),
+                        lambda o: ig._jt_conv3x3_in_plain(u, idx, cnt, jt3, S2, m, o),
+                        lambda: F.conv_transpose2d(lib(u), lib(w3c), padding=1),
+                        (B, mid, HW), (u, S2, jt3[0]), B * mid * c * 9 * HW),
+                    "jt_conv1x1_mid": (
+                        lambda o: ig.jt_conv1x1_mid(P["T2"], idx, cnt, jt2, S1, m, o, H, W),
+                        lambda o: ig._jt_conv1x1_mid_plain(P["T2"], idx, cnt, jt2, S1, m, o, H, W),
+                        lambda: F.conv_transpose2d(lib(P["T2"]).view(B, mid, H, W), lib(w2c)),
+                        (B, mid, HW), (P["T2"], S1, jt2[0]), B * mid * mid * HW),
+                    "jt_conv3x3_out": (
+                        lambda o: ig.jt_conv3x3_out(P["T1"], idx, cnt, jt1, S0, m, U, Gf, o, H, W),
+                        lambda o: ig._jt_conv3x3_out_plain(P["T1"], idx, cnt, jt1, S0, m, U, Gf, o, H, W),
+                        lambda: F.conv_transpose2d(lib(P["T1"]).view(B, mid, H, W), lib(w1c), padding=1),
+                        (B, D), (P["T1"], jt1[0], S0, U, Gf), B * c * mid * 9 * HW),
+                    "rv_conv3x3_in": (
+                        lambda o: ig.rv_conv3x3_in(x, idx, cnt, f1, bb1, 1.0, b0, act0, m, o),
+                        lambda o: ig._rv_conv3x3_in_plain(x, idx, cnt, f1, bb1, 1.0, b0, act0, m, o),
+                        lambda: F.conv2d(lib(x), lib(w1), lib(bb1), padding=1),
+                        (B, mid, HW), (x, f1[0], bb1), B * mid * c * 9 * HW),
+                    "rv_conv1x1_mid": (
+                        lambda o: ig.rv_conv1x1_mid(P["H1"], P["H1"], cnt, f2, bb2, 1.0, b1, "swish", m, o, H, W),
+                        lambda o: ig._rv_conv1x1_mid_plain(P["H1"], P["H1"], cnt, f2, bb2, 1.0, b1, "swish", m, o, H, W),
+                        lambda: F.conv2d(lib(swish(P["H1"], b1)).view(B, mid, H, W), lib(w2), lib(bb2)),
+                        (B, mid, HW), (P["H1"], f2[0], bb2), B * mid * mid * HW),
+                    "rv_conv3x3_out": (
+                        lambda o: ig.rv_conv3x3_out(P["C1"], P["H1"], b1, idx, cnt, t1, m, o, H, W),
+                        lambda o: ig._rv_conv3x3_out_plain(P["C1"], P["H1"], b1, idx, cnt, t1, m, o, H, W),
+                        lambda: F.conv_transpose2d(lib(P["C1"]).view(B, mid, H, W), lib(w1), padding=1),
+                        (B, D), (P["C1"], P["H1"], t1[0]), B * c * mid * 9 * HW),
+                    "rv_wgrad": (
+                        lambda o: ig.rv_wgrad(P["C2"], P["H2"], b2, P["H1"], b1, "w2", m, o, H, W),
+                        lambda o: ig._rv_wgrad_plain(P["C2"], P["H2"], b2, P["H1"], b1, "w2", m, o, H, W),
+                        lambda: torch.nn.grad.conv2d_weight(
+                            lib(P["H1"]).view(B, mid, H, W), (mid, mid, 1, 1),
+                            lib(P["C2"]).view(B, mid, H, W)),
+                        (S, mid, mid), (P["C2"], P["H2"], P["H1"]), mid * mid * B * HW),
+                    "rv_wgrad_reduce": (
+                        lambda o: ig.rv_wgrad_reduce(P["part"], 1.0, o),
+                        lambda o: ig._rv_wgrad_reduce_plain(P["part"], 1.0, o),
+                        lambda: P["part"].sum(0),
+                        (mid, mid), (P["part"],), S * mid * mid / 2),
+                    "rv_chan_sums": (
+                        lambda o: ig.rv_chan_sums(P["C2"], P["H2"], b2, 1.0, None, o, P["db_k"], None),
+                        lambda o: ig._rv_chan_sums_plain(P["C2"], P["H2"], b2, 1.0, None, o, P["db_p"], None),
+                        None, (mid,), (P["C2"], P["H2"], P["db_k"]), 0),
+                }
+
+            ctrl = cases("f32", prep("f32")) if mode != "f32" else {}
+            tol = KERNEL_TOL[mode]
+            for name, (kern, plain, libc, shape, moved, macs) in cases(mode, (
+                    jt3, jt2, jt1, f1, f2, t3, t2, t1)).items():
+                ok_, op = new(*shape), new(*shape)
+                kern(ok_)
+                plain(op)
+                torch.cuda.synchronize()
+                # relative to the largest entry: the cotangents are small
+                # (about 1e-5), so an error relative to max(1, |plain|)
+                # would be no check
+                err = rel_max(ok_, op)
+                if name == "rv_chan_sums":
+                    err = max(err, rel_max(P["db_k"], P["db_p"]))
+                control = None
+                if name in ctrl and name not in NO_ROUNDING:
+                    oc = new(*shape)
+                    ctrl[name][1](oc)
+                    control = rel_max(oc, op)
+                ms = device_ms(lambda i: kern(ok_))
+                pms = device_ms(lambda i: plain(op))
+                lms = device_ms(lambda i: libc()) if libc is not None else None
+                bms, by = bound_ms(nbytes(*moved) + 4 * math.prod(shape), macs, mode)
+                log(f"kernel {name} scale{s} ({c}x{H}x{W}, B={B}, {mode}): max_rel_err "
+                    f"{err:.3e} (limit {tol:g}"
+                    + ("" if control is None else f", control {control:.3e}")
+                    + f") ms {ms:.4f} plain_ms {pms:.4f} library_ms "
+                    f"{'null' if lms is None else f'{lms:.4f}'} bound_ms {bms:.4f} ({by})")
+                if not (math.isfinite(err) and err <= tol
+                        and (control is None or control > tol)):
+                    fails.append((name, s, mode, err, control))
+                if mode == "bf16":
+                    rows.setdefault(name, {})[s] = dict(
+                        max_abs_err=float((ok_ - op).abs().max()), ms=ms, plain_ms=pms,
+                        library_ms=lms, bound_ms=bms, bound_by=by)
+    assert not fails, ("phase 5 (name, scale, mode, error, control)", fails)
+    return rows
+
+
+def check_grad_functions(cap):
+    """Phase 6: the whole backward solve (modes bf16, f32) and
+    re-attachment VJP (bf16, f32, tf32) vs their plain versions, per scale.
+    f32 at the CPU tests' tolerances (backward solve rtol 1e-4 / atol 1e-5,
+    re-attachment rtol 5e-4 / atol 1e-5); bf16 and tf32 by rel_norm at
+    BWD_TOL / REATTACH_TOL, beside the control (the plain version in mode
+    f32 against the mode's), which in bf16 must lie above the limit for
+    every tensor that a product reaches. Every reading is printed before the
+    limits are checked."""
+    from implicit_normalizing_flows_torch.ops import implicit_grad as ig
+
+    kw = dict(threshold=4, eps=1e-10, stall_patience=5, stall_rtol=0.05,
+              stall_guard=3.0, newton_init=True)
+    # the last conv's bias gradient is the sum of the cotangent: no product
+    unrounded = ("x.b3", "z.b3")
+    fails = []
+    for s, (c, d) in enumerate(cap.items()):
+        grad = d["grad"]
+        for mode in ig.BWD_MODES:
+            dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+            cd = d["block"].nnet_z.conv_chain_data(d["z"], dtype)
+            t0 = time.perf_counter()
+            rk = ig.fused_backward_solve(grad, cd, mode=mode, **kw)
+            torch.cuda.synchronize()
+            tk = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rp = ig.fused_backward_solve_plain(grad, cd, mode=mode, **kw)
+            torch.cuda.synchronize()
+            tp = time.perf_counter() - t0
+            err = rel_norm(rk.u, rp.u, grad)
+            control = None
+            if mode != "f32":
+                control = rel_norm(ig.fused_backward_solve_plain(
+                    grad, cd, mode="f32", **kw).u, rp.u, grad)
+            log(f"backward solve scale{s} {mode}: rel_norm {err:.3e}"
+                + ("" if control is None else f" (limit {BWD_TOL[mode]:g}, control {control:.3e})")
+                + f" max|du|/max|u| {rel_max(rk.u, rp.u):.3e}"
+                f" nstep {rk.nstep.float().mean():.2f}/{rp.nstep.float().mean():.2f} prot "
+                f"{int(rk.prot_break.sum())}/{int(rp.prot_break.sum())} "
+                f"s {tk:.3f}/{tp:.3f} (kernels/plain)")
+            assert torch.isfinite(rk.u).all()
+            assert torch.equal(rk.nstep, rp.nstep) and torch.equal(rk.prot_break, rp.prot_break)
+            if mode == "f32":
+                torch.testing.assert_close(rk.u, rp.u, rtol=1e-4, atol=1e-5)
+            elif not err <= BWD_TOL[mode] < control:
+                fails.append(("backward solve", s, mode, err, control))
+
+        u = d["u"]
+        args = (d["x"], d["z_hat"], u, d["data_x"], d["data_z"])
+        flat = lambda g: [("d_x", g[0])] + [
+            (f"{n}.{k}", h[k]) for n, h in (("x", g[1]), ("z", g[2])) for k in ig.DATA_KEYS]
+        base = lambda n: u if n == "d_x" else None  # d_x = u + J^T u
+        for mode in ig.REATTACH_MODES:
+            t0 = time.perf_counter()
+            gk = ig.fused_reattach_vjp(*args, mode=mode)
+            torch.cuda.synchronize()
+            tk = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            gp = ig.fused_reattach_vjp_plain(*args, mode=mode)
+            torch.cuda.synchronize()
+            tp = time.perf_counter() - t0
+            pairs = [(n, a, b) for (n, a), (_, b) in zip(flat(gk), flat(gp))]
+            worst = max((rel_norm(a, b, base(n)), n) for n, a, b in pairs)
+            line = f"reattach vjp scale{s} {mode}: worst rel_norm {worst[0]:.3e} ({worst[1]})"
+            ctrl = None
+            if mode != "f32":
+                gc = flat(ig.fused_reattach_vjp_plain(*args, mode="f32"))
+                ctrl = min((rel_norm(a, b, base(n)), n)
+                           for (n, a), (_, b) in zip(gc, flat(gp)) if n not in unrounded)
+                line += f" (limit {REATTACH_TOL[mode]:g}, least control {ctrl[0]:.3e} ({ctrl[1]}))"
+            log(line + f" s {tk:.3f}/{tp:.3f} (kernels/plain)")
+            for n, a, b in pairs:
+                assert torch.isfinite(a).all(), n
+                if mode == "f32":
+                    torch.testing.assert_close(a, b, rtol=5e-4, atol=1e-5, msg=n)
+            if mode != "f32" and not (worst[0] <= REATTACH_TOL[mode]
+                                      and (mode != "bf16" or ctrl[0] > REATTACH_TOL[mode])):
+                fails.append(("reattach vjp", s, mode, worst, ctrl))
+    assert not fails, ("phase 6 (function, scale, mode, error, control)", fails)
+
+
+def check_bf16_double_backward(dev):
+    """The bf16 Neumann estimator differentiates a VJP of the nets: on the
+    card it runs bfloat16 convs natively (ops/power_iter.py:conv_apply). Its
+    weight gradient of <J^T a, e> must agree with float32's (torch's CPU
+    bfloat16 conv gets it wrong, so the CPU computes in float32)."""
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s: torch.randn(*s, device=dev, generator=g)
+    x, w0, a, e = r(8, 48, 16, 16), r(512, 48, 3, 3) * 0.05, r(8, 512, 16, 16), r(8, 48, 16, 16)
+
+    def grad_w(dt):
+        w = w0.clone().requires_grad_(True)
+        xd = x.to(dt).requires_grad_(True)
+        y = F.conv2d(xd, w.to(dt), padding=1)
+        gx = torch.autograd.grad(y, xd, a.to(dt), create_graph=True)[0]
+        return torch.autograd.grad(torch.sum(gx.float() * e), w)[0]
+
+    ref, got = grad_w(torch.float32), grad_w(torch.bfloat16)
+    cos = float((ref * got).sum() / (ref.norm() * got.norm()))
+    log(f"bf16 conv double backward on the card: cosine with float32 {cos:.6f}")
+    assert cos >= 0.999, cos
+
+
+def launch_counts():
+    from implicit_normalizing_flows_torch.ops import fused_solve as fs
+    from implicit_normalizing_flows_torch.ops import implicit_grad as ig
+
+    return {**fs.launch_counts(), **ig.launch_counts()}
+
+
+def reset_launch_counts():
+    from implicit_normalizing_flows_torch.ops import fused_solve as fs
+    from implicit_normalizing_flows_torch.ops import implicit_grad as ig
+
+    fs.reset_launch_counts()
+    ig.reset_launch_counts()
+
+
+def train_steps(step, x_u8, draws, n0, n):
+    """n training steps with per-step metrics and host-clock ms."""
+    out = []
+    for i in range(n0, n0 + n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(x_u8, draws(i))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        vals = {k: float(v) for k, v in m.items()}
+        log(f"train step {i}: loss {vals['loss']:.5f} bpd {vals['bpd']:.5f} "
+            f"grad_norm {vals['grad_norm']:.4f} nstep {vals['broyden_nstep']:.2f} "
+            f"converged {vals['broyden_converged']:.3f} "
+            f"conv3eps {vals['broyden_converged_3eps']:.3f} "
+            f"rms_over_tol {vals['broyden_rms_over_tol']:.3f} "
+            f"est_firmom {vals['est_firmom']:.3f} ms {ms:.1f}")
+        assert all(math.isfinite(v) for v in vals.values()), vals
+        assert 1.0 < vals["bpd"] < 8.0, vals["bpd"]
+        out.append((vals, ms))
+    return out
+
+
+def breakdown_step(model, step, x_u8, draws):
+    """One training step with every phase timed on the host clock between
+    synchronisations: forward solves, backward solves, re-attachment VJPs,
+    the update (optimizer, power iteration, EMA) and the rest (dequantise,
+    estimator forward and backward, autograd)."""
+    from implicit_normalizing_flows_torch.layers import ImplicitBlock, implicit_block
+
+    acc = {"solve": 0.0, "backward_solve": 0.0, "reattach": 0.0, "update": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            acc[key] += 1e3 * (time.perf_counter() - t)
+            return out
+        return run
+
+    saved = (ImplicitBlock.solve, ImplicitBlock.backward_solve,
+             implicit_block.fused_reattach_vjp, step.optimizer.update,
+             type(model).update_lipschitz)
+    ImplicitBlock.solve = timed("solve", saved[0])
+    ImplicitBlock.backward_solve = timed("backward_solve", saved[1])
+    implicit_block.fused_reattach_vjp = timed("reattach", saved[2])
+    step.optimizer.update = timed("update", saved[3])
+    type(model).update_lipschitz = timed("update", saved[4])
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(x_u8, draws)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    finally:
+        (ImplicitBlock.solve, ImplicitBlock.backward_solve,
+         implicit_block.fused_reattach_vjp) = saved[:3]
+        del step.optimizer.update
+        type(model).update_lipschitz = saved[4]
+    rest = wall - sum(acc.values())
+    log(f"train breakdown (host clock, synchronised): wall {wall:.1f} ms = " + ", ".join(
+        f"{k} {v:.1f}" for k, v in acc.items()) + f", estimator and the rest {rest:.1f}")
+
+
+def profile_train_step(step, x_u8, draws):
+    """Device time by kernel over one training step and the device's idle
+    share (1 - summed kernel time / wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(x_u8, draws)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = _kernel_events(prof)
+    busy = sum(_self_ms(e) for e in events)
+    ours = sum(_self_ms(e) for e in events if is_port_kernel(e.key))
+    log(f"profile train step: wall {wall:.1f} ms, device busy {busy:.1f} ms, idle share "
+        f"{1 - busy / wall:.3f}, port kernels {ours:.1f} ms, other device work "
+        f"{busy - ours:.1f} ms")
+    for e in sorted(events, key=_self_ms, reverse=True)[:20]:
+        log(f"  {_self_ms(e):9.2f} ms  x{e.count:<5d} {e.key[:110]}")
+
+
+def compare_plain_step(step, x_u8, draws):
+    """One step's loss and gradients with the kernels and with every plain
+    version forced, from the same state and draws."""
+    from implicit_normalizing_flows_torch.layers import implicit_block
+    from implicit_normalizing_flows_torch.ops import fused_solve as fs
+    from implicit_normalizing_flows_torch.ops import implicit_grad as ig
+
+    lk, _, gk = step.grads(x_u8, draws())
+    names = ("fused_broyden_solve", "fused_backward_solve", "fused_reattach_vjp")
+    saved = [getattr(implicit_block, n) for n in names]
+    implicit_block.fused_broyden_solve = fs.fused_broyden_solve_plain
+    implicit_block.fused_backward_solve = ig.fused_backward_solve_plain
+    implicit_block.fused_reattach_vjp = ig.fused_reattach_vjp_plain
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp, _, gp = step.grads(x_u8, draws())
+        torch.cuda.synchronize()
+        pms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        for n, f in zip(names, saved):
+            setattr(implicit_block, n, f)
+    dl = abs(float(lk) - float(lp))
+    # the cosine sees the direction of each gradient, the norm ratio its
+    # scale (a doubled dW2 or a lost alpha). A scalar's cosine is 1 and its
+    # ratio is its relative error: the swish slopes' gradients are sums over
+    # the batch and every pixel that cancel to a small fraction of their
+    # terms, so the two paths' forward solves (their iterates differ by
+    # about 1e-4 in tf32) move them by up to about 0.5%.
+    cos, ratio = {}, {}
+    for k in gk:
+        a, b = gk[k].double().flatten(), gp[k].double().flatten()
+        if float(b.norm()) == 0.0 and float(a.norm()) == 0.0:
+            continue  # geom_p, lamb: outside the loss's reach
+        cos[k] = float(a @ b / (a.norm() * b.norm()).clamp(min=1e-300))
+        ratio[k] = abs(float(a.norm() / b.norm().clamp(min=1e-300)) - 1.0)
+    worst = min(cos, key=cos.get)
+    tensors = [k for k in ratio if gk[k].numel() > 1]
+    scalars = [k for k in ratio if gk[k].numel() == 1]
+    wt, ws = max(tensors, key=ratio.get), max(scalars, key=ratio.get)
+    log(f"plain path train step: loss {float(lp):.6f} vs {float(lk):.6f} |d loss| {dl:.2e}, "
+        f"min gradient cosine {cos[worst]:.6f} ({worst}), max |norm ratio - 1| "
+        f"{ratio[wt]:.2e} ({wt}), of a scalar {ratio[ws]:.2e} ({ws}), "
+        f"plain grads {pms:.1f} ms")
+    assert dl <= 1e-3, dl
+    assert cos[worst] >= 0.999, (worst, cos[worst])
+    assert ratio[wt] <= 1e-3, (wt, ratio[wt])
+    assert ratio[ws] <= 2e-2, (ws, ratio[ws])
 
 
 def main():
@@ -321,9 +841,12 @@ def main():
     from implicit_normalizing_flows_torch.layers import implicit_block
     from implicit_normalizing_flows_torch.ops import cuda_build
     from implicit_normalizing_flows_torch.ops import fused_solve as fs
+    from implicit_normalizing_flows_torch.ops import implicit_grad as ig
     from implicit_normalizing_flows_torch.ops.broyden import triage_metrics
     from implicit_normalizing_flows_torch.ops.logdet import Draws
-    from implicit_normalizing_flows_torch.training import make_image_eval_step
+    from implicit_normalizing_flows_torch.training import (adam, linear_warmup,
+                                                           make_image_eval_step,
+                                                           make_image_train_step)
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -331,30 +854,38 @@ def main():
                          check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # phase 1: build
+    # phase 1: build, one nvcc per source, in parallel
     t0 = time.perf_counter()
-    report = cuda_build.build("fused_solve", report=True)
-    log(f"phase1 build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(report, HERE)}")
+    built = cuda_build.build_all(list(SOURCES), report=True)
+    log(f"phase1 build: {time.perf_counter() - t0:.1f} s -> "
+        + ", ".join(os.path.relpath(p, HERE) for p in built.values()))
 
     model = build_model(dev)
-    step = make_image_eval_step(model, imagesize=SIZE)
-    # a host tensor, as a user hands it over: the step moves it to the card
+    eval_step = make_image_eval_step(model, imagesize=SIZE)
+    # a host tensor, as a user hands it over: the steps move it to the card
     x_u8 = torch.from_numpy(synthetic_structured(BATCH, 3, SIZE, SIZE, seed=1))
     draws = lambda i: Draws(torch.Generator(device=dev).manual_seed(1000 + i))
+    # the benchmark's optimizer, schedule and EMA (bench.py:95-99)
+    optimizer = adam(linear_warmup(1e-3, 1000), betas=(0.9, 0.99), grad_clip=1.0)
+    step = make_image_train_step(model, optimizer, ema_decay=0.999,
+                                 n_lipschitz_iters=None, imagesize=SIZE)
+    tdraws = lambda i: Draws(torch.Generator(device=dev).manual_seed(2000 + i))
 
-    # phase 2: kernels vs plain at each scale's real inputs
-    blocks = capture_block_inputs(model, step, x_u8, draws(99))
+    check_bf16_double_backward(dev)
+
+    # phase 2: forward-solve kernels vs plain at each scale's real inputs
+    blocks = capture_block_inputs(model, eval_step, x_u8, draws(99))
     rows = check_kernels(blocks)
-    # phase 3: whole solves
+    # phase 3: whole forward solves
     check_solves(blocks)
 
-    # phase 4: the main path
-    fs.reset_launch_counts()
+    # phase 4: the evaluation path
+    reset_launch_counts()
     bpds, bpd0 = [], None
     for i in range(EVAL_BATCHES):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        m = step(x_u8, draws(i))
+        m = eval_step(x_u8, draws(i))
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
         bpd_vec = m["bpd_vec"]
@@ -370,18 +901,18 @@ def main():
         warn = triage_metrics(m)
         if warn:
             log(warn)
-    launches = fs.launch_counts()
-    log("kernels " + json.dumps(launches))
-    assert all(n > 0 for n in launches.values()), launches
+    eval_launches = launch_counts()
+    log("eval path kernels " + json.dumps(eval_launches))
+    assert all(eval_launches[n] > 0 for n in fs.KERNELS), eval_launches
 
-    profile_batch(model, step, x_u8, draws(0))
+    profile_batch(model, eval_step, x_u8, draws(0))
 
     # the plain path on batch 0's draws
     implicit_block.fused_broyden_solve = fs.fused_broyden_solve_plain
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mp = step(x_u8, draws(0))
+        mp = eval_step(x_u8, draws(0))
         torch.cuda.synchronize()
         pms = 1e3 * (time.perf_counter() - t0)
     finally:
@@ -392,9 +923,38 @@ def main():
     assert dbpd <= 1e-3, dbpd
     assert 1.0 < bpds[0] < 8.0, bpds
 
-    kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=TPU_KERNEL,
-                    launches=launches[name], **rows[name][0])
-               for name in fs.KERNELS]
+    # phases 5 and 6: the implicit-gradient kernels and functions on one
+    # training step's real inputs (gradients only: the weights stay put)
+    cap = capture_grad_inputs(step, x_u8, tdraws(99))
+    rows.update(check_grad_kernels(cap))
+    check_grad_functions(cap)
+
+    # phase 7: the training path
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    settle = train_steps(step, x_u8, tdraws, 0, SETTLE_STEPS)
+    timed = train_steps(step, x_u8, tdraws, SETTLE_STEPS, TIMED_STEPS)
+    launches = launch_counts()
+    log("train path kernels " + json.dumps(launches))
+    assert all(n > 0 for n in launches.values()), launches
+    ms = sorted(t for _, t in timed)
+    log(f"train steps: settle bpd {settle[-1][0]['bpd']:.5f}, timed ms "
+        f"{', '.join(f'{t:.1f}' for _, t in timed)} (median {ms[len(ms) // 2]:.1f}), "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    n = SETTLE_STEPS + TIMED_STEPS
+    breakdown_step(model, step, x_u8, tdraws(n))
+    profile_train_step(step, x_u8, tdraws(n + 1))
+    compare_plain_step(step, x_u8, lambda: tdraws(n + 2))
+
+    kernels = []
+    for name in list(fs.KERNELS) + list(ig.KERNELS):
+        lib, tpu = (("fused_solve", TPU_SOLVE) if name in fs.KERNELS else
+                    ("implicit_grad", TPU_BWD if name.startswith("jt_") else TPU_REATTACH))
+        row = dict(name=name, route="cuda", source=SOURCES[lib], replaces=tpu,
+                   launches=launches[name], **rows[name][0])
+        if name in fs.KERNELS:
+            row["eval_launches"] = eval_launches[name]
+        kernels.append(row)
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
-"""Solver configuration of the evaluation path.
+"""Solver and estimator configuration of the evaluation and training paths.
 
 Mirror of ``implicit_normalizing_flows_tpu/config.py:25-142`` restricted to
-the fields the forward solve reads, with the same ``IMNF_*`` environment
-names and defaults: each field is read from its environment variable, else
-takes the default below.
+the fields the port reads, with the same ``IMNF_*`` environment names and
+defaults: each field is read from its environment variable, else takes the
+default below.
 
 There is no kernel gate here: the CUDA kernels run for CUDA tensors and
 their plain PyTorch versions for CPU tensors (``ops.fused_solve``).
@@ -19,6 +19,14 @@ class KernelConfig:
     # phase-1 precision of the forward solve: "float32" | "tensorfloat32"
     # (3-pass bf16 split) | "tf32x" (4-pass).       [IMNF_SOLVER_PRECISION]
     solver_precision: str = "tensorfloat32"
+    # backward implicit-gradient solve precision: "f32" | "bf16".
+    #                                                    [IMNF_BWD_PRECISION]
+    bwd_precision: str = "bf16"
+    # re-attachment VJP precision: "f32" | "bf16" | "tf32".
+    #                                               [IMNF_REATTACH_PRECISION]
+    reattach_precision: str = "bf16"
+    # run the training Neumann estimator in bfloat16.          [IMNF_BF16_EST]
+    bf16_est: bool = True
     # precision-ladder stages re-arming still-unconverged examples under the
     # shared budget (comma-separated, ascending); "" disables. [IMNF_SOLVER_TAIL]
     solver_tail: str = "tf32x,f32"
@@ -29,6 +37,12 @@ class KernelConfig:
     warm_start: bool = True
     # forward Broyden budget override (None = the block's). [IMNF_FWD_THRESHOLD]
     fwd_threshold: int | None = None
+    # backward Broyden budget override (None = min(4, the block's
+    # threshold)).                                       [IMNF_BWD_THRESHOLD]
+    bwd_threshold: int | None = None
+    # estimator final-term form: "vjp" (the only one ported; "jvp"
+    # raises).                                              [IMNF_FINAL_FORM]
+    final_form: str = "vjp"
     # per-example stall exit (0 patience disables; guard <= 0 unguarded).
     #            [IMNF_STALL_PATIENCE / IMNF_STALL_RTOL / IMNF_STALL_GUARD]
     stall_patience: int = 5
@@ -44,10 +58,15 @@ class KernelConfig:
 
 _ENV_BY_FIELD = {
     "solver_precision": "IMNF_SOLVER_PRECISION",
+    "bwd_precision": "IMNF_BWD_PRECISION",
+    "reattach_precision": "IMNF_REATTACH_PRECISION",
+    "bf16_est": "IMNF_BF16_EST",
     "solver_tail": "IMNF_SOLVER_TAIL",
     "ladder_start": "IMNF_LADDER_START",
     "warm_start": "IMNF_WARM_START",
     "fwd_threshold": "IMNF_FWD_THRESHOLD",
+    "bwd_threshold": "IMNF_BWD_THRESHOLD",
+    "final_form": "IMNF_FINAL_FORM",
     "stall_patience": "IMNF_STALL_PATIENCE",
     "stall_rtol": "IMNF_STALL_RTOL",
     "stall_guard": "IMNF_STALL_GUARD",

@@ -20,12 +20,8 @@
 //                Its phase argument also runs the solve's initialisation and
 //                the precision ladder's re-arm.
 //
-// Precision: every product honours mode 0 f32 (FP32 FMAs), 1 bf16 (hi*hi),
-// 2 tf32 (hi*hi + hi*lo + lo*hi), 3 tf32x (+ lo*lo), with hi/lo the bf16
-// round-to-nearest split of each operand (__float2bfloat16_rn), exactly the
-// reference's _make_dot/_make_wdot error model. Products of two bf16 values
-// are exact in FP32, so only the order of the f32 sums differs. Weight-side
-// splits are prepared once per solve by the caller (w_hi / w_lo).
+// The conv kernels and the precision model (modes f32 / bf16 / tf32 /
+// tf32x) are shared with the implicit-gradient kernels: conv_gemm.cuh.
 //
 // What bounds them on H100: the two GEMM-shaped convs (conv1x1_mid is
 // ~90% of the MACs: 268M of 296M per example per net eval at 32x32) are
@@ -35,206 +31,11 @@
 // the bytes of the U/V planes it streams (2 x nstep x D floats per example).
 // mma/wgmma (the bf16 split maps onto bf16 tensor cores) is later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
+#include "conv_gemm.cuh"
 
 namespace {
 
-enum { MODE_F32 = 0, MODE_BF16 = 1, MODE_TF32 = 2, MODE_TF32X = 3 };
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void split(float v, int mode, float& hi, float& lo) {
-  if (mode == MODE_F32) { hi = v; lo = 0.f; return; }
-  hi = bf16_round(v);
-  lo = (mode >= MODE_TF32) ? bf16_round(v - hi) : 0.f;
-}
-
-template <int MODE>
-__device__ __forceinline__ float mac(float acc, float ah, float al, float bh, float bl) {
-  acc = fmaf(ah, bh, acc);
-  if (MODE >= MODE_TF32) {
-    acc = fmaf(ah, bl, acc);
-    acc = fmaf(al, bh, acc);
-  }
-  if (MODE == MODE_TF32X) acc = fmaf(al, bl, acc);
-  return acc;
-}
-
-__device__ __forceinline__ float swish(float t, float beta) {
-  return t * (1.f / (1.f + expf(-t * beta))) * (1.0f / 1.1f);
-}
-
-// ---------------------------------------------------------------------------
-// GEMM-shaped convs: out[slot][m][p] = swish(sum_k W[m][k] * Bop[k][p] + b[m])
-// SRC 0: Bop = im2col of [swish_b0](inp[idx[slot]]) (conv3x3, K = C*9,
-//        k = ci*9 + ky*3 + kx, the natural OIHW flattening of W)
-// SRC 1: Bop = inp[slot] (K x HW, conv1x1)
-constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4, GEMM_THREADS = 256;
-
-template <int MODE, int SRC>
-__global__ void __launch_bounds__(GEMM_THREADS) conv_gemm_swish_kernel(
-    const float* __restrict__ w_hi, const float* __restrict__ w_lo,
-    const float* __restrict__ bias, int M, int K,
-    const float* __restrict__ inp, const int* __restrict__ idx,
-    const int* __restrict__ count, int C, int H, int W, int preact,
-    float beta_pre, float beta_post, float* __restrict__ out) {
-  const int slot = blockIdx.z;
-  if (slot >= *count) return;
-  const int HW = H * W;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const float* src = (SRC == 0) ? inp + (size_t)idx[slot] * C * HW
-                                : inp + (size_t)slot * K * HW;
-  __shared__ float As[2][BK][BM];
-  __shared__ float Bs[2][BK][BN];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += GEMM_THREADS) {
-      const int mm = i / BK, kk = i % BK, m = m0 + mm, k = k0 + kk;
-      float h = 0.f, l = 0.f;
-      if (m < M && k < K) {
-        h = w_hi[(size_t)m * K + k];
-        if (MODE >= MODE_TF32) l = w_lo[(size_t)m * K + k];
-      }
-      As[0][kk][mm] = h;
-      As[1][kk][mm] = l;
-    }
-    for (int i = tid; i < BK * BN; i += GEMM_THREADS) {
-      const int kk = i / BN, nn = i % BN, k = k0 + kk, p = n0 + nn;
-      float v = 0.f;
-      if (k < K && p < HW) {
-        if (SRC == 0) {
-          const int ci = k / 9, d = k % 9;
-          const int yy = p / W + d / 3 - 1, xx = p % W + d % 3 - 1;
-          if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
-            v = src[(size_t)ci * HW + yy * W + xx];
-            if (preact) v = swish(v, beta_pre);
-          }
-        } else {
-          v = src[(size_t)k * HW + p];
-        }
-      }
-      float h, l;
-      split(v, MODE, h, l);
-      Bs[0][kk][nn] = h;
-      Bs[1][kk][nn] = l;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float ah[TM], al[TM], bh[TN], bl[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        ah[i] = As[0][kk][ty * TM + i];
-        al[i] = As[1][kk][ty * TM + i];
-      }
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        bh[j] = Bs[0][kk][tx * TN + j];
-        bl[j] = Bs[1][kk][tx * TN + j];
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j)
-          acc[i][j] = mac<MODE>(acc[i][j], ah[i], al[i], bh[j], bl[j]);
-    }
-    __syncthreads();
-  }
-  float* o = out + (size_t)slot * M * HW;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= M) continue;
-    const float b = bias[m];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int p = n0 + tx * TN + j;
-      if (p < HW) o[(size_t)m * HW + p] = swish(acc[i][j] + b, beta_post);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// conv3x3 mid -> C with the residual epilogue. One thread per (pixel, group
-// of 4 output channels); the group's weights for a chunk of MC mid channels
-// sit in shared memory, each split activation feeds 4 output channels.
-constexpr int OUT_THREADS = 128, OUT_CO = 4, OUT_MC = 64;
-
-template <int MODE>
-__global__ void __launch_bounds__(OUT_THREADS) conv3x3_out_kernel(
-    const float* __restrict__ w_hi, const float* __restrict__ w_lo,
-    const float* __restrict__ bias, const float* __restrict__ t2,
-    const int* __restrict__ idx, const int* __restrict__ count, int C, int MID,
-    int H, int W, const float* __restrict__ base, float sgn,
-    const float* __restrict__ sub, float* __restrict__ out) {
-  const int slot = blockIdx.z;
-  if (slot >= *count) return;
-  const int HW = H * W;
-  const int co0 = blockIdx.y * OUT_CO;
-  const int p = blockIdx.x * OUT_THREADS + threadIdx.x;
-  const bool valid = p < HW;
-  const int y = valid ? p / W : 0, x = valid ? p % W : 0;
-  const float* src = t2 + (size_t)slot * MID * HW;
-  __shared__ float ws[2][OUT_MC][9][OUT_CO];
-  float acc[OUT_CO];
-#pragma unroll
-  for (int j = 0; j < OUT_CO; ++j) acc[j] = 0.f;
-
-  for (int mc0 = 0; mc0 < MID; mc0 += OUT_MC) {
-    for (int i = threadIdx.x; i < OUT_MC * 9 * OUT_CO; i += OUT_THREADS) {
-      const int j = i % OUT_CO, d = (i / OUT_CO) % 9, mm = i / (OUT_CO * 9);
-      const int co = co0 + j, m = mc0 + mm;
-      float h = 0.f, l = 0.f;
-      if (co < C && m < MID) {
-        const size_t off = ((size_t)co * MID + m) * 9 + d;
-        h = w_hi[off];
-        if (MODE >= MODE_TF32) l = w_lo[off];
-      }
-      ws[0][mm][d][j] = h;
-      ws[1][mm][d][j] = l;
-    }
-    __syncthreads();
-    if (valid) {
-      const int mend = min(OUT_MC, MID - mc0);
-      for (int mm = 0; mm < mend; ++mm) {
-        const float* plane = src + (size_t)(mc0 + mm) * HW;
-#pragma unroll
-        for (int d = 0; d < 9; ++d) {
-          const int yy = y + d / 3 - 1, xx = x + d % 3 - 1;
-          float v = 0.f;
-          if (yy >= 0 && yy < H && xx >= 0 && xx < W) v = __ldg(plane + yy * W + xx);
-          float h, l;
-          split(v, MODE, h, l);
-#pragma unroll
-          for (int j = 0; j < OUT_CO; ++j)
-            acc[j] = mac<MODE>(acc[j], ws[0][mm][d][j], ws[1][mm][d][j], h, l);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (!valid) return;
-  const size_t e = (size_t)idx[slot];
-#pragma unroll
-  for (int j = 0; j < OUT_CO; ++j) {
-    const int co = co0 + j;
-    if (co >= C) continue;
-    const size_t off = (e * C + co) * HW + p;
-    float o = base[off] + sgn * (acc[j] + bias[co]);
-    if (sub != nullptr) o -= sub[off];
-    out[off] = o;
-  }
-}
+using namespace imnf;
 
 // ---------------------------------------------------------------------------
 // broyden_step: one block per active example (_broyden_in_kernel body).
@@ -444,21 +245,22 @@ __global__ void __launch_bounds__(STEP_THREADS) broyden_step_kernel(
 }
 
 template <int MODE>
-cudaError_t launch_gemm(int src, const float* w_hi, const float* w_lo,
-                        const float* bias, int M, int K, const float* inp,
-                        const int* idx, const int* count, int B, int C, int H,
-                        int W, int preact, float beta_pre, float beta_post,
-                        float* out, cudaStream_t stream) {
-  dim3 grid((H * W + BN - 1) / BN, (M + BM - 1) / BM, B);
-  if (src == 0)
-    conv_gemm_swish_kernel<MODE, 0><<<grid, GEMM_THREADS, 0, stream>>>(
-        w_hi, w_lo, bias, M, K, inp, idx, count, C, H, W, preact, beta_pre,
-        beta_post, out);
-  else
-    conv_gemm_swish_kernel<MODE, 1><<<grid, GEMM_THREADS, 0, stream>>>(
-        w_hi, w_lo, bias, M, K, inp, idx, count, C, H, W, preact, beta_pre,
-        beta_post, out);
-  return cudaGetLastError();
+cudaError_t launch_gemm(int src, int preact, const float* w_hi,
+                        const float* w_lo, const float* bias, int M, int K,
+                        const float* inp, const int* idx, const int* count,
+                        int B, int C, int H, int W, float beta_pre,
+                        float beta_post, float* out, cudaStream_t s) {
+  if (src == 1)
+    return launch_conv_gemm<MODE, 1, IN_ID, EPI_SWISH>(
+        w_hi, w_lo, bias, M, K, inp, nullptr, idx, count, B, C, H, W, 0.f,
+        beta_post, 1.f, nullptr, out, s);
+  if (preact)
+    return launch_conv_gemm<MODE, 0, IN_SWISH, EPI_SWISH>(
+        w_hi, w_lo, bias, M, K, inp, nullptr, idx, count, B, C, H, W,
+        beta_pre, beta_post, 1.f, nullptr, out, s);
+  return launch_conv_gemm<MODE, 0, IN_ID, EPI_SWISH>(
+      w_hi, w_lo, bias, M, K, inp, nullptr, idx, count, B, C, H, W, beta_pre,
+      beta_post, 1.f, nullptr, out, s);
 }
 
 cudaError_t dispatch_gemm(int mode, int src, const float* w_hi,
@@ -468,10 +270,10 @@ cudaError_t dispatch_gemm(int mode, int src, const float* w_hi,
                           float beta_pre, float beta_post, float* out,
                           cudaStream_t s) {
   switch (mode) {
-    case MODE_F32: return launch_gemm<MODE_F32>(src, w_hi, w_lo, bias, M, K, inp, idx, count, B, C, H, W, preact, beta_pre, beta_post, out, s);
-    case MODE_BF16: return launch_gemm<MODE_BF16>(src, w_hi, w_lo, bias, M, K, inp, idx, count, B, C, H, W, preact, beta_pre, beta_post, out, s);
-    case MODE_TF32: return launch_gemm<MODE_TF32>(src, w_hi, w_lo, bias, M, K, inp, idx, count, B, C, H, W, preact, beta_pre, beta_post, out, s);
-    case MODE_TF32X: return launch_gemm<MODE_TF32X>(src, w_hi, w_lo, bias, M, K, inp, idx, count, B, C, H, W, preact, beta_pre, beta_post, out, s);
+    case MODE_F32: return launch_gemm<MODE_F32>(src, preact, w_hi, w_lo, bias, M, K, inp, idx, count, B, C, H, W, beta_pre, beta_post, out, s);
+    case MODE_BF16: return launch_gemm<MODE_BF16>(src, preact, w_hi, w_lo, bias, M, K, inp, idx, count, B, C, H, W, beta_pre, beta_post, out, s);
+    case MODE_TF32: return launch_gemm<MODE_TF32>(src, preact, w_hi, w_lo, bias, M, K, inp, idx, count, B, C, H, W, beta_pre, beta_post, out, s);
+    case MODE_TF32X: return launch_gemm<MODE_TF32X>(src, preact, w_hi, w_lo, bias, M, K, inp, idx, count, B, C, H, W, beta_pre, beta_post, out, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -507,16 +309,14 @@ int imnf_conv3x3_out(int mode, const float* w_hi, const float* w_lo,
                      const int* count, int B, int C, int mid, int H, int W,
                      const float* base, float sgn, const float* sub,
                      float* out, void* stream) {
-  dim3 grid((H * W + OUT_THREADS - 1) / OUT_THREADS, (C + OUT_CO - 1) / OUT_CO, B);
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
-    case MODE_F32: conv3x3_out_kernel<MODE_F32><<<grid, OUT_THREADS, 0, s>>>(w_hi, w_lo, bias, t2, idx, count, C, mid, H, W, base, sgn, sub, out); break;
-    case MODE_BF16: conv3x3_out_kernel<MODE_BF16><<<grid, OUT_THREADS, 0, s>>>(w_hi, w_lo, bias, t2, idx, count, C, mid, H, W, base, sgn, sub, out); break;
-    case MODE_TF32: conv3x3_out_kernel<MODE_TF32><<<grid, OUT_THREADS, 0, s>>>(w_hi, w_lo, bias, t2, idx, count, C, mid, H, W, base, sgn, sub, out); break;
-    case MODE_TF32X: conv3x3_out_kernel<MODE_TF32X><<<grid, OUT_THREADS, 0, s>>>(w_hi, w_lo, bias, t2, idx, count, C, mid, H, W, base, sgn, sub, out); break;
-    default: return (int)cudaErrorInvalidValue;
+    case MODE_F32: return (int)launch_conv3x3_out<MODE_F32, IN_ID>(w_hi, w_lo, bias, t2, nullptr, 0.f, idx, count, B, C, mid, H, W, base, sgn, nullptr, sub, out, s);
+    case MODE_BF16: return (int)launch_conv3x3_out<MODE_BF16, IN_ID>(w_hi, w_lo, bias, t2, nullptr, 0.f, idx, count, B, C, mid, H, W, base, sgn, nullptr, sub, out, s);
+    case MODE_TF32: return (int)launch_conv3x3_out<MODE_TF32, IN_ID>(w_hi, w_lo, bias, t2, nullptr, 0.f, idx, count, B, C, mid, H, W, base, sgn, nullptr, sub, out, s);
+    case MODE_TF32X: return (int)launch_conv3x3_out<MODE_TF32X, IN_ID>(w_hi, w_lo, bias, t2, nullptr, 0.f, idx, count, B, C, mid, H, W, base, sgn, nullptr, sub, out, s);
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 int imnf_broyden_step(int phase, const int* idx_in, const int* cnt_in,

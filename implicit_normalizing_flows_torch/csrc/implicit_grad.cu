@@ -1,0 +1,426 @@
+// Hopper (sm_90a) kernels of the implicit gradient: the backward Broyden
+// solve u (I + J_gz) = grad and the re-attachment VJP.
+//
+// Replaces the TPU kernels implicit_normalizing_flows_tpu/ops/fused_solve.py
+// ::fused_backward_solve (:930; _backward_kernel :893, _make_apply_jt :867)
+// and ::fused_reattach_vjp (:1226; _reattach_vjp_kernel :1146,
+// _net_vjp_in_kernel :1093). The TPU kernels keep one example's
+// linearisation (s0, s1, s2) or forward intermediates resident in VMEM and
+// accumulate the weight gradients across the sequential grid in VMEM tiles.
+// On Hopper the blocks run in parallel, so the work is re-cut into batched
+// kernels over the whole batch, written once and shared through
+// conv_gemm.cuh:
+//
+// backward solve (host loop; broyden_step of fused_solve.cu does the
+// secant algebra, on the same active lists):
+//   jt_conv3x3_in   C3^T u * s2          c -> mid, flipped w3   (im2col GEMM)
+//   jt_conv1x1_mid  C2^T t * s1          mid -> mid, w2^T        (tiled GEMM)
+//   jt_conv3x3_out  u + s0 * C1^T t - grad   mid -> c, flipped w1
+// re-attachment VJP, per net (x at x with cotangent u; z at z_hat with -u):
+//   rv_conv3x3_in   h1 = W1 [swish](h) + b1, and t2 = sign * C3^T u
+//   rv_conv1x1_mid  h2 = W2 swish(h1) + b2, and t1 = C2^T (t2 swish'(h2))
+//   rv_conv3x3_out  t0 = C1^T (t1 swish'(h1))
+//   rv_wgrad        split-K partial sums of dW3 = cot x shift(swish(h2)),
+//                   dW2 = t2 swish'(h2) x swish(h1), dW1 = t1 swish'(h1) x
+//                   shift(a0), summed over batch x pixels
+//   rv_wgrad_reduce the fixed-order sum over the splits (deterministic: no
+//                   float atomics)
+//   rv_chan_sums    per-channel bias grads and swish-slope grads
+//                   (sum t swish'(h), sum t dswish/dbeta(h)), and
+//                   d_x = u + t0 swish'(x)
+//
+// Precision: the backward solve honours mode f32 | bf16 (IMNF_BWD_PRECISION),
+// the re-attachment f32 | bf16 | tf32 (IMNF_REATTACH_PRECISION): every
+// product rounds both operands as _make_dot / _make_wdot do, f32 sums. The
+// backward solve reads s0/s1/s2 as the linearisation stores them, bfloat16
+// in mode bf16 (as the TPU kernel takes them), which halves their traffic.
+//
+// What bounds them on H100: FP32 CUDA-core operations. One J^T application
+// at 32x32 is ~296M MACs per example (268M in the 1x1); the re-attachment is
+// ~3 x 296M per net and example (forward, cotangent and weight-gradient
+// products). The GEMMs keep 64x64 tiles in shared memory with a 4x4
+// register micro-tile per thread (16 FMAs per loaded element); the weight
+// gradients, which reduce over batch x pixels (65,536 terms at 32x32), split
+// that reduction over enough blocks to fill the 132 SMs and sum the splits in
+// a second pass. Tensor cores (the bf16 mode maps onto them directly) are
+// later work.
+
+#include "conv_gemm.cuh"
+
+namespace {
+
+using namespace imnf;
+
+// ---------------------------------------------------------------------------
+// weight gradients: part[split][m][n] = sum over k = (b, p) in the split of
+//   A(b, m, p) * B(b, n, p)
+// A = a[b][m][p] (AIN_ID) or a * swish'(ah; beta_a) (AIN IN_DSWISH)
+// B = BIN(bsrc[b][n][p]) (BSH 0) or, with n = ci*9 + ky*3 + kx,
+//     BIN(bsrc[b][ci][p shifted by (ky-1, kx-1)]) with zero padding (BSH 1)
+// BIN: IN_ID or IN_SWISH(beta_b). Both operands split in MODE.
+// The caller guarantees HW % WG_BK == 0 and kchunk % WG_BK == 0, so a K
+// step never straddles two examples: (b, p) are worked out once per step.
+constexpr int WG_BN = 64, WG_BK = 16, WG_THREADS = 256;
+
+template <int MODE, int WBM, int AIN, int BIN, int BSH>
+__global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(
+    const float* __restrict__ a, const float* __restrict__ ah, float beta_a,
+    const float* __restrict__ bsrc, float beta_b, int M, int N, int Cb, int H,
+    int W, int Bn, long long kchunk, float* __restrict__ part) {
+  constexpr int WTM = WBM / 16, WTN = 4;
+  const int HW = H * W;
+  const long long ktot = (long long)Bn * HW;
+  const int n0 = blockIdx.x * WG_BN, m0 = blockIdx.y * WBM;
+  const long long kbeg = (long long)blockIdx.z * kchunk;
+  const long long kend = min(ktot, kbeg + kchunk);
+  // +1 column: the loads walk k fastest, so unpadded rows would put all
+  // 16 k of one m (or n) in one bank
+  __shared__ float As[2][WG_BK][WBM + 1];
+  __shared__ float Bs[2][WG_BK][WG_BN + 1];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float acc[WTM][WTN];
+#pragma unroll
+  for (int i = 0; i < WTM; ++i)
+#pragma unroll
+    for (int j = 0; j < WTN; ++j) acc[i][j] = 0.f;
+
+  for (long long k0 = kbeg; k0 < kend; k0 += WG_BK) {
+    const int b = (int)(k0 / HW), p0 = (int)(k0 % HW);
+    for (int i = tid; i < WBM * WG_BK; i += WG_THREADS) {
+      const int mm = i / WG_BK, kk = i % WG_BK, m = m0 + mm;
+      float v = 0.f;
+      if (m < M && k0 + kk < kend) {
+        const size_t off = ((size_t)b * M + m) * HW + p0 + kk;
+        v = in_xform<AIN>(a[off], ah, off, beta_a);
+      }
+      float h, l;
+      split(v, MODE, h, l);
+      As[0][kk][mm] = h;
+      As[1][kk][mm] = l;
+    }
+    for (int i = tid; i < WG_BN * WG_BK; i += WG_THREADS) {
+      const int nn = i / WG_BK, kk = i % WG_BK, n = n0 + nn;
+      float v = 0.f;
+      if (n < N && k0 + kk < kend) {
+        const int p = p0 + kk;
+        int ch = n, yy = p / W, xx = p % W;
+        if (BSH) {
+          ch = n / 9;
+          const int d = n % 9;
+          yy += d / 3 - 1;
+          xx += d % 3 - 1;
+        }
+        if (yy >= 0 && yy < H && xx >= 0 && xx < W)
+          v = in_xform<BIN>(bsrc[((size_t)b * Cb + ch) * HW + yy * W + xx],
+                            nullptr, 0, beta_b);
+      }
+      float h, l;
+      split(v, MODE, h, l);
+      Bs[0][kk][nn] = h;
+      Bs[1][kk][nn] = l;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < WG_BK; ++kk) {
+      float ahv[WTM], alv[WTM], bhv[WTN], blv[WTN];
+#pragma unroll
+      for (int i = 0; i < WTM; ++i) {
+        ahv[i] = As[0][kk][ty * WTM + i];
+        alv[i] = As[1][kk][ty * WTM + i];
+      }
+#pragma unroll
+      for (int j = 0; j < WTN; ++j) {
+        bhv[j] = Bs[0][kk][tx * WTN + j];
+        blv[j] = Bs[1][kk][tx * WTN + j];
+      }
+#pragma unroll
+      for (int i = 0; i < WTM; ++i)
+#pragma unroll
+        for (int j = 0; j < WTN; ++j)
+          acc[i][j] = mac<MODE>(acc[i][j], ahv[i], alv[i], bhv[j], blv[j]);
+    }
+    __syncthreads();
+  }
+  float* o = part + (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int i = 0; i < WTM; ++i) {
+    const int m = m0 + ty * WTM + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < WTN; ++j) {
+      const int n = n0 + tx * WTN + j;
+      if (n < N) o[(size_t)m * N + n] = acc[i][j];
+    }
+  }
+}
+
+// out[i] = alpha * sum_{s < S} part[s][i], the splits in order
+__global__ void wgrad_reduce_kernel(const float* __restrict__ part, int S,
+                                    long long MN, float alpha,
+                                    float* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= MN) return;
+  float s = 0.f;
+  for (int k = 0; k < S; ++k) s += part[(size_t)k * MN + i];
+  out[i] = alpha * s;
+}
+
+// ---------------------------------------------------------------------------
+// Per-channel sums, one block per channel m of t (Bn, M, HW):
+//   g = t * swish'(h; beta) (with h) or t (without)
+//   sums[m] = alpha * sum_{b,p} g;  dbeta[m] = sum_{b,p} t * dswish/dbeta(h)
+//   out[b][m][p] = [base[b][m][p]] + g   (when out is given)
+// The block's partial sums combine in a fixed tree: deterministic.
+constexpr int CS_THREADS = 256, CS_WARPS = CS_THREADS / 32;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <bool HAS_H>
+__global__ void __launch_bounds__(CS_THREADS) chan_sums_kernel(
+    const float* __restrict__ t, const float* __restrict__ h, float beta,
+    const float* __restrict__ base, int Bn, int M, int HW, float alpha,
+    float* __restrict__ sums, float* __restrict__ dbeta,
+    float* __restrict__ out) {
+  const int m = blockIdx.x;
+  const int n = Bn * HW;
+  float sg = 0.f, sb = 0.f;
+  for (int i = threadIdx.x; i < n; i += CS_THREADS) {
+    const int b = i / HW, p = i % HW;
+    const size_t off = ((size_t)b * M + m) * HW + p;
+    const float tv = t[off];
+    float g = tv;
+    if (HAS_H) {
+      const float hv = h[off];
+      g = tv * dswish(hv, beta);
+      sb += tv * dswish_dbeta(hv, beta);
+    }
+    sg += g;
+    if (out != nullptr) out[off] = (base != nullptr ? base[off] : 0.f) + g;
+  }
+  __shared__ float red[2][CS_WARPS];
+  sg = warp_sum(sg);
+  sb = warp_sum(sb);
+  if (threadIdx.x % 32 == 0) {
+    red[0][threadIdx.x / 32] = sg;
+    red[1][threadIdx.x / 32] = sb;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float a = 0.f, c = 0.f;
+    for (int w = 0; w < CS_WARPS; ++w) { a += red[0][w]; c += red[1][w]; }
+    sums[m] = alpha * a;
+    if (dbeta != nullptr) dbeta[m] = c;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host-side dispatch
+
+// The J^T stages read their derivative factors s0/s1/s2 as stored: float32
+// (ST float) or bfloat16 (ST __nv_bfloat16, mode bf16's linearisation).
+template <int MODE, typename ST>
+cudaError_t jt_gemm(int src, const float* w_hi, const float* w_lo, int M,
+                    int K, const float* inp, const int* idx, const int* count,
+                    int B, int C, int H, int W, const ST* scale, float* out,
+                    cudaStream_t s) {
+  if (src == 0)
+    return launch_conv_gemm<MODE, 0, IN_ID, EPI_SCALE, ST>(
+        w_hi, w_lo, nullptr, M, K, inp, nullptr, idx, count, B, C, H, W, 0.f,
+        0.f, 1.f, scale, out, s);
+  return launch_conv_gemm<MODE, 1, IN_ID, EPI_SCALE, ST>(
+      w_hi, w_lo, nullptr, M, K, inp, nullptr, idx, count, B, C, H, W, 0.f,
+      0.f, 1.f, scale, out, s);
+}
+
+template <typename ST>
+cudaError_t jt_gemm_mode(int mode, int src, const float* w_hi,
+                         const float* w_lo, int M, int K, const float* inp,
+                         const int* idx, const int* count, int B, int C, int H,
+                         int W, const void* scale, float* out, cudaStream_t s) {
+  const ST* sc = static_cast<const ST*>(scale);
+  switch (mode) {
+    case MODE_F32: return jt_gemm<MODE_F32, ST>(src, w_hi, w_lo, M, K, inp, idx, count, B, C, H, W, sc, out, s);
+    case MODE_BF16: return jt_gemm<MODE_BF16, ST>(src, w_hi, w_lo, M, K, inp, idx, count, B, C, H, W, sc, out, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename ST>
+cudaError_t jt_out_mode(int mode, const float* w_hi, const float* w_lo,
+                        const float* t, const int* idx, const int* count, int B,
+                        int C, int mid, int H, int W, const float* base,
+                        const void* scale, const float* sub, float* out,
+                        cudaStream_t s) {
+  const ST* sc = static_cast<const ST*>(scale);
+  switch (mode) {
+    case MODE_F32: return launch_conv3x3_out<MODE_F32, IN_ID, ST>(w_hi, w_lo, nullptr, t, nullptr, 0.f, idx, count, B, C, mid, H, W, base, 1.f, sc, sub, out, s);
+    case MODE_BF16: return launch_conv3x3_out<MODE_BF16, IN_ID, ST>(w_hi, w_lo, nullptr, t, nullptr, 0.f, idx, count, B, C, mid, H, W, base, 1.f, sc, sub, out, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// act: 0 IN_ID, 1 IN_SWISH, 2 IN_DSWISH
+template <int MODE>
+cudaError_t rv_gemm(int src, int act, const float* w_hi, const float* w_lo,
+                    const float* bias, int M, int K, const float* inp,
+                    const float* inh, const int* idx, const int* count, int B,
+                    int C, int H, int W, float beta_in, float alpha,
+                    float* out, cudaStream_t s) {
+#define RV_GEMM(SRC, IN)                                                     \
+  return launch_conv_gemm<MODE, SRC, IN, EPI_AFFINE>(                        \
+      w_hi, w_lo, bias, M, K, inp, inh, idx, count, B, C, H, W, beta_in,     \
+      0.f, alpha, nullptr, out, s)
+  if (src == 0) {
+    if (act == IN_ID) RV_GEMM(0, IN_ID);
+    if (act == IN_SWISH) RV_GEMM(0, IN_SWISH);
+  } else {
+    if (act == IN_SWISH) RV_GEMM(1, IN_SWISH);
+    if (act == IN_DSWISH) RV_GEMM(1, IN_DSWISH);
+  }
+#undef RV_GEMM
+  return cudaErrorInvalidValue;
+}
+
+// kind: 0 dW3 (a plain, b swish shifted, 16-row tiles: M = c is small),
+//       1 dW2 (a dswish, b swish), 2 dW1 (a dswish, b id shifted),
+//       3 dW1 with preact (a dswish, b swish shifted)
+template <int MODE>
+cudaError_t wgrad_launch(int kind, const float* a, const float* ah,
+                         float beta_a, const float* bsrc, float beta_b, int M,
+                         int N, int Cb, int H, int W, int Bn, int splits,
+                         long long kchunk, float* part, cudaStream_t s) {
+  const int wbm = kind == 0 ? 16 : 64;
+  dim3 grid((N + WG_BN - 1) / WG_BN, (M + wbm - 1) / wbm, splits);
+#define WG(WBM, AIN, BIN, BSH)                                               \
+  wgrad_kernel<MODE, WBM, AIN, BIN, BSH><<<grid, WG_THREADS, 0, s>>>(        \
+      a, ah, beta_a, bsrc, beta_b, M, N, Cb, H, W, Bn, kchunk, part)
+  switch (kind) {
+    case 0: WG(16, IN_ID, IN_SWISH, 1); break;
+    case 1: WG(64, IN_DSWISH, IN_SWISH, 0); break;
+    case 2: WG(64, IN_DSWISH, IN_ID, 1); break;
+    case 3: WG(64, IN_DSWISH, IN_SWISH, 1); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef WG
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Every entry point launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() right after its launch (0 on success).
+
+// The J^T entry points take their scale (s2, s1, s0) as float32 or, with
+// scale_bf16, as bfloat16.
+int imnf_jt_conv3x3_in(int mode, const float* w_hi, const float* w_lo,
+                       const float* inp, const int* idx, const int* count,
+                       const void* scale, int scale_bf16, int B, int C, int H,
+                       int W, int mid, float* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (scale_bf16)
+    return (int)jt_gemm_mode<__nv_bfloat16>(mode, 0, w_hi, w_lo, mid, C * 9, inp, idx, count, B, C, H, W, scale, out, s);
+  return (int)jt_gemm_mode<float>(mode, 0, w_hi, w_lo, mid, C * 9, inp, idx, count, B, C, H, W, scale, out, s);
+}
+
+int imnf_jt_conv1x1_mid(int mode, const float* w_hi, const float* w_lo,
+                        const float* inp, const int* idx, const int* count,
+                        const void* scale, int scale_bf16, int B, int mid,
+                        int H, int W, float* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (scale_bf16)
+    return (int)jt_gemm_mode<__nv_bfloat16>(mode, 1, w_hi, w_lo, mid, mid, inp, idx, count, B, mid, H, W, scale, out, s);
+  return (int)jt_gemm_mode<float>(mode, 1, w_hi, w_lo, mid, mid, inp, idx, count, B, mid, H, W, scale, out, s);
+}
+
+int imnf_jt_conv3x3_out(int mode, const float* w_hi, const float* w_lo,
+                        const float* t, const int* idx, const int* count,
+                        int B, int C, int mid, int H, int W, const float* base,
+                        const void* scale, int scale_bf16, const float* sub,
+                        float* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (scale_bf16)
+    return (int)jt_out_mode<__nv_bfloat16>(mode, w_hi, w_lo, t, idx, count, B, C, mid, H, W, base, scale, sub, out, s);
+  return (int)jt_out_mode<float>(mode, w_hi, w_lo, t, idx, count, B, C, mid, H, W, base, scale, sub, out, s);
+}
+
+int imnf_rv_conv3x3_in(int mode, int act, const float* w_hi,
+                       const float* w_lo, const float* bias, float alpha,
+                       float beta_in, const float* inp, const int* idx,
+                       const int* count, int B, int C, int H, int W, int mid,
+                       float* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (mode) {
+    case MODE_F32: return (int)rv_gemm<MODE_F32>(0, act, w_hi, w_lo, bias, mid, C * 9, inp, nullptr, idx, count, B, C, H, W, beta_in, alpha, out, s);
+    case MODE_BF16: return (int)rv_gemm<MODE_BF16>(0, act, w_hi, w_lo, bias, mid, C * 9, inp, nullptr, idx, count, B, C, H, W, beta_in, alpha, out, s);
+    case MODE_TF32: return (int)rv_gemm<MODE_TF32>(0, act, w_hi, w_lo, bias, mid, C * 9, inp, nullptr, idx, count, B, C, H, W, beta_in, alpha, out, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int imnf_rv_conv1x1_mid(int mode, int act, const float* w_hi,
+                        const float* w_lo, const float* bias, float alpha,
+                        float beta_in, const float* inp, const float* inh,
+                        const int* count, int B, int mid, int H, int W,
+                        float* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (mode) {
+    case MODE_F32: return (int)rv_gemm<MODE_F32>(1, act, w_hi, w_lo, bias, mid, mid, inp, inh, nullptr, count, B, mid, H, W, beta_in, alpha, out, s);
+    case MODE_BF16: return (int)rv_gemm<MODE_BF16>(1, act, w_hi, w_lo, bias, mid, mid, inp, inh, nullptr, count, B, mid, H, W, beta_in, alpha, out, s);
+    case MODE_TF32: return (int)rv_gemm<MODE_TF32>(1, act, w_hi, w_lo, bias, mid, mid, inp, inh, nullptr, count, B, mid, H, W, beta_in, alpha, out, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int imnf_rv_conv3x3_out(int mode, const float* w_hi, const float* w_lo,
+                        const float* t, const float* th, float beta_in,
+                        const int* idx, const int* count, int B, int C,
+                        int mid, int H, int W, float* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (mode) {
+    case MODE_F32: return (int)launch_conv3x3_out<MODE_F32, IN_DSWISH>(w_hi, w_lo, nullptr, t, th, beta_in, idx, count, B, C, mid, H, W, nullptr, 1.f, nullptr, nullptr, out, s);
+    case MODE_BF16: return (int)launch_conv3x3_out<MODE_BF16, IN_DSWISH>(w_hi, w_lo, nullptr, t, th, beta_in, idx, count, B, C, mid, H, W, nullptr, 1.f, nullptr, nullptr, out, s);
+    case MODE_TF32: return (int)launch_conv3x3_out<MODE_TF32, IN_DSWISH>(w_hi, w_lo, nullptr, t, th, beta_in, idx, count, B, C, mid, H, W, nullptr, 1.f, nullptr, nullptr, out, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int imnf_rv_wgrad(int mode, int kind, const float* a, const float* ah,
+                  float beta_a, const float* bsrc, float beta_b, int M, int N,
+                  int Cb, int H, int W, int Bn, int splits, long long kchunk,
+                  float* part, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (mode) {
+    case MODE_F32: return (int)wgrad_launch<MODE_F32>(kind, a, ah, beta_a, bsrc, beta_b, M, N, Cb, H, W, Bn, splits, kchunk, part, s);
+    case MODE_BF16: return (int)wgrad_launch<MODE_BF16>(kind, a, ah, beta_a, bsrc, beta_b, M, N, Cb, H, W, Bn, splits, kchunk, part, s);
+    case MODE_TF32: return (int)wgrad_launch<MODE_TF32>(kind, a, ah, beta_a, bsrc, beta_b, M, N, Cb, H, W, Bn, splits, kchunk, part, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int imnf_rv_wgrad_reduce(const float* part, int S, long long MN, float alpha,
+                         float* out, void* stream) {
+  const int threads = 256;
+  const long long blocks = (MN + threads - 1) / threads;
+  wgrad_reduce_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      part, S, MN, alpha, out);
+  return (int)cudaGetLastError();
+}
+
+int imnf_rv_chan_sums(const float* t, const float* h, float beta,
+                      const float* base, int Bn, int M, int HW, float alpha,
+                      float* sums, float* dbeta, float* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (h != nullptr)
+    chan_sums_kernel<true><<<M, CS_THREADS, 0, s>>>(t, h, beta, base, Bn, M, HW, alpha, sums, dbeta, out);
+  else
+    chan_sums_kernel<false><<<M, CS_THREADS, 0, s>>>(t, h, beta, base, Bn, M, HW, alpha, sums, dbeta, out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -12,9 +12,14 @@ class Swish(nn.Module):
         super().__init__()
         self.beta = nn.Parameter(torch.full((1,), 0.5, device=device))
 
-    def slope(self):
-        """softplus(beta) as a 0-d tensor."""
-        return F.softplus(self.beta).reshape(())
+    def slope(self, dtype=None):
+        """softplus(beta) as a 0-d tensor, computed in ``dtype`` (default
+        the parameter's) from the cast parameter, as the JAX package does
+        under its bfloat16 casts."""
+        beta = self.beta if dtype is None else self.beta.to(dtype)
+        return F.softplus(beta).reshape(())
 
     def forward(self, x):
-        return x * torch.sigmoid(x * F.softplus(self.beta)) / 1.1
+        """In ``x``'s dtype: a bfloat16 input runs the whole activation in
+        bfloat16 (the training estimator's casts)."""
+        return x * torch.sigmoid(x * self.slope(x.dtype)) / 1.1

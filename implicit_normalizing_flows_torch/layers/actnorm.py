@@ -1,6 +1,7 @@
 """``ActNorm2d`` forward (``layers/actnorm.py`` of the JAX package):
-``y = (x + bias) * exp(weight)`` per channel. The data-dependent init pass
-is training-side and comes with that slice."""
+``y = (x + bias) * exp(weight)`` per channel, differentiable in both. The
+data-dependent init pass is not ported (training starts from a
+checkpoint)."""
 from __future__ import annotations
 
 import torch
@@ -15,7 +16,7 @@ class ActNorm2d(Flow):
         self.weight = nn.Parameter(torch.zeros(num_features, device=device))
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
 
-    def forward(self, x, logpx=None, draws=None):
+    def forward(self, x, logpx=None, draws=None, train=False):
         y = (x + self.bias[None, :, None, None]) * torch.exp(self.weight[None, :, None, None])
         if logpx is None:
             return y, None

@@ -6,7 +6,7 @@ from torch import nn
 
 
 class SequentialFlow(nn.ModuleList):
-    def forward(self, x, logpx=None, draws=None):
+    def forward(self, x, logpx=None, draws=None, train=False):
         for layer in self:
-            x, logpx = layer(x, logpx, draws)
+            x, logpx = layer(x, logpx, draws, train=train)
         return x, logpx

@@ -19,7 +19,7 @@ class LogitTransform(Flow):
         per_elem = -torch.log(s - s * s) + math.log(1 - 2 * self.alpha)
         return per_elem.reshape(x.shape[0], -1).sum(1)
 
-    def forward(self, x, logpx=None, draws=None):
+    def forward(self, x, logpx=None, draws=None, train=False):
         s = self.alpha + (1 - 2 * self.alpha) * x
         y = torch.log(s) - torch.log(1 - s)
         if logpx is None:

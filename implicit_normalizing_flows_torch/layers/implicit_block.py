@@ -1,14 +1,30 @@
-"""The implicit flow block, evaluation path: ``z`` is the root of
+"""The implicit flow block: ``z`` is the root of
 ``(x + g_x(x)) - (z + g_z(z)) = 0`` and ``logdet|dz/dx| = logdet(I + J_gx)(x)
 - logdet(I + J_gz)(z)``.
 
-Counterpart of ``ImplicitBlock.forward`` with ``train=False``
-(``layers/implicit_block.py:739-751`` of the JAX package): the fused solve
-with the per-example Banach fallback on protective-break rows (``:230-271``),
-the 5-slot solver telemetry (``:112-137``), the precision-ladder arguments
-(``:147-186``) and the basic log-det estimator (``:826-982``, ``neumann``
-off in eval). The inverse (sampling) and the training path are later
-slices.
+Counterpart of ``ImplicitBlock.forward`` (``layers/implicit_block.py:739-751``
+of the JAX package): the fused solve with the per-example Banach fallback on
+protective-break rows (``:230-271``), the 5-slot solver telemetry
+(``:112-137``) and the precision-ladder arguments (``:147-186``).
+
+* Evaluation (``train=False``): the basic log-det estimator with the test
+  exact-term budget (``:826-982``, ``neumann`` off).
+* Training (``train=True``): the implicit gradient as a
+  ``torch.autograd.Function`` (``_make_implicit_forward``'s custom VJP and
+  ``_make_bwd_core``, ``:316-466``). Its forward solves without gradient
+  and returns the re-attached ``z = z_hat + g(z_hat)``; its backward solves
+  ``u (I + J_gz) = grad`` at the re-attached z (``fused_backward_solve``)
+  and runs the re-attachment VJP at ``z_hat`` (``fused_reattach_vjp``),
+  whose gradients w.r.t. the effective kernels, biases and slopes autograd
+  pulls back through ``conv_forward_data`` to the raw parameters (the
+  soft-normalisation and softplus chain). The log-det is the Neumann
+  gradient estimator (``grad_in_forward``: under non-reentrant
+  ``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``,
+  ``:907-910``), in bfloat16 under ``IMNF_BF16_EST`` (``:880-898``).
+  ``grad_in_forward=False`` runs the fused Neumann chain and final-pair
+  kernels in the JAX package and is not ported yet.
+
+The inverse (sampling) is a later slice.
 """
 from __future__ import annotations
 
@@ -17,19 +33,24 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import kernel_config
 from ..ops import logdet as ld
 from ..ops.broyden import fixed_point_iteration
 from ..ops.fused_solve import fused_broyden_solve
+from ..ops.implicit_grad import (DATA_KEYS, fused_backward_solve,
+                                 fused_reattach_vjp)
 from .protocol import Flow
 
 
 @dataclass(frozen=True)
 class SolverConfig:
-    """Forward-solve budgets (``implicit_block.py:53-105``)."""
+    """Solver budgets (``implicit_block.py:53-105``)."""
     eps_forward: float = 1e-6
+    eps_backward: float = 1e-10
     threshold: int = 30
+    threshold_backward: int = 4
     banach_threshold: int = 1000
     warm_start: bool = False
     stall_patience: int | None = 5
@@ -82,12 +103,43 @@ def ladder_args(threshold):
             "tail_start": min(start, threshold)}
 
 
+class _ImplicitFunction(torch.autograd.Function):
+    """``z = z_hat + g(z_hat)`` with the implicit gradient. Inputs: the
+    block, x, then the effective tensors of ``conv_forward_data`` of net x
+    and net z (``DATA_KEYS`` order), computed with gradient from the raw
+    parameters by the caller."""
+
+    @staticmethod
+    def forward(ctx, block, x, *tensors):
+        k = len(DATA_KEYS)
+        data_x, data_z = block._data(tensors[:k], "x"), block._data(tensors[k:], "z")
+        z_hat, z, diag = block.solve(x, data_x, data_z)
+        block.solver_diag = diag
+        ctx.block = block
+        ctx.save_for_backward(x, z_hat, z, *tensors)
+        return z
+
+    @staticmethod
+    def backward(ctx, grad):
+        block = ctx.block
+        x, z_hat, z, *tensors = ctx.saved_tensors
+        k = len(DATA_KEYS)
+        data_x, data_z = block._data(tensors[:k], "x"), block._data(tensors[k:], "z")
+        u = block.backward_solve(grad, z).u
+        d_x, d_ax, d_az = fused_reattach_vjp(
+            x, z_hat, u, data_x, data_z, mode=kernel_config().reattach_precision)
+        return (None, d_x.to(x.dtype), *(d_ax[n] for n in DATA_KEYS),
+                *(d_az[n] for n in DATA_KEYS))
+
+
 class ImplicitBlock(Flow):
     """Invertible implicit residual block (reference ``imBlock``)."""
 
     def __init__(self, nnet_x, nnet_z, geom_p=0.5, lamb=2.0, n_dist="geometric",
-                 n_samples=1, n_exact_terms_test=20, series_cap=24,
-                 eps_forward=1e-6, threshold=30, warm_start=False, device=None):
+                 n_samples=1, n_exact_terms=2, n_exact_terms_test=20,
+                 series_cap=24, neumann_grad=True, grad_in_forward=True,
+                 eps_forward=1e-6, eps_backward=1e-10, threshold=30,
+                 warm_start=False, device=None):
         super().__init__()
         self.nnet_x, self.nnet_z = nnet_x, nnet_z
         # geom_p stored in logit space like the reference (implicit_block.py:144)
@@ -95,11 +147,15 @@ class ImplicitBlock(Flow):
             math.log(geom_p) - math.log1p(-geom_p), device=device))
         self.lamb = nn.Parameter(torch.tensor(float(lamb), device=device))
         self.n_dist, self.n_samples = n_dist, n_samples
-        self.n_exact_terms_test, self.series_cap = n_exact_terms_test, series_cap
+        self.n_exact_terms, self.n_exact_terms_test = n_exact_terms, n_exact_terms_test
+        self.series_cap = series_cap
+        self.neumann_grad, self.grad_in_forward = neumann_grad, grad_in_forward
         kc = kernel_config()
         self.solver_cfg = SolverConfig(
-            eps_forward=eps_forward,
+            eps_forward=eps_forward, eps_backward=eps_backward,
             threshold=kc.fwd_threshold if kc.fwd_threshold is not None else threshold,
+            threshold_backward=(kc.bwd_threshold if kc.bwd_threshold is not None
+                                else min(4, threshold)),
             warm_start=warm_start or kc.warm_start,
             stall_patience=kc.stall_patience if kc.stall_patience > 0 else None,
             stall_rtol=kc.stall_rtol,
@@ -108,16 +164,30 @@ class ImplicitBlock(Flow):
         # [nstep, converged, prot_break, rms_over_tol, converged_3eps] of
         # the last forward
         self.solver_diag = torch.zeros(5, device=device)
+        # estimator telemetry of the last training forward (loops.py:78-102)
+        self.last_n_samples = torch.zeros(n_samples, device=device)
+        self.last_firmom = torch.zeros(1, device=device)
+        self.last_secmom = torch.zeros(1, device=device)
 
-    @torch.no_grad()
-    def solve(self, x):
-        """(z_hat, z, diag): the root, the re-attached value ``z_hat +
-        g(z_hat)`` and the telemetry (``implicit_block.py:230-271``)."""
-        cfg = self.solver_cfg
+    def _data(self, tensors, net):
+        """A ``conv_forward_data`` dict from its tensors (DATA_KEYS order)."""
+        preact = (self.nnet_x if net == "x" else self.nnet_z)._recipe()[2]
+        return dict(zip(DATA_KEYS, tensors), preact=preact)
+
+    def _forward_data(self):
         data_x = self.nnet_x.conv_forward_data()
         data_z = self.nnet_z.conv_forward_data()
         if data_x is None or data_z is None:
             raise NotImplementedError("only the recipe conv stack is ported")
+        return data_x, data_z
+
+    @torch.no_grad()
+    def solve(self, x, data_x=None, data_z=None):
+        """(z_hat, z, diag): the root, the re-attached value ``z_hat +
+        g(z_hat)`` and the telemetry (``implicit_block.py:230-271``)."""
+        cfg = self.solver_cfg
+        if data_x is None or data_z is None:
+            data_x, data_z = self._forward_data()
         res = fused_broyden_solve(
             x, data_x, data_z, threshold=cfg.threshold, eps=cfg.eps_forward,
             stall_patience=cfg.stall_patience, stall_rtol=cfg.stall_rtol,
@@ -141,24 +211,81 @@ class ImplicitBlock(Flow):
             print(f"fwd solve: nstep={res.nstep.tolist()} diag={diag.tolist()}")
         return zf.reshape(x.shape), (zf + gf).reshape(x.shape), diag
 
-    def logdetgrad(self, z, x, draws):
-        """(B,) logdet|dz/dx| with the basic estimator and the test exact-term
-        budget (``_logdetgrad`` with ``train=False``)."""
+    @torch.no_grad()
+    def backward_solve(self, grad, z):
+        """Solve ``u (I + J_gz(z)) = grad`` at the re-attached z with the
+        backward budget (``_make_bwd_core``, ``implicit_block.py:350-412``):
+        the linearisation is taken in ``IMNF_BWD_PRECISION`` (bf16: net z
+        run on bfloat16-cast parameters, buffers and z)."""
+        cfg = self.solver_cfg
+        mode = kernel_config().bwd_precision
+        if mode not in ("bf16", "f32"):
+            raise ValueError(f"IMNF_BWD_PRECISION {mode!r}: the port takes 'bf16' | 'f32'")
+        dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+        cd = self.nnet_z.conv_chain_data(z.detach(), dtype)
+        if cd is None:
+            raise NotImplementedError("only the recipe conv stack is ported")
+        res = fused_backward_solve(
+            grad.detach().float(), cd, threshold=cfg.threshold_backward,
+            eps=cfg.eps_backward, stall_patience=cfg.stall_patience,
+            stall_rtol=cfg.stall_rtol, stall_guard=cfg.stall_guard,
+            newton_init=cfg.newton_init, line_search=cfg.line_search, mode=mode)
+        if kernel_config().debug_solver:
+            print(f"bwd solve: nstep={res.nstep.tolist()} best={float(res.diff.max()):.3e}")
+        return res
+
+    def logdetgrad(self, z, x, draws, train=False):
+        """(B,) logdet|dz/dx| (``_logdetgrad``, ``implicit_block.py:826-982``):
+        in evaluation the basic estimator with the test exact-term budget;
+        in training the Neumann gradient estimator with ``n_exact_terms``."""
         geom_p = torch.sigmoid(self.geom_p.detach())
         lamb = self.lamb.detach()
-        coeffs, n_power, _ = ld.sample_n_dist(
-            draws, self.n_dist, self.n_samples, geom_p, lamb,
-            self.n_exact_terms_test, self.series_cap, x.device)
+        if train:
+            if not self.neumann_grad:
+                raise NotImplementedError("training with neumann_grad=False is not ported")
+            if not self.grad_in_forward:
+                raise NotImplementedError(
+                    "training with grad_in_forward=False (--mem-eff False) runs "
+                    "fused_neumann_chain2 and fused_final_pair: the next port slice")
+            if kernel_config().final_form != "vjp":
+                raise NotImplementedError("IMNF_FINAL_FORM=jvp is not ported")
+        offset = self.n_exact_terms if train else self.n_exact_terms_test
+        coeffs, n_power, n_draws = ld.sample_n_dist(
+            draws, self.n_dist, self.n_samples, geom_p, lamb, offset,
+            self.series_cap, x.device)
         eps_x = draws.rademacher(x.shape, x.device)
         eps_z = draws.rademacher(z.shape, z.device)
-        return (ld.basic_logdet_estimator(self.nnet_x, x, eps_x, coeffs, n_power)
-                - ld.basic_logdet_estimator(self.nnet_z, z, eps_z, coeffs, n_power))
+        if not train:
+            return (ld.basic_logdet_estimator(self.nnet_x, x, eps_x, coeffs, n_power)
+                    - ld.basic_logdet_estimator(self.nnet_z, z, eps_z, coeffs, n_power))
+        dtype = torch.bfloat16 if kernel_config().bf16_est else torch.float32
 
-    def forward(self, x, logpx=None, draws=None):
-        _, z, diag = self.solve(x)
-        self.solver_diag = diag
+        def estimate(net, y, eps):
+            return checkpoint(ld.residual_logdet, net, y, eps, coeffs, n_power,
+                              dtype, use_reentrant=False)
+
+        logdet = estimate(self.nnet_x, x, eps_x) - estimate(self.nnet_z, z, eps_z)
+        est = logdet.detach()
+        self.last_n_samples = n_draws.float()
+        self.last_firmom = est.mean()[None]
+        self.last_secmom = (est ** 2).mean()[None]
+        return logdet
+
+    def forward(self, x, logpx=None, draws=None, train=False):
+        if train:
+            data_x, data_z = self._forward_data()
+            z = _ImplicitFunction.apply(self, x, *(data_x[k] for k in DATA_KEYS),
+                                        *(data_z[k] for k in DATA_KEYS))
+        else:
+            _, z, self.solver_diag = self.solve(x)
         if logpx is None:
             return z, None
         if draws is None:
             raise ValueError("stochastic logdet estimation requires draws")
-        return z, logpx - self.logdetgrad(z, x, draws)
+        return z, logpx - self.logdetgrad(z, x, draws, train)
+
+    @torch.no_grad()
+    def update_lipschitz(self, n_iterations=None):
+        """Power iteration of every conv after a step (``:985-990``)."""
+        self.nnet_x.update_lipschitz(n_iterations)
+        self.nnet_z.update_lipschitz(n_iterations)

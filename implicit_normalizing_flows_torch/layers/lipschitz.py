@@ -4,7 +4,13 @@ Counterpart of ``layers/lipschitz.py:163-280`` of the JAX package for
 (domain, codomain) = (2, 2), which ``get_conv`` routes to InducedNormConv
 (``lipschitz.py:515-525``). The kernel convolved is
 ``w / max(1, sigma / coeff)`` with ``sigma = <u, conv(v)>`` from the
-power-iteration buffers ``u``/``v``.
+power-iteration buffers ``u``/``v``; gradients reach ``w`` through sigma
+with ``u``/``v`` constant (``lipschitz.py:241-250``).
+
+Every computation runs in the dtype asked for (default float32): the
+weight, bias and buffers are cast first, as the JAX package casts its
+whole variable tree to bfloat16 for the training estimator and the
+backward solve's linearisation.
 """
 from __future__ import annotations
 
@@ -48,18 +54,19 @@ class InducedNormConv(nn.Module):
         self.register_buffer("sigma", torch.zeros((), device=device))
 
     def _sigma(self, w):
+        u, v = self.u.to(w.dtype), self.v.to(w.dtype)
         if self.is_1x1:
-            return pi.dense_sigma(w.reshape(self.out_channels, self.in_channels),
-                                  self.u, self.v)
-        return pi.conv_sigma(w, self.u, self.v, self.x_shape, self.padding)
+            return pi.dense_sigma(w.reshape(self.out_channels, self.in_channels), u, v)
+        return pi.conv_sigma(w, u, v, self.x_shape, self.padding)
 
-    def effective_weight(self):
-        w = self.weight
+    def effective_weight(self, dtype=None):
+        w = self.weight if dtype is None else self.weight.to(dtype)
         return w / torch.clamp(self._sigma(w) / self.coeff, min=1.0)
 
     def forward(self, x):
-        y = pi.conv_apply(self.effective_weight(), x, self.padding)
-        return y + self.bias[None, :, None, None]
+        """In ``x``'s dtype (see the module note)."""
+        y = pi.conv_apply(self.effective_weight(x.dtype), x, self.padding)
+        return y + self.bias.to(x.dtype)[None, :, None, None]
 
     @torch.no_grad()
     def update_lipschitz(self, n_iterations=None):

@@ -6,9 +6,10 @@ layer is an ``nn.Module`` that owns its parameters and buffers, named so that
 the module path of every tensor equals its path in the JAX pytree
 (``training.convert`` maps one onto the other).
 
-``forward(x, logpx=None, draws=None) -> (y, logpy)``; ``logpy`` is None iff
-``logpx`` is None. ``draws`` (``ops.logdet.Draws``) supplies every random
-number the evaluation path needs.
+``forward(x, logpx=None, draws=None, train=False) -> (y, logpy)``;
+``logpy`` is None iff ``logpx`` is None. ``draws`` (``ops.logdet.Draws``)
+supplies every random number; ``train`` selects the training estimator and
+the implicit gradient of the implicit blocks. Layers run under autograd.
 """
 from __future__ import annotations
 
@@ -24,5 +25,5 @@ def make_vars(params=None, state=None) -> dict:
 class Flow(nn.Module):
     """Base class of invertible layers."""
 
-    def forward(self, x, logpx=None, draws=None):
+    def forward(self, x, logpx=None, draws=None, train=False):
         raise NotImplementedError

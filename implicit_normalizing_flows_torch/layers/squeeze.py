@@ -19,5 +19,5 @@ class SqueezeLayer(Flow):
         super().__init__()
         self.downscale_factor = downscale_factor
 
-    def forward(self, x, logpx=None, draws=None):
+    def forward(self, x, logpx=None, draws=None, train=False):
         return squeeze(x, self.downscale_factor), logpx

@@ -6,10 +6,13 @@ package) for ``factor_out=False``, ``fc_end=False``, ``first_resblock=True``:
 per scale ``[init_layer?, actnorm?, n x (implicit block, actnorm?),
 squeeze?]``, the channels growing 3 -> 12 -> 48 as the image shrinks
 32x32 -> 16x16 -> 8x8. Module paths equal the JAX variables' paths
-(``transforms.<scale>.<layer>...``).
+(``transforms.<scale>.<layer>...``). ``forward(..., train=True)`` runs the
+training estimator and the implicit gradient; ``update_lipschitz`` is the
+post-step power iteration.
 """
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from ..layers import (ActNorm2d, ImplicitBlock, InducedNormConv, LipschitzNet,
@@ -43,7 +46,8 @@ class StackedImplicitBlocks(SequentialFlow):
     def __init__(self, initial_size, idim, squeeze=True, init_layer=None,
                  n_blocks=1, actnorm=False, coeff=0.9, n_lipschitz_iters=None,
                  sn_atol=None, sn_rtol=None, n_dist="geometric", n_samples=1,
-                 kernels="3-1-3", preact=False, first_resblock=True,
+                 kernels="3-1-3", n_exact_terms=0, preact=False,
+                 neumann_grad=True, grad_in_forward=False, first_resblock=True,
                  generator=None, device="cuda"):
         chain = []
         if init_layer is not None:
@@ -55,8 +59,10 @@ class StackedImplicitBlocks(SequentialFlow):
                 initial_size, idim, kernels, coeff, n_lipschitz_iters, preact,
                 sn_atol, sn_rtol, first_resblock=first_resblock and i == 0,
                 generator=generator, device=device)
-            chain.append(ImplicitBlock(mk(), mk(), n_dist=n_dist,
-                                       n_samples=n_samples, device=device))
+            chain.append(ImplicitBlock(
+                mk(), mk(), n_dist=n_dist, n_samples=n_samples,
+                n_exact_terms=n_exact_terms, neumann_grad=neumann_grad,
+                grad_in_forward=grad_in_forward, device=device))
             if actnorm:
                 chain.append(ActNorm2d(initial_size[0], device))
         if squeeze:
@@ -65,15 +71,16 @@ class StackedImplicitBlocks(SequentialFlow):
 
 
 class ImplicitFlow(nn.Module):
-    """Full multiscale model (implicit_flow.py:280-561), forward only, with
-    its parameters and buffers on ``device`` (the card unless the caller
-    asks for another)."""
+    """Full multiscale model (implicit_flow.py:280-561) with its parameters
+    and buffers on ``device`` (the card unless the caller asks for
+    another)."""
 
     def __init__(self, input_size, n_blocks=(16, 16), intermediate_dim=64,
                  factor_out=False, init_layer=None, actnorm=False, coeff=0.9,
                  vnorms="2222", n_lipschitz_iters=None, sn_atol=None,
                  sn_rtol=None, n_dist="geometric", n_samples=1, kernels="3-1-3",
-                 activation_fn="swish", fc_end=False, preact=False,
+                 activation_fn="swish", fc_end=False, n_exact_terms=0,
+                 preact=False, neumann_grad=True, grad_in_forward=False,
                  first_resblock=True, generator=None, device="cuda"):
         super().__init__()
         if factor_out or fc_end or not first_resblock:
@@ -96,16 +103,25 @@ class ImplicitFlow(nn.Module):
                 n_blocks=n_blocks[i], actnorm=actnorm, coeff=coeff,
                 n_lipschitz_iters=n_lipschitz_iters, sn_atol=sn_atol,
                 sn_rtol=sn_rtol, n_dist=n_dist, n_samples=n_samples,
-                kernels=kernels, preact=preact, first_resblock=i == 0,
-                generator=generator, device=device))
+                kernels=kernels, n_exact_terms=n_exact_terms, preact=preact,
+                neumann_grad=neumann_grad, grad_in_forward=grad_in_forward,
+                first_resblock=i == 0, generator=generator, device=device))
             c, h, w = c * 4, h // 2, w // 2
         self.transforms = nn.ModuleList(scales)
 
-    def forward(self, x, logpx=None, draws=None):
+    def forward(self, x, logpx=None, draws=None, train=False):
         """(z flattened to (B, D), logpz)."""
         for t in self.transforms:
-            x, logpx = t(x, logpx, draws)
+            x, logpx = t(x, logpx, draws, train=train)
         return x.reshape(x.shape[0], -1), logpx
 
     def implicit_blocks(self):
         return [m for m in self.modules() if isinstance(m, ImplicitBlock)]
+
+    @torch.no_grad()
+    def update_lipschitz(self, n_iterations=None):
+        """Post-step power iteration of every implicit block's convs
+        (``implicit_flow.py:564-575``): the blocks' own budget (adaptive
+        atol/rtol when None)."""
+        for block in self.implicit_blocks():
+            block.update_lipschitz(n_iterations)

@@ -2,8 +2,10 @@
 
 Each ``csrc/*.cu`` file has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library at first use and loaded with
-ctypes. The library's name carries a hash of its source, so an edited source
-is rebuilt and a stale library is never loaded. The build directory is
+ctypes. The library's name carries a hash of its source and of the shared
+headers (``csrc/*.cuh``), so an edited source is rebuilt and a stale library
+is never loaded. :func:`build_all` compiles several sources at once, one
+``nvcc`` process each. The build directory is
 ``implicit_normalizing_flows_torch/build/`` (listed in ``.gitignore``);
 delete it to force a rebuild.
 
@@ -39,30 +41,47 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
+
+
+def build_all(names, report: bool = False) -> dict:
+    """Compile ``csrc/<name>.cu`` for each name whose library is not built
+    yet, all ``nvcc`` processes started together; returns ``{name: path}``.
+    ``report`` compiles anew with ``-Xptxas -v`` and prints the compiler's
+    report (registers, shared memory, spills)."""
+    outs = {name: library_path(name) for name in names}
+    todo = [n for n in names if report or not outs[n].exists()]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in todo:
+        tmp = outs[name].with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if report else []),
+               "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{err}")
+            continue
+        if report:
+            print(err)
+        os.replace(tmp, outs[name])  # atomic: a concurrent build never sees a partial file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def build(name: str, report: bool = False) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built;
-    returns the library's path. ``report`` compiles anew with
-    ``-Xptxas -v`` and prints the compiler's report (registers, shared
-    memory, spills)."""
-    out = library_path(name)
-    if out.exists() and not report:
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if report else []),
-           "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    if report:
-        print(proc.stderr)
-    os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
-    return out
+    returns the library's path (see :func:`build_all`)."""
+    return build_all([name], report)[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -44,7 +44,8 @@ import torch.nn.functional as F
 __all__ = ["fused_broyden_solve", "fused_broyden_solve_plain",
            "FusedSolveResult", "conv3x3_in", "conv1x1_mid", "conv3x3_out",
            "broyden_step", "KERNELS", "launch_counts", "reset_launch_counts",
-           "prep_weights", "norm_ladder"]
+           "prep_weight", "prep_weights", "norm_ladder", "swish", "dswish",
+           "dswish_dbeta"]
 
 PROTECT_THRES = 1e6  # reference: broyden.py:150
 MODES = {"f32": 0, "bf16": 1, "tf32": 2, "tf32x": 3}
@@ -88,6 +89,26 @@ def swish(t, beta):
     return t * torch.sigmoid(t * beta) * (1.0 / 1.1)
 
 
+def _wide(dtype):
+    """float32, or float64 for float64 tensors (the float64 checks)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def dswish(t, beta):
+    """d/dt of :func:`swish` as the JAX kernels write it (``_dswish``,
+    ``fused_solve.py:240-242``), in float32 (float64 for float64 t)."""
+    dt = _wide(t.dtype)
+    t, beta = t.to(dt), torch.as_tensor(beta, dtype=dt, device=t.device)
+    s = torch.sigmoid(t * beta)
+    return (s + t * beta * s * (1.0 - s)) * (1.0 / 1.1)
+
+
+def dswish_dbeta(t, beta):
+    """d/dbeta of :func:`swish` (``_dswish_dbeta``, ``fused_solve.py:1068``)."""
+    s = torch.sigmoid(t * beta)
+    return t * t * s * (1.0 - s) * (1.0 / 1.1)
+
+
 def _bf16(a):
     return a.to(torch.bfloat16).to(torch.float32)
 
@@ -101,12 +122,17 @@ def _split(a, mode):
     return hi, (_bf16(a - hi) if mode in ("tf32", "tf32x") else None)
 
 
+def prep_weight(w, mode):
+    """Weight-side precision prep (``_make_wdot``): ``(hi, lo)`` of one
+    kernel in its OIHW layout, lo None for the single-pass modes."""
+    w = w.detach().to(_wide(w.dtype))
+    return tuple(None if t is None else t.contiguous() for t in _split(w, mode))
+
+
 def prep_weights(data, mode):
-    """Weight-side precision prep, once per solve and mode (``_make_wdot``):
-    ``{'w1'|'w2'|'w3': (hi, lo)}`` in the natural OIHW layout."""
-    return {k: tuple(None if t is None else t.float().contiguous()
-                     for t in _split(data[k].detach().float(), mode))
-            for k in ("w1", "w2", "w3")}
+    """:func:`prep_weight` of ``data``'s w1/w2/w3, once per solve and mode:
+    ``{'w1'|'w2'|'w3': (hi, lo)}``."""
+    return {k: prep_weight(data[k], mode) for k in ("w1", "w2", "w3")}
 
 
 def _mconv(x, wp, mode, padding):
@@ -155,7 +181,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _check_cuda(**tensors):
+def _check_cuda(_dtypes=(torch.float32, torch.int32), **tensors):
     dev = None
     for name, t in tensors.items():
         if t is None:
@@ -167,12 +193,12 @@ def _check_cuda(**tensors):
         dev = t.device
         if not t.is_contiguous():
             raise ValueError(f"{name}: must be contiguous")
-        if t.dtype not in (torch.float32, torch.int32):
+        if t.dtype not in _dtypes:
             raise ValueError(f"{name}: dtype {t.dtype} not taken")
 
 
-def _launch(fn, *args):
-    rc = getattr(_lib(), fn)(*args, _ptr_stream())
+def _launch(fn, *args, lib=None):
+    rc = getattr(lib or _lib(), fn)(*args, _ptr_stream())
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {rc}")
 

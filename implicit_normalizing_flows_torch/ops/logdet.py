@@ -1,11 +1,12 @@
-"""Log-determinant estimation of the evaluation path.
+"""Log-determinant estimation of the evaluation and training paths.
 
-Counterpart of the eval subset of ``ops/logdet.py`` of the JAX package:
-Rademacher probes, the Russian-roulette truncation with its coefficients
-(``logdet.py:65-135``) and the **basic** power-series estimator
-(``logdet.py:278-297``): ``sum_k (-1)^(k+1)/k * coeff(k) * <eps, J^k eps>``
-via repeated autograd vector-Jacobian products. The series stops at
-``n_power``: the coefficients beyond it are exactly 0.
+Counterpart of ``ops/logdet.py`` of the JAX package: Rademacher probes, the
+Russian-roulette truncation with its coefficients (``logdet.py:65-135``),
+the **basic** power-series estimator of evaluation (``logdet.py:278-297``):
+``sum_k (-1)^(k+1)/k * coeff(k) * <eps, J^k eps>`` via repeated autograd
+vector-Jacobian products, and the **Neumann** gradient estimator of
+training (``logdet.py:145-185``, :func:`residual_logdet`). The series stops
+at ``n_power``: the coefficients beyond it are exactly 0.
 
 Every random draw comes from a :class:`Draws`, which either samples from a
 ``torch.Generator`` or replays numbers handed to it (the tests replay the
@@ -94,8 +95,9 @@ def poisson_1mcdf(lamb, k, offset, max_k):
 
 def sample_n_dist(draws: Draws, n_dist, n_samples, geom_p, lamb, offset,
                   series_cap, device):
-    """Roulette coefficients of the evaluation path (``sample_n_dist``,
-    ``logdet.py:97-135`` with ``train=False``, offset ``n_exact_terms_test``).
+    """Roulette coefficients (``sample_n_dist``, ``logdet.py:97-135``): the
+    caller passes ``offset`` = ``n_exact_terms_test`` in evaluation and
+    ``n_exact_terms`` in training.
 
     Returns ``(coeffs, n_power, n_draws)``: ``coeffs`` has length
     ``offset + series_cap`` with ``coeffs[k-1]`` multiplying term k and
@@ -133,3 +135,38 @@ def basic_logdet_estimator(net, x, vareps, coeffs, n_power):
             v = torch.autograd.grad(y, xg, v, retain_graph=k + 1 < n_power)[0]
             acc = acc + weights[k] * torch.sum(v * vareps, dim=dims)
     return acc.detach()
+
+
+def _batch_dot(a, b):
+    """Per-example sum of a * b, accumulated in float32 whatever the operands'
+    dtype (``_batch_dot``, ``logdet.py:138-142``)."""
+    return torch.sum(a.float() * b.float(), dim=tuple(range(1, a.ndim)))
+
+
+def neumann_logdet_estimator(net, x, vareps, coeffs, n_power):
+    """(B,) O(1)-memory gradient estimator (``logdet.py:145-185``): the
+    roulette-weighted Neumann series ``acc = sum_{k<=n_power} (-1)^k c_k
+    (J^T)^k eps`` accumulated without gradient (``acc`` in ``x``'s dtype, as
+    the JAX carry), then ONE differentiable VJP dotted with the probe:
+    ``<J^T acc, eps>``, whose gradient w.r.t. the parameters and ``x`` is
+    the log-det's. Runs in ``x``'s dtype; ``net`` follows its input's."""
+    with torch.enable_grad():
+        xs = x.detach().requires_grad_(True)
+        ys = net(xs)
+        v = acc = vareps.detach()
+        for k in range(1, n_power + 1):
+            v = torch.autograd.grad(ys, xs, v, retain_graph=k < n_power)[0]
+            w = ((1.0 if k % 2 == 0 else -1.0) * coeffs[k - 1]).to(acc.dtype)
+            acc = acc + w * v
+        xg = x if x.requires_grad else x.detach().requires_grad_(True)
+        vjp = torch.autograd.grad(net(xg), xg, acc.detach(), create_graph=True)[0]
+    return _batch_dot(vjp, vareps)
+
+
+def residual_logdet(net, x, vareps, coeffs, n_power, dtype=torch.float32):
+    """Training estimate of one net (``estimate_one``,
+    ``implicit_block.py:887-898``): the Neumann estimator with ``x`` and the
+    probe cast to ``dtype`` (bfloat16 under ``IMNF_BF16_EST``; the net then
+    casts its parameters and buffers), returned in float32."""
+    return neumann_logdet_estimator(net, x.to(dtype), vareps.to(dtype), coeffs,
+                                    n_power).float()

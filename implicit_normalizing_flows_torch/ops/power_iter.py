@@ -16,7 +16,16 @@ def l2_normalize(v):
 
 
 def conv_apply(weight, x, padding):
-    """NCHW stride-1 conv2d with symmetric int padding."""
+    """NCHW stride-1 conv2d with symmetric int padding, in x's dtype.
+
+    A bfloat16 conv on the CPU runs in float32 and rounds its output: the
+    result is the same (bfloat16 products are exact in float32, sums in
+    float32 as XLA and cuDNN take them), but torch's CPU bfloat16 conv
+    differentiates its own VJP wrongly (the gradient of <J^T a, e> w.r.t.
+    the weight, which the Neumann estimator's final term needs, comes out
+    uncorrelated with the float32 one)."""
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        return F.conv2d(x.float(), weight.float(), padding=padding).to(x.dtype)
     return F.conv2d(x, weight, padding=padding)
 
 

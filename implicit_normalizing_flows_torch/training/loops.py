@@ -1,9 +1,11 @@
-"""Image evaluation step: dequantise -> flow -> per-example bits/dim and
-solver telemetry.
+"""Image evaluation and training steps: dequantise -> flow -> bits/dim
+and solver telemetry, and for training the gradient, the optimizer step,
+the power iteration and the EMA.
 
-Counterpart of ``make_image_step(model, None, train=False)`` of the JAX
-package (``training/loops.py:105,214-226,246-345``) for the density task
-without padding.
+Counterparts of ``make_image_step(model, None, train=False)`` and
+``make_image_step(model, optimizer, train=True)`` of the JAX package
+(``training/loops.py:45-102,214-226,246-391``) for the density task without
+padding and with ``accum_steps=1``.
 """
 from __future__ import annotations
 
@@ -22,6 +24,16 @@ def dequantize(x_u8, noise, nvals=256):
     """(u8 + u) / nvals with the uniform noise ``u`` given
     (``loops.py:214-226``)."""
     return (x_u8.float() + noise) / nvals
+
+
+def estimator_stats(model):
+    """Pool the blocks' estimator moments of the last training forward
+    (``loops.py:78-102``)."""
+    blocks = model.implicit_blocks()
+    if not blocks:
+        return {}
+    return {"est_firmom": torch.cat([b.last_firmom for b in blocks]).mean(),
+            "est_secmom": torch.cat([b.last_secmom for b in blocks]).mean()}
 
 
 def solver_stats(model):
@@ -61,3 +73,74 @@ def make_image_eval_step(model, *, im_dim=3, imagesize=32, nvals=256):
         return m
 
     return step
+
+
+class ImageTrainStep:
+    """One density training step per call (``loops.py:268-391``): the
+    model's parameters, the optimizer state ``opt_state`` and the EMA
+    shadow ``ema`` (both ``{name: tensor}`` over ``named_parameters``) are
+    updated in place. Built by :func:`make_image_train_step`."""
+
+    def __init__(self, model, optimizer, *, ema_decay=0.999,
+                 n_lipschitz_iters=None, im_dim=3, imagesize=32, nvals=256):
+        from .ema import ema_init
+
+        self.model, self.optimizer = model, optimizer
+        self.ema_decay, self.n_lipschitz_iters = ema_decay, n_lipschitz_iters
+        self.nvals, self.dim = nvals, imagesize * imagesize * im_dim
+        self.device = next(model.parameters()).device
+        self.params = dict(model.named_parameters())
+        self.opt_state = optimizer.init(self.params)
+        self.ema = ema_init(self.params)
+
+    def loss(self, x_u8, draws):
+        """(loss, metrics) with the autograd graph: mean bits/dim of the
+        training estimator (``loss_fn``, ``loops.py:268-336``)."""
+        x_u8 = torch.as_tensor(x_u8, device=self.device)
+        x = dequantize(x_u8, draws.uniform(x_u8.shape, self.device), self.nvals)
+        zeros = torch.zeros(x.shape[0], device=x.device)
+        z, delta_logp = self.model(x, zeros, draws, train=True)
+        logpz = standard_normal_logprob(z)
+        logpx = logpz - delta_logp - math.log(self.nvals) * self.dim
+        bpd = torch.mean(-logpx / self.dim / math.log(2))
+        return bpd, {"bpd": bpd.detach(), "logpz": logpz.detach().mean(),
+                     "delta_logp": (-delta_logp).detach().mean()}
+
+    def grads(self, x_u8, draws):
+        """(loss, metrics, {name: gradient}); a parameter the loss does not
+        reach gets zeros."""
+        loss, metrics = self.loss(x_u8, draws)
+        names = list(self.params)
+        gs = torch.autograd.grad(loss, [self.params[k] for k in names],
+                                 allow_unused=True)
+        grads = {k: (g if g is not None else torch.zeros_like(self.params[k]))
+                 for k, g in zip(names, gs)}
+        return loss.detach(), metrics, grads
+
+    def __call__(self, x_u8, draws):
+        from .ema import ema_apply
+        from .optimizers import global_norm
+
+        loss, metrics, grads = self.grads(x_u8, draws)
+        metrics["loss"] = loss
+        metrics["grad_norm"] = global_norm(grads)
+        self.opt_state = self.optimizer.update(self.params, grads, self.opt_state)
+        self.model.update_lipschitz(self.n_lipschitz_iters)
+        ema_apply(self.ema, self.params, self.ema_decay)
+        metrics.update(solver_stats(self.model))
+        metrics.update(estimator_stats(self.model))
+        return metrics
+
+
+def make_image_train_step(model, optimizer, *, ema_decay=0.999,
+                          n_lipschitz_iters=None, im_dim=3, imagesize=32,
+                          nvals=256) -> ImageTrainStep:
+    """Returns ``step(x_u8, draws) -> metrics`` (loss, bpd, logpz,
+    delta_logp, grad_norm, the pooled solver stats and the estimator
+    moments): loss -> gradients -> ``optimizer`` (``training.optimizers``)
+    -> ``update_lipschitz`` -> EMA. The images are moved to the model's
+    device; ``draws`` supplies the dequantisation noise, probes and
+    roulette draws."""
+    return ImageTrainStep(model, optimizer, ema_decay=ema_decay,
+                          n_lipschitz_iters=n_lipschitz_iters, im_dim=im_dim,
+                          imagesize=imagesize, nvals=nvals)
