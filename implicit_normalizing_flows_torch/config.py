@@ -16,8 +16,11 @@ from dataclasses import dataclass, fields, replace
 
 @dataclass(frozen=True)
 class KernelConfig:
-    # phase-1 precision of the forward solve: "float32" | "tensorfloat32"
-    # (3-pass bf16 split) | "tf32x" (4-pass).       [IMNF_SOLVER_PRECISION]
+    # phase-1 precision of the fused forward solve: "float32" |
+    # "tensorfloat32" (3-pass bf16 split) | "tf32x" (4-pass). The generic
+    # solver path (non-recipe nets) runs float32 products whatever it says:
+    # the JAX package's "tensorfloat32" there is float32 on a CPU, and the
+    # port never uses native TF32.                  [IMNF_SOLVER_PRECISION]
     solver_precision: str = "tensorfloat32"
     # backward implicit-gradient solve precision: "f32" | "bf16".
     #                                                    [IMNF_BWD_PRECISION]

@@ -1,6 +1,10 @@
-"""Swish with a learnable slope (``layers/activations.py:108-117`` of the
-JAX package): ``x * sigmoid(x * softplus(beta)) / 1.1``."""
+"""Activations of the residual nets (``layers/activations.py`` of the JAX
+package): swish with a learnable slope (``:108-117``), ``x * sigmoid(x *
+softplus(beta)) / 1.1``, and the tabular and toy recipes' ``sin``
+(``:39-43``), ``sin(2 pi x) / (2 pi)``."""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -23,3 +27,10 @@ class Swish(nn.Module):
         """In ``x``'s dtype: a bfloat16 input runs the whole activation in
         bfloat16 (the training estimator's casts)."""
         return x * torch.sigmoid(x * self.slope(x.dtype)) / 1.1
+
+
+class Sin(nn.Module):
+    """``sin(2 pi x) / (2 pi)``, 1-Lipschitz, in ``x``'s dtype."""
+
+    def forward(self, x):
+        return torch.sin(2.0 * math.pi * x) / math.pi * 0.5

@@ -27,6 +27,20 @@ protective-break rows (``:230-271``), the 5-slot solver telemetry
   eps>`` of both nets in ``ops.fused_final`` at float32 x and z
   (``:923-965``), whose gradient to z flows into the implicit gradient.
 
+Nets that are not the recipe conv stack (``conv_forward_data()`` is None:
+the tabular and toy MLPs) take the generic path (``:273-314, 391-464``):
+the forward solve is ``ops.broyden.root_solve`` on ``g(z) = x + g_x(x) -
+g_z(z) - z`` with the Banach fallback, whose secant updates run the
+``broyden_update`` kernel; the implicit gradient is
+:class:`_GenericImplicitFunction` over both nets' effective weights and
+biases (its backward solves ``u (I + J_gz) = grad`` with ``ops.broyden.
+broyden`` on autograd VJPs of net z, then takes the re-attachment VJP by
+autograd). Its solves run float32 products (``IMNF_SOLVER_PRECISION``'s
+default ``tensorfloat32`` is float32 in the JAX package on a CPU; the port
+never uses native TF32). Its log-det is the exact brute force in evaluation
+of flat inputs with D <= 10, else the basic estimator, differentiable in
+training (``neumann_grad=False``, ``:834-840, 857-898``).
+
 The inverse (sampling) is a later slice.
 """
 from __future__ import annotations
@@ -40,7 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import kernel_config
 from ..ops import logdet as ld
-from ..ops.broyden import fixed_point_iteration
+from ..ops.broyden import broyden, fixed_point_iteration, root_solve
 from ..ops.fused_final import fused_final_pair
 from ..ops.fused_solve import fused_broyden_solve
 from ..ops.implicit_grad import (DATA_KEYS, fused_backward_solve,
@@ -136,6 +150,30 @@ class _ImplicitFunction(torch.autograd.Function):
                 *(d_az[n] for n in DATA_KEYS))
 
 
+class _GenericImplicitFunction(torch.autograd.Function):
+    """``z = z_hat + g(z_hat)`` with the implicit gradient on the generic
+    path (``_make_implicit_forward`` with ``_make_bwd_core``'s plain branch,
+    ``implicit_block.py:273-314, 391-464``). Inputs: the block, x, the
+    number of net x's tensors, then ``lipschitz_tensors()`` of net x and of
+    net z, computed with gradient from the raw parameters by the caller."""
+
+    @staticmethod
+    def forward(ctx, block, x, n_x, *tensors):
+        z_hat, z, diag = block.solve(x, tensors[:n_x], tensors[n_x:])
+        block.solver_diag = diag
+        ctx.block, ctx.n_x = block, n_x
+        ctx.save_for_backward(x, z_hat, z, *tensors)
+        return z
+
+    @staticmethod
+    def backward(ctx, grad):
+        block = ctx.block
+        x, z_hat, z, *tensors = ctx.saved_tensors
+        u = block.backward_solve(grad, z).result.reshape(grad.shape)
+        d_x, *d_tensors = block.reattach_vjp(x, z_hat, u, tensors, ctx.n_x)
+        return (None, d_x, None, *d_tensors)
+
+
 class ImplicitBlock(Flow):
     """Invertible implicit residual block (reference ``imBlock``)."""
 
@@ -146,7 +184,7 @@ class ImplicitBlock(Flow):
                  n_samples=1, n_exact_terms=2, n_exact_terms_test=20,
                  series_cap=24, neumann_grad=True, grad_in_forward=True,
                  eps_forward=1e-6, eps_backward=1e-10, threshold=30,
-                 warm_start=False, device=None):
+                 warm_start=False, brute_force=False, device=None):
         super().__init__()
         self.nnet_x, self.nnet_z = nnet_x, nnet_z
         # geom_p stored in logit space like the reference (implicit_block.py:144)
@@ -157,6 +195,7 @@ class ImplicitBlock(Flow):
         self.n_exact_terms, self.n_exact_terms_test = n_exact_terms, n_exact_terms_test
         self.series_cap = series_cap
         self.neumann_grad, self.grad_in_forward = neumann_grad, grad_in_forward
+        self.brute_force = brute_force
         kc = kernel_config()
         self.solver_cfg = SolverConfig(
             eps_forward=eps_forward, eps_backward=eps_backward,
@@ -176,22 +215,27 @@ class ImplicitBlock(Flow):
         self.last_firmom = torch.zeros(1, device=device)
         self.last_secmom = torch.zeros(1, device=device)
 
+    def generic(self):
+        """True when a net is not the recipe conv stack (its
+        ``conv_forward_data()`` is None): the generic solver path."""
+        return self.nnet_x._recipe() is None or self.nnet_z._recipe() is None
+
     def _data(self, tensors, net):
         """A ``conv_forward_data`` dict from its tensors (DATA_KEYS order)."""
         preact = (self.nnet_x if net == "x" else self.nnet_z)._recipe()[2]
         return dict(zip(DATA_KEYS, tensors), preact=preact)
 
     def _forward_data(self):
-        data_x = self.nnet_x.conv_forward_data()
-        data_z = self.nnet_z.conv_forward_data()
-        if data_x is None or data_z is None:
-            raise NotImplementedError("only the recipe conv stack is ported")
-        return data_x, data_z
+        return self.nnet_x.conv_forward_data(), self.nnet_z.conv_forward_data()
 
     @torch.no_grad()
     def solve(self, x, data_x=None, data_z=None):
         """(z_hat, z, diag): the root, the re-attached value ``z_hat +
-        g(z_hat)`` and the telemetry (``implicit_block.py:230-271``)."""
+        g(z_hat)`` and the telemetry (``implicit_block.py:230-314``).
+        ``data_*`` is ``conv_forward_data()``, or ``lipschitz_tensors()`` on
+        the generic path (default: the nets' own)."""
+        if self.generic():
+            return self._generic_solve(x, data_x, data_z)
         cfg = self.solver_cfg
         if data_x is None or data_z is None:
             data_x, data_z = self._forward_data()
@@ -219,19 +263,49 @@ class ImplicitBlock(Flow):
         return zf.reshape(x.shape), (zf + gf).reshape(x.shape), diag
 
     @torch.no_grad()
+    def _generic_solve(self, x, tx=None, tz=None):
+        """The generic forward solve (``solve_z``, ``implicit_block.py:
+        273-314``): ``root_solve`` of ``g(z) = x_embed - g_z(z) - z`` from
+        the warm start (or zeros), the Banach fallback from x."""
+        cfg = self.solver_cfg
+        tx = self.nnet_x.lipschitz_tensors() if tx is None else tx
+        tz = self.nnet_z.lipschitz_tensors() if tz is None else tz
+        B = x.shape[0]
+        x_embed = (self.nnet_x.apply_tensors(tx, x) + x).reshape(B, -1)
+        banach_g = lambda zf: x_embed - self.nnet_z.apply_tensors(
+            tz, zf.reshape(x.shape)).reshape(B, -1)
+        g = lambda zf: banach_g(zf) - zf
+        xf = x.reshape(B, -1)
+        zf, res = root_solve(
+            g, banach_g, xf if cfg.warm_start else torch.zeros_like(xf),
+            threshold=cfg.threshold, eps=cfg.eps_forward, banach_x0=xf,
+            banach_threshold=cfg.banach_threshold, stall_patience=cfg.stall_patience,
+            stall_rtol=cfg.stall_rtol, stall_guard=cfg.stall_guard,
+            newton_init=cfg.newton_init, line_search=cfg.line_search)
+        diag = solver_diag(res.nstep, res.converged, res.prot_break, res.diff, res.eps[0])
+        if kernel_config().debug_solver:
+            print(f"fwd solve: nstep={int(res.nstep)} diag={diag.tolist()}")
+        return zf.reshape(x.shape), (zf + res.gx).reshape(x.shape), diag
+
+    def _bwd_dtype(self):
+        mode = kernel_config().bwd_precision
+        if mode not in ("bf16", "f32"):
+            raise ValueError(f"IMNF_BWD_PRECISION {mode!r}: the port takes 'bf16' | 'f32'")
+        return mode, torch.bfloat16 if mode == "bf16" else torch.float32
+
+    @torch.no_grad()
     def backward_solve(self, grad, z):
         """Solve ``u (I + J_gz(z)) = grad`` at the re-attached z with the
         backward budget (``_make_bwd_core``, ``implicit_block.py:350-412``):
         the linearisation is taken in ``IMNF_BWD_PRECISION`` (bf16: net z
-        run on bfloat16-cast parameters, buffers and z)."""
+        run on bfloat16-cast parameters, buffers and z). Returns the
+        solver's result, whose ``u`` (fused) or ``result`` (generic) is the
+        solution."""
+        if self.generic():
+            return self._generic_backward_solve(grad, z)
         cfg = self.solver_cfg
-        mode = kernel_config().bwd_precision
-        if mode not in ("bf16", "f32"):
-            raise ValueError(f"IMNF_BWD_PRECISION {mode!r}: the port takes 'bf16' | 'f32'")
-        dtype = torch.bfloat16 if mode == "bf16" else torch.float32
+        mode, dtype = self._bwd_dtype()
         cd = self.nnet_z.conv_chain_data(z.detach(), dtype)
-        if cd is None:
-            raise NotImplementedError("only the recipe conv stack is ported")
         res = fused_backward_solve(
             grad.detach().float(), cd, threshold=cfg.threshold_backward,
             eps=cfg.eps_backward, stall_patience=cfg.stall_patience,
@@ -241,18 +315,74 @@ class ImplicitBlock(Flow):
             print(f"bwd solve: nstep={res.nstep.tolist()} best={float(res.diff.max()):.3e}")
         return res
 
+    @torch.no_grad()
+    def _generic_backward_solve(self, grad, z):
+        """The generic backward solve (``implicit_block.py:391-412``):
+        ``broyden`` from zeros on ``u -> u + J_gz(z)^T u - grad``, the
+        VJPs by autograd through net z (in bf16: on bfloat16-cast
+        parameters, buffers and z, the cotangent cast to bfloat16 and the
+        VJP back to float32)."""
+        cfg = self.solver_cfg
+        _, dtype = self._bwd_dtype()
+        B = z.shape[0]
+        with torch.enable_grad():
+            zz = z.detach().requires_grad_(True)
+            y = self.nnet_z(zz.to(dtype)).float()
+        gflat = grad.detach().float().reshape(B, -1)
+
+        def gfun(uf):
+            vjp = torch.autograd.grad(y, zz, uf.reshape(z.shape), retain_graph=True)[0]
+            return (vjp.reshape(B, -1) + uf) - gflat
+
+        res = broyden(gfun, torch.zeros_like(gflat), cfg.threshold_backward,
+                      cfg.eps_backward, stall_patience=cfg.stall_patience,
+                      stall_rtol=cfg.stall_rtol, stall_guard=cfg.stall_guard,
+                      newton_init=cfg.newton_init, line_search=cfg.line_search)
+        if kernel_config().debug_solver:
+            print(f"bwd solve: nstep={int(res.nstep)} best={float(res.diff.max()):.3e}")
+        return res
+
+    def reattach_vjp(self, x, z_hat, u, tensors, n_x):
+        """The generic re-attachment VJP (``implicit_block.py:457-464``): the
+        VJP with cotangent u of ``x + g_x(x) - g_z(z_hat)`` w.r.t. x and
+        both nets' ``tensors`` (``lipschitz_tensors()`` of net x, then of
+        net z), by autograd."""
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            ts = [t.detach().requires_grad_(True) for t in tensors]
+            out = (xx + self.nnet_x.apply_tensors(ts[:n_x], xx)
+                   - self.nnet_z.apply_tensors(ts[n_x:], z_hat))
+            return torch.autograd.grad(out, [xx, *ts], u)
+
     def logdetgrad(self, z, x, draws, train=False):
         """(B,) logdet|dz/dx| (``_logdetgrad``, ``implicit_block.py:826-982``):
-        in evaluation the basic estimator with the test exact-term budget;
-        in training the Neumann gradient estimator with ``n_exact_terms``."""
+        for flat inputs with D <= 10, in evaluation or under
+        ``brute_force``, the exact brute force; else in evaluation the basic
+        estimator with the test exact-term budget; in training with
+        ``n_exact_terms`` the Neumann gradient estimator, or on the generic
+        path (``neumann_grad=False``) the differentiable basic estimator."""
+        if (self.brute_force or not train) and x.ndim == 2 and x.shape[1] <= 10:
+            if train:
+                raise NotImplementedError("the brute-force log-det in training is not ported")
+            return (ld.brute_force_logdet(self.nnet_x, x)
+                    - ld.brute_force_logdet(self.nnet_z, z))
         geom_p = torch.sigmoid(self.geom_p.detach())
         lamb = self.lamb.detach()
+        generic = self.generic()
         if train:
-            if not self.neumann_grad:
-                raise NotImplementedError("training with neumann_grad=False is not ported")
+            if generic and self.neumann_grad:
+                raise NotImplementedError(
+                    "training with neumann_grad=True off the recipe conv stack "
+                    "(the generic solver path) is not ported")
+            if not generic and not self.neumann_grad:
+                raise NotImplementedError(
+                    "training with neumann_grad=False on the recipe conv stack is not ported")
+            if generic and self.grad_in_forward:
+                raise NotImplementedError(
+                    "the basic estimator under grad_in_forward is not ported")
             if self.n_probes > 1:
                 raise NotImplementedError("training with n_probes > 1 is not ported")
-            if kernel_config().final_form != "vjp":
+            if not generic and kernel_config().final_form != "vjp":
                 raise NotImplementedError("IMNF_FINAL_FORM=jvp is not ported")
         offset = self.n_exact_terms if train else self.n_exact_terms_test
         coeffs, n_power, n_draws = ld.sample_n_dist(
@@ -260,9 +390,11 @@ class ImplicitBlock(Flow):
             self.series_cap, x.device)
         eps_x = draws.rademacher(x.shape, x.device)
         eps_z = draws.rademacher(z.shape, z.device)
-        if not train:
-            return (ld.basic_logdet_estimator(self.nnet_x, x, eps_x, coeffs, n_power)
-                    - ld.basic_logdet_estimator(self.nnet_z, z, eps_z, coeffs, n_power))
+        if not train or generic:
+            return self._estimator_moments(
+                ld.basic_logdet_estimator(self.nnet_x, x, eps_x, coeffs, n_power, train)
+                - ld.basic_logdet_estimator(self.nnet_z, z, eps_z, coeffs, n_power, train),
+                n_draws, train)
         dtype = torch.bfloat16 if kernel_config().bf16_est else torch.float32
         if self.grad_in_forward:
             def estimate(net, y, eps):
@@ -272,10 +404,16 @@ class ImplicitBlock(Flow):
             logdet = estimate(self.nnet_x, x, eps_x) - estimate(self.nnet_z, z, eps_z)
         else:
             logdet = self._fused_logdet(x, z, eps_x, eps_z, coeffs, n_power, dtype)
-        est = logdet.detach()
-        self.last_n_samples = n_draws.float()
-        self.last_firmom = est.mean()[None]
-        self.last_secmom = (est ** 2).mean()[None]
+        return self._estimator_moments(logdet, n_draws, train)
+
+    def _estimator_moments(self, logdet, n_draws, train):
+        """Keep a training estimate's telemetry (``implicit_block.py:975-981``)
+        and return the estimate."""
+        if train:
+            est = logdet.detach()
+            self.last_n_samples = n_draws.float()
+            self.last_firmom = est.mean()[None]
+            self.last_secmom = (est ** 2).mean()[None]
         return logdet
 
     def _fused_logdet(self, x, z, eps_x, eps_z, coeffs, n_power, dtype):
@@ -285,8 +423,6 @@ class ImplicitBlock(Flow):
         the final pair at the float32 effective tensors, x, z and probes."""
         cd_x = self.nnet_x.conv_chain_data(x.detach(), dtype)
         cd_z = self.nnet_z.conv_chain_data(z.detach(), dtype)
-        if cd_x is None or cd_z is None:
-            raise NotImplementedError("only the recipe conv stack is ported")
         acc_x, acc_z = ld.neumann_pair_accs(eps_x.to(dtype), cd_x, eps_z.to(dtype), cd_z,
                                             coeffs, n_power)
         data_x, data_z = self._forward_data()
@@ -295,7 +431,11 @@ class ImplicitBlock(Flow):
         return t_x - t_z
 
     def forward(self, x, logpx=None, draws=None, train=False):
-        if train:
+        if train and self.generic():
+            tx = self.nnet_x.lipschitz_tensors()
+            z = _GenericImplicitFunction.apply(self, x, len(tx), *tx,
+                                               *self.nnet_z.lipschitz_tensors())
+        elif train:
             data_x, data_z = self._forward_data()
             z = _ImplicitFunction.apply(self, x, *(data_x[k] for k in DATA_KEYS),
                                         *(data_z[k] for k in DATA_KEYS))

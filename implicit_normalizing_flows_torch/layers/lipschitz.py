@@ -1,11 +1,17 @@
-"""``InducedNormConv``: the soft-normalised conv of the CIFAR recipe.
+"""The soft-normalised layers of the residual nets: ``InducedNormConv``
+(the CIFAR recipe) and ``InducedNormDense`` (the tabular and toy recipes).
 
-Counterpart of ``layers/lipschitz.py:163-280`` of the JAX package for
-(domain, codomain) = (2, 2), which ``get_conv`` routes to InducedNormConv
-(``lipschitz.py:515-525``). The kernel convolved is
-``w / max(1, sigma / coeff)`` with ``sigma = <u, conv(v)>`` from the
-power-iteration buffers ``u``/``v``; gradients reach ``w`` through sigma
-with ``u``/``v`` constant (``lipschitz.py:241-250``).
+Counterparts of ``InducedNormConv`` (``layers/lipschitz.py:163-280`` of the
+JAX package) and ``InducedNormDense`` (``:77-160``) for (domain, codomain) =
+(2, 2), which ``get_conv`` / ``get_dense`` route to them
+(``lipschitz.py:502-525``). The weight applied is ``w / max(1, sigma /
+coeff)`` with ``sigma = <u, W v>`` from the power-iteration buffers
+``u``/``v``; gradients reach ``w`` through sigma with ``u``/``v`` constant
+(``lipschitz.py:127-133, 241-250``). Other norms are not ported (raise).
+
+Both layers apply a given effective weight and bias with ``apply_with``,
+which the generic implicit-gradient path uses to run a net on tensors it
+differentiates itself (``LipschitzNet.lipschitz_tensors``).
 
 Every computation runs in the dtype asked for (default float32): the
 weight, bias and buffers are cast first, as the JAX package casts its
@@ -63,10 +69,12 @@ class InducedNormConv(nn.Module):
         w = self.weight if dtype is None else self.weight.to(dtype)
         return w / torch.clamp(self._sigma(w) / self.coeff, min=1.0)
 
+    def apply_with(self, w, b, x):
+        return pi.conv_apply(w, x, self.padding) + b[None, :, None, None]
+
     def forward(self, x):
         """In ``x``'s dtype (see the module note)."""
-        y = pi.conv_apply(self.effective_weight(x.dtype), x, self.padding)
-        return y + self.bias.to(x.dtype)[None, :, None, None]
+        return self.apply_with(self.effective_weight(x.dtype), self.bias.to(x.dtype), x)
 
     @torch.no_grad()
     def update_lipschitz(self, n_iterations=None):
@@ -83,3 +91,89 @@ class InducedNormConv(nn.Module):
         self.u.copy_(u)
         self.v.copy_(v)
         self.sigma.copy_(self._sigma(w))
+
+
+class InducedNormDense(nn.Module):
+    """``x @ W.T + b`` with ``W`` soft-normalised to ``coeff`` in the (2, 2)
+    induced norm (``InducedNormDense``, ``lipschitz.py:77-160``). At
+    construction ``u``/``v`` settle over 200 power iterations, as the JAX
+    ``init`` does; ``zero_init`` divides the initial weight by 1000 (the
+    layer projecting back to the data, ``mixed_lipschitz.py:60-62``)."""
+
+    def __init__(self, in_features, out_features, coeff=0.97, domain=2.0, codomain=2.0,
+                 n_iterations=None, atol=None, rtol=None, zero_init=False, learn_p=False,
+                 generator=None, device=None):
+        super().__init__()
+        if learn_p:
+            raise NotImplementedError("learned p-orders are not ported")
+        if (domain, codomain) != (2, 2):
+            raise NotImplementedError(
+                f"induced norm ({domain}, {codomain}): only (2, 2) is ported")
+        self.in_features, self.out_features = in_features, out_features
+        self.coeff = coeff
+        self.n_iterations, self.atol, self.rtol = n_iterations, atol, rtol
+        # kaiming_uniform(a=sqrt(5)) as the JAX package draws it; drawn and
+        # settled on the generator's device, then moved
+        bound = 1.0 / math.sqrt(in_features)
+        gdev = generator.device if generator is not None else None
+        u01 = lambda *s: torch.rand(*s, generator=generator, device=gdev)
+        w = (u01(out_features, in_features) * 2 - 1) * bound
+        if zero_init:
+            w = w / 1000.0
+        b = (u01(out_features) * 2 - 1) * bound
+        normal = lambda n: torch.randn(n, generator=generator, device=gdev)
+        u, v = pi.induced_norm_dense(w, pi.l2_normalize(normal(out_features)),
+                                     pi.l2_normalize(normal(in_features)), n_iterations=200)
+        self.weight = nn.Parameter(w.to(device))
+        self.bias = nn.Parameter(b.to(device))
+        self.register_buffer("u", u.to(device))
+        self.register_buffer("v", v.to(device))
+        self.register_buffer("sigma", pi.dense_sigma(w, u, v).to(device))
+
+    def effective_weight(self, dtype=None):
+        w = self.weight if dtype is None else self.weight.to(dtype)
+        sigma = pi.dense_sigma(w, self.u.to(w.dtype), self.v.to(w.dtype))
+        return w / torch.clamp(sigma / self.coeff, min=1.0)
+
+    def apply_with(self, w, b, x):
+        return x @ w.T + b
+
+    def forward(self, x):
+        """In ``x``'s dtype: the weight, bias and buffers are cast first."""
+        return self.apply_with(self.effective_weight(x.dtype), self.bias.to(x.dtype), x)
+
+    def update_lipschitz(self, n_iterations=None):
+        update_dense_lipschitz([self], n_iterations)
+
+
+@torch.no_grad()
+def update_dense_lipschitz(layers, n_iterations=None):
+    """The post-step power iteration of :class:`InducedNormDense` layers
+    (``n_iterations`` overrides each layer's budget), those of one shape and
+    budget run together by ``power_iter.induced_norm_dense_stack``:
+    a model's hundreds of small layers in a few host loops. Each layer's
+    iterates and stop are its own, as if it ran alone."""
+    groups = {}
+    for layer in layers:
+        n = n_iterations if n_iterations is not None else layer.n_iterations
+        key = (tuple(layer.weight.shape), n, layer.atol, layer.rtol)
+        groups.setdefault(key, []).append(layer)
+    for (_, n, atol, rtol), group in groups.items():
+        w = torch.stack([layer.weight for layer in group])
+        u, v = pi.induced_norm_dense_stack(
+            w, torch.stack([layer.u for layer in group]),
+            torch.stack([layer.v for layer in group]), n_iterations=n, atol=atol, rtol=rtol)
+        sigma = torch.sum(u * torch.bmm(w, v[:, :, None])[:, :, 0], dim=1)
+        for name, value in (("u", u), ("v", v), ("sigma", sigma)):
+            torch._foreach_copy_([getattr(layer, name) for layer in group], list(value))
+
+
+def get_dense(in_features, out_features, bias=True, coeff=0.97, domain=None,
+              codomain=None, **kwargs):
+    """``get_dense`` (``lipschitz.py:502-513``) for the (2, 2) norms, which it
+    routes to :class:`InducedNormDense` (the other pairs raise there); the
+    layers have a bias, as every net the builders make."""
+    if not bias:
+        raise NotImplementedError("dense layers without bias are not ported")
+    return InducedNormDense(in_features, out_features, coeff=coeff, domain=domain,
+                            codomain=codomain, **kwargs)

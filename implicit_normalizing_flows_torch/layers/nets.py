@@ -1,9 +1,13 @@
-"""Residual conv nets inside the implicit blocks.
+"""Residual nets inside the implicit blocks.
 
 Counterpart of ``LipschitzNet`` (``layers/nets.py:42-227`` of the JAX
-package) for the recipe stack ``[swish] conv3x3 · swish · conv1x1 · swish ·
-conv3x3``. ``conv_forward_data`` is the contract the fused solve and the re-attachment
-VJP consume, ``conv_chain_data`` the one of the backward solve.
+package): an ordered stack of soft-normalised layers and activations. For
+the recipe conv stack ``[swish] conv3x3 · swish · conv1x1 · swish · conv3x3``
+``conv_forward_data`` is the contract the fused solve and the re-attachment
+VJP consume, ``conv_chain_data`` the one of the backward solve; for any
+other stack (the tabular and toy MLPs) both are None and the implicit block
+takes the generic solver path, which runs the net on its effective tensors
+(``lipschitz_tensors`` / ``apply_tensors``).
 """
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ from torch import nn
 
 from ..ops.fused_solve import dswish
 from .activations import Swish
-from .lipschitz import InducedNormConv
+from .lipschitz import InducedNormConv, InducedNormDense
 
 
 class LipschitzNet(nn.Module):
@@ -86,7 +90,29 @@ class LipschitzNet(nn.Module):
         s2 = dswish(h2, acts[-1].slope(dtype)).to(dtype)
         return s0, s1, s2, w1, w2, w3
 
-    def update_lipschitz(self, n_iterations=None):
+    def _lipschitz_layers(self):
+        return [it for it in self.layers if isinstance(it, (InducedNormConv, InducedNormDense))]
+
+    def lipschitz_tensors(self, dtype=None):
+        """Every soft-normalised layer's effective weight and bias, in
+        order, in ``dtype`` (default the parameters'), differentiable w.r.t.
+        the raw parameters."""
+        out = []
+        for layer in self._lipschitz_layers():
+            out += [layer.effective_weight(dtype),
+                    layer.bias if dtype is None else layer.bias.to(dtype)]
+        return out
+
+    def apply_tensors(self, tensors, x):
+        """The net on ``x`` with the soft-normalised layers' effective
+        weights and biases taken from ``tensors`` (``lipschitz_tensors``'
+        order)."""
+        it = iter(tensors)
         for layer in self.layers:
-            if isinstance(layer, InducedNormConv):
-                layer.update_lipschitz(n_iterations)
+            x = (layer.apply_with(next(it), next(it), x)
+                 if isinstance(layer, (InducedNormConv, InducedNormDense)) else layer(x))
+        return x
+
+    def update_lipschitz(self, n_iterations=None):
+        for layer in self._lipschitz_layers():
+            layer.update_lipschitz(n_iterations)

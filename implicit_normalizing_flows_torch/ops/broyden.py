@@ -1,9 +1,100 @@
-"""Plain-PyTorch pieces of the solver around the fused solve: the Banach
-fallback for protective-break rows and the host-side triage line.
-Counterpart of ``ops/broyden.py:340-442`` of the JAX package."""
+"""The generic batched Broyden solver, its Banach fallback and the host-side
+triage line.
+
+Counterpart of ``ops/broyden.py`` of the JAX package (``broyden`` :99-337,
+``fixed_point_iteration`` :340-376, ``root_solve`` :379-425,
+``triage_metrics`` :428-442): a limited-memory "bad Broyden" root finder
+with the inverse Jacobian approximated as ``-I + U V^T`` and one rank-1 pair
+appended per iteration by :func:`~.broyden_update.broyden_update` (its CUDA
+kernel for CUDA tensors). The implicit blocks whose nets are not the recipe
+conv stack solve with it; the recipe stack has its fused solve
+(``ops.fused_solve``).
+
+The same semantics as the JAX solver: per-example tolerance ``eps *
+sqrt(D)``, per-example freezing (a frozen row keeps its residual bit for
+bit), best-iterate return, the protective break at ``1e6`` times the initial
+objective, the guarded stall window, ``newton_init``. The JAX loop is one
+``lax.while_loop`` on the device; here it is a host loop that reads
+``active.any()`` once per iteration. ``line_search`` is not ported (raises).
+"""
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+from .broyden_update import broyden_update
+
+PROTECT_THRES = 1e6  # reference: broyden.py:150
+
+
+class BroydenResult(NamedTuple):
+    result: torch.Tensor      # (B, D) best iterate per example
+    gx: torch.Tensor          # (B, D) residual at the returned iterate
+    nstep: torch.Tensor       # () int32, iterations run
+    diff: torch.Tensor        # (B,) best objective per example
+    best_step: torch.Tensor   # (B,) int32 iteration of each best iterate
+    prot_break: torch.Tensor  # (B,) bool, hit the protective break
+    converged: torch.Tensor   # (B,) bool, met its tolerance
+    eps: torch.Tensor         # (B,) per-example tolerance
+
+
+def _norm(v):
+    return torch.sqrt(torch.sum(v * v, dim=1))
+
+
+@torch.no_grad()
+def broyden(g, x0, threshold, eps, *, stall_patience=None, stall_rtol=1e-3,
+            stall_guard=None, newton_init=False, line_search=False) -> BroydenResult:
+    """Solve ``g(x) = 0`` for a batch of independent (B, D) problems from
+    ``x0`` with at most ``threshold`` iterations (``broyden``,
+    ``broyden.py:99-337``; the arguments are the JAX function's)."""
+    if line_search:
+        raise NotImplementedError("line_search on the generic Broyden solver is not ported")
+    if x0.ndim != 2:
+        raise ValueError(f"broyden expects (B, D) input, got {tuple(x0.shape)}")
+    B, D = x0.shape
+    dt, dev = x0.dtype, x0.device
+    eps_i = torch.full((B,), eps * D ** 0.5, dtype=dt, device=dev)
+    x, gx = x0, g(x0)
+    init_obj = _norm(gx)
+    update = gx if newton_init else -gx
+    Us = torch.zeros(B, D, threshold, dtype=dt, device=dev)
+    VTs = torch.zeros(B, threshold, D, dtype=dt, device=dev)
+    active = init_obj >= eps_i
+    best_x, best_gx, best_obj = x, gx, init_obj
+    best_step = torch.zeros(B, dtype=torch.int32, device=dev)
+    prot = torch.zeros(B, dtype=torch.bool, device=dev)
+    snapshot = init_obj
+    nstep = 0
+    while nstep < threshold and bool(active.any()):
+        act = active[:, None]
+        delta_x = torch.where(act, update, 0.0)
+        x_new = x + delta_x
+        gx_new = torch.where(act, g(x_new), gx)
+        delta_gx = gx_new - gx
+        nstep += 1
+        obj = _norm(gx_new)
+        improved = active & (obj < best_obj)
+        best_x = torch.where(improved[:, None], x_new, best_x)
+        best_gx = torch.where(improved[:, None], gx_new, best_gx)
+        best_obj = torch.where(improved, obj, best_obj)
+        best_step = torch.where(improved, nstep, best_step)
+        bad = ~torch.isfinite(obj) | (obj > init_obj * PROTECT_THRES)
+        prot = prot | (active & bad)
+        next_active = active & (obj >= eps_i) & ~bad
+        if stall_patience is not None and nstep % stall_patience == 0:
+            # each example's best objective against its value one window ago
+            stalled = best_obj > snapshot * (1.0 - stall_rtol)
+            if stall_guard is not None:
+                stalled = stalled & (best_obj < stall_guard * eps_i)
+            next_active = next_active & ~stalled
+            snapshot = best_obj
+        update = broyden_update(Us, VTs, delta_x, delta_gx, gx_new, active,
+                                (nstep - 1) % threshold)
+        x, gx, active = x_new, gx_new, next_active
+    return BroydenResult(best_x, best_gx, torch.tensor(nstep, dtype=torch.int32, device=dev),
+                         best_obj, best_step, prot, best_obj < eps_i, eps_i)
 
 
 @torch.no_grad()
@@ -28,6 +119,26 @@ def fixed_point_iteration(g, y, threshold=1000, eps=1e-5):
         active = active & ~row_done(x, x_prev)
         i += 1
     return x.reshape(shape)
+
+
+@torch.no_grad()
+def root_solve(g, banach_g, x0, threshold, eps, banach_x0=None, banach_threshold=1000,
+               stall_patience=None, stall_rtol=1e-3, stall_guard=None, newton_init=False,
+               line_search=False):
+    """:func:`broyden`, then the Banach fallback ``z <- banach_g(z)`` from
+    ``banach_x0`` (default ``x0``) for the rows that hit the protective
+    break, with their residual ``g`` recomputed at the fallback root
+    (``root_solve``, ``broyden.py:379-425``). Returns ``(root, result)``."""
+    res = broyden(g, x0, threshold, eps, stall_patience=stall_patience,
+                  stall_rtol=stall_rtol, stall_guard=stall_guard,
+                  newton_init=newton_init, line_search=line_search)
+    if bool(res.prot_break.any()):
+        fb = fixed_point_iteration(banach_g, x0 if banach_x0 is None else banach_x0,
+                                   threshold=banach_threshold, eps=eps)
+        take = res.prot_break[:, None]
+        res = res._replace(result=torch.where(take, fb, res.result),
+                           gx=torch.where(take, g(fb), res.gx))
+    return res.result, res
 
 
 def triage_metrics(m, name: str = "forward") -> str | None:

@@ -2,13 +2,17 @@
 
 Counterpart of ``ops/logdet.py`` of the JAX package: Rademacher probes, the
 Russian-roulette truncation with its coefficients (``logdet.py:65-135``),
-the **basic** power-series estimator of evaluation (``logdet.py:278-297``):
-``sum_k (-1)^(k+1)/k * coeff(k) * <eps, J^k eps>`` via repeated autograd
-vector-Jacobian products, and the **Neumann** gradient estimator of
-training (``logdet.py:145-185``, :func:`residual_logdet`), and both nets'
-stop-gradient Neumann accumulations of the ``--mem-eff False`` path through
-the fused chain kernels (:func:`neumann_pair_accs`, ``logdet.py:215-251``).
-The series stops at ``n_power``: the coefficients beyond it are exactly 0.
+the **basic** power-series estimator (``logdet.py:278-297``): ``sum_k
+(-1)^(k+1)/k * coeff(k) * <eps, J^k eps>`` via repeated autograd
+vector-Jacobian products, of evaluation and, differentiable, of the
+tabular training path (``neumann_grad=False``); the **Neumann** gradient
+estimator of image training (``logdet.py:145-185``,
+:func:`residual_logdet`), and both nets' stop-gradient Neumann
+accumulations of the ``--mem-eff False`` path through the fused chain
+kernels (:func:`neumann_pair_accs`, ``logdet.py:215-251``); the exact
+brute-force log-det of small flat inputs (:func:`brute_force_logdet`,
+``logdet.py:300-337``). The series stops at ``n_power``: the coefficients
+beyond it are exactly 0.
 
 Every random draw comes from a :class:`Draws`, which either samples from a
 ``torch.Generator`` or replays numbers handed to it (the tests replay the
@@ -121,24 +125,44 @@ def sample_n_dist(draws: Draws, n_dist, n_samples, geom_p, lamb, offset,
     return coeffs.float(), n_power, n_draws
 
 
-def basic_logdet_estimator(net, x, vareps, coeffs, n_power):
+def basic_logdet_estimator(net, x, vareps, coeffs, n_power, create_graph=False):
     """(B,) ``sum_{k<=n_power} (-1)^(k+1)/k coeff(k) <J^k eps, eps>`` with J
     the Jacobian of ``net`` at ``x`` (transposed powers via autograd VJPs,
-    which leave the trace unchanged)."""
+    which leave the trace unchanged). Detached unless ``create_graph``,
+    which keeps the whole series differentiable w.r.t. the net's
+    parameters and ``x`` (the tabular training estimator)."""
     cap = coeffs.shape[0]
     ks = torch.arange(1, cap + 1, device=x.device)
     signs = torch.where(ks % 2 == 1, 1.0, -1.0)
     weights = signs / ks.float() * coeffs
     dims = tuple(range(1, x.ndim))
+    n = min(n_power, cap)
     with torch.enable_grad():
-        xg = x.detach().requires_grad_(True)
+        xg = x if create_graph and x.requires_grad else x.detach().requires_grad_(True)
         y = net(xg)
         v = vareps
-        acc = torch.zeros(x.shape[0], device=x.device)
-        for k in range(min(n_power, cap)):
-            v = torch.autograd.grad(y, xg, v, retain_graph=k + 1 < n_power)[0]
+        acc = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        for k in range(n):
+            v = torch.autograd.grad(y, xg, v, retain_graph=create_graph or k + 1 < n,
+                                    create_graph=create_graph)[0]
             acc = acc + weights[k] * torch.sum(v * vareps, dim=dims)
-    return acc.detach()
+    return acc if create_graph else acc.detach()
+
+
+def brute_force_logdet(net, x):
+    """(B,) exact ``log|det(I + J)|`` of ``net`` at each example of a small
+    flat input (``brute_force_logdet``, ``logdet.py:300-337``): the
+    Jacobian row by row, one VJP per output entry (the net maps each example
+    on its own), then ``slogdet``. Detached."""
+    B = x.shape[0]
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        y = net(xg).reshape(B, -1)
+        D = y.shape[1]
+        rows = [torch.autograd.grad(y[:, i].sum(), xg, retain_graph=i + 1 < D)[0].reshape(B, D)
+                for i in range(D)]
+    eye = torch.eye(D, dtype=x.dtype, device=x.device)
+    return torch.linalg.slogdet(eye + torch.stack(rows, dim=1))[1]
 
 
 def _batch_dot(a, b):

@@ -1,8 +1,8 @@
-"""Induced-norm power iteration for the (2, 2) norms the CIFAR recipe uses
-(vnorms ``2222``). Counterpart of ``ops/power_iter.py:163-250`` of the JAX
-package: ``sigma = <u, W v>`` is differentiable w.r.t. ``W``; ``u``/``v`` are
-refreshed out of band by the power iteration (the EMA-eval sigma refresh,
-``train_img.py:479-481``)."""
+"""Induced-norm power iteration for the (2, 2) norms the CIFAR and tabular
+recipes use (vnorms ``2222``, ``222222``). Counterpart of
+``ops/power_iter.py:132-250`` of the JAX package: ``sigma = <u, W v>`` is
+differentiable w.r.t. ``W``; ``u``/``v`` are refreshed out of band by the
+power iteration (the EMA-eval sigma refresh, ``train_img.py:479-481``)."""
 from __future__ import annotations
 
 import torch
@@ -44,33 +44,52 @@ def conv_sigma(weight, u, v, x_shape, padding):
     return torch.dot(u.reshape(-1), wv.reshape(-1))
 
 
+def _normalize_rows(a):
+    return a / torch.clamp(torch.linalg.vector_norm(a, dim=1, keepdim=True), min=1e-12)
+
+
 def _run(step, u, v, n_iterations, atol, rtol):
-    """Fixed budget, or the reference's adaptive test with a 200 cap
-    (mixed_lipschitz.py:114-120)."""
+    """L independent power iterations, one per row of ``u`` (L, m) and ``v``
+    (L, n): a fixed budget, or the reference's adaptive test with a 200 cap
+    (mixed_lipschitz.py:114-120) for each row on its own, a row that has met
+    it keeping its u and v while the others go on. One host read per
+    iteration for all L."""
     if n_iterations is not None:
         for _ in range(n_iterations):
             u, v = step(u, v)
         return u, v
     if atol is None or rtol is None:
         raise ValueError("Need one of n_iterations or (atol, rtol).")
+    active = torch.ones(u.shape[0], dtype=torch.bool, device=u.device)
     for _ in range(MAX_POWER_ITERS):
         new_u, new_v = step(u, v)
-        err_u = torch.linalg.vector_norm(new_u - u) / new_u.numel() ** 0.5
-        err_v = torch.linalg.vector_norm(new_v - v) / new_v.numel() ** 0.5
-        done = bool((err_u < atol + rtol * new_u.max())
-                    & (err_v < atol + rtol * new_v.max()))
-        u, v = new_u, new_v
-        if done:
+        err_u = torch.linalg.vector_norm(new_u - u, dim=1) / new_u.shape[1] ** 0.5
+        err_v = torch.linalg.vector_norm(new_v - v, dim=1) / new_v.shape[1] ** 0.5
+        done = ((err_u < atol + rtol * new_u.amax(dim=1))
+                & (err_v < atol + rtol * new_v.amax(dim=1)))
+        u = torch.where(active[:, None], new_u, u)
+        v = torch.where(active[:, None], new_v, v)
+        active = active & ~done
+        if not bool(active.any()):
             break
     return u, v
 
 
 @torch.no_grad()
-def induced_norm_dense(weight, u, v, n_iterations=None, atol=None, rtol=None):
+def induced_norm_dense_stack(weight, u, v, n_iterations=None, atol=None, rtol=None):
+    """The power iteration of L dense layers of one shape at once
+    (``weight`` (L, out, in), ``u`` (L, out), ``v`` (L, in)), each with its
+    own stop (``_run``)."""
     def step(u, v):
-        u2 = l2_normalize(weight @ v)
-        return u2, l2_normalize(weight.T @ u2)
+        u2 = _normalize_rows(torch.bmm(weight, v[:, :, None])[:, :, 0])
+        return u2, _normalize_rows(torch.bmm(weight.transpose(1, 2), u2[:, :, None])[:, :, 0])
     return _run(step, u, v, n_iterations, atol, rtol)
+
+
+def induced_norm_dense(weight, u, v, n_iterations=None, atol=None, rtol=None):
+    """Power-iterate ``u = N(W v); v = N(W^T u)`` for one dense weight."""
+    u, v = induced_norm_dense_stack(weight[None], u[None], v[None], n_iterations, atol, rtol)
+    return u[0], v[0]
 
 
 @torch.no_grad()
@@ -79,7 +98,8 @@ def induced_norm_conv(weight, u, v, x_shape, out_shape, padding,
     """Power iteration through a kxk conv as one linear operator
     (mixed_lipschitz.py:328-376)."""
     def step(u, v):
-        u2 = l2_normalize(conv_apply(weight, v.reshape(x_shape), padding).reshape(-1))
+        u2 = _normalize_rows(conv_apply(weight, v.reshape(x_shape), padding).reshape(1, -1))
         v_s = conv_transpose_apply(weight, u2.reshape(out_shape), padding)
-        return u2, l2_normalize(v_s.reshape(-1))
-    return _run(step, u, v, n_iterations, atol, rtol)
+        return u2, _normalize_rows(v_s.reshape(1, -1))
+    u, v = _run(step, u[None], v[None], n_iterations, atol, rtol)
+    return u[0], v[0]

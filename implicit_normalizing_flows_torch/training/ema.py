@@ -11,6 +11,9 @@ def ema_init(params) -> dict:
 
 @torch.no_grad()
 def ema_apply(shadow, params, decay=0.999) -> None:
-    """shadow -= (1 - decay) * (shadow - params), in place (``ema.py:13-16``)."""
-    for k, s in shadow.items():
-        s.sub_((1.0 - decay) * (s - params[k]))
+    """shadow -= (1 - decay) * (shadow - params), in place (``ema.py:13-16``),
+    one multi-tensor call per operation."""
+    keys = list(shadow)
+    ss = [shadow[k] for k in keys]
+    torch._foreach_sub_(ss, torch._foreach_mul(
+        torch._foreach_sub(ss, [params[k] for k in keys]), 1.0 - decay))

@@ -1,11 +1,14 @@
-"""Image evaluation and training steps: dequantise -> flow -> bits/dim
+"""Evaluation and training steps: (dequantise ->) flow -> bits/dim or NLL
 and solver telemetry, and for training the gradient, the optimizer step,
 the power iteration and the EMA.
 
-Counterparts of ``make_image_step(model, None, train=False)`` and
-``make_image_step(model, optimizer, train=True)`` of the JAX package
-(``training/loops.py:45-102,214-226,246-391``) for the density task without
-padding and with ``accum_steps=1``.
+Counterparts of the JAX package's ``make_image_step(model, None,
+train=False)`` and ``make_image_step(model, optimizer, train=True)``
+(``training/loops.py:45-102,214-226,246-391``) for the image density task
+without padding and with ``accum_steps=1``, and of
+``make_density_train_step`` / ``make_density_eval_step``
+(``loops.py:111-205``) for the flat (tabular) models without learned
+p-orders.
 """
 from __future__ import annotations
 
@@ -75,23 +78,62 @@ def make_image_eval_step(model, *, im_dim=3, imagesize=32, nvals=256):
     return step
 
 
-class ImageTrainStep:
-    """One density training step per call (``loops.py:268-391``): the
-    model's parameters, the optimizer state ``opt_state`` and the EMA
-    shadow ``ema`` (both ``{name: tensor}`` over ``named_parameters``) are
-    updated in place. Built by :func:`make_image_train_step`."""
+class TrainStep:
+    """One training step per call: loss -> gradients -> ``optimizer``
+    (global-norm clip and the update) -> ``update_lipschitz`` -> EMA. The
+    model's parameters, the optimizer state ``opt_state`` and the EMA shadow
+    ``ema`` (both ``{name: tensor}`` over ``named_parameters``) are updated
+    in place. Subclasses define :meth:`loss`."""
 
-    def __init__(self, model, optimizer, *, ema_decay=0.999,
-                 n_lipschitz_iters=None, im_dim=3, imagesize=32, nvals=256):
+    def __init__(self, model, optimizer, *, ema_decay=0.999, n_lipschitz_iters=None):
         from .ema import ema_init
 
         self.model, self.optimizer = model, optimizer
         self.ema_decay, self.n_lipschitz_iters = ema_decay, n_lipschitz_iters
-        self.nvals, self.dim = nvals, imagesize * imagesize * im_dim
         self.device = next(model.parameters()).device
         self.params = dict(model.named_parameters())
         self.opt_state = optimizer.init(self.params)
         self.ema = ema_init(self.params)
+
+    def loss(self, x, draws, *args):
+        """(loss, metrics) with the autograd graph."""
+        raise NotImplementedError
+
+    def grads(self, x, draws, *args):
+        """(loss, metrics, {name: gradient}); a parameter the loss does not
+        reach gets zeros."""
+        loss, metrics = self.loss(x, draws, *args)
+        names = list(self.params)
+        gs = torch.autograd.grad(loss, [self.params[k] for k in names],
+                                 allow_unused=True)
+        grads = {k: (g if g is not None else torch.zeros_like(self.params[k]))
+                 for k, g in zip(names, gs)}
+        return loss.detach(), metrics, grads
+
+    def __call__(self, x, draws, *args):
+        from .ema import ema_apply
+        from .optimizers import global_norm
+
+        loss, metrics, grads = self.grads(x, draws, *args)
+        metrics["loss"] = loss
+        metrics["grad_norm"] = global_norm(grads)
+        self.opt_state = self.optimizer.update(self.params, grads, self.opt_state)
+        self.model.update_lipschitz(self.n_lipschitz_iters)
+        ema_apply(self.ema, self.params, self.ema_decay)
+        metrics.update(solver_stats(self.model))
+        metrics.update(estimator_stats(self.model))
+        return metrics
+
+
+class ImageTrainStep(TrainStep):
+    """One image density training step per call (``loops.py:268-391``).
+    Built by :func:`make_image_train_step`."""
+
+    def __init__(self, model, optimizer, *, ema_decay=0.999,
+                 n_lipschitz_iters=None, im_dim=3, imagesize=32, nvals=256):
+        super().__init__(model, optimizer, ema_decay=ema_decay,
+                         n_lipschitz_iters=n_lipschitz_iters)
+        self.nvals, self.dim = nvals, imagesize * imagesize * im_dim
 
     def loss(self, x_u8, draws):
         """(loss, metrics) with the autograd graph: mean bits/dim of the
@@ -106,31 +148,6 @@ class ImageTrainStep:
         return bpd, {"bpd": bpd.detach(), "logpz": logpz.detach().mean(),
                      "delta_logp": (-delta_logp).detach().mean()}
 
-    def grads(self, x_u8, draws):
-        """(loss, metrics, {name: gradient}); a parameter the loss does not
-        reach gets zeros."""
-        loss, metrics = self.loss(x_u8, draws)
-        names = list(self.params)
-        gs = torch.autograd.grad(loss, [self.params[k] for k in names],
-                                 allow_unused=True)
-        grads = {k: (g if g is not None else torch.zeros_like(self.params[k]))
-                 for k, g in zip(names, gs)}
-        return loss.detach(), metrics, grads
-
-    def __call__(self, x_u8, draws):
-        from .ema import ema_apply
-        from .optimizers import global_norm
-
-        loss, metrics, grads = self.grads(x_u8, draws)
-        metrics["loss"] = loss
-        metrics["grad_norm"] = global_norm(grads)
-        self.opt_state = self.optimizer.update(self.params, grads, self.opt_state)
-        self.model.update_lipschitz(self.n_lipschitz_iters)
-        ema_apply(self.ema, self.params, self.ema_decay)
-        metrics.update(solver_stats(self.model))
-        metrics.update(estimator_stats(self.model))
-        return metrics
-
 
 def make_image_train_step(model, optimizer, *, ema_decay=0.999,
                           n_lipschitz_iters=None, im_dim=3, imagesize=32,
@@ -144,3 +161,52 @@ def make_image_train_step(model, optimizer, *, ema_decay=0.999,
     return ImageTrainStep(model, optimizer, ema_decay=ema_decay,
                           n_lipschitz_iters=n_lipschitz_iters, im_dim=im_dim,
                           imagesize=imagesize, nvals=nvals)
+
+
+class DensityTrainStep(TrainStep):
+    """One flat-model density training step per call
+    (``make_density_train_step``, ``loops.py:111-182``): ``step(x, draws,
+    beta=1.0)`` with the loss ``-mean(logpz - beta * delta_logp)`` in nats.
+    Built by :func:`make_density_train_step`."""
+
+    def loss(self, x, draws, beta=1.0):
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        zeros = torch.zeros(x.shape[0], device=x.device)
+        z, delta_logp = self.model(x, zeros, draws, train=True)
+        logpz = standard_normal_logprob(z)
+        loss = -torch.mean(logpz - beta * delta_logp)
+        return loss, {"logpz": logpz.detach().mean(),
+                      "delta_logp": (-delta_logp).detach().mean()}
+
+
+def make_density_train_step(model, optimizer, *, n_lipschitz_iters=None,
+                            ema_decay=0.999) -> DensityTrainStep:
+    """Returns ``step(x, draws, beta=1.0) -> metrics`` (loss, logpz,
+    delta_logp, grad_norm, the pooled solver stats and the estimator
+    moments) for a flat model such as ``build_tabular_model``'s: the rows
+    ``x`` (B, D) are moved to the model's device; ``draws`` supplies the
+    probes and roulette draws."""
+    return DensityTrainStep(model, optimizer, ema_decay=ema_decay,
+                            n_lipschitz_iters=n_lipschitz_iters)
+
+
+def make_density_eval_step(model):
+    """Returns ``step(x, draws) -> metrics`` (``make_density_eval_step``,
+    ``loops.py:185-205``): ``loss`` the mean NLL in nats, ``nll_vec`` (B,),
+    ``logpz``, ``delta_logp``, ``z`` and the pooled solver stats, with the
+    blocks' evaluation log-det (the brute force for D <= 10, else the basic
+    estimator with the test exact-term budget)."""
+    device = next(model.parameters()).device
+
+    @torch.no_grad()
+    def step(x, draws):
+        x = torch.as_tensor(x, dtype=torch.float32, device=device)
+        z, delta_logp = model(x, torch.zeros(x.shape[0], device=device), draws)
+        logpz = standard_normal_logprob(z)
+        nll = -(logpz - delta_logp)
+        m = {"loss": nll.mean(), "nll_vec": nll, "logpz": logpz.mean(),
+             "delta_logp": (-delta_logp).mean(), "z": z}
+        m.update(solver_stats(model))
+        return m
+
+    return step

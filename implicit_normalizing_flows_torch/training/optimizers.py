@@ -26,8 +26,9 @@ import torch
 
 
 def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient (``optax.global_norm``)."""
-    return torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+    """sqrt of the sum of squares of every gradient (``optax.global_norm``),
+    from the per-tensor norms of one multi-tensor call."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads.values()))))
 
 
 @dataclass
@@ -51,28 +52,30 @@ class Adam:
     @torch.no_grad()
     def update(self, params, grads, state: AdamState) -> AdamState:
         """Apply one step to ``params`` in place; returns the new state."""
-        grads = {k: (grads.get(k) if grads.get(k) is not None
-                     else torch.zeros_like(p)) for k, p in params.items()}
+        keys = list(params)
+        ps = [params[k] for k in keys]
+        gs = [grads.get(k) if grads.get(k) is not None else torch.zeros_like(params[k])
+              for k in keys]
         if self.grad_clip is not None:
-            norm = global_norm(grads)
+            norm = global_norm(dict(zip(keys, gs)))
             if not bool(norm < self.grad_clip):
-                grads = {k: g / norm * self.grad_clip for k, g in grads.items()}
+                gs = torch._foreach_mul(torch._foreach_div(gs, norm), self.grad_clip)
         count = state.count + 1
         f32 = lambda v: torch.tensor(v, dtype=torch.float32)
         bc1 = 1 - f32(self.b1) ** f32(count)
         bc2 = 1 - f32(self.b2) ** f32(count)
         scale = float(torch.sqrt(bc2) / bc1)  # exact: a float32 value
         lr = float(self.lr_schedule(state.count))
-        mu, nu = {}, {}
-        for k, p in params.items():
-            g = grads[k]
-            mu[k] = self.b1 * state.mu[k] + (1 - self.b1) * g
-            nu[k] = self.b2 * state.nu[k] + (1 - self.b2) * g * g
-            step = -scale * mu[k] / (torch.sqrt(nu[k]) + self.eps)
-            if self.weight_decay:
-                step = step - self.weight_decay * p
-            p.add_(lr * step)
-        return AdamState(count, mu, nu)
+        # the formulas of the module note, one multi-tensor call per
+        # elementwise operation in their order (the same float32 roundings)
+        add, mul = torch._foreach_add, torch._foreach_mul
+        mu = add(mul([state.mu[k] for k in keys], self.b1), mul(gs, 1 - self.b1))
+        nu = add(mul([state.nu[k] for k in keys], self.b2), mul(mul(gs, 1 - self.b2), gs))
+        step = torch._foreach_div(mul(mu, -scale), add(torch._foreach_sqrt(nu), self.eps))
+        if self.weight_decay:
+            step = torch._foreach_sub(step, mul(ps, self.weight_decay))
+        torch._foreach_add_(ps, mul(step, lr))
+        return AdamState(count, dict(zip(keys, mu)), dict(zip(keys, nu)))
 
 
 def adam(lr_schedule, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,
