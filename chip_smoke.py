@@ -4,8 +4,8 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. build the CUDA kernels (csrc/fused_solve.cu, csrc/implicit_grad.cu,
-     csrc/estimator.cu and csrc/broyden_update.cu, one nvcc each, in
-     parallel);
+     csrc/estimator.cu, csrc/broyden_update.cu and csrc/block_forward.cu,
+     one nvcc each, in parallel);
   2. each forward-solve kernel against its plain PyTorch version at the
      CIFAR-10 flagship's shapes (all three scales, batch 64, the committed
      checkpoint's weights, the blocks' real inputs): max error and device
@@ -74,7 +74,26 @@ Phases (any failure exits non-zero; nothing is caught):
      (forward solves, estimators, backward solves, re-attachments, update,
      rest), a profiled step, one step with the plain version forced against
      the kernel's, and one evaluation batch of 4000 (brute-force log-det),
-     kernel NLL against plain.
+     kernel NLL against plain;
+ 14. each kernel of the merged block forward (IMNF_FUSED_BLOCK=1,
+     csrc/block_forward.cu: the linearisation variants of the solve's first
+     two convs, and the chain's three stages with float32 derivative
+     factors) against its plain version on the real inputs of one merged
+     training step (every scale merged for the capture), per scale, in the
+     main path's mode and in bf16 and f32, with controls, device time, plain
+     time, bound and a library call's time;
+ 15. the whole merged forward against its plain version, per scale and
+     mode (roots, flags, iteration counts, both accs, with a control), and
+     the one-net Neumann chain (fused_neumann_chain) against its plain
+     version;
+ 16. the merged path: flagship training at --mem-eff False with
+     IMNF_FUSED_BLOCK=1 from the checkpoint (the 32x32 and 16x16 blocks
+     merged, the 8x8 ones split), as phase 10: 5 settle and 5 timed steps
+     with every conv kernel's launch count over them (all > 0), peak
+     memory, a breakdown (merged forwards, final terms, the 8x8 blocks'
+     split parts, backward solves, re-attachments, update, rest), a
+     profiled step and the step with every plain version forced; phase 10's
+     median beside its own.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it lists the kernels as JSON, the line before that the card's name and
@@ -98,10 +117,12 @@ TPU_REATTACH = "implicit_normalizing_flows_tpu/ops/fused_solve.py:1226"
 TPU_CHAIN = "implicit_normalizing_flows_tpu/ops/fused_chain.py:333"
 TPU_FINAL = "implicit_normalizing_flows_tpu/ops/fused_solve.py:1689"
 TPU_UPDATE = "implicit_normalizing_flows_tpu/ops/pallas_kernels.py:69"
+TPU_BLOCK = "implicit_normalizing_flows_tpu/ops/fused_solve.py:1814"
 SOURCES = {"fused_solve": "implicit_normalizing_flows_torch/csrc/fused_solve.cu",
            "implicit_grad": "implicit_normalizing_flows_torch/csrc/implicit_grad.cu",
            "estimator": "implicit_normalizing_flows_torch/csrc/estimator.cu",
-           "broyden_update": "implicit_normalizing_flows_torch/csrc/broyden_update.cu"}
+           "broyden_update": "implicit_normalizing_flows_torch/csrc/broyden_update.cu",
+           "block_forward": "implicit_normalizing_flows_torch/csrc/block_forward.cu"}
 # H100 SXM published peaks (dense): HBM bytes/s, FP32 (CUDA cores) and bf16
 # tensor-core FLOP/s
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -150,6 +171,12 @@ FINAL_TOL = {"f32": 1e-5, "bf16": 1e-5}
 # the zero-initialised last layers every forward solve converges in one
 # iteration at first, and the mean forward nstep of this seeded run on an
 # H100 read 2.05 at step 80, 2.75 at step 100 and 3.00 from step 120.
+# Phase 15 (rel_norm over acc - eps). The kernels' and the plain version's
+# solves differ by float sums in another order, so net z's linearisation
+# point, the best iterate, moves by that noise; in the main path's mode the
+# chain runs in bf16 and re-rounds every stage (phase 9's ties), its control
+# the f32 chain. The one-net chain is phase 9's chain on one net.
+BLOCK_ACC_TOL = {"f32": 1e-4, "tf32": 5e-4}
 TAB_DIM, TAB_BATCH, TAB_EVAL_BATCH = 6, 1000, 4000
 TAB_WARMUP, TAB_SETTLE, TAB_TIMED = 110, 5, 10
 UPDATE_TOL = 1e-5
@@ -163,6 +190,25 @@ def _kernel_events(prof):
     from torch.autograd import DeviceType
 
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def device_busy(prof):
+    """(summed kernel time, busy time, span) in ms of the device work that
+    ``prof`` recorded: the busy time is the union of the kernels' intervals,
+    the span runs from the first kernel's start to the last one's end. The
+    sum exceeds the union where kernels overlap (or the record does), so the
+    idle share is read from the union."""
+    from torch.autograd import DeviceType
+
+    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    union, end = 0.0, -math.inf
+    for t0, t1 in iv:
+        if t1 > end:
+            union += t1 - max(t0, end)
+            end = t1
+    span = end - iv[0][0] if iv else 0.0
+    return sum(t1 - t0 for t0, t1 in iv) / 1e3, union / 1e3, span / 1e3
 
 
 def _self_ms(e):
@@ -416,7 +462,7 @@ def check_solves(blocks):
 
 def profile_batch(model, step, x_u8, draws):
     """Device time by kernel over one main-path batch, the device's idle
-    share (1 - summed kernel time / wall time), and the host-clock time
+    share (1 - busy time / wall time, :func:`device_busy`), and the host-clock time
     spent in the blocks' solves (synchronised around each)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -449,11 +495,11 @@ def profile_batch(model, step, x_u8, draws):
         f"({', '.join(f'{t:.1f}' for t in solve_ms)} per block), rest "
         f"{wall - sum(solve_ms):.1f} ms")
     events = _kernel_events(prof)
-    busy = sum(_self_ms(e) for e in events)
+    total, busy, span = device_busy(prof)
     ours = sum(_self_ms(e) for e in events if is_port_kernel(e.key))
-    log(f"profile batch: wall {wall:.1f} ms, device busy {busy:.1f} ms, idle share "
-        f"{1 - busy / wall:.3f}, solve kernels {ours:.1f} ms, other device work "
-        f"{busy - ours:.1f} ms")
+    log(f"profile batch: wall {wall:.1f} ms, device busy {busy:.1f} ms (summed "
+        f"{total:.1f}, span {span:.1f}), idle share {1 - busy / wall:.3f}, solve kernels "
+        f"{ours:.1f} ms, other device work {total - ours:.1f} ms")
     for e in sorted(events, key=_self_ms, reverse=True)[:15]:
         log(f"  {_self_ms(e):9.2f} ms  x{e.count:<5d} {e.key[:110]}")
 
@@ -828,6 +874,52 @@ def estimator_operands(d, mode):
     return (op, ff._weights(d["datas"], mode, torch.float32)) + pair_inputs(d)
 
 
+def check_cases(cases, ctrl, mode, label, rows, fails, *, timed, rounded=(), keep=False):
+    """Read each case of ``cases`` (name: kernel, plain version, library
+    call or None, fresh outputs, the other tensors moved, MACs) at ``mode``:
+    the error against the plain version (max error over the largest entry;
+    by rel_norm for the ``rounded`` outputs in bf16), the control where
+    ``ctrl`` holds the case (its plain version in mode f32 on the same
+    inputs, which must read above the limit), and in mode ``timed`` device
+    time, plain time, library time and bound (a ``rounded`` kernel's first
+    output holds bfloat16 values: 2 bytes an entry), kept in ``rows`` with
+    ``keep``. Prints every reading; appends a failure to ``fails``."""
+    for name, (kern, plain, libc, fresh, moved, macs) in cases.items():
+        ok_, op_ = fresh(), fresh()
+        kern(ok_)
+        plain(op_)
+        torch.cuda.synchronize()
+        by_norm = mode == "bf16" and name in rounded
+        measure = rel_norm if by_norm else rel_max
+        tol = ROUNDED_TOL if by_norm else KERNEL_TOL.get(mode, KERNEL_TOL["f32"])
+        err = max(measure(a, b) for a, b in zip(ok_, op_))
+        control = None
+        if name in ctrl:
+            oc = fresh()
+            ctrl[name][1](oc)
+            control = max(measure(a, b) for a, b in zip(oc, op_))
+        line = (f"kernel {name} {label}, {mode}: {'rel_norm' if by_norm else 'max_rel_err'} "
+                f"{err:.3e} (limit {tol:g}"
+                + ("" if control is None else f", control {control:.3e}") + ")")
+        if mode == timed:
+            ms = device_ms(lambda i: kern(ok_))
+            pms = device_ms(lambda i: plain(op_))
+            lms = device_ms(lambda i: libc()) if libc is not None else None
+            outs = [(t, 2) if name in rounded and mode == "bf16" and i == 0 else t
+                    for i, t in enumerate(ok_)]
+            bms, by = bound_ms(nbytes(*moved, *outs), macs, mode)
+            line += (f" ms {ms:.4f} plain_ms {pms:.4f} library_ms "
+                     f"{'null' if lms is None else f'{lms:.4f}'} bound_ms {bms:.4f} ({by})")
+            if keep:
+                rows[name] = {0: dict(max_abs_err=max(float((a - b).abs().max())
+                                                      for a, b in zip(ok_, op_)),
+                                      ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                                      bound_by=by)}
+        log(line)
+        if not (math.isfinite(err) and err <= tol and (control is None or control > tol)):
+            fails.append((name, label, mode, err, control))
+
+
 def check_estimator_kernels(cap, modes=("bf16", "f32")):
     """Phase 8: every kernel of the Neumann chain and the final pair vs its
     plain version on the captured inputs, per block kind and mode: error
@@ -952,45 +1044,11 @@ def check_estimator_kernels(cap, modes=("bf16", "f32")):
                 }
 
             ctrl = cases("f32", wt32) if mode != "f32" else {}
-            for name, (kern, plain, libc, fresh, moved, macs) in cases(mode, wt).items():
-                ok_, op_ = fresh(), fresh()
-                kern(ok_)
-                plain(op_)
-                torch.cuda.synchronize()
-                by_norm = mode == "bf16" and name in ROUNDED_OUTPUT
-                measure = (lambda a, b: rel_norm(a, b)) if by_norm else rel_max
-                tol = ROUNDED_TOL if by_norm else KERNEL_TOL[mode]
-                err = max(measure(a, b) for a, b in zip(ok_, op_))
-                control = None
-                if name in ctrl and name not in NO_ROUNDING:
-                    oc = fresh()
-                    ctrl[name][1](oc)
-                    control = max(measure(a, b) for a, b in zip(oc, op_))
-                line = (f"kernel {name} c{c}{'' if preact else ' (no preact)'} ({H}x{W}, "
-                        f"B={B} x 2 nets, {mode}): {'rel_norm' if by_norm else 'max_rel_err'} "
-                        f"{err:.3e} (limit {tol:g}"
-                        + ("" if control is None else f", control {control:.3e}") + ")")
-                if mode == "bf16":
-                    ms = device_ms(lambda i: kern(ok_))
-                    pms = device_ms(lambda i: plain(op_))
-                    lms = device_ms(lambda i: libc()) if libc is not None else None
-                    # a chain stage's first output (t2, t1, u) holds
-                    # bfloat16 values: 2 bytes an entry
-                    outs = [(t, 2) if name in ROUNDED_OUTPUT and i == 0 else t
-                            for i, t in enumerate(ok_)]
-                    bms, by = bound_ms(nbytes(*moved, *outs), macs, mode)
-                    line += (f" ms {ms:.4f} plain_ms {pms:.4f} library_ms "
-                             f"{'null' if lms is None else f'{lms:.4f}'} bound_ms {bms:.4f} ({by})")
-                    if (c, preact) == (3, True):
-                        rows[name] = {0: dict(max_abs_err=max(float((a - b).abs().max())
-                                                              for a, b in zip(ok_, op_)),
-                                              ms=ms, plain_ms=pms, library_ms=lms,
-                                              bound_ms=bms, bound_by=by)}
-                log(line)
-                if not (math.isfinite(err) and err <= tol
-                        and (control is None or control > tol)):
-                    fails.append((name, c, preact, mode, err, control))
-    assert not fails, ("phase 8 (name, c, preact, mode, error, control)", fails)
+            check_cases(cases(mode, wt), {k: v for k, v in ctrl.items() if k not in NO_ROUNDING},
+                        mode, f"c{c}{'' if preact else ' (no preact)'} ({H}x{W}, B={B} x 2 nets)",
+                        rows, fails, timed="bf16", rounded=ROUNDED_OUTPUT,
+                        keep=(c, preact) == (3, True))
+    assert not fails, ("phase 8 (name, block, mode, error, control)", fails)
     return rows
 
 
@@ -1071,12 +1129,14 @@ def check_estimator_functions(cap):
 def kernel_modules():
     """(library, module, TPU kernel of each wrapper name) of every kernel."""
     from implicit_normalizing_flows_torch.ops import broyden_update as bu
+    from implicit_normalizing_flows_torch.ops import fused_block as fb
     from implicit_normalizing_flows_torch.ops import fused_chain as fc
     from implicit_normalizing_flows_torch.ops import fused_final as ff
     from implicit_normalizing_flows_torch.ops import fused_solve as fs
     from implicit_normalizing_flows_torch.ops import implicit_grad as ig
 
     return [("fused_solve", fs, lambda n: TPU_SOLVE),
+            ("block_forward", fb, lambda n: TPU_BLOCK),
             ("implicit_grad", ig, lambda n: TPU_BWD if n.startswith("jt_") else TPU_REATTACH),
             ("estimator", fc, lambda n: TPU_CHAIN),
             ("estimator", ff, lambda n: TPU_FINAL),
@@ -1128,16 +1188,19 @@ def patched(changes):
             setattr(o, n, v)
 
 
-def train_parts(model, step, estimator):
+def train_parts(model, step, estimator, merged=False):
     """(owner, name, part) of the functions a training step's breakdown
-    times: the forward solves, [the chains and the final pair's primal and
-    backward,] backward solves, re-attachment VJPs and the update
-    (optimizer, power iteration)."""
+    times: [the merged forwards and the final terms,] the forward solves,
+    [the chains and the final pair's primal and backward,] backward solves,
+    re-attachment VJPs and the update (optimizer, power iteration)."""
     from implicit_normalizing_flows_torch.layers import ImplicitBlock, implicit_block
     from implicit_normalizing_flows_torch.ops import fused_chain as fc
     from implicit_normalizing_flows_torch.ops import fused_final as ff
+    from implicit_normalizing_flows_torch.ops import logdet as ld
 
-    parts = [(ImplicitBlock, "solve", "solve")]
+    parts = [(implicit_block, "fused_block_forward", "merged_forwards"),
+             (ld, "neumann_final", "final_terms")] if merged else []
+    parts += [(ImplicitBlock, "solve", "solve")]
     if estimator:
         parts += [(fc, "fused_neumann_chain2", "chains"),
                   (ff, "_primal", "final_primal"), (ff, "_backward", "final_backward")]
@@ -1175,7 +1238,7 @@ def breakdown_step(step, x_u8, draws, parts, rest):
 
 def profile_train_step(step, x_u8, draws):
     """Device time by kernel over one training step and the device's idle
-    share (1 - summed kernel time / wall time)."""
+    share (1 - busy time / wall time, :func:`device_busy`)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1185,20 +1248,21 @@ def profile_train_step(step, x_u8, draws):
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     events = _kernel_events(prof)
-    busy = sum(_self_ms(e) for e in events)
+    total, busy, span = device_busy(prof)
     ours = sum(_self_ms(e) for e in events if is_port_kernel(e.key))
-    log(f"profile train step: wall {wall:.1f} ms, device busy {busy:.1f} ms, idle share "
-        f"{1 - busy / wall:.3f}, port kernels {ours:.1f} ms, other device work "
-        f"{busy - ours:.1f} ms")
+    log(f"profile train step: wall {wall:.1f} ms, device busy {busy:.1f} ms (summed "
+        f"{total:.1f}, span {span:.1f}), idle share {1 - busy / wall:.3f}, port kernels "
+        f"{ours:.1f} ms, other device work {total - ours:.1f} ms")
     for e in sorted(events, key=_self_ms, reverse=True)[:20]:
         log(f"  {_self_ms(e):9.2f} ms  x{e.count:<5d} {e.key[:110]}")
 
 
-def plain_versions(estimator):
+def plain_versions(estimator, merged=False):
     """(owner, name, plain version) of every whole function of a training
     step: the forward and backward solves, the re-attachment VJP [, the
-    Neumann chain and the final pair]."""
+    Neumann chain and the final pair] [, the merged forward]."""
     from implicit_normalizing_flows_torch.layers import implicit_block
+    from implicit_normalizing_flows_torch.ops import fused_block as fb
     from implicit_normalizing_flows_torch.ops import fused_chain as fc
     from implicit_normalizing_flows_torch.ops import fused_final as ff
     from implicit_normalizing_flows_torch.ops import fused_solve as fs
@@ -1210,6 +1274,8 @@ def plain_versions(estimator):
     if estimator:
         out += [(fc, "fused_neumann_chain2", fc.fused_neumann_chain2_plain),
                 (implicit_block, "fused_final_pair", ff.fused_final_pair_plain)]
+    if merged:
+        out += [(implicit_block, "fused_block_forward", fb.fused_block_forward_plain)]
     return out
 
 
@@ -1253,6 +1319,243 @@ def compare_plain_step(step, x_u8, draws, plain, dl_max=1e-3):
     assert cos[worst] >= 0.999, (worst, cos[worst])
     assert ratio[wt] <= 1e-3, (wt, ratio[wt])
     assert ws is None or ratio[ws] <= 2e-2, (ws, ratio[ws])
+
+
+# ---------------------------------------------------------------------------
+# phases 14-16: the merged block forward (IMNF_FUSED_BLOCK=1)
+
+@contextlib.contextmanager
+def environ(**values):
+    """Set the environment variables for the duration, then restore them."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def capture_block_forward_inputs(step, x_u8, draws):
+    """The merged forward's real inputs at each scale's last block, from one
+    training step's gradient with every block merged (min_hw 0, so the 8x8
+    blocks give theirs too): {c: dict(args=(x, data_x, data_z, eps_x, eps_z,
+    signed, n_power), kw=the solver's arguments)}."""
+    from implicit_normalizing_flows_torch.layers import implicit_block
+
+    seen = {}
+    fwd = implicit_block.fused_block_forward
+    det = lambda v: ({k: det(a) for k, a in v.items()} if isinstance(v, dict)
+                     else v.detach().clone() if torch.is_tensor(v) else v)
+
+    def rec(*args, **kw):
+        seen[args[0].shape[1]] = dict(args=tuple(det(a) for a in args), kw=kw)
+        return fwd(*args, **kw)
+
+    with environ(IMNF_FUSED_BLOCK="1", IMNF_FUSED_SOLVE_MIN_HW="0"), \
+            patched([(implicit_block, "fused_block_forward", rec)]):
+        step.grads(x_u8, draws)
+    return dict(sorted(seen.items()))
+
+
+def block_operands(d, mode):
+    """A captured block's linearisation (the kernels' solve in ``mode`` with
+    its ladder) and both nets' chain operands, stacked, in the chain dtype of
+    ``mode``."""
+    from implicit_normalizing_flows_torch.ops import fused_block as fb
+    from implicit_normalizing_flows_torch.ops import fused_chain as fc
+    from implicit_normalizing_flows_torch.ops import fused_solve as fs
+
+    x, data_x, data_z, eps_x, eps_z, signed, _ = d["args"]
+    kw = dict(d["kw"], mode=mode)
+    if mode == "f32":
+        kw.update(tail_mode=None, tail_start=None)
+    _, lin = fs._solve(x, data_x, data_z, fb._OPS, linearise=True, **kw)
+    return lin, fc.chain_operands(fb.chains(data_x, data_z, eps_x, eps_z, lin, mode), signed)
+
+
+def check_block_kernels(cap):
+    """Phase 14: the merged forward's kernels vs their plain versions on the
+    captured inputs, per scale: the linearisation variants (net x at x, its
+    phase-1 evaluation) in tf32 (the main path's mode, timed), bf16 (with
+    the control: the plain version in mode f32 on the same inputs) and f32;
+    the chain's nc_jt_* kernels (phase 8's) on the merged path's float32 s
+    factors of both nets in bf16 (timed, with the control) and f32. Errors
+    as phases 2 and 8: max error over the largest entry, by rel_norm for the
+    bf16 chain stages (ROUNDED_OUTPUT). Every reading is printed before the
+    limits are checked. Returns the linearisation kernels' timed rows of the
+    32x32 blocks (the chain's rows are phase 8's)."""
+    from implicit_normalizing_flows_torch.ops import fused_block as fb
+    from implicit_normalizing_flows_torch.ops import fused_chain as fc
+    from implicit_normalizing_flows_torch.ops import fused_solve as fs
+
+    F = torch.nn.functional
+    rows, fails = {}, []
+    for c, d in cap.items():
+        x, data_x = d["args"][0], d["args"][1]
+        B, _, H, W = x.shape
+        HW, D, dev = H * W, c * H * W, x.device
+        new = lambda *shape: torch.zeros(*shape, device=dev)
+        preact = bool(data_x["preact"])
+        betas = [float(v) for v in data_x["betas"].cpu()]
+        b1, b2 = (data_x[k].detach().float().contiguous() for k in ("b1", "b2"))
+        w1, w2 = (data_x[k].detach().float() for k in ("w1", "w2"))
+        view = lambda t, ch: t.reshape(-1, ch, H, W)
+        for mode in ("tf32", "bf16", "f32"):
+            wp = fs.prep_weights(data_x, mode)
+            mid = w2.shape[0]
+            t1 = new(B, mid, HW)  # the plain t1: conv1x1's input
+            fb._lin_conv3x3_in_plain(x, wp["w1"], b1, betas, preact, mode, t1, new(B, mid, HW),
+                                     new(B, D))
+            s0 = lambda o: o[2] if preact else None  # s0 is written under preact only
+
+            def cases(m):
+                wm = fs.prep_weights(data_x, m)
+                return {
+                    "lin_conv3x3_in": (
+                        lambda o: fb.lin_conv3x3_in(x, wm["w1"], b1, betas, preact, m, o[0],
+                                                    o[1], s0(o)),
+                        lambda o: fb._lin_conv3x3_in_plain(x, wm["w1"], b1, betas, preact, m,
+                                                           o[0], o[1], s0(o)),
+                        lambda: F.conv2d(x, w1, b1, padding=1),
+                        lambda: [new(B, mid, HW), new(B, mid, HW)] + [new(B, D)] * preact,
+                        (x, wm["w1"][0], wm["w1"][1], b1), B * mid * c * 9 * HW),
+                    "lin_conv1x1_mid": (
+                        lambda o: fb.lin_conv1x1_mid(t1, wm["w2"], b2, betas[2], m, *o, H, W),
+                        lambda o: fb._lin_conv1x1_mid_plain(t1, wm["w2"], b2, betas[2], m, *o,
+                                                            H, W),
+                        lambda: F.conv2d(view(t1, mid), w2, b2),
+                        lambda: [new(B, mid, HW), new(B, mid, HW)],
+                        (t1, wm["w2"][0], wm["w2"][1], b2), B * mid * mid * HW),
+                }
+
+            check_cases(cases(mode), cases("f32") if mode == "bf16" else {}, mode,
+                        f"c{c} ({H}x{W}, B={B})", rows, fails, timed="tf32", keep=c == 3)
+        for mode in ("bf16", "f32"):
+            _, op = block_operands(d, "tf32" if mode == "bf16" else "f32")
+            Bt, mid = op["U"].shape[0], op["S1"].shape[1]
+            T2, T1 = new(Bt, mid, HW), new(Bt, mid, HW)
+            fc._nc_jt_in_plain(op["U"], op["W3T"], op["S2"], mode, T2)
+            fc._nc_jt_mid_plain(T2, op["W2T"], op["S1"], mode, T1, H, W)
+            lib = lambda t: t.to(torch.bfloat16)
+
+            def cases(m):
+                hv = lambda t: (t, 2) if m == "bf16" else t
+                return {
+                    "nc_jt_in": (
+                        lambda o: fc.nc_jt_in(op["U"], op["W3T"], op["S2"], m, o[0]),
+                        lambda o: fc._nc_jt_in_plain(op["U"], op["W3T"], op["S2"], m, o[0]),
+                        lambda: F.conv2d(lib(op["U"]), lib(op["W3T"][0]), padding=1),
+                        lambda: [new(Bt, mid, HW)], (hv(op["U"]), op["S2"], hv(op["W3T"])),
+                        Bt * mid * c * 9 * HW),
+                    "nc_jt_mid": (
+                        lambda o: fc.nc_jt_mid(T2, op["W2T"], op["S1"], m, o[0], H, W),
+                        lambda o: fc._nc_jt_mid_plain(T2, op["W2T"], op["S1"], m, o[0], H, W),
+                        lambda: F.conv2d(lib(view(T2, mid)), lib(op["W2T"][0])),
+                        lambda: [new(Bt, mid, HW)], (hv(T2), op["S1"], hv(op["W2T"])),
+                        Bt * mid * mid * HW),
+                    "nc_jt_out_acc": (
+                        lambda o: fc.nc_jt_out_acc(T1, op["W1T"], op["S0"], m, op["coeffs"], 0,
+                                                   o[0], o[1], H, W),
+                        lambda o: fc._nc_jt_out_acc_plain(T1, op["W1T"], op["S0"], m,
+                                                          op["coeffs"], 0, o[0], o[1], H, W),
+                        lambda: F.conv2d(lib(view(T1, mid)), lib(op["W1T"][0]), padding=1),
+                        lambda: [new(Bt, c, H, W), op["ACC"].clone()],
+                        (hv(T1), op["S0"], hv(op["W1T"]), op["ACC"]), Bt * c * mid * 9 * HW),
+                }
+
+            check_cases(cases(mode), cases("f32") if mode == "bf16" else {}, mode,
+                        f"c{c} ({H}x{W}, B={B} x 2 nets, float32 s)", rows, fails,
+                        timed="bf16", rounded=ROUNDED_OUTPUT)
+            del op
+    assert not fails, ("phase 14 (name, block, mode, error, control)", fails)
+    return rows
+
+
+def check_block_functions(cap):
+    """Phase 15: the whole merged forward vs its plain version per scale:
+    in tf32 with the ladder at eps 1e-6 (the main path) and 1e-5, and in f32,
+    max|dz| <= 5e-4, converged and protective-break flags equal, nstep
+    within one where the tolerance lies above the split modes' floor (f32,
+    and eps 1e-5: see phase 3), the accs by rel_norm over acc - eps at
+    BLOCK_ACC_TOL with the control (the plain version in mode f32 against
+    the tf32 one) above it. Then the one-net chain (fused_neumann_chain,
+    the row-2 kernels on one net) on net x's captured operands vs its plain
+    version, with its device time, plain time and bound. Every reading is
+    printed before the limits are checked."""
+    from implicit_normalizing_flows_torch.ops import fused_block as fb
+    from implicit_normalizing_flows_torch.ops import fused_chain as fc
+
+    fails = []
+    for c, d in cap.items():
+        args, kw0 = d["args"], d["kw"]
+        eps_x, eps_z = args[3], args[4]
+        accs = {}
+        for mode, eps in (("tf32", 1e-6), ("tf32", 1e-5), ("f32", 1e-6)):
+            kw = dict(kw0, mode=mode, eps=eps)
+            if mode == "f32":
+                kw.update(tail_mode=None, tail_start=None)
+            with torch.no_grad():
+                t0 = time.perf_counter()
+                rk, *ak = fb.fused_block_forward(*args, **kw)
+                torch.cuda.synchronize()
+                tk = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                rp, *ap = fb.fused_block_forward_plain(*args, **kw)
+                torch.cuda.synchronize()
+                tp = time.perf_counter() - t0
+            accs[mode, eps] = ap
+            dz = float((rk.result - rp.result).abs().max())
+            dn = (rk.nstep - rp.nstep).abs().long()
+            err = max(rel_norm(a, b, e) for a, b, e in zip(ak, ap, (eps_x, eps_z)))
+            tol = BLOCK_ACC_TOL[mode]
+            label = f"c{c} {mode} eps {eps:g}"
+            log(f"merged forward {label}: max|dz| {dz:.3e} |d nstep| counts "
+                f"{torch.bincount(dn).tolist()} nstep mean {rk.nstep.float().mean():.2f}/"
+                f"{rp.nstep.float().mean():.2f} converged {rk.converged.float().mean():.3f}/"
+                f"{rp.converged.float().mean():.3f} prot {int(rk.prot_break.sum())}/"
+                f"{int(rp.prot_break.sum())} accs rel_norm {err:.3e} (limit {tol:g}) "
+                f"s {tk:.3f}/{tp:.3f} (kernels/plain)")
+            ok = (bool(torch.isfinite(rk.result).all()) and dz <= 5e-4
+                  and torch.equal(rk.prot_break, rp.prot_break)
+                  and torch.equal(rk.converged, rp.converged) and err <= tol
+                  and all(bool(torch.isfinite(a).all()) for a in ak))
+            if mode == "f32" or eps > 1e-6:
+                ok = ok and int(dn.max()) <= 1
+            if not ok:
+                fails.append(("merged forward", label, dz, err))
+        ctrl = min(rel_norm(a, b, e) for a, b, e in zip(accs["f32", 1e-6], accs["tf32", 1e-6],
+                                                         (eps_x, eps_z)))
+        log(f"merged forward c{c}: control (f32 against tf32 accs) {ctrl:.3e}, above "
+            f"{BLOCK_ACC_TOL['tf32']:g}")
+        if not ctrl > BLOCK_ACC_TOL["tf32"]:
+            fails.append(("merged forward control", c, ctrl))
+
+        # row 6: the one-net chain on net x's operands (bf16, the main path's
+        # chain dtype), the captured n_power
+        x, data_x, data_z, _, _, signed, n_power = args
+        lin, _ = block_operands(d, "tf32")
+        chain = fb.chains(data_x, data_z, eps_x, eps_z, lin, "tf32")[0]
+        ak = fc.fused_neumann_chain(chain, signed, n_power)
+        ap = fc.fused_neumann_chain_plain(chain, signed, n_power)
+        err = rel_norm(ak, ap, eps_x)
+        ms = device_ms(lambda i: fc.fused_neumann_chain(chain, signed, n_power), reps=3)
+        pms = device_ms(lambda i: fc.fused_neumann_chain_plain(chain, signed, n_power), reps=3)
+        B, _, H, W = x.shape
+        mid = data_x["w2"].shape[0]
+        # the function's inputs once (the probe and kernels in bf16, the s
+        # factors float32), acc written once; every term's products
+        bms, by = bound_ms(nbytes(*((t, 2) for t in (chain[0], *chain[4:])), *chain[1:4], ak),
+                           n_power * B * H * W * mid * (18 * c + mid), "bf16")
+        log(f"one-net chain c{c} bf16 n_power {n_power}: rel_norm {err:.3e} (limit "
+            f"{CHAIN_TOL['bf16']:g}) ms {ms:.4f} plain_ms {pms:.4f} bound_ms {bms:.4f} ({by})")
+        if not err <= CHAIN_TOL["bf16"]:
+            fails.append(("one-net chain", c, err))
+        del lin, chain, accs
+    assert not fails, ("phase 15", fails)
 
 
 # ---------------------------------------------------------------------------
@@ -1592,6 +1895,7 @@ def main():
     from implicit_normalizing_flows_torch.layers import implicit_block
     from implicit_normalizing_flows_torch.ops import broyden_update as bu
     from implicit_normalizing_flows_torch.ops import cuda_build
+    from implicit_normalizing_flows_torch.ops import fused_block as fb
     from implicit_normalizing_flows_torch.ops import fused_solve as fs
     from implicit_normalizing_flows_torch.ops import implicit_grad as ig
     from implicit_normalizing_flows_torch.ops.broyden import triage_metrics
@@ -1681,9 +1985,10 @@ def main():
     rows.update(check_grad_kernels(cap))
     check_grad_functions(cap)
 
-    def train_path(model, step, estimator, label):
+    def train_path(model, step, estimator, label, merged=False):
         """5 settle and 5 timed steps with the launch counts over them, a
-        breakdown, a profiled step and the plain comparison."""
+        breakdown, a profiled step and the plain comparison; returns the
+        launch counts and the timed steps' median ms."""
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         settle = train_steps(step, x_u8, tdraws, 0, SETTLE_STEPS)
@@ -1695,14 +2000,15 @@ def main():
             f"{', '.join(f'{t:.1f}' for _, t in timed)} (median {ms[len(ms) // 2]:.1f}), "
             f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         n = SETTLE_STEPS + TIMED_STEPS
-        breakdown_step(step, x_u8, tdraws(n), train_parts(model, step, estimator),
+        breakdown_step(step, x_u8, tdraws(n), train_parts(model, step, estimator, merged),
                        "the rest" if estimator else "estimator and the rest")
         profile_train_step(step, x_u8, tdraws(n + 1))
-        compare_plain_step(step, x_u8, lambda: tdraws(n + 2), plain_versions(estimator))
-        return launches
+        compare_plain_step(step, x_u8, lambda: tdraws(n + 2),
+                           plain_versions(estimator, merged))
+        return launches, ms[len(ms) // 2]
 
     # phase 7: the --mem-eff True training path
-    memeff_launches = train_path(model, step, False, "--mem-eff True")
+    memeff_launches, _ = train_path(model, step, False, "--mem-eff True")
     assert all(memeff_launches[n] > 0 for n in list(fs.KERNELS) + list(ig.KERNELS)), \
         memeff_launches
 
@@ -1718,26 +2024,55 @@ def main():
     del ecap
 
     # phase 10, the main path: training at the users' default --mem-eff False
-    launches = train_path(model_d, step_d, True, "--mem-eff False")
-    conv_kernels = [n for _, m, _ in kernel_modules() if m is not bu for n in m.KERNELS]
+    launches, split_ms = train_path(model_d, step_d, True, "--mem-eff False")
+    conv_kernels = [n for _, m, _ in kernel_modules() if m not in (bu, fb) for n in m.KERNELS]
     assert all(launches[n] > 0 for n in conv_kernels), launches
     del model_d, step_d
+    t_conv = time.perf_counter() - t_start
+
+    # phases 14 and 15: the merged forward's kernels and whole functions on
+    # one merged training step's real inputs (gradients only)
+    model_m = build_model(dev, grad_in_forward=False)
+    optimizer_m = adam(linear_warmup(1e-3, 1000), betas=(0.9, 0.99), grad_clip=1.0)
+    step_m = make_image_train_step(model_m, optimizer_m, ema_decay=0.999,
+                                   n_lipschitz_iters=None, imagesize=SIZE)
+    bcap = capture_block_forward_inputs(step_m, x_u8, tdraws(97))
+    rows.update(check_block_kernels(bcap))
+    check_block_functions(bcap)
+    del bcap
+
+    # phase 16, the merged path: IMNF_FUSED_BLOCK=1 from the checkpoint
+    with environ(IMNF_FUSED_BLOCK="1"):
+        merged_launches, merged_ms = train_path(model_m, step_m, True, "IMNF_FUSED_BLOCK=1",
+                                                merged=True)
+    log(f"merged path median {merged_ms:.1f} ms; split path (phase 10) median {split_ms:.1f} ms")
+    assert all(merged_launches[n] > 0 for n in conv_kernels + list(fb.KERNELS)), \
+        merged_launches
+    # two linearisations (net x, net z) per merged block and step: the four
+    # 32x32 and 16x16 blocks merged, the two 8x8 ones split
+    merged_blocks = merged_launches["lin_conv3x3_in"] / (2 * (SETTLE_STEPS + TIMED_STEPS))
+    log(f"merged blocks per step: {merged_blocks:g}")
+    assert merged_blocks == 4, merged_blocks
+    del model_m, step_m
+    t_merged = time.perf_counter() - t_start - t_conv
 
     # phases 11-13: the tabular POWER recipe on the generic solver
-    t_conv = time.perf_counter() - t_start
     tab_launches, tab_eval_launches = tabular_path(dev, rows)
-    log(f"phases 1-10 {t_conv:.1f} s, phases 11-13 {time.perf_counter() - t_start - t_conv:.1f} s")
+    log(f"phases 1-10 {t_conv:.1f} s, phases 14-16 {t_merged:.1f} s, phases 11-13 "
+        f"{time.perf_counter() - t_start - t_conv - t_merged:.1f} s")
 
     kernels = []
     for lib, mod, tpu in kernel_modules():
         for name in mod.KERNELS:
+            path = tab_launches if mod is bu else merged_launches if mod is fb else launches
             row = dict(name=name, route="cuda", source=SOURCES[lib], replaces=tpu(name),
-                       launches=(tab_launches if mod is bu else launches)[name],
-                       **rows[name][0])
+                       launches=path[name], **rows[name][0])
             if mod is fs:
                 row["eval_launches"] = eval_launches[name]
             if mod in (fs, ig):
                 row["memeff_true_launches"] = memeff_launches[name]
+            if mod not in (bu, fb):
+                row["merged_launches"] = merged_launches[name]
             if mod is bu:
                 row["eval_launches"] = tab_eval_launches[name]
             kernels.append(row)

@@ -7,6 +7,11 @@ default below.
 
 There is no kernel gate here: the CUDA kernels run for CUDA tensors and
 their plain PyTorch versions for CPU tensors (``ops.fused_solve``).
+``fused_block`` chooses a path, not a kernel: "1" routes the training
+forward at ``--mem-eff False`` through the merged solve and chains
+(``ops.fused_block``) on the blocks the JAX package merges on its chip (H*W
+>= ``fused_solve_min_hw``); those still launch kernels for CUDA tensors and
+run plain versions for CPU tensors.
 """
 from __future__ import annotations
 
@@ -57,6 +62,24 @@ class KernelConfig:
     line_search: bool = False
     # print per-block solver diagnostics.                  [IMNF_DEBUG_SOLVER]
     debug_solver: bool = False
+    # merged forward solve + both nets' Neumann chains in training at
+    # --mem-eff False: "0" | "1" (the blocks with H*W >= fused_solve_min_hw).
+    #                                                      [IMNF_FUSED_BLOCK]
+    fused_block: str = "0"
+    # the merged forward takes the blocks with H*W >= this (the 8x8 blocks
+    # of the CIFAR-10 flagship stay split). Only that gate reads it: the
+    # JAX package's variable also sends its split solve (of reps*H*W, lane
+    # packing) off the fused kernel, while the port's split path runs its
+    # kernels at every size.                         [IMNF_FUSED_SOLVE_MIN_HW]
+    fused_solve_min_hw: int = 256
+
+    def __post_init__(self):
+        if self.fused_block not in ("0", "1"):
+            hint = (" ('interpret' is the JAX package's CPU mode: the port runs the "
+                    "plain versions on CPU tensors by itself, and IMNF_FUSED_SOLVE_MIN_HW=0 "
+                    "merges every block)" if self.fused_block == "interpret" else "")
+            raise ValueError(f"IMNF_FUSED_BLOCK={self.fused_block!r}: the port takes "
+                             f"'0' | '1'{hint}")
 
 
 _ENV_BY_FIELD = {
@@ -76,6 +99,8 @@ _ENV_BY_FIELD = {
     "newton_init": "IMNF_NEWTON_INIT",
     "line_search": "IMNF_LINE_SEARCH",
     "debug_solver": "IMNF_DEBUG_SOLVER",
+    "fused_block": "IMNF_FUSED_BLOCK",
+    "fused_solve_min_hw": "IMNF_FUSED_SOLVE_MIN_HW",
 }
 
 

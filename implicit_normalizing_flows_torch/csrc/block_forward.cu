@@ -1,0 +1,105 @@
+// Hopper (sm_90a) kernels of the merged implicit-block forward: the
+// linearisation variants of the forward solve's first two convs, which also
+// write the float32 derivative factors of both nets' Neumann chains.
+//
+// Replaces the TPU kernel implicit_normalizing_flows_tpu/ops/fused_solve.py
+// ::fused_block_forward (:1814; _block_fwd_kernel :1706). The TPU kernel
+// runs one example's whole block forward per grid step: the solve, one more
+// net-z evaluation at the best iterate, and both chains, with the
+// activation derivatives s0/s1/s2 built from the solve's own
+// pre-activations and kept in VMEM (up to 120 MiB), so they never touch
+// HBM. An H100 SM holds 227 KB of shared memory, so the work is cut into
+// four stages driven from the host (ops/fused_block.py):
+//
+//   A. the solve: fused_solve.cu's kernels, except that the phase-1
+//      evaluation of net x at x runs the linearisation variants below;
+//   B. net z once more at the best iterate, in the phase-1 mode, through the
+//      same variants (its last conv is not needed);
+//   C. both nets' chains on estimator.cu's nc_jt_* kernels, which read the
+//      float32 s0/s1/s2 of stages A-B (the split path gives them bf16
+//      ones): _make_apply_jt (:867) with _make_wdot('bf16' | 'f32');
+//   D. the protective-break patch, PyTorch glue in the caller.
+//
+//   lin_conv3x3_in   [swish(b0)] conv3x3 c->mid + b1: writes swish(h1) for
+//                    the next conv, s1 = swish'(h1) and, under preact,
+//                    s0 = swish'(x; b0), all float32
+//   lin_conv1x1_mid  mid->mid + b2: writes swish(h2) and s2 = swish'(h2)
+//
+// Precision: the solve's modes (conv_gemm.cuh); the derivative factors are
+// float32 swish' of the float32 pre-activations of the solve's own
+// evaluation, as the TPU kernel takes them (:1790-1793).
+//
+// What bounds them on H100: the products, on FP32 CUDA cores, as the
+// kernels they extend (the 1x1 is ~90% of the MACs); the linearisation adds
+// two float32 writes of 512 x HW per example to an evaluation (s1 + s2 of
+// both nets at 32x32, B = 64: 512 MiB, held in HBM between stages B and C,
+// and streamed once per chain term). Keeping them on chip, and tensor
+// cores, are later work.
+
+#include "conv_gemm.cuh"
+
+namespace {
+
+using namespace imnf;
+
+template <int MODE>
+cudaError_t lin_gemm(int src, int preact, const float* w_hi, const float* w_lo,
+                     const float* bias, int M, int K, const float* inp, int B,
+                     int C, int H, int W, float beta_pre, float beta_post,
+                     float* out, float* s, float* s0, cudaStream_t st) {
+  if (src == 1)
+    return launch_conv_gemm<MODE, 1, IN_ID, EPI_SWISH_LIN>(
+        w_hi, w_lo, bias, M, K, inp, nullptr, nullptr, nullptr, B, C, H, W,
+        0.f, beta_post, 1.f, nullptr, out, st, 1, nullptr, s, nullptr);
+  if (preact)
+    return launch_conv_gemm<MODE, 0, IN_SWISH, EPI_SWISH_LIN>(
+        w_hi, w_lo, bias, M, K, inp, nullptr, nullptr, nullptr, B, C, H, W,
+        beta_pre, beta_post, 1.f, nullptr, out, st, 1, nullptr, s, s0);
+  return launch_conv_gemm<MODE, 0, IN_ID, EPI_SWISH_LIN>(
+      w_hi, w_lo, bias, M, K, inp, nullptr, nullptr, nullptr, B, C, H, W,
+      beta_pre, beta_post, 1.f, nullptr, out, st, 1, nullptr, s, nullptr);
+}
+
+cudaError_t dispatch_lin(int mode, int src, int preact, const float* w_hi,
+                         const float* w_lo, const float* bias, int M, int K,
+                         const float* inp, int B, int C, int H, int W,
+                         float beta_pre, float beta_post, float* out, float* s,
+                         float* s0, cudaStream_t st) {
+  switch (mode) {
+    case MODE_F32: return lin_gemm<MODE_F32>(src, preact, w_hi, w_lo, bias, M, K, inp, B, C, H, W, beta_pre, beta_post, out, s, s0, st);
+    case MODE_BF16: return lin_gemm<MODE_BF16>(src, preact, w_hi, w_lo, bias, M, K, inp, B, C, H, W, beta_pre, beta_post, out, s, s0, st);
+    case MODE_TF32: return lin_gemm<MODE_TF32>(src, preact, w_hi, w_lo, bias, M, K, inp, B, C, H, W, beta_pre, beta_post, out, s, s0, st);
+    case MODE_TF32X: return lin_gemm<MODE_TF32X>(src, preact, w_hi, w_lo, bias, M, K, inp, B, C, H, W, beta_pre, beta_post, out, s, s0, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Every entry point launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() right after its launch (0 on success). Every example is
+// live (no active list): slot s is example s.
+
+// out, s1 (B, mid, HW); s0 (B, C, HW), written under preact only
+int imnf_lin_conv3x3_in(int mode, int preact, const float* w_hi,
+                        const float* w_lo, const float* bias, float beta0,
+                        float beta1, const float* inp, int B, int C, int H,
+                        int W, int mid, float* out, float* s1, float* s0,
+                        void* stream) {
+  return (int)dispatch_lin(mode, 0, preact, w_hi, w_lo, bias, mid, C * 9, inp,
+                           B, C, H, W, beta0, beta1, out, s1, s0,
+                           (cudaStream_t)stream);
+}
+
+int imnf_lin_conv1x1_mid(int mode, const float* w_hi, const float* w_lo,
+                         const float* bias, float beta2, const float* inp,
+                         int B, int mid, int H, int W, float* out, float* s2,
+                         void* stream) {
+  return (int)dispatch_lin(mode, 1, 0, w_hi, w_lo, bias, mid, mid, inp, B, mid,
+                           H, W, 0.f, beta2, out, s2, nullptr,
+                           (cudaStream_t)stream);
+}
+
+}  // extern "C"

@@ -133,10 +133,15 @@ __device__ __forceinline__ float in_xform(float v, const float* h, size_t off, f
 //                                                      of type ST)
 // EPI_SCALE_RND  bf16_round(acc * scale[...])          (the Neumann chain's
 //                                                      bf16 J^T stages)
+// EPI_SWISH_LIN  EPI_SWISH, and aux[e][m][p] = swish'(acc + bias[m];
+//                beta_out) in float32; with aux0 (SRC 0) the blocks of the
+//                first row of tiles also write aux0[e][c][p] =
+//                swish'(inp[e][c][p]; beta_in) (the merged block forward's
+//                linearisation: s1 / s2, and s0 under preact)
 // Tiling: a 64x64 output tile per block, K in steps of 16 through shared
 // memory, a 4x4 register micro-tile per thread, so each loaded (split)
 // element feeds 16 FMAs per pass.
-enum { EPI_SWISH = 0, EPI_AFFINE = 1, EPI_SCALE = 2, EPI_SCALE_RND = 3 };
+enum { EPI_SWISH = 0, EPI_AFFINE = 1, EPI_SCALE = 2, EPI_SCALE_RND = 3, EPI_SWISH_LIN = 4 };
 constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4, GEMM_THREADS = 256;
 
 template <int MODE, int SRC, int IN, int EPI, typename ST>
@@ -147,7 +152,8 @@ __global__ void __launch_bounds__(GEMM_THREADS) conv_gemm_kernel(
     const int* __restrict__ idx, const int* __restrict__ count, int C, int H,
     int W, float beta_in, float beta_out, float alpha,
     const ST* __restrict__ scale, float* __restrict__ out, int nb,
-    const float* __restrict__ beta_net) {
+    const float* __restrict__ beta_net, float* __restrict__ aux,
+    float* __restrict__ aux0) {
   const int slot = blockIdx.z;
   if (count != nullptr && slot >= *count) return;
   const int e = idx != nullptr ? idx[slot] : slot;
@@ -223,7 +229,18 @@ __global__ void __launch_bounds__(GEMM_THREADS) conv_gemm_kernel(
     }
     __syncthreads();
   }
+  if (EPI == EPI_SWISH_LIN && SRC == 0 && aux0 != nullptr && blockIdx.y == 0) {
+    float* a0 = aux0 + (size_t)e * C * HW;
+    for (int i = tid; i < C * BN; i += GEMM_THREADS) {
+      const int p = n0 + i % BN;
+      if (p < HW) {
+        const size_t off = (size_t)(i / BN) * HW + p;
+        a0[off] = dswish(src[off], beta_in);
+      }
+    }
+  }
   float* o = out + (size_t)slot * M * HW;
+  float* ax = EPI == EPI_SWISH_LIN ? aux + (size_t)e * M * HW : nullptr;
   const ST* sc = (EPI == EPI_SCALE || EPI == EPI_SCALE_RND)
                      ? scale + (size_t)e * M * HW : nullptr;
 #pragma unroll
@@ -238,6 +255,11 @@ __global__ void __launch_bounds__(GEMM_THREADS) conv_gemm_kernel(
       const size_t off = (size_t)m * HW + p;
       float r;
       if (EPI == EPI_SWISH) r = swish(acc[i][j] + b, beta_out);
+      else if (EPI == EPI_SWISH_LIN) {
+        const float h = acc[i][j] + b;
+        r = swish(h, beta_out);
+        ax[off] = dswish(h, beta_out);
+      }
       else if (EPI == EPI_AFFINE) r = alpha * acc[i][j] + b;
       else if (EPI == EPI_SCALE) r = acc[i][j] * ld(sc, off);
       else r = bf16_round(acc[i][j] * ld(sc, off));
@@ -254,11 +276,12 @@ cudaError_t launch_conv_gemm(const float* w_hi, const float* w_lo,
                              float beta_in, float beta_out, float alpha,
                              const typename ident<ST>::type* scale, float* out,
                              cudaStream_t s, int nets = 1,
-                             const float* beta_net = nullptr) {
+                             const float* beta_net = nullptr,
+                             float* aux = nullptr, float* aux0 = nullptr) {
   dim3 grid((H * W + BN - 1) / BN, (M + BM - 1) / BM, B);
   conv_gemm_kernel<MODE, SRC, IN, EPI, ST><<<grid, GEMM_THREADS, 0, s>>>(
       w_hi, w_lo, bias, M, K, inp, inh, idx, count, C, H, W, beta_in,
-      beta_out, alpha, scale, out, B / nets, beta_net);
+      beta_out, alpha, scale, out, B / nets, beta_net, aux, aux0);
   return cudaGetLastError();
 }
 

@@ -27,6 +27,18 @@ protective-break rows (``:230-271``), the 5-slot solver telemetry
   eps>`` of both nets in ``ops.fused_final`` at float32 x and z
   (``:923-965``), whose gradient to z flows into the implicit gradient.
 
+Under ``IMNF_FUSED_BLOCK=1`` training at ``--mem-eff False`` takes the
+merged path on the blocks with H*W >= ``IMNF_FUSED_SOLVE_MIN_HW``
+(``_merged_forward_ok`` / ``_forward_merged``, ``:660-737``): the roulette
+and both probes are drawn first, then :class:`_ImplicitForwardEstFunction`
+runs ``ops.fused_block.fused_block_forward`` (the solve and both nets'
+chains, net z linearised at ``z_hat``), the Banach fallback on
+protective-break rows with their accs reset to the probes (the JAX
+package's documented deviation, ``:469-482``), and returns the re-attached
+z; its backward is the implicit gradient of :class:`_ImplicitFunction`.
+The estimate closes with ``ops.logdet.neumann_final`` of each net in the
+dtype of ``IMNF_BF16_EST`` (cuDNN autograd on the card, XLA in JAX).
+
 Nets that are not the recipe conv stack (``conv_forward_data()`` is None:
 the tabular and toy MLPs) take the generic path (``:273-314, 391-464``):
 the forward solve is ``ops.broyden.root_solve`` on ``g(z) = x + g_x(x) -
@@ -55,6 +67,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import kernel_config
 from ..ops import logdet as ld
 from ..ops.broyden import broyden, fixed_point_iteration, root_solve
+from ..ops.fused_block import fused_block_forward
 from ..ops.fused_final import fused_final_pair
 from ..ops.fused_solve import fused_broyden_solve
 from ..ops.implicit_grad import (DATA_KEYS, fused_backward_solve,
@@ -139,15 +152,50 @@ class _ImplicitFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        block = ctx.block
-        x, z_hat, z, *tensors = ctx.saved_tensors
+        return (None, *_implicit_grads(ctx, grad))
+
+
+def _implicit_grads(ctx, grad):
+    """The implicit gradient (``_make_bwd_core``, ``implicit_block.py:
+    350-466``): solve ``u (I + J_gz) = grad`` at the re-attached z, then the
+    re-attachment VJP at ``z_hat``; returns d_x and the gradients of both
+    nets' ``DATA_KEYS`` tensors, from what the forward saved: x, z_hat, z,
+    then the tensors."""
+    block = ctx.block
+    x, z_hat, z, *tensors = ctx.saved_tensors
+    k = len(DATA_KEYS)
+    data_x, data_z = block._data(tensors[:k], "x"), block._data(tensors[k:], "z")
+    u = block.backward_solve(grad, z).u
+    d_x, d_ax, d_az = fused_reattach_vjp(
+        x, z_hat, u, data_x, data_z, mode=kernel_config().reattach_precision)
+    return (d_x.to(x.dtype), *(d_ax[n] for n in DATA_KEYS),
+            *(d_az[n] for n in DATA_KEYS))
+
+
+class _ImplicitForwardEstFunction(torch.autograd.Function):
+    """The merged forward (``_make_implicit_forward_est``,
+    ``implicit_block.py:469-556``): ``(z, diag, acc_x, acc_z)`` with ``z =
+    z_hat + g(z_hat)`` and the implicit gradient of
+    :class:`_ImplicitFunction`; the probes, coefficients, diag and accs get
+    no gradient. Inputs: the block, x, eps_x, eps_z, the signed
+    coefficients, n_power (host int), then both nets' ``DATA_KEYS``
+    tensors."""
+
+    @staticmethod
+    def forward(ctx, block, x, eps_x, eps_z, signed, n_power, *tensors):
         k = len(DATA_KEYS)
         data_x, data_z = block._data(tensors[:k], "x"), block._data(tensors[k:], "z")
-        u = block.backward_solve(grad, z).u
-        d_x, d_ax, d_az = fused_reattach_vjp(
-            x, z_hat, u, data_x, data_z, mode=kernel_config().reattach_precision)
-        return (None, d_x.to(x.dtype), *(d_ax[n] for n in DATA_KEYS),
-                *(d_az[n] for n in DATA_KEYS))
+        z_hat, z, diag, acc_x, acc_z = block.solve_merged(x, data_x, data_z, eps_x,
+                                                          eps_z, signed, n_power)
+        ctx.block = block
+        ctx.save_for_backward(x, z_hat, z, *tensors)
+        ctx.mark_non_differentiable(diag, acc_x, acc_z)
+        return z, diag, acc_x, acc_z
+
+    @staticmethod
+    def backward(ctx, grad, _diag, _acc_x, _acc_z):
+        d_x, *d_tensors = _implicit_grads(ctx, grad)
+        return (None, d_x, None, None, None, None, *d_tensors)
 
 
 class _GenericImplicitFunction(torch.autograd.Function):
@@ -236,15 +284,27 @@ class ImplicitBlock(Flow):
         the generic path (default: the nets' own)."""
         if self.generic():
             return self._generic_solve(x, data_x, data_z)
-        cfg = self.solver_cfg
         if data_x is None or data_z is None:
             data_x, data_z = self._forward_data()
-        res = fused_broyden_solve(
-            x, data_x, data_z, threshold=cfg.threshold, eps=cfg.eps_forward,
-            stall_patience=cfg.stall_patience, stall_rtol=cfg.stall_rtol,
-            stall_guard=cfg.stall_guard, newton_init=cfg.newton_init,
-            warm_start=cfg.warm_start, mode=fused_solve_mode(),
-            line_search=cfg.line_search, **ladder_args(cfg.threshold))
+        res = fused_broyden_solve(x, data_x, data_z, **self._fused_solve_kwargs())
+        zf, gf, diag = self._banach_patch(x, res)
+        return zf.reshape(x.shape), (zf + gf).reshape(x.shape), diag
+
+    def _fused_solve_kwargs(self):
+        """The fused forward solve's budget, tolerances, precision mode and
+        ladder (``implicit_block.py:230-250``)."""
+        cfg = self.solver_cfg
+        return dict(threshold=cfg.threshold, eps=cfg.eps_forward,
+                    stall_patience=cfg.stall_patience, stall_rtol=cfg.stall_rtol,
+                    stall_guard=cfg.stall_guard, newton_init=cfg.newton_init,
+                    warm_start=cfg.warm_start, mode=fused_solve_mode(),
+                    line_search=cfg.line_search, **ladder_args(cfg.threshold))
+
+    def _banach_patch(self, x, res):
+        """(z, g, diag) of a fused solve's result ``res``, flat (B, D), with
+        the protective-break rows' root and residual taken from the Banach
+        fallback from x (``implicit_block.py:230-271``), and the telemetry."""
+        cfg = self.solver_cfg
         B = x.shape[0]
         zf, gf = res.result.reshape(B, -1), res.gx.reshape(B, -1)
         if bool(res.prot_break.any()):
@@ -260,7 +320,21 @@ class ImplicitBlock(Flow):
         diag = solver_diag(res.nstep, res.converged, res.prot_break, res.diff, eps_i)
         if kernel_config().debug_solver:
             print(f"fwd solve: nstep={res.nstep.tolist()} diag={diag.tolist()}")
-        return zf.reshape(x.shape), (zf + gf).reshape(x.shape), diag
+        return zf, gf, diag
+
+    @torch.no_grad()
+    def solve_merged(self, x, data_x, data_z, eps_x, eps_z, signed, n_power):
+        """(z_hat, z, diag, acc_x, acc_z) of the merged forward
+        (``_make_implicit_forward_est``'s ``run``, ``implicit_block.py:
+        487-531``): ``fused_block_forward``, then the Banach fallback on the
+        protective-break rows, whose accs are reset to the probes."""
+        res, acc_x, acc_z = fused_block_forward(x, data_x, data_z, eps_x, eps_z, signed,
+                                                n_power, **self._fused_solve_kwargs())
+        zf, gf, diag = self._banach_patch(x, res)
+        take = res.prot_break[:, None, None, None]
+        acc_x = torch.where(take, eps_x.float(), acc_x)
+        acc_z = torch.where(take, eps_z.float(), acc_z)
+        return zf.reshape(x.shape), (zf + gf).reshape(x.shape), diag, acc_x, acc_z
 
     @torch.no_grad()
     def _generic_solve(self, x, tx=None, tz=None):
@@ -430,7 +504,40 @@ class ImplicitBlock(Flow):
                                     mode="bf16" if dtype == torch.bfloat16 else "f32")
         return t_x - t_z
 
+    def _merged_forward_ok(self, x, draws, train):
+        """The gate of the merged forward (``implicit_block.py:660-690``):
+        training with draws on a 4-D input of the recipe conv stack, the
+        Neumann gradient estimator without ``grad_in_forward``, one probe,
+        no brute force (the port has no exact trace), ``IMNF_FUSED_BLOCK=1``
+        and H*W >= ``IMNF_FUSED_SOLVE_MIN_HW``."""
+        kc = kernel_config()
+        return (kc.fused_block == "1" and train and draws is not None
+                and x.ndim == 4 and x.shape[2] * x.shape[3] >= kc.fused_solve_min_hw
+                and self.neumann_grad and not self.grad_in_forward
+                and self.n_probes <= 1 and not self.brute_force and not self.generic())
+
+    def _forward_merged(self, x, logpx, draws):
+        """The merged path (``_forward_merged``, ``implicit_block.py:
+        692-737``): the roulette and both probes first, the merged forward,
+        then ``neumann_final`` of each net in the estimator dtype."""
+        geom_p = torch.sigmoid(self.geom_p.detach())
+        coeffs, n_power, n_draws = ld.sample_n_dist(
+            draws, self.n_dist, self.n_samples, geom_p, self.lamb.detach(),
+            self.n_exact_terms, self.series_cap, x.device)
+        eps_x = draws.rademacher(x.shape, x.device)
+        eps_z = draws.rademacher(x.shape, x.device)
+        data_x, data_z = self._forward_data()
+        z, self.solver_diag, acc_x, acc_z = _ImplicitForwardEstFunction.apply(
+            self, x, eps_x, eps_z, ld.signed_coeffs(coeffs), n_power,
+            *(data_x[k] for k in DATA_KEYS), *(data_z[k] for k in DATA_KEYS))
+        dtype = torch.bfloat16 if kernel_config().bf16_est else torch.float32
+        logdet = (ld.neumann_final(self.nnet_x, x.to(dtype), eps_x.to(dtype), acc_x)
+                  - ld.neumann_final(self.nnet_z, z.to(dtype), eps_z.to(dtype), acc_z))
+        return z, logpx - self._estimator_moments(logdet.float(), n_draws, True)
+
     def forward(self, x, logpx=None, draws=None, train=False):
+        if logpx is not None and self._merged_forward_ok(x, draws, train):
+            return self._forward_merged(x, logpx, draws)
         if train and self.generic():
             tx = self.nnet_x.lipschitz_tensors()
             z = _GenericImplicitFunction.apply(self, x, len(tx), *tx,

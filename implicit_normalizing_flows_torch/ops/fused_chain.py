@@ -1,8 +1,11 @@
-"""Both nets' stop-gradient Neumann accumulations with their CUDA kernels.
+"""The stop-gradient Neumann accumulations of one or both nets with their
+CUDA kernels.
 
 Port of ``ops/fused_chain.py::fused_neumann_chain2`` of the JAX package (TPU
 kernel at ``fused_chain.py:333``; ``_chain2_kernel`` :239, ``_make_apply_jt``
-:182): for each net ``acc = eps + sum_{k=1}^{n_power} c_k (J^T)^k eps`` with
+:182) and of its one-net twin ``fused_neumann_chain`` (TPU kernel at
+``fused_chain.py:275``; ``_chain_kernel`` :216), which runs the same
+kernels on one net: for each net ``acc = eps + sum_{k=1}^{n_power} c_k (J^T)^k eps`` with
 ``J^T = S0 C1^T S1 C2^T S2 C3^T`` at the linearisation point and the signed
 roulette coefficients ``c_k`` (the ``(-1)^k`` folded in). The TPU kernel runs
 one example's whole series per grid step with its derivative factors
@@ -25,14 +28,13 @@ term); ``c_k`` is read from a device array.
 Not ported: ``pack_reps`` / ``choose_reps`` (TPU lane tiling of small
 images) and the im2col matrix layouts of ``conv3_transpose_mats`` and
 friends: layout, not semantics. The kernels take the OIHW kernels of
-:func:`~.implicit_grad.transpose_weights`. ``fused_neumann_chain`` (one net,
-JAX tests only) is this function on one net: the same kernels with one net
-cover it.
+:func:`~.implicit_grad.transpose_weights`.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version for CPU tensors; a CUDA tensor never falls back. Each
 wrapper counts its launches in ``<wrapper>.launches``.
-:func:`fused_neumann_chain2_plain` forces the plain versions on any device.
+:func:`fused_neumann_chain2_plain` and :func:`fused_neumann_chain_plain`
+force the plain versions on any device.
 """
 from __future__ import annotations
 
@@ -43,7 +45,8 @@ import torch
 from .fused_solve import MODES, _check_cuda, _launch, _mconv, _ptr, _wide
 from .implicit_grad import _shapes, transpose_weights
 
-__all__ = ["fused_neumann_chain2", "fused_neumann_chain2_plain", "KERNELS",
+__all__ = ["fused_neumann_chain2", "fused_neumann_chain2_plain",
+           "fused_neumann_chain", "fused_neumann_chain_plain", "KERNELS",
            "launch_counts", "reset_launch_counts", "chain_mode", "chain_operands"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -261,3 +264,16 @@ def fused_neumann_chain2(chain_x, chain_z, signed_coeffs, n_power):
 def fused_neumann_chain2_plain(chain_x, chain_z, signed_coeffs, n_power):
     """:func:`fused_neumann_chain2` with the plain versions forced."""
     return _chain((chain_x, chain_z), signed_coeffs, n_power, _PLAIN)
+
+
+def fused_neumann_chain(chain, signed_coeffs, n_power):
+    """One net's ``acc = eps + sum_{k=1}^{n_power} signed_coeffs[k-1]
+    (J^T)^k eps``, float32 (B, c, H, W); ``chain`` = (eps, s0, s1, s2, w1,
+    w2, w3) as in :func:`fused_neumann_chain2`. The same kernels, launched
+    on one net."""
+    return _chain((chain,), signed_coeffs, n_power, KERNELS)[0]
+
+
+def fused_neumann_chain_plain(chain, signed_coeffs, n_power):
+    """:func:`fused_neumann_chain` with the plain versions forced."""
+    return _chain((chain,), signed_coeffs, n_power, _PLAIN)[0]

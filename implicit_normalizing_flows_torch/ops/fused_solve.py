@@ -434,7 +434,14 @@ def reset_launch_counts() -> None:
 
 def _solve(x, data_x, data_z, ops, *, threshold, eps, stall_patience,
            stall_rtol, stall_guard, newton_init, warm_start, mode, tail_mode,
-           tail_start, line_search):
+           tail_start, line_search, linearise=False):
+    """The solve on the kernels (or plain versions) of ``ops``; returns
+    ``(FusedSolveResult, lin)``. With ``linearise`` (the merged block
+    forward, ``fused_solve.py:1746, 1780``) the phase-1 evaluation of net x
+    at x and one more evaluation of net z at the best iterate, in the
+    phase-1 mode, run ``ops``' ``lin_conv3x3_in`` / ``lin_conv1x1_mid``, and
+    ``lin`` is ``{'x' | 'z': (s0 (B, c*H*W), s1, s2 (B, mid, H*W))}``, the
+    float32 swish derivatives (s0 ones without preact); else lin is None."""
     if line_search:
         raise NotImplementedError("line_search is not ported to the fused solve yet")
     if mode not in MODES:
@@ -476,16 +483,33 @@ def _solve(x, data_x, data_z, ops, *, threshold, eps, stall_patience,
     lists = [zeros(B, dt=torch.int32), zeros(B, dt=torch.int32)]
     counts = [zeros(1, dt=torch.int32), zeros(1, dt=torch.int32)]
 
-    def net(name, m, inp, idx, cnt, base, sgn, sub, out):
+    lin = None
+    if linearise:
+        lin = {name: ((torch.empty if nets[name]["preact"] else torch.ones)(
+                          B, D, device=dev),
+                      torch.empty(B, mid, HW, device=dev),
+                      torch.empty(B, mid, HW, device=dev)) for name in nets}
+
+    def net(name, m, inp, idx, cnt, base, sgn, sub, out, s=None):
+        """net(inp) into the residual ``out``; with ``s`` (every example
+        live) the linearisation variants also write s = (s0, s1, s2), and
+        no ``out`` skips the last conv."""
         nd = nets[name]
         if m not in nd["prepped"]:
             nd["prepped"][m] = prep_weights(nd["data"], m)
         wp = nd["prepped"][m]
-        ops["conv3x3_in"](inp.view(B, c, H, W), idx, cnt, wp["w1"], nd["b1"],
-                          nd["betas"], nd["preact"], m, T1)
-        ops["conv1x1_mid"](T1, cnt, wp["w2"], nd["b2"], nd["betas"][2], m, T2, H, W)
-        ops["conv3x3_out"](T2, idx, cnt, wp["w3"], nd["b3"], m, base, sgn, sub,
-                           out, H, W)
+        if s is None:
+            ops["conv3x3_in"](inp.view(B, c, H, W), idx, cnt, wp["w1"], nd["b1"],
+                              nd["betas"], nd["preact"], m, T1)
+            ops["conv1x1_mid"](T1, cnt, wp["w2"], nd["b2"], nd["betas"][2], m, T2, H, W)
+        else:
+            ops["lin_conv3x3_in"](inp.view(B, c, H, W), wp["w1"], nd["b1"], nd["betas"],
+                                  nd["preact"], m, T1, s[1], s[0])
+            ops["lin_conv1x1_mid"](T1, wp["w2"], nd["b2"], nd["betas"][2], m, T2, s[2],
+                                   H, W)
+        if out is not None:
+            ops["conv3x3_out"](T2, idx, cnt, wp["w3"], nd["b3"], m, base, sgn, sub,
+                               out, H, W)
 
     def step(phase, cap):
         ops["broyden_step"](phase, lists[0], counts[0], lists[1], counts[1], st,
@@ -504,7 +528,8 @@ def _solve(x, data_x, data_z, ops, *, threshold, eps, stall_patience,
     stage_modes = (mode,) + tuple(modes)
     lists[0].copy_(torch.arange(B, dtype=torch.int32, device=dev))
     counts[0].fill_(B)
-    net("x", mode, X, lists[0], counts[0], X, 1.0, None, XE)
+    net("x", mode, X, lists[0], counts[0], X, 1.0, None, XE,
+        s=lin["x"] if linearise else None)
     if warm_start:
         st["ZN"].copy_(X)
     net("z", mode, st["ZN"], lists[0], counts[0], XE, -1.0, st["ZN"], st["GN"])
@@ -519,13 +544,15 @@ def _solve(x, data_x, data_z, ops, *, threshold, eps, stall_patience,
         net("x", m, X, lists[0], counts[0], X, 1.0, None, XE)
         net("z", m, st["BZ"], lists[0], counts[0], XE, -1.0, st["BZ"], st["GN"])
         run(m, cap, step(PHASE_REARM, cap))
+    if linearise:
+        net("z", mode, st["BZ"], None, None, None, 0.0, None, None, s=lin["z"])
 
     ist, fst = st["ist"], st["fst"]
     diff = fst[:, 0].clone()
     return FusedSolveResult(
         result=st["BZ"].reshape(B, c, H, W), gx=st["BG"].reshape(B, c, H, W),
         nstep=ist[:, 0].clone(), diff=diff, prot_break=ist[:, 2] > 0,
-        converged=diff < eps_f)
+        converged=diff < eps_f), lin
 
 
 def fused_broyden_solve(x, data_x, data_z, *, threshold, eps, stall_patience,
@@ -543,7 +570,7 @@ def fused_broyden_solve(x, data_x, data_z, *, threshold, eps, stall_patience,
                   stall_patience=stall_patience, stall_rtol=stall_rtol,
                   stall_guard=stall_guard, newton_init=newton_init,
                   warm_start=warm_start, mode=mode, tail_mode=tail_mode,
-                  tail_start=tail_start, line_search=line_search)
+                  tail_start=tail_start, line_search=line_search)[0]
 
 
 def fused_broyden_solve_plain(x, data_x, data_z, **kwargs) -> FusedSolveResult:
@@ -556,4 +583,4 @@ def fused_broyden_solve_plain(x, data_x, data_z, **kwargs) -> FusedSolveResult:
     kwargs.setdefault("tail_mode", None)
     kwargs.setdefault("tail_start", None)
     kwargs.setdefault("line_search", False)
-    return _solve(x, data_x, data_z, _PLAIN, **kwargs)
+    return _solve(x, data_x, data_z, _PLAIN, **kwargs)[0]

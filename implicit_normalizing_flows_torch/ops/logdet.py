@@ -9,7 +9,9 @@ tabular training path (``neumann_grad=False``); the **Neumann** gradient
 estimator of image training (``logdet.py:145-185``,
 :func:`residual_logdet`), and both nets' stop-gradient Neumann
 accumulations of the ``--mem-eff False`` path through the fused chain
-kernels (:func:`neumann_pair_accs`, ``logdet.py:215-251``); the exact
+kernels (:func:`neumann_pair_accs`, ``logdet.py:215-251``) and the
+differentiable term that closes an accumulation (:func:`neumann_final`,
+the merged path's, ``logdet.py:259-275``); the exact
 brute-force log-det of small flat inputs (:func:`brute_force_logdet`,
 ``logdet.py:300-337``). The series stops at ``n_power``: the coefficients
 beyond it are exactly 0.
@@ -25,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from ..config import kernel_config
 from . import fused_chain
 
 
@@ -186,8 +189,21 @@ def neumann_logdet_estimator(net, x, vareps, coeffs, n_power):
             v = torch.autograd.grad(ys, xs, v, retain_graph=k < n_power)[0]
             w = ((1.0 if k % 2 == 0 else -1.0) * coeffs[k - 1]).to(acc.dtype)
             acc = acc + w * v
-        xg = x if x.requires_grad else x.detach().requires_grad_(True)
-        vjp = torch.autograd.grad(net(xg), xg, acc.detach(), create_graph=True)[0]
+    return neumann_final(net, x, vareps, acc)
+
+
+def neumann_final(net, y, vareps, acc):
+    """(B,) the differentiable term closing a Neumann accumulation
+    (``neumann_final``, ``logdet.py:259-275``, its VJP form): ``<J^T acc,
+    eps>`` with J the Jacobian of ``net`` at ``y``, ``acc`` detached and cast
+    to ``y``'s dtype, gradients to the net's parameters and ``y``. The JVP
+    form (``IMNF_FINAL_FORM=jvp``) is not ported."""
+    if kernel_config().final_form != "vjp":
+        raise NotImplementedError("IMNF_FINAL_FORM=jvp is not ported")
+    with torch.enable_grad():
+        yg = y if y.requires_grad else y.detach().requires_grad_(True)
+        vjp = torch.autograd.grad(net(yg), yg, acc.detach().to(y.dtype),
+                                  create_graph=True)[0]
     return _batch_dot(vjp, vareps)
 
 
@@ -200,13 +216,19 @@ def residual_logdet(net, x, vareps, coeffs, n_power, dtype=torch.float32):
                                     n_power).float()
 
 
+def signed_coeffs(coeffs):
+    """The roulette coefficients with the chain's ``(-1)^k`` folded in:
+    ``coeffs[k-1]`` times +1 for even k, -1 for odd."""
+    ks = torch.arange(1, coeffs.shape[0] + 1, device=coeffs.device)
+    return torch.where(ks % 2 == 0, 1.0, -1.0) * coeffs.detach()
+
+
 def neumann_pair_accs(eps_x, chain_x, eps_z, chain_z, coeffs, n_power):
     """Both nets' stop-gradient accumulations ``acc = eps + sum_{k<=n_power}
     (-1)^k coeffs[k-1] (J^T)^k eps`` (``neumann_pair_accs``,
     ``logdet.py:215-251``) through ``ops.fused_chain``, float32 (B, c, H, W).
     The probes' dtype is the chain's; ``chain_*`` is ``conv_chain_data`` at
     the linearisation point in it; ``n_power`` a host int."""
-    ks = torch.arange(1, coeffs.shape[0] + 1, device=coeffs.device)
-    signed = torch.where(ks % 2 == 0, 1.0, -1.0) * coeffs.detach()
     return fused_chain.fused_neumann_chain2((eps_x.detach(), *chain_x),
-                                            (eps_z.detach(), *chain_z), signed, n_power)
+                                            (eps_z.detach(), *chain_z),
+                                            signed_coeffs(coeffs), n_power)

@@ -1,5 +1,6 @@
 """The port's fused Neumann chain, plain PyTorch version on the CPU, against
-the JAX package's ``fused_neumann_chain2`` Pallas kernel in interpret mode,
+the JAX package's ``fused_neumann_chain2`` Pallas kernel and its one-net
+twin ``fused_neumann_chain`` in interpret mode,
 on the same numpy-seeded probes, derivative factors and kernels of two nets
 (c 3 or 12, mid 16, 8x8, batch 2; s0 ones without preact, a sigmoid with
 it; signed roulette coefficients, n_power 1, 4 and the cap 6).
@@ -72,6 +73,21 @@ def jax_chain2(cx, cz, n_power, dtype):
     return unpad(ax), unpad(az)
 
 
+def jax_chain(ch, n_power, dtype):
+    """JAX's one-net fused_neumann_chain in interpret mode."""
+    c = ch[0].shape[1]
+    c8 = max(8, -(-c // 8) * 8)
+    eps, s0, s1, s2, w1, w2, w3 = (jnp.asarray(a).astype(dtype) for a in ch)
+    pad = lambda a: jnp.pad(a, ((0, 0), (0, c8 - c), (0, 0), (0, 0)))
+    flat = lambda a: a.reshape(B, a.shape[1], HW * HW)
+    with jax.disable_jit(dtype == jnp.bfloat16):
+        acc = jfc.fused_neumann_chain(
+            flat(pad(eps)), flat(pad(s0)), flat(s1), flat(s2), jfc.conv3_transpose_mats(w3, c8),
+            jfc.conv1x1_transpose_mat(w2), jfc.conv3_transpose_mats_cout(w1, c8),
+            jnp.asarray(signed_coeffs()), jnp.asarray(n_power), H=HW, W=HW, interpret=True)
+    return np.asarray(acc)[:, :c].reshape(B, c, HW, HW)
+
+
 def torch_chain(ch, dtype):
     return tuple(torch.from_numpy(a).to(dtype) for a in ch)
 
@@ -101,6 +117,33 @@ def test_neumann_chain2_matches_jax(c, preact, n_power, mode):
             torch.from_numpy(signed_coeffs()), n_power)
         ctrl = min(rel_norm(a.numpy(), b, e) for a, b, e in zip(control, ref, (cx[0], cz[0])))
         assert err <= BF16_TOL < ctrl, (err, ctrl)
+
+
+@pytest.mark.parametrize("c,preact,n_power,mode", [(3, True, 4, "f32"), (12, False, CAP, "f32"),
+                                                    (3, True, 4, "bf16"), (12, True, 1, "bf16")])
+def test_neumann_chain_one_net_matches_jax(c, preact, n_power, mode):
+    """The one-net chain (``fused_neumann_chain``, the row-2 kernels
+    launched on one net) against JAX's, at the tolerances above."""
+    ch = make_chain(c, preact, 7)
+    tdt = torch.bfloat16 if mode == "bf16" else torch.float32
+    if mode == "bf16":
+        ch = [t.float().numpy() for t in torch_chain(ch, tdt)]
+    ref = jax_chain(ch, n_power, jnp.bfloat16 if mode == "bf16" else jnp.float32)
+    got = fc.fused_neumann_chain_plain(torch_chain(ch, tdt), torch.from_numpy(signed_coeffs()),
+                                       n_power)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    if mode == "f32":
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6)
+        return
+    err = rel_norm(got.numpy(), ref, ch[0])
+    ctrl = rel_norm(fc.fused_neumann_chain_plain(torch_chain(ch, torch.float32),
+                                                 torch.from_numpy(signed_coeffs()),
+                                                 n_power).numpy(), ref, ch[0])
+    assert err <= BF16_TOL < ctrl, (err, ctrl)
+    # the one-net chain is the two-net chain's first net
+    pair = fc.fused_neumann_chain2_plain(torch_chain(ch, tdt), torch_chain(ch, tdt),
+                                         torch.from_numpy(signed_coeffs()), n_power)
+    torch.testing.assert_close(got, pair[0], rtol=0, atol=0)
 
 
 def test_neumann_pair_accs_matches_jax():
