@@ -10,7 +10,12 @@ Phases (any failure exits non-zero; nothing is caught):
      CIFAR-10 flagship's shapes (all three scales, batch 64, the committed
      checkpoint's weights, the blocks' real inputs): max error and device
      time, with the plain version's time, the least time the card could take
-     (bound) and one PyTorch library call's time for comparison;
+     (bound) and one PyTorch library call's time for comparison; then the
+     precision probe (ops/precision_probe.py) at each scale's shapes: each
+     conv kernel in tf32 against its plain version in tf32 and against two
+     controls that must read above the limit, the plain version in f32 and
+     native TF32 emulated (both operands rounded to 10 mantissa bits), and
+     in tf32x against plain tf32x and the control plain tf32;
   3. the whole fused forward solve against its plain version, per scale and
      mode;
   4. the flagship evaluation (bits/dim of 64 structured-synthetic images,
@@ -38,19 +43,25 @@ Phases (any failure exits non-zero; nothing is caught):
      the re-attachment's rv_wgrad) against its plain version on
      the real inputs of one --mem-eff False step, at each scale (and, at
      32x32, the first block's nets without preact), in bf16 and f32: max
-     error, and in bf16 device time, plain time, bound, a library call's
-     time and the control (the plain version in mode f32 on the same
-     inputs, which must read above the limit);
+     error, and in bf16 device time, plain time, bound, the share of the
+     bound and the bytes/s achieved, a library call's time and the control
+     (the plain version in mode f32 on the same inputs, which must read
+     above the limit); the chain's bf16 1x1 product nc_jt_mid runs on the
+     tensor cores (csrc/mma_gemm.cuh), and fp_conv_mid is read with each
+     act (id on the backward's four "nets", swish, dswish);
   9. the whole Neumann chain (the step's n_power) and the whole final pair
      (T, d_h and every gradient) against their plain versions, per scale
-     and mode, by rel_norm with controls;
+     and mode, by rel_norm with controls, and in bf16 the final pair's
+     sum-order floor (the plain path with fp_conv_mid exactly rounded);
  10. the main path: flagship training steps at the users' default
      --mem-eff False (grad_in_forward=False) from the checkpoint, as phase
      7: 5 settle and 5 timed steps with every kernel's launch count over
      them (all must be > 0), peak memory, a time breakdown (forward solves,
      chains, final-pair primal and backward, backward solves,
-     re-attachments, update, rest), a profiled step, and the step with all
-     five plain versions forced against the kernels';
+     re-attachments, update, rest), a profiled step (which must show the
+     tensor-core 1x1 kernel and none of the CUDA-core bf16 1x1 kernels it
+     replaced), and the step with all five plain versions forced against
+     the kernels';
  11. the generic Broyden solver's rank-1 update (csrc/broyden_update.cu)
      against its plain version at the tabular POWER recipe's shapes (B 1000
      forward K 30 and backward K 4, B 4000 evaluation, at columns 0, 3 and
@@ -81,7 +92,8 @@ Phases (any failure exits non-zero; nothing is caught):
      factors) against its plain version on the real inputs of one merged
      training step (every scale merged for the capture), per scale, in the
      main path's mode and in bf16 and f32, with controls, device time, plain
-     time, bound and a library call's time;
+     time, bound and a library call's time; and the linearisation kernels
+     on phase 2's precision probe;
  15. the whole merged forward against its plain version, per scale and
      mode (roots, flags, iteration counts, both accs, with a control), and
      the one-net Neumann chain (fused_neumann_chain) against its plain
@@ -103,6 +115,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -140,9 +153,14 @@ SETTLE_STEPS, TIMED_STEPS = 5, 5
 # below its control, the plain version in mode f32 on the same inputs
 # against the mode's: what a kernel that skipped the rounding would read.
 # tf32's three-pass split sits within about 2^-16 of float32, below the sum
-# order's noise: its control reads under its limit, which bounds only that
-# noise.
+# order's noise on real inputs: there its control reads under its limit,
+# which bounds only that noise. The precision probe (phases 2 and 14,
+# ops/precision_probe.py) gives the split modes their controls: on its
+# operands the lo*lo terms that tf32 drops read about 9e-4 of an entry and
+# native TF32's lost mantissa bits about 1e-1, against SPLIT_TOL.
 KERNEL_TOL = {"f32": 1e-4, "bf16": 2e-5}
+SPLIT_TOL = 1e-4  # phase 2's limit (float32 sums in another order)
+PROBE_BATCH = 16
 BWD_TOL = {"bf16": 2e-4}
 REATTACH_TOL = {"bf16": 2e-5, "tf32": 2e-5}
 NO_ROUNDING = ("rv_wgrad_reduce", "rv_chan_sums",  # sums only: no mode
@@ -163,6 +181,12 @@ ROUNDED_TOL = 2e-4
 # out) 5.9e-5.
 CHAIN_TOL = {"f32": 1e-5, "bf16": 5e-4}
 FINAL_TOL = {"f32": 1e-5, "bf16": 1e-5}
+# The final pair's d_h and weight gradients are small differences of large
+# terms, so any other order of fp_conv_mid's sums moves them: phase 9 also
+# prints the plain path with fp_conv_mid's bf16 product exactly rounded
+# (summed in float64) against the plain path (its sum-order floor; no limit
+# is held to it). The CUDA-core fp_conv_mid sums in the plain version's
+# order and reads under FINAL_TOL; an exactly rounded product reads above.
 # Phases 11-13: the tabular POWER recipe. The update kernel and its plain
 # version compute the same float32 formulas with sums in another order
 # (over D <= 63 and K <= 30 terms): UPDATE_TOL is max error over the
@@ -177,6 +201,15 @@ FINAL_TOL = {"f32": 1e-5, "bf16": 1e-5}
 # chain runs in bf16 and re-rounds every stage (phase 9's ties), its control
 # the f32 chain. The one-net chain is phase 9's chain on one net.
 BLOCK_ACC_TOL = {"f32": 1e-4, "tf32": 5e-4}
+# The tensor-core 1x1 kernel of mode bf16 (csrc/mma_gemm.cuh, nc_jt_mid's)
+# by its profiler name, and the CUDA-core instantiation it replaced
+# (conv_gemm_kernel<MODE_BF16, SRC 1, IN_ID, EPI_SCALE_RND>, which no other
+# entry point instantiates): a --mem-eff False step must show the first and
+# not the second.
+TC_KERNEL = "tc_conv1x1_kernel"
+TC_SOURCE = "implicit_normalizing_flows_torch/csrc/mma_gemm.cuh"
+TC_ENTRIES = ("nc_jt_mid",)
+REPLACED_SIMT = re.compile(r"conv_gemm_kernel<1, ?1, ?0, ?3,")
 TAB_DIM, TAB_BATCH, TAB_EVAL_BATCH = 6, 1000, 4000
 TAB_WARMUP, TAB_SETTLE, TAB_TIMED = 110, 5, 10
 UPDATE_TOL = 1e-5
@@ -312,7 +345,7 @@ def check_kernels(blocks, mode="tf32"):
     """Phase 2: every kernel vs its plain version at each scale's shapes."""
     from implicit_normalizing_flows_torch.ops import fused_solve as fs
 
-    rows = {}
+    rows, probe_fails = {}, []
     for s, (block, x) in enumerate(blocks):
         B, c, H, W = x.shape
         HW, D, dev = H * W, c * H * W, x.device
@@ -359,7 +392,7 @@ def check_kernels(blocks, mode="tf32"):
             torch.cuda.synchronize()
             err = rel_err(out_k, out_p)
             # float32 sums in another order over K <= 4608 products
-            assert math.isfinite(err) and err <= 1e-4, (name, s, err)
+            assert math.isfinite(err) and err <= SPLIT_TOL, (name, s, err)
             ms, pms, lms = (device_ms(lambda i, f=f: f()) for f in (kern, plain, lib))
             bms, by = bound_ms(nbytes, macs, mode)
             log(f"kernel {name} scale{s} ({c}x{H}x{W}, B={B}, {mode}): "
@@ -398,7 +431,7 @@ def check_kernels(blocks, mode="tf32"):
         assert torch.equal(ik, ip), (s, ik, ip)
         assert torch.equal(stk["ist"], stp["ist"]), s
         err = max(rel_err(stk[k].float(), stp[k].float()) for k in stk)
-        assert math.isfinite(err) and err <= 1e-4, ("broyden_step", s, err)
+        assert math.isfinite(err) and err <= SPLIT_TOL, ("broyden_step", s, err)
         nbytes = 4 * B * D * (2 * nk + 2 + 4 + 6)
         bms, by = bound_ms(nbytes, 0, "f32")
         ms, pms = outs["kernel_ms"], outs["plain_ms"]
@@ -407,7 +440,79 @@ def check_kernels(blocks, mode="tf32"):
         rows.setdefault("broyden_step", {})[s] = dict(
             max_abs_err=max(float((stk[k].float() - stp[k].float()).abs().max()) for k in stk),
             ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=by)
+
+        # the precision probe through each conv kernel at this scale's shapes
+        PB = PROBE_BATCH
+        pidx = torch.arange(PB, dtype=torch.int32, device=dev)
+        pcnt = torch.full((1,), PB, dtype=torch.int32, device=dev)
+        zm, zc, zb = (torch.zeros(*shape, device=dev) for shape in ((mid,), (c,), (PB, D)))
+
+        def conv_in(f):
+            def run(m, x, w):
+                o = torch.zeros(PB, mid, HW, device=dev)
+                f(x, pidx, pcnt, fs.prep_weight(w, m), zm, [1.0] * 3, False, m, o)
+                return [o]
+            return run
+
+        def conv_mid(f):
+            def run(m, x, w):
+                o = torch.zeros(PB, mid, HW, device=dev)
+                f(x, pcnt, fs.prep_weight(w, m), zm, 1.0, m, o, H, W)
+                return [o]
+            return run
+
+        def conv_out(f):
+            def run(m, x, w):
+                o = torch.zeros(PB, D, device=dev)
+                f(x, pidx, pcnt, fs.prep_weight(w, m), zc, m, zb, 1.0, None, o, H, W)
+                return [o]
+            return run
+
+        x1, w1p = probe_operands(PB, c, mid, H, W, 3, s, dev)
+        t1p, w2p = probe_operands(PB, mid, mid, H, W, 1, s, dev)
+        t2p, w3p = probe_operands(PB, mid, c, H, W, 3, s, dev)
+        check_tf32_probe({
+            "conv3x3_in": (conv_in(fs.conv3x3_in), conv_in(fs._conv3x3_in_plain), x1, w1p),
+            "conv1x1_mid": (conv_mid(fs.conv1x1_mid), conv_mid(fs._conv1x1_mid_plain),
+                            t1p.reshape(PB, mid, HW), w2p),
+            "conv3x3_out": (conv_out(fs.conv3x3_out), conv_out(fs._conv3x3_out_plain),
+                            t2p.reshape(PB, mid, HW), w3p),
+        }, f"scale{s} ({c}x{H}x{W}, B={PB})", rel_err, SPLIT_TOL, probe_fails)
+    assert not probe_fails, ("phase 2 probe (name, scale, mode, error, controls)", probe_fails)
     return rows
+
+
+def probe_operands(batch, cin, cout, H, W, k, seed, dev):
+    """The precision probe's (x, w) (ops/precision_probe.py) on the card."""
+    from implicit_normalizing_flows_torch.ops.precision_probe import tf32_probe
+
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in tf32_probe(batch, cin, cout, H, W, k, seed))
+
+
+def check_tf32_probe(cases, label, measure, tol, fails):
+    """Hold each split-mode kernel on the precision probe (phases 2 and 14):
+    ``cases`` maps a name to (kernel(mode, x, w), plain(mode, x, w), x, w),
+    each call returning its outputs. In tf32 the kernel must lie within
+    ``tol`` of its plain version in tf32 and above it against the plain
+    version in f32 and native TF32 emulated (plain f32 on both operands
+    rounded to 10 mantissa bits); in tf32x within ``tol`` of plain tf32x
+    and above it against plain tf32. A reading is the largest over the
+    outputs. Prints every reading; appends a failure to ``fails``."""
+    from implicit_normalizing_flows_torch.ops.precision_probe import round_tf32
+
+    for name, (kern, plain, x, w) in cases.items():
+        ref = {m: plain(m, x, w) for m in ("tf32", "tf32x", "f32")}
+        ref["native tf32"] = plain("f32", round_tf32(x), round_tf32(w))
+        for mode, controls in (("tf32", ("f32", "native tf32")), ("tf32x", ("tf32",))):
+            out = kern(mode, x, w)
+            torch.cuda.synchronize()
+            read = lambda r: max(measure(a, b) for a, b in zip(out, r))
+            err, ctrl = read(ref[mode]), {c: read(ref[c]) for c in controls}
+            log(f"probe {name} {label}, {mode}: error {err:.3e} (limit {tol:g}), controls "
+                + ", ".join(f"{c} {v:.3e}" for c, v in ctrl.items()))
+            if not (math.isfinite(err) and err <= tol and all(v > tol for v in ctrl.values())):
+                fails.append((name, label, mode, err, ctrl))
 
 
 def check_solves(blocks):
@@ -907,9 +1012,11 @@ def check_cases(cases, ctrl, mode, label, rows, fails, *, timed, rounded=(), kee
             lms = device_ms(lambda i: libc()) if libc is not None else None
             outs = [(t, 2) if name in rounded and mode == "bf16" and i == 0 else t
                     for i, t in enumerate(ok_)]
-            bms, by = bound_ms(nbytes(*moved, *outs), macs, mode)
+            nb = nbytes(*moved, *outs)
+            bms, by = bound_ms(nb, macs, mode)
             line += (f" ms {ms:.4f} plain_ms {pms:.4f} library_ms "
-                     f"{'null' if lms is None else f'{lms:.4f}'} bound_ms {bms:.4f} ({by})")
+                     f"{'null' if lms is None else f'{lms:.4f}'} bound_ms {bms:.4f} ({by}) "
+                     f"share {bms / ms:.3f} bytes/s {nb / ms * 1e3:.4g}")
             if keep:
                 rows[name] = {0: dict(max_abs_err=max(float((a - b).abs().max())
                                                       for a, b in zip(ok_, op_)),
@@ -980,6 +1087,7 @@ def check_estimator_kernels(cap, modes=("bf16", "f32")):
                 chain's u, t2, t1 and kernels hold bfloat16 values in mode
                 bf16 (stored in float32): counted at 2 bytes."""
                 hv = lambda t: (t, 2) if m == "bf16" else t
+                w2t2 = torch.cat([w["w2t"]] * 2)  # the backward's four "nets"
                 return {
                     "nc_jt_in": (
                         lambda o: fc.nc_jt_in(op["U"], op["W3T"], op["S2"], m, o[0]),
@@ -1016,6 +1124,23 @@ def check_estimator_kernels(cap, modes=("bf16", "f32")):
                         lambda: F.conv2d(lib(view(P["TH1"], mid)), lib(w["w2"][0])),
                         lambda: [new(Bt, mid, HW)], (P["TH1"], P["H1"], w["w2"]),
                         Bt * mid * mid * HW),
+                    "fp_conv_mid (swish, h2)": (
+                        lambda o: ff.fp_conv_mid(P["H1"], None, w["w2"], w["b2"], b1, "swish",
+                                                 m, o[0], H, W),
+                        lambda o: plain_mid(P["H1"], None, w["w2"], w["b2"], b1, "swish", m,
+                                            o[0]),
+                        lambda: F.conv2d(lib(view(P["H1"], mid)), lib(w["w2"][0]),
+                                         lib(w["b2"][0])),
+                        lambda: [new(Bt, mid, HW)], (P["H1"], w["w2"], w["b2"]),
+                        Bt * mid * mid * HW),
+                    "fp_conv_mid (id, 4 nets)": (
+                        lambda o: ff.fp_conv_mid(P["RP2"].view(2 * Bt, mid, HW), None, w2t2,
+                                                 None, None, "id", m, o[0], H, W),
+                        lambda o: plain_mid(P["RP2"].view(2 * Bt, mid, HW), None, w2t2,
+                                            None, None, "id", m, o[0]),
+                        lambda: F.conv2d(lib(view(P["RP2"], mid)), lib(w["w2t"][0])),
+                        lambda: [new(2 * Bt, mid, HW)], (P["RP2"], w2t2),
+                        2 * Bt * mid * mid * HW),
                     "fp_conv_out": (
                         lambda o: ff.fp_conv_out(P["RP1"][1], w["w1t"], m, o[0], H, W),
                         lambda o: ff._fp_conv_out_plain(P["RP1"][1], w["w1t"], m, o[0], H, W),
@@ -1052,6 +1177,24 @@ def check_estimator_kernels(cap, modes=("bf16", "f32")):
     return rows
 
 
+def fp_conv_mid_exact(inp, inh, w, bias, beta_net, act, mode, out, H, W):
+    """fp_conv_mid's plain version with its bf16 product summed in float64
+    and rounded once to float32: the sums' order taken out (phase 9's
+    sum-order floor)."""
+    from implicit_normalizing_flows_torch.ops import fused_final as ff
+
+    N, nb = ff._nets(w, inp.shape[0])
+    for n in range(N):
+        e = slice(n * nb, (n + 1) * nb)
+        x = inp[e].reshape(nb, -1, H, W)
+        h = None if inh is None else inh[e].reshape(x.shape)
+        a = ff._act(x, h, None if beta_net is None else beta_net[n], act)
+        y = torch.nn.functional.conv2d(a.to(torch.bfloat16).double(), w[n].double()).float()
+        if bias is not None:
+            y = y + bias[n][None, :, None, None]
+        out[e] = y.reshape(out[e].shape)
+
+
 def check_estimator_functions(cap):
     """Phase 9: the whole Neumann chain (the captured n_power) and the whole
     final pair (T, d_h = (d_x | d_z) and every gradient of both nets) vs
@@ -1059,7 +1202,8 @@ def check_estimator_functions(cap):
     over acc - eps, the part the terms make) at CHAIN_TOL / FINAL_TOL; in
     bf16 beside the control (the plain version in mode f32 on the same
     inputs), which must lie above the limit for every output a product
-    reaches. Every reading is printed before the limits are checked."""
+    reaches, and the final pair's sum-order floor (FINAL_TOL's comment).
+    Every reading is printed before the limits are checked."""
     from implicit_normalizing_flows_torch.ops import fused_chain as fc
     from implicit_normalizing_flows_torch.ops import fused_final as ff
     from implicit_normalizing_flows_torch.ops.implicit_grad import DATA_KEYS
@@ -1118,6 +1262,9 @@ def check_estimator_functions(cap):
                 ctrl = min((rel_norm(a, b), n) for (n, a), (_, b) in zip(gc, gp)
                            if not n.endswith(".b3"))
                 line += f" (limit {FINAL_TOL[mode]:g}, least control {ctrl[0]:.3e} ({ctrl[1]}))"
+                ge = pair(dict(ff._PLAIN, fp_conv_mid=fp_conv_mid_exact), mode, wt)
+                floor = max((rel_norm(a, b), n) for (n, a), (_, b) in zip(ge, gp))
+                line += f", sum-order floor {floor[0]:.3e} ({floor[1]})"
             log(line + f" s {tk:.3f}/{tp:.3f} (kernels/plain)")
             for n, a in gk:
                 assert torch.isfinite(a).all(), n
@@ -1238,7 +1385,8 @@ def breakdown_step(step, x_u8, draws, parts, rest):
 
 def profile_train_step(step, x_u8, draws):
     """Device time by kernel over one training step and the device's idle
-    share (1 - busy time / wall time, :func:`device_busy`)."""
+    share (1 - busy time / wall time, :func:`device_busy`); returns the
+    kernels' profiler records."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1255,6 +1403,24 @@ def profile_train_step(step, x_u8, draws):
         f"{ours:.1f} ms, other device work {total - ours:.1f} ms")
     for e in sorted(events, key=_self_ms, reverse=True)[:20]:
         log(f"  {_self_ms(e):9.2f} ms  x{e.count:<5d} {e.key[:110]}")
+    return events
+
+
+def check_tensor_core_route(events, launched):
+    """The profiled --mem-eff False step ran nc_jt_mid on the tensor-core
+    kernel: its records (name, rank among the step's kernels by time, time,
+    launches recorded) beside the wrapper's ``launched`` count in that
+    step, and no record of the CUDA-core instantiation it replaced."""
+    ranked = sorted(events, key=_self_ms, reverse=True)
+    tc = [(i + 1, e) for i, e in enumerate(ranked) if TC_KERNEL in e.key]
+    old = [e.key for e in events if REPLACED_SIMT.search(e.key)]
+    for rank, e in tc:
+        log(f"tensor-core 1x1 kernel: rank {rank}, {_self_ms(e):.2f} ms x{e.count} "
+            f"{e.key[:140]}")
+    log(f"tensor-core 1x1 kernel: {sum(e.count for _, e in tc)} launches recorded, "
+        f"{launched} by {' + '.join(TC_ENTRIES)}; replaced CUDA-core "
+        f"instantiations recorded: {len(old)}")
+    assert tc and launched > 0 and not old, (launched, old[:3])
 
 
 def plain_versions(estimator, merged=False):
@@ -1434,6 +1600,33 @@ def check_block_kernels(cap):
 
             check_cases(cases(mode), cases("f32") if mode == "bf16" else {}, mode,
                         f"c{c} ({H}x{W}, B={B})", rows, fails, timed="tf32", keep=c == 3)
+        # the linearisation kernels on the precision probe (no preact: the
+        # probe's x is the conv's operand)
+        PB = PROBE_BATCH
+
+        def lin_in(f):
+            def run(m, xx, w):
+                o = [torch.zeros(PB, mid, HW, device=dev) for _ in range(2)]
+                f(xx, fs.prep_weight(w, m), torch.zeros(mid, device=dev), [1.0] * 3, False, m,
+                  *o, None)
+                return o
+            return run
+
+        def lin_mid(f):
+            def run(m, t, w):
+                o = [torch.zeros(PB, mid, HW, device=dev) for _ in range(2)]
+                f(t, fs.prep_weight(w, m), torch.zeros(mid, device=dev), 1.0, m, *o, H, W)
+                return o
+            return run
+
+        x1, w1p = probe_operands(PB, c, mid, H, W, 3, 10 + c, dev)
+        t1p, w2p = probe_operands(PB, mid, mid, H, W, 1, 10 + c, dev)
+        check_tf32_probe({
+            "lin_conv3x3_in": (lin_in(fb.lin_conv3x3_in), lin_in(fb._lin_conv3x3_in_plain),
+                               x1, w1p),
+            "lin_conv1x1_mid": (lin_mid(fb.lin_conv1x1_mid), lin_mid(fb._lin_conv1x1_mid_plain),
+                                t1p.reshape(PB, mid, HW), w2p),
+        }, f"c{c} ({H}x{W}, B={PB})", rel_max, KERNEL_TOL["f32"], fails)
         for mode in ("bf16", "f32"):
             _, op = block_operands(d, "tf32" if mode == "bf16" else "f32")
             Bt, mid = op["U"].shape[0], op["S1"].shape[1]
@@ -2002,7 +2195,11 @@ def main():
         n = SETTLE_STEPS + TIMED_STEPS
         breakdown_step(step, x_u8, tdraws(n), train_parts(model, step, estimator, merged),
                        "the rest" if estimator else "estimator and the rest")
-        profile_train_step(step, x_u8, tdraws(n + 1))
+        before = launch_counts()
+        events = profile_train_step(step, x_u8, tdraws(n + 1))
+        if estimator:
+            after = launch_counts()
+            check_tensor_core_route(events, sum(after[k] - before[k] for k in TC_ENTRIES))
         compare_plain_step(step, x_u8, lambda: tdraws(n + 2),
                            plain_versions(estimator, merged))
         return launches, ms[len(ms) // 2]
@@ -2067,6 +2264,8 @@ def main():
             path = tab_launches if mod is bu else merged_launches if mod is fb else launches
             row = dict(name=name, route="cuda", source=SOURCES[lib], replaces=tpu(name),
                        launches=path[name], **rows[name][0])
+            if name in TC_ENTRIES:  # mode bf16 on the tensor cores (wgmma)
+                row.update(source=TC_SOURCE, cores="tensor (wgmma bf16)")
             if mod is fs:
                 row["eval_launches"] = eval_launches[name]
             if mod in (fs, ig):

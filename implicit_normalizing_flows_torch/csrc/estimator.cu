@@ -18,7 +18,8 @@
 //
 // chain, per term k (every example runs all n_power terms):
 //   nc_jt_in       t2 = rnd(C3^T u * s2)          c -> mid, flipped w3
-//   nc_jt_mid      t1 = rnd(C2^T t2 * s1)         mid -> mid, w2^T
+//   nc_jt_mid      t1 = rnd(C2^T t2 * s1)         mid -> mid, w2^T (bf16:
+//                  tensor cores, mma_gemm.cuh)
 //   nc_jt_out_acc  u = rnd(s0 * C1^T t1); acc += c_k u   mid -> c, flipped w1
 //   rnd rounds to bf16 in mode bf16 (the chain dtype), as _make_apply_jt
 //   rounds; c_k is read from a device array of signed coefficients.
@@ -42,15 +43,23 @@
 // take it (conv_gemm.cuh). The chain reads s0/s1/s2 as stored: bf16 in mode
 // bf16, which halves their traffic.
 //
-// What bounds them on H100: FP32 CUDA-core operations, as the
-// implicit-gradient kernels (the J^T 1x1 is ~90% of a term's MACs: 268M of
-// 296M per example and net at 32x32). The chain's design cost: the TPU
+// What bounds them on H100: the chain's 1x1 product of mode bf16
+// (nc_jt_mid; the J^T 1x1 is ~90% of a term's MACs: 268M of 296M per
+// example and net at 32x32) runs on the tensor cores (mma_gemm.cuh, whose
+// note gives its bytes bound and design); every other product, and mode
+// f32, runs as FP32 FMAs on the CUDA cores (conv_gemm.cuh), as the
+// implicit-gradient kernels do. fp_conv_mid stays there: it sums in the
+// plain version's order (cuDNN's, k by k), and the final pair's d_h and
+// weight gradients, small differences of large terms, move by 1.3e-5 under
+// any other order (an exactly rounded product included), above the limit
+// its check holds them to. The chain's design cost: the TPU
 // kernel keeps s0/s1/s2 resident across the series, so its traffic is
 // O(|s|); one net's s1 + s2 at 32x32, B = 64 is 128 MiB in bf16, more than
 // the 50 MB L2, so here every term streams them again: O(n_power |s|).
-// Tensor cores and keeping s on chip across terms are later work.
+// Keeping s on chip across terms is later work.
 
 #include "conv_gemm.cuh"
+#include "mma_gemm.cuh"
 
 namespace {
 
@@ -137,29 +146,30 @@ __global__ void __launch_bounds__(RED_THREADS) second_kernel(
   }
 }
 
-// the chain's J^T GEMM stages: rounded in mode bf16, plain f32 otherwise
-template <int MODE, typename ST>
-cudaError_t nc_gemm(int src, const float* w, int M, int K, const float* inp,
-                    int B, int nets, int C, int H, int W, const ST* scale,
-                    float* out, cudaStream_t s) {
-  constexpr int EPI = MODE == MODE_BF16 ? EPI_SCALE_RND : EPI_SCALE;
-  if (src == 0)
-    return launch_conv_gemm<MODE, 0, IN_ID, EPI, ST>(
-        w, nullptr, nullptr, M, K, inp, nullptr, nullptr, nullptr, B, C, H, W,
-        0.f, 0.f, 1.f, scale, out, s, nets);
-  return launch_conv_gemm<MODE, 1, IN_ID, EPI, ST>(
-      w, nullptr, nullptr, M, K, inp, nullptr, nullptr, nullptr, B, C, H, W,
-      0.f, 0.f, 1.f, scale, out, s, nets);
-}
-
+// the chain's J^T stages: rounded in mode bf16, plain f32 otherwise.
+// nc_jt_in: the 3x3 c -> mid on the SIMT template.
 template <typename ST>
-cudaError_t nc_gemm_mode(int mode, int src, const float* w, int M, int K,
-                         const float* inp, int B, int nets, int C, int H, int W,
-                         const void* scale, float* out, cudaStream_t s) {
+cudaError_t nc_in_mode(int mode, const float* w, int mid, const float* inp,
+                       int B, int nets, int C, int H, int W, const void* scale,
+                       float* out, cudaStream_t s) {
   const ST* sc = static_cast<const ST*>(scale);
   switch (mode) {
-    case MODE_F32: return nc_gemm<MODE_F32, ST>(src, w, M, K, inp, B, nets, C, H, W, sc, out, s);
-    case MODE_BF16: return nc_gemm<MODE_BF16, ST>(src, w, M, K, inp, B, nets, C, H, W, sc, out, s);
+    case MODE_F32: return launch_conv_gemm<MODE_F32, 0, IN_ID, EPI_SCALE, ST>(w, nullptr, nullptr, mid, C * 9, inp, nullptr, nullptr, nullptr, B, C, H, W, 0.f, 0.f, 1.f, sc, out, s, nets);
+    case MODE_BF16: return launch_conv_gemm<MODE_BF16, 0, IN_ID, EPI_SCALE_RND, ST>(w, nullptr, nullptr, mid, C * 9, inp, nullptr, nullptr, nullptr, B, C, H, W, 0.f, 0.f, 1.f, sc, out, s, nets);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// nc_jt_mid: the 1x1 mid -> mid, w bf16 on the tensor cores in mode bf16,
+// w float32 on the SIMT template in mode f32.
+template <typename ST>
+cudaError_t nc_mid_mode(int mode, const void* w, int mid, const float* inp,
+                        int B, int nets, int H, int W, const void* scale,
+                        float* out, cudaStream_t s) {
+  const ST* sc = static_cast<const ST*>(scale);
+  switch (mode) {
+    case MODE_F32: return launch_conv_gemm<MODE_F32, 1, IN_ID, EPI_SCALE, ST>(static_cast<const float*>(w), nullptr, nullptr, mid, mid, inp, nullptr, nullptr, nullptr, B, mid, H, W, 0.f, 0.f, 1.f, sc, out, s, nets);
+    case MODE_BF16: return launch_tc_conv1x1<ST>(static_cast<const __nv_bfloat16*>(w), mid, mid, inp, B, nets, H * W, sc, out, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -215,7 +225,8 @@ extern "C" {
 // cudaGetLastError() right after its launch (0 on success). B counts the
 // examples of all `nets` nets together; every example is live (the conv
 // kernels get no active list). Weights are stacked per net, f32 (bf16
-// values in mode bf16).
+// values in mode bf16), but nc_jt_mid's, which are bfloat16 in mode bf16
+// (the tensor-core operand) and float32 in mode f32.
 
 // chain: the derivative factors s2 / s1 / s0 as float32 or, with s_bf16,
 // bfloat16
@@ -224,17 +235,17 @@ int imnf_nc_jt_in(int mode, const float* w, const float* u, const void* s2,
                   float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (s_bf16)
-    return (int)nc_gemm_mode<__nv_bfloat16>(mode, 0, w, mid, C * 9, u, B, nets, C, H, W, s2, out, s);
-  return (int)nc_gemm_mode<float>(mode, 0, w, mid, C * 9, u, B, nets, C, H, W, s2, out, s);
+    return (int)nc_in_mode<__nv_bfloat16>(mode, w, mid, u, B, nets, C, H, W, s2, out, s);
+  return (int)nc_in_mode<float>(mode, w, mid, u, B, nets, C, H, W, s2, out, s);
 }
 
-int imnf_nc_jt_mid(int mode, const float* w, const float* t, const void* s1,
+int imnf_nc_jt_mid(int mode, const void* w, const float* t, const void* s1,
                    int s_bf16, int B, int nets, int mid, int H, int W,
                    float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (s_bf16)
-    return (int)nc_gemm_mode<__nv_bfloat16>(mode, 1, w, mid, mid, t, B, nets, mid, H, W, s1, out, s);
-  return (int)nc_gemm_mode<float>(mode, 1, w, mid, mid, t, B, nets, mid, H, W, s1, out, s);
+    return (int)nc_mid_mode<__nv_bfloat16>(mode, w, mid, t, B, nets, H, W, s1, out, s);
+  return (int)nc_mid_mode<float>(mode, w, mid, t, B, nets, H, W, s1, out, s);
 }
 
 int imnf_nc_jt_out_acc(int mode, const float* w, const float* t,

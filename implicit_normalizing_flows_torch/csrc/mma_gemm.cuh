@@ -1,0 +1,376 @@
+// Tensor-core (wgmma) 1x1 conv of mode bf16 for Hopper (sm_90a): the
+// Neumann chain's nc_jt_mid (estimator.cu),
+//
+//   out[slot][m][p] = bf16_round(scale[slot][m][p] *
+//                                sum_k W[net][m][k] * bf16(inp[slot][k][p]))
+//
+// the chain's t1 = rnd(C2^T t2 * s1) of the TPU kernel's _make_apply_jt
+// (implicit_normalizing_flows_tpu/ops/fused_chain.py:182, in
+// fused_neumann_chain2 :333 and fused_neumann_chain :275), with s bf16 or
+// float32. Both operands are bf16 and the sums float32: _make_dot("bf16")
+// of the JAX kernels, the error model that conv_gemm.cuh's SIMT template
+// computes with FP32 FMAs on bf16-rounded values. Mode f32 stays on that
+// template (its error model needs CUDA-core float32).
+//
+// What bounds it on an H100 (32x32, B 64 x 2 nets, mid 512): bytes. The
+// product is 68.7 GFLOP (0.07 ms at 989 TFLOP/s), but it reads t2 as
+// float32 (256 MiB) and s1 (128 MiB bf16 or 256 MiB float32) and writes t1
+// as float32 (256 MiB): 0.20 ms (bf16 s) or 0.24 ms (float32 s) at 3.35
+// TB/s. The SIMT template re-read each activation once per 64-row M block
+// (8 times at mid 512) and ran the products on CUDA cores.
+//
+// The design against that bound:
+// * Activation-stationary: a block owns NP pixels of one slot (NP 128, or
+//   64 when H*W <= 64). It reads that tile's whole K <= 512 panel once, as
+//   float32 slabs streamed by cp.async (16-byte copies, 80 KB in flight)
+//   through the space the weight rings take later, rounds each element to
+//   bf16 once, and keeps the panel (NP x 512 bf16, 128 KB at NP 128) in
+//   dynamic shared memory for all M rows. Each activation and s element is
+//   read from device memory exactly once; each output is written once, 16
+//   bytes a thread.
+// * Weights from L2: one net's 512x512 bf16 kernel is 512 KB and stays in
+//   the 50 MB L2. Each of the block's two consumer warpgroups takes every
+//   other 64-row M chunk and streams its 64x64 weight tiles through its own
+//   ring of TC_STAGES shared-memory slots with cp.async (zero-filled past
+//   M and K), four tiles ahead of the products.
+// * Products: wgmma.mma_async m64n64k16, bf16 x bf16 -> f32, both operands
+//   from shared memory, K-major, 128-byte swizzle (A: a weight tile's rows
+//   m, B: 64 of the panel's rows p). wgmma and not mma.sync: it reads both
+//   operands from shared memory without ldmatrix or registers, and is the
+//   only route to the full rate. The panel is transposed to K-major as it
+//   is staged (the slabs run along p), so both operands share one layout
+//   and one descriptor form; each thread's 8-byte stores are rotated over
+//   its 4 pixels to spread the banks.
+// * Sums: the tensor cores truncate as they add, a bias toward zero that
+//   grows with the number of products summed there. Each weight tile's 64
+//   products go into a fresh partial that is added to the float32 sum with
+//   round-to-nearest adds.
+// * Epilogue per 64-row chunk, fused: a lane pair exchanges halves of its
+//   accumulator fragment (rows r and r+8) so that each lane holds 4
+//   consecutive pixels of one row, scales and rounds them, and stores 16
+//   bytes; its s was read into registers once, at the chunk's first tile,
+//   under the chunk's products.
+// One block of 256 threads per SM (225 KB of shared memory at NP 128): the
+// blocks' panel loads and products interleave across SMs.
+#pragma once
+
+#include <stdint.h>
+
+#include "conv_gemm.cuh"
+
+namespace imnf {
+
+constexpr int TC_KMAX = 512;                  // K the panel holds
+constexpr int TC_BM = 64, TC_BK = 64;         // a weight tile: 64 rows x 128 bytes
+constexpr int TC_STAGES = 6;                  // ring slots per warpgroup
+constexpr int TC_AHEAD = TC_STAGES - 2;       // tiles loaded ahead of the products
+constexpr int TC_WGS = 2, TC_THREADS = 128 * TC_WGS;
+constexpr int TC_TILE_BYTES = TC_BM * TC_BK * 2;
+// the panel's float32 slabs, staged in the rings' space before the products
+constexpr int TC_SLAB_BYTES = 16384;
+constexpr int TC_STAGING_BYTES = TC_WGS * TC_STAGES * TC_TILE_BYTES;
+
+constexpr int tc_smem_bytes(int np) {
+  // the panel, both rings, and slack to align the base to 1024 bytes
+  return np * TC_KMAX * 2 + TC_WGS * TC_STAGES * TC_TILE_BYTES + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk c of row r in a tile of 128-byte rows under
+// the 128-byte swizzle (the tile 1024-byte aligned).
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// wgmma shared-memory descriptor of a K-major operand in the 128-byte
+// swizzle: start address, leading offset 16 bytes (unused by this layout),
+// 8-row groups 1024 bytes apart, layout type 1 (128B).
+__device__ __forceinline__ uint64_t tc_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// generic-proxy writes (st.shared, cp.async) made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void warpgroup_bar(int id) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keeps the compiler from touching accumulators across an in-flight wgmma
+template <int N>
+__device__ __forceinline__ void acc_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// D(64 x 64) = A(64 x 16) B(16 x 64) [+ D when acc_in], bf16 operands by
+// descriptor, f32 sums.
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db, int acc_in) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc_in));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 4 consecutive entries of a scale as loaded (16 or 8 bytes), and widened
+template <typename ST> struct Vec4 { using type = float4; };
+template <> struct Vec4<__nv_bfloat16> { using type = uint2; };
+__device__ __forceinline__ float4 ldv4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ uint2 ldv4(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const uint2*>(p));
+}
+__device__ __forceinline__ float4 widen4(float4 v) { return v; }
+__device__ __forceinline__ float4 widen4(uint2 u) {
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  return make_float4(__low2float(a), __high2float(a), __low2float(b), __high2float(b));
+}
+
+// Grid (ceil(HW / NP), B slots); slot s belongs to net s / nb. Takes K <=
+// TC_KMAX with K % 8 == 0, HW % 4 == 0 and 16-byte aligned tensors (the
+// launcher checks the shapes, the wrapper the pointers).
+//
+// Phase 1, the panel: float32 slabs of SK k-rows x NP pixels (16 KB)
+// stream through the rings' space with cp.async, all but one of its slots
+// ahead (zero-filled past K and HW); each thread rounds 4 k x 4 pixels of
+// a slab and stores them K-major into the panel. Phase 2, the products:
+// each warpgroup walks its (M chunk, K tile) weight tiles through its ring;
+// a chunk's scale is loaded into registers at its first tile and used by
+// its epilogue after its last.
+template <int NP, typename ST>
+__global__ void __launch_bounds__(TC_THREADS, 1) tc_conv1x1_kernel(
+    const __nv_bfloat16* __restrict__ w, int M, int K,
+    const float* __restrict__ inp, int HW, const ST* __restrict__ scale,
+    float* __restrict__ out, int nb) {
+  extern __shared__ uint8_t tc_smem[];
+  const uint32_t raw = smem_u32(tc_smem);
+  const uint32_t panel = (raw + 1023u) & ~1023u;  // [K / 64][NP rows][128 bytes]
+  uint8_t* const base = tc_smem + (panel - raw);   // its generic address
+  const uint32_t rings = panel + NP * TC_KMAX * 2;
+  const int slot = blockIdx.y, net = slot / nb, p0 = blockIdx.x * NP;
+  const int tid = threadIdx.x;
+  // the warpgroup index, warp-uniform to the compiler: wgmma is issued on
+  // a path it can prove converged
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0), wt = tid % 128;
+  w += (size_t)net * M * K;
+  const int nkt = (K + TC_BK - 1) / TC_BK, nmc = (M + TC_BM - 1) / TC_BM;
+  const size_t src_off = (size_t)slot * K * HW;
+
+  // phase 1: the panel
+  {
+    constexpr int SK = TC_SLAB_BYTES / (NP * 4);
+    constexpr int BUFS = TC_STAGING_BYTES / TC_SLAB_BYTES;
+    const int ns = nkt * TC_BK / SK;
+    auto load_slab = [&](int j) {
+      if (j < ns) {
+        const uint32_t buf = rings + (j % BUFS) * TC_SLAB_BYTES;
+#pragma unroll
+        for (int q = tid; q < TC_SLAB_BYTES / 16; q += TC_THREADS) {
+          const int k = j * SK + q / (NP / 4), p = p0 + (q % (NP / 4)) * 4;
+          const bool ok = k < K && p < HW;
+          cp_async16(buf + q * 16, ok ? inp + src_off + (size_t)k * HW + p : inp, ok);
+        }
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int j = 0; j < BUFS - 1; ++j) load_slab(j);
+    const int kq = tid / (NP / 4), pg = tid % (NP / 4);  // this thread's 4 k x 4 pixels
+    for (int j = 0; j < ns; ++j) {
+      cp_async_wait<BUFS - 2>();  // this thread's copies of slab j landed
+      __syncthreads();            // everyone's; slab j - 1's buffer converted
+      load_slab(j + BUFS - 1);    // into slab j - 1's buffer
+      const float* sl = reinterpret_cast<const float*>(
+          base + NP * TC_KMAX * 2 + (j % BUFS) * TC_SLAB_BYTES);
+      float4 v[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        v[r] = *reinterpret_cast<const float4*>(sl + (kq * 4 + r) * NP + pg * 4);
+      uint2 px[4];
+#define TC_PACK(J, F) \
+      px[J] = make_uint2(pack_bf16(v[0].F, v[1].F), pack_bf16(v[2].F, v[3].F))
+      TC_PACK(0, x); TC_PACK(1, y); TC_PACK(2, z); TC_PACK(3, w);
+#undef TC_PACK
+      const int k = j * SK + kq * 4;
+      uint8_t* tile = base + (k / TC_BK) * NP * 128 + ((k % 8) / 4) * 8;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int jr = (jj + (pg >> 1)) & 3;
+        const uint2 val = jr == 0 ? px[0] : jr == 1 ? px[1] : jr == 2 ? px[2] : px[3];
+        *reinterpret_cast<uint2*>(tile + sw128(pg * 4 + jr, (k % TC_BK) / 8)) = val;
+      }
+    }
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();  // the panel is whole; the staging space is the rings' again
+  }
+
+  // phase 2: this warpgroup's weight tiles t -> (M chunk wg + (t / nkt)
+  // TC_WGS, K tile t % nkt), TC_AHEAD ahead of the products
+  const int chunks = nmc > wg ? (nmc - wg + TC_WGS - 1) / TC_WGS : 0;
+  const int T = chunks * nkt;
+  const uint32_t ring = rings + wg * TC_STAGES * TC_TILE_BYTES;
+  auto load_w = [&](int t) {
+    if (t < T) {
+      const int m0 = (wg + (t / nkt) * TC_WGS) * TC_BM, k0 = (t % nkt) * TC_BK;
+      const uint32_t dst = ring + (t % TC_STAGES) * TC_TILE_BYTES;
+#pragma unroll
+      for (int i = wt; i < TC_BM * 8; i += 128) {
+        const int r = i / 8, c = i % 8, m = m0 + r, k = k0 + c * 8;
+        const bool ok = m < M && k < K;
+        cp_async16(dst + sw128(r, c), ok ? w + (size_t)m * K + k : w, ok);
+      }
+    }
+    cp_async_commit();  // an empty group past the last tile keeps the count
+  };
+#pragma unroll
+  for (int t = 0; t < TC_AHEAD; ++t) load_w(t);
+
+  constexpr int NH = NP / 64, NJ = NP / 8;  // 64-pixel halves, 8-pixel groups
+  float acc[NH][32], part[NH][32];
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+  const int warp = wt / 32, lane = wt % 32;
+  const bool odd = lane & 1;
+  const int cq = 2 * ((lane % 4) & ~1);  // the lane pair's first pixel in 8
+  // the epilogue's operands of the current chunk: after the pair's exchange
+  // a lane holds row r (even lane) or r + 8 (odd lane), pixels p0 + 8 j + cq
+  // .. + 3
+  typename Vec4<ST>::type sv[NJ];
+  int r = 0;
+  size_t row = 0;
+
+  for (int t = 0; t < T; ++t) {
+    cp_async_wait<TC_AHEAD - 1>();  // this thread's copies of tile t landed
+    fence_async_smem();
+    warpgroup_bar(1 + wg);  // everyone's copies of tile t; tile t - 1's products done
+    load_w(t + TC_AHEAD);   // into tile t - 2's slot
+    const int kt = t % nkt;
+    if (kt == 0) {  // a new chunk: its epilogue's scale, loaded under its products
+      r = (wg + (t / nkt) * TC_WGS) * TC_BM + warp * 16 + lane / 4 + (odd ? 8 : 0);
+      row = ((size_t)slot * M + r) * HW;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int p = p0 + 8 * j + cq;
+        if (r < M && p < HW) sv[j] = ldv4(scale + row + p);
+      }
+    }
+    // the tile's products, each 64-pixel half into a fresh partial, then
+    // added to the chunk's sum with round-to-nearest adds
+    const uint32_t a = ring + (t % TC_STAGES) * TC_TILE_BYTES, b = panel + kt * NP * 128;
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+#pragma unroll
+      for (int kk = 0; kk < TC_BK / 16; ++kk)
+        wgmma_n64(part[h], tc_desc(a + 32 * kk), tc_desc(b + h * 64 * 128 + 32 * kk), kk);
+      wgmma_commit();
+    }
+    if constexpr (NH == 2) {
+      wgmma_wait<1>();
+      acc_fence(part[0]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[0][i] = __fadd_rn(acc[0][i], part[0][i]);
+    }
+    wgmma_wait<0>();
+    acc_fence(part[NH - 1]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[NH - 1][i] = __fadd_rn(acc[NH - 1][i], part[NH - 1][i]);
+    if (kt != nkt - 1) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int h = j / 8, i = 4 * (j % 8);  // compile-time after unrolling
+      const float a0 = acc[h][i], a1 = acc[h][i + 1], b0 = acc[h][i + 2], b1 = acc[h][i + 3];
+      const float x0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : b0, 1);
+      const float x1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : b1, 1);
+      float4 o = odd ? make_float4(x0, x1, b0, b1) : make_float4(a0, a1, x0, x1);
+      const float4 sc = widen4(sv[j]);
+      o = make_float4(bf16_round(__fmul_rn(o.x, sc.x)), bf16_round(__fmul_rn(o.y, sc.y)),
+                      bf16_round(__fmul_rn(o.z, sc.z)), bf16_round(__fmul_rn(o.w, sc.w)));
+      const int p = p0 + 8 * j + cq;
+      if (r < M && p < HW) *reinterpret_cast<float4*>(out + row + p) = o;
+    }
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+}
+
+template <int NP, typename ST>
+cudaError_t launch_tc_np(const __nv_bfloat16* w, int M, int K, const float* inp,
+                         int B, int nb, int HW, const ST* scale, float* out,
+                         cudaStream_t s) {
+  auto kernel = tc_conv1x1_kernel<NP, ST>;
+  constexpr int bytes = tc_smem_bytes(NP);
+  static bool attr = false;  // once per instantiation (one device)
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    attr = true;
+  }
+  dim3 grid((HW + NP - 1) / NP, B);
+  kernel<<<grid, TC_THREADS, bytes, s>>>(w, M, K, inp, HW, scale, out, nb);
+  return cudaGetLastError();
+}
+
+// The chain's bf16 1x1 stage on the tensor cores: B slots of `nets` nets
+// (B / nets each), weights (nets, M, K) bf16, inp (B, K, HW) float32
+// holding bf16 values, scale and out (B, M, HW).
+// cudaErrorInvalidValue for shapes the kernel does not take.
+template <typename ST>
+cudaError_t launch_tc_conv1x1(const __nv_bfloat16* w, int M, int K, const float* inp,
+                              int B, int nets, int HW, const ST* scale, float* out,
+                              cudaStream_t s) {
+  if (M < 1 || K < 8 || K > TC_KMAX || K % 8 || HW < 4 || HW % 4 || nets < 1 ||
+      B % nets)
+    return cudaErrorInvalidValue;
+  if (HW <= 64)
+    return launch_tc_np<64, ST>(w, M, K, inp, B, B / nets, HW, scale, out, s);
+  return launch_tc_np<128, ST>(w, M, K, inp, B, B / nets, HW, scale, out, s);
+}
+
+}  // namespace imnf

@@ -15,7 +15,8 @@ and what the design does about it), each launched once for both nets, whose
 examples are stacked along the batch:
 
 * ``nc_jt_in``       ``t2 = rnd(C3^T u * s2)``
-* ``nc_jt_mid``      ``t1 = rnd(C2^T t2 * s1)``
+* ``nc_jt_mid``      ``t1 = rnd(C2^T t2 * s1)`` (mode bf16: on the tensor
+  cores, ``csrc/mma_gemm.cuh``, with the kernel ``w2t`` in bfloat16)
 * ``nc_jt_out_acc``  ``u = rnd(s0 * C1^T t1)``, ``acc += c_k * u``
 
 ``rnd`` rounds to the chain dtype (the probe's: bfloat16 under
@@ -47,7 +48,8 @@ from .implicit_grad import _shapes, transpose_weights
 
 __all__ = ["fused_neumann_chain2", "fused_neumann_chain2_plain",
            "fused_neumann_chain", "fused_neumann_chain_plain", "KERNELS",
-           "launch_counts", "reset_launch_counts", "chain_mode", "chain_operands"]
+           "launch_counts", "reset_launch_counts", "chain_mode", "chain_operands",
+           "mid_weight_dtype"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
@@ -103,6 +105,32 @@ def _check(s, mode, **others):
     return int(s.dtype == torch.bfloat16)
 
 
+TC_KMAX = 512  # the largest K the tensor-core 1x1 product takes (csrc/mma_gemm.cuh)
+
+
+def mid_weight_dtype(mode):
+    """The dtype of ``nc_jt_mid``'s kernel on the card: bfloat16 in mode
+    bf16 (the tensor cores' operand, prepared once per step by
+    :func:`chain_operands`), float32 in mode f32."""
+    return torch.bfloat16 if mode == "bf16" else torch.float32
+
+
+def _check_mid(w, mode, K, HW, **tensors):
+    """Raise on what ``nc_jt_mid``'s kernels do not take: a kernel w not
+    in :func:`mid_weight_dtype`, and in mode bf16 (the tensor cores) K over
+    TC_KMAX or not a multiple of 8, H*W not a multiple of 4, or a tensor not
+    16-byte aligned."""
+    _check_cuda(_dtypes=(mid_weight_dtype(mode),), w=w)
+    if mode != "bf16":
+        return
+    if K > TC_KMAX or K % 8 or HW % 4:
+        raise ValueError(f"the tensor-core 1x1 product takes K <= {TC_KMAX} with K % 8 == 0 "
+                         f"and H*W % 4 == 0, got K {K}, H*W {HW}")
+    for name, t in dict(tensors, w=w).items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
+
+
 # ---------------------------------------------------------------------------
 # the three stages. u, acc: (N*nb, c, H, W) / (N*nb, c*H*W) float32; t1, t2:
 # (N*nb, mid, H*W); s0/s1/s2 in the chain dtype; weights stacked per net:
@@ -136,17 +164,19 @@ def _nc_jt_mid_plain(t, w2t, s1, mode, out, H, W):
     mid = t.shape[1]
     for n in range(N):
         e = slice(n * nb, (n + 1) * nb)
-        y = _mconv(t[e].reshape(nb, mid, H, W), (w2t[n], None), mode, 0)
+        y = _mconv(t[e].reshape(nb, mid, H, W), (w2t[n].to(t.dtype), None), mode, 0)
         out[e] = _rnd(y * s1[e].reshape(y.shape).to(y.dtype), mode).reshape(nb, mid, H * W)
 
 
 def nc_jt_mid(t, w2t, s1, mode, out, H, W):
-    """out = rnd(C2^T t * s1); t, s1, out (N*nb, mid, H*W)."""
+    """out = rnd(C2^T t * s1); t, s1, out (N*nb, mid, H*W); w2t bfloat16
+    in mode bf16 on the card (:func:`mid_weight_dtype`)."""
     if not t.is_cuda:
         return _nc_jt_mid_plain(t, w2t, s1, mode, out, H, W)
     Bt, mid, _ = t.shape
     N, _ = _nets(w2t, Bt)
-    sbf16 = _check(s1, mode, t=t, w=w2t, out=out)
+    sbf16 = _check(s1, mode, t=t, out=out)
+    _check_mid(w2t, mode, mid, H * W, t=t, s1=s1, out=out)
     _shapes(t=(t, (Bt, mid, H * W)), w=(w2t, (N, mid, mid, 1, 1)),
             s1=(s1, t.shape), out=(out, t.shape))
     _run("imnf_nc_jt_mid", MODES[mode], _ptr(w2t), _ptr(t), _ptr(s1), sbf16, Bt, N,
@@ -209,8 +239,10 @@ def chain_operands(chains, signed_coeffs):
     """The stage kernels' operands for the nets' ``chains`` (eps, s0, s1,
     s2, w1, w2, w3): the probes U and the accumulation ACC (a copy of the
     probes) in float32, the derivative factors S0/S1/S2 as stored, the
-    transposed kernels W3T/W2T/W1T stacked per net, the coefficients on the
-    device, and the mode."""
+    transposed kernels W3T/W2T/W1T stacked per net (W2T, the 1x1 product's,
+    in :func:`mid_weight_dtype`: cast once here, exactly, since it holds
+    bfloat16 values in mode bf16), the coefficients on the device, and the
+    mode."""
     eps0 = chains[0][0]
     B, c, H, W = eps0.shape
     HW, dev, N = H * W, eps0.device, len(chains)
@@ -222,14 +254,16 @@ def chain_operands(chains, signed_coeffs):
                                       for ch in chains]).contiguous()
     wts = [transpose_weights(*(w.detach().to(wide) for w in ch[4:7])) for ch in chains]
     U = torch.cat([ch[0].detach().to(wide) for ch in chains]).contiguous()
+    mode = chain_mode(eps0.dtype)
+    w2t = torch.stack([w[1] for w in wts])
     return dict(
         U=U, ACC=U.reshape(N * B, c * HW).clone(), S0=cat(1, (c * HW,)),
         S1=cat(2, (-1, HW)), S2=cat(3, (-1, HW)),
         W3T=torch.stack([w[0] for w in wts]).contiguous(),
-        W2T=torch.stack([w[1] for w in wts]).contiguous(),
+        W2T=(w2t.to(torch.bfloat16) if mode == "bf16" else w2t).contiguous(),
         W1T=torch.stack([w[2] for w in wts]).contiguous(),
         coeffs=signed_coeffs.detach().to(device=dev, dtype=wide).contiguous(),
-        mode=chain_mode(eps0.dtype))
+        mode=mode)
 
 
 def _chain(chains, signed_coeffs, n_power, ops):
