@@ -5,7 +5,8 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. build the CUDA kernels (csrc/fused_solve.cu, csrc/implicit_grad.cu,
      csrc/estimator.cu, csrc/broyden_update.cu and csrc/block_forward.cu,
-     one nvcc each, in parallel);
+     one nvcc each, in parallel, with the compiler's register and spill
+     report);
   2. each forward-solve kernel against its plain PyTorch version at the
      CIFAR-10 flagship's shapes (all three scales, batch 64, the committed
      checkpoint's weights, the blocks' real inputs): max error and device
@@ -25,12 +26,19 @@ Phases (any failure exits non-zero; nothing is caught):
   5. each implicit-gradient kernel (backward solve, re-attachment VJP)
      against its plain version at the flagship's shapes, on the blocks' real
      inputs and cotangents captured from one training step, in bf16 and f32:
-     max error, device time, plain time, bound and a library call's time;
-     in bf16 also the control, the plain version in mode f32 on the same
-     inputs against the bf16 one, which must lie above the limit;
+     max error, device time, plain time, bound, share of the bound, bytes/s
+     and a library call's time; in bf16 also the control, the plain version
+     in mode f32 on the same inputs against the bf16 one, which must lie
+     above the limit. rv_wgrad is read at every weight gradient the
+     re-attachment launches (dW2, dW3, dW1 with and without preact), and
+     jt_conv1x1_mid also on a partial active list (count B/2, a permuted
+     idx), whose dead slots must stay bitwise untouched. In mode bf16 both
+     run on the tensor cores (jt_conv1x1_mid on csrc/mma_gemm.cuh, rv_wgrad
+     on csrc/wgrad_tc.cuh);
   6. the whole backward solve and the whole re-attachment VJP against their
      plain versions, per scale and mode, each rounding mode with its
-     control;
+     control and its sum-order floor (the plain path with jt_conv1x1_mid,
+     or rv_wgrad, summed exactly: ops/sum_order.py);
   7. flagship training steps (batch 64, --mem-eff True) from the committed
      checkpoint with Adam, warmup, power iteration and EMA as the benchmark
      sets them: 5 settle and 5 timed steps with the forward-solve and
@@ -52,16 +60,18 @@ Phases (any failure exits non-zero; nothing is caught):
   9. the whole Neumann chain (the step's n_power) and the whole final pair
      (T, d_h and every gradient) against their plain versions, per scale
      and mode, by rel_norm with controls, and in bf16 the final pair's
-     sum-order floor (the plain path with fp_conv_mid exactly rounded);
+     sum-order floors (the plain path with fp_conv_mid, then with rv_wgrad,
+     exactly rounded);
  10. the main path: flagship training steps at the users' default
      --mem-eff False (grad_in_forward=False) from the checkpoint, as phase
      7: 5 settle and 5 timed steps with every kernel's launch count over
      them (all must be > 0), peak memory, a time breakdown (forward solves,
      chains, final-pair primal and backward, backward solves,
-     re-attachments, update, rest), a profiled step (which must show the
-     tensor-core 1x1 kernel and none of the CUDA-core bf16 1x1 kernels it
-     replaced), and the step with all five plain versions forced against
-     the kernels';
+     re-attachments, update, rest), a profiled step (which must record each
+     tensor-core kernel, TC_ROUTES, as many times as its wrapper launched
+     it, and none of the CUDA-core bf16 instantiations they replaced; the
+     profiled steps of phases 7 and 16 are held to the same), and the step
+     with all five plain versions forced against the kernels';
  11. the generic Broyden solver's rank-1 update (csrc/broyden_update.cu)
      against its plain version at the tabular POWER recipe's shapes (B 1000
      forward K 30 and backward K 4, B 4000 evaluation, at columns 0, 3 and
@@ -163,6 +173,11 @@ SPLIT_TOL = 1e-4  # phase 2's limit (float32 sums in another order)
 PROBE_BATCH = 16
 BWD_TOL = {"bf16": 2e-4}
 REATTACH_TOL = {"bf16": 2e-5, "tf32": 2e-5}
+# Phase 6 prints each function's sum-order floor beside its reading: the
+# plain path with one product summed exactly (ops/sum_order.py) against the
+# plain path. A kernel that sums in another order than the plain version
+# (the tensor cores, by 64-k partials) reads near it, so a limit below it
+# would fail any such kernel. No limit is held to a floor.
 NO_ROUNDING = ("rv_wgrad_reduce", "rv_chan_sums",  # sums only: no mode
                "fp_tdot", "fp_second")
 # The chain's stages round their outputs to bfloat16 in mode bf16: an
@@ -187,6 +202,8 @@ FINAL_TOL = {"f32": 1e-5, "bf16": 1e-5}
 # (summed in float64) against the plain path (its sum-order floor; no limit
 # is held to it). The CUDA-core fp_conv_mid sums in the plain version's
 # order and reads under FINAL_TOL; an exactly rounded product reads above.
+# The floor of rv_wgrad's products (5f), printed beside it, lies far below
+# FINAL_TOL: the weight gradients' sums do not cancel that way.
 # Phases 11-13: the tabular POWER recipe. The update kernel and its plain
 # version compute the same float32 formulas with sums in another order
 # (over D <= 63 and K <= 30 terms): UPDATE_TOL is max error over the
@@ -201,15 +218,24 @@ FINAL_TOL = {"f32": 1e-5, "bf16": 1e-5}
 # chain runs in bf16 and re-rounds every stage (phase 9's ties), its control
 # the f32 chain. The one-net chain is phase 9's chain on one net.
 BLOCK_ACC_TOL = {"f32": 1e-4, "tf32": 5e-4}
-# The tensor-core 1x1 kernel of mode bf16 (csrc/mma_gemm.cuh, nc_jt_mid's)
-# by its profiler name, and the CUDA-core instantiation it replaced
-# (conv_gemm_kernel<MODE_BF16, SRC 1, IN_ID, EPI_SCALE_RND>, which no other
-# entry point instantiates): a --mem-eff False step must show the first and
-# not the second.
-TC_KERNEL = "tc_conv1x1_kernel"
-TC_SOURCE = "implicit_normalizing_flows_torch/csrc/mma_gemm.cuh"
-TC_ENTRIES = ("nc_jt_mid",)
-REPLACED_SIMT = re.compile(r"conv_gemm_kernel<1, ?1, ?0, ?3,")
+# The wrappers whose mode bf16 runs on the tensor cores, each with its
+# kernel's profiler name and source: the 1x1 J^T stages on mma_gemm.cuh's
+# tc_conv1x1_kernel<NP, ST, EPI> (nc_jt_mid EPI_SCALE_RND 3, jt_conv1x1_mid
+# EPI_SCALE 2) and rv_wgrad on wgrad_tc.cuh's product (after its two bf16
+# pre-passes, wgrad_prep_kernel). A profiled training step must record each
+# as many times as its wrapper launched it, and none of the CUDA-core
+# instantiations they replaced (MODE_BF16 = 1): conv_gemm_kernel<1, SRC 1,
+# IN_ID, EPI_SCALE(_RND)>, which only those two stages made, and every
+# wgrad_kernel<1, ...>.
+TC_ROUTES = {
+    "nc_jt_mid": (re.compile(r"tc_conv1x1_kernel<\d+, ?[\w:]+, ?3>"),
+                  "implicit_normalizing_flows_torch/csrc/mma_gemm.cuh"),
+    "jt_conv1x1_mid": (re.compile(r"tc_conv1x1_kernel<\d+, ?[\w:]+, ?2>"),
+                       "implicit_normalizing_flows_torch/csrc/mma_gemm.cuh"),
+    "rv_wgrad": (re.compile(r"wgrad_tc_kernel<"),
+                 "implicit_normalizing_flows_torch/csrc/wgrad_tc.cuh"),
+}
+REPLACED_SIMT = re.compile(r"conv_gemm_kernel<1, ?1, ?0, ?[23],|wgrad_kernel<1,")
 TAB_DIM, TAB_BATCH, TAB_EVAL_BATCH = 6, 1000, 4000
 TAB_WARMUP, TAB_SETTLE, TAB_TIMED = 110, 5, 10
 UPDATE_TOL = 1e-5
@@ -673,7 +699,7 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
     against the bf16 one). Every reading is printed before the limits are
     checked. Returns the bf16 rows (the training default)."""
     from implicit_normalizing_flows_torch.ops import implicit_grad as ig
-    from implicit_normalizing_flows_torch.ops.fused_solve import prep_weight, swish
+    from implicit_normalizing_flows_torch.ops.fused_solve import dswish, prep_weight, swish
 
     F = torch.nn.functional
     rows, fails = {}, []
@@ -693,7 +719,7 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
         bb1, bb2 = dx["b1"].float().contiguous(), dx["b2"].float().contiguous()
         U, Gf = u.reshape(B, D).contiguous(), G.reshape(B, D).contiguous()
         new = lambda *shape: torch.zeros(*shape, device=dev)
-        S, _ = ig.wgrad_splits(mid, mid, B * HW)
+        S, _ = ig.wgrad_splits(mid, mid, B, HW)
         for mode in modes:
             dtype = torch.bfloat16 if mode == "bf16" else torch.float32
             # the linearisation as the backward solve takes it: s0/s1/s2 in
@@ -703,8 +729,10 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
             S1, S2 = (t.reshape(B, mid, HW).contiguous() for t in (s1, s2))
             src = (ig.transpose_weights(w1c.float(), w2c.float(), w3c.float())
                    + (w1, w2) + ig.transpose_weights(w1, w2, w3))
-            # (jt3, jt2, jt1, f1, f2, t3, t2, t1) prepared for mode m
-            prep = lambda m: [prep_weight(w, m) for w in src]
+            # (jt3, jt2, jt1, f1, f2, t3, t2, t1) prepared for mode m, jt2 as
+            # the backward solve prepares it (bfloat16 in mode bf16)
+            prep = lambda m: [ig.prep_mid_weight(w, m) if i == 1 else prep_weight(w, m)
+                              for i, w in enumerate(src)]
             jt3, jt2, jt1, f1, f2, t3, t2, t1 = prep(mode)
             # plain outputs first: each later kernel takes the plain result
             # of the one before as its input
@@ -724,6 +752,15 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
             ig._rv_conv3x3_out_plain(P["C1"], P["H1"], b1, idx, cnt, t1, mode, P["C0"], H, W)
             wg = (P["C2"], P["H2"], bd[2], P["H1"], None, bd[1], "swish", False)
             ig._rv_wgrad_plain(*wg, mode, P["part"], H, W)
+            # every weight gradient the re-attachment launches: dW3 (u x
+            # shift(swish(h2))), dW1 with preact (t1 swish'(h1) x
+            # shift(swish(x))) and without (x as it is)
+            U3 = u.reshape(B, c, HW)
+            wg3 = (U3, None, None, P["H2"], None, bd[2], "swish", True)
+            wg1 = (P["C1"], P["H1"], bd[1], x, None, bd[0], "swish", True)
+            wg1n = (P["C1"], P["H1"], bd[1], x, None, None, "id", True)
+            S3, _ = ig.wgrad_splits(c, mid * 9, B, HW)
+            S1_, _ = ig.wgrad_splits(mid, c * 9, B, HW)
             ig._rv_wgrad_reduce_plain(P["part"], 1.0, P["dW2"])
             ig._rv_chan_sums_plain(P["C2"], P["H2"], b2, 1.0, None, P["sums"], P["db"], None)
             lib = lambda t: t.to(dtype)  # the library call at the mode's dtype
@@ -771,6 +808,27 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
                             lib(P["H1"]).view(B, mid, H, W), (mid, mid, 1, 1),
                             lib(P["C2"]).view(B, mid, H, W)),
                         (S, mid, mid), (P["C2"], P["H2"], P["H1"]), mid * mid * B * HW),
+                    "rv_wgrad (dW3)": (
+                        lambda o: ig.rv_wgrad(*wg3, m, o, H, W),
+                        lambda o: ig._rv_wgrad_plain(*wg3, m, o, H, W),
+                        lambda: torch.nn.grad.conv2d_weight(
+                            lib(swish(P["H2"], b2)).view(B, mid, H, W), (c, mid, 3, 3),
+                            lib(u), padding=1),
+                        (S3, c, mid * 9), (U3, P["H2"]), c * mid * 9 * B * HW),
+                    "rv_wgrad (dW1)": (
+                        lambda o: ig.rv_wgrad(*wg1, m, o, H, W),
+                        lambda o: ig._rv_wgrad_plain(*wg1, m, o, H, W),
+                        lambda: torch.nn.grad.conv2d_weight(
+                            lib(swish(x, b0)), (mid, c, 3, 3),
+                            lib(P["C1"] * dswish(P["H1"], b1)).view(B, mid, H, W), padding=1),
+                        (S1_, mid, c * 9), (P["C1"], P["H1"], x), mid * c * 9 * B * HW),
+                    "rv_wgrad (dW1, no preact)": (
+                        lambda o: ig.rv_wgrad(*wg1n, m, o, H, W),
+                        lambda o: ig._rv_wgrad_plain(*wg1n, m, o, H, W),
+                        lambda: torch.nn.grad.conv2d_weight(
+                            lib(x), (mid, c, 3, 3),
+                            lib(P["C1"] * dswish(P["H1"], b1)).view(B, mid, H, W), padding=1),
+                        (S1_, mid, c * 9), (P["C1"], P["H1"], x), mid * c * 9 * B * HW),
                     "rv_wgrad_reduce": (
                         lambda o: ig.rv_wgrad_reduce(P["part"], 1.0, o),
                         lambda o: ig._rv_wgrad_reduce_plain(P["part"], 1.0, o),
@@ -804,12 +862,14 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
                 ms = device_ms(lambda i: kern(ok_))
                 pms = device_ms(lambda i: plain(op))
                 lms = device_ms(lambda i: libc()) if libc is not None else None
-                bms, by = bound_ms(nbytes(*moved) + 4 * math.prod(shape), macs, mode)
+                nb = nbytes(*moved) + 4 * math.prod(shape)
+                bms, by = bound_ms(nb, macs, mode)
                 log(f"kernel {name} scale{s} ({c}x{H}x{W}, B={B}, {mode}): max_rel_err "
                     f"{err:.3e} (limit {tol:g}"
                     + ("" if control is None else f", control {control:.3e}")
                     + f") ms {ms:.4f} plain_ms {pms:.4f} library_ms "
-                    f"{'null' if lms is None else f'{lms:.4f}'} bound_ms {bms:.4f} ({by})")
+                    f"{'null' if lms is None else f'{lms:.4f}'} bound_ms {bms:.4f} ({by}) "
+                    f"share {bms / ms:.3f} bytes/s {nb / ms * 1e3:.4g}")
                 if not (math.isfinite(err) and err <= tol
                         and (control is None or control > tol)):
                     fails.append((name, s, mode, err, control))
@@ -817,8 +877,42 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
                     rows.setdefault(name, {})[s] = dict(
                         max_abs_err=float((ok_ - op).abs().max()), ms=ms, plain_ms=pms,
                         library_ms=lms, bound_ms=bms, bound_by=by)
+            fails += check_partial_list(P["T2"], jt2, S1, mode, ctrl_w=prep("f32")[1], H=H,
+                                        W=W, label=f"scale{s} ({c}x{H}x{W}, B={B})")
     assert not fails, ("phase 5 (name, scale, mode, error, control)", fails)
     return rows
+
+
+def check_partial_list(T2, wp, S1, mode, ctrl_w, H, W, label):
+    """jt_conv1x1_mid on half the slots live (count B/2) under a permuted
+    idx, as late backward-solve iterations run it: the live slots against
+    the plain version (and in bf16 the control, the plain version in mode
+    f32), and the dead slots of out bitwise as they were (a sentinel).
+    Returns the failures."""
+    from implicit_normalizing_flows_torch.ops import implicit_grad as ig
+
+    B, mid, HW = T2.shape
+    dev, n = T2.device, B // 2
+    g = torch.Generator(device=dev).manual_seed(7)
+    idx = torch.randperm(B, generator=g, device=dev).to(torch.int32)
+    cnt = torch.full((1,), n, dtype=torch.int32, device=dev)
+    sentinel = lambda: torch.full((B, mid, HW), -7.25, device=dev)
+    ok_, op, oc = sentinel(), sentinel(), sentinel()
+    ig.jt_conv1x1_mid(T2, idx, cnt, wp, S1, mode, ok_, H, W)
+    ig._jt_conv1x1_mid_plain(T2, idx, cnt, wp, S1, mode, op, H, W)
+    torch.cuda.synchronize()
+    err = rel_max(ok_[:n], op[:n])
+    dead = torch.equal(ok_[n:].view(torch.int32), sentinel()[n:].view(torch.int32))
+    control = None
+    if mode != "f32":
+        ig._jt_conv1x1_mid_plain(T2, idx, cnt, ctrl_w, S1, "f32", oc, H, W)
+        control = rel_max(oc[:n], op[:n])
+    tol = KERNEL_TOL[mode]
+    log(f"kernel jt_conv1x1_mid {label}, {mode}, count {n} of {B}, permuted idx: max_rel_err "
+        f"{err:.3e} (limit {tol:g}" + ("" if control is None else f", control {control:.3e}")
+        + f"), dead slots untouched: {dead}")
+    ok = math.isfinite(err) and err <= tol and (control is None or control > tol) and dead
+    return [] if ok else [("jt_conv1x1_mid partial list", label, mode, err, control, dead)]
 
 
 def check_grad_functions(cap):
@@ -829,8 +923,12 @@ def check_grad_functions(cap):
     BWD_TOL / REATTACH_TOL, beside the control (the plain version in mode
     f32 against the mode's), which in bf16 must lie above the limit for
     every tensor that a product reaches. Every reading is printed before the
-    limits are checked."""
+    limits are checked. In bf16 and tf32 each function also prints its
+    sum-order floor: the plain path with one product summed exactly
+    (ops/sum_order.py; jt_conv1x1_mid in the backward solve, rv_wgrad in
+    the re-attachment) against the plain path. No limit is held to it."""
     from implicit_normalizing_flows_torch.ops import implicit_grad as ig
+    from implicit_normalizing_flows_torch.ops import sum_order as so
 
     kw = dict(threshold=4, eps=1e-10, stall_patience=5, stall_rtol=0.05,
               stall_guard=3.0, newton_init=True)
@@ -851,12 +949,16 @@ def check_grad_functions(cap):
             torch.cuda.synchronize()
             tp = time.perf_counter() - t0
             err = rel_norm(rk.u, rp.u, grad)
-            control = None
+            control = floor = None
             if mode != "f32":
                 control = rel_norm(ig.fused_backward_solve_plain(
                     grad, cd, mode="f32", **kw).u, rp.u, grad)
+                exact = dict(ig._PLAIN, jt_conv1x1_mid=so.jt_conv1x1_mid_exact)
+                floor = rel_norm(ig._backward_solve(grad, cd, exact, mode=mode, **kw).u,
+                                 rp.u, grad)
             log(f"backward solve scale{s} {mode}: rel_norm {err:.3e}"
-                + ("" if control is None else f" (limit {BWD_TOL[mode]:g}, control {control:.3e})")
+                + ("" if control is None else f" (limit {BWD_TOL[mode]:g}, control {control:.3e}, "
+                   f"sum-order floor {floor:.3e} (jt_conv1x1_mid exact))")
                 + f" max|du|/max|u| {rel_max(rk.u, rp.u):.3e}"
                 f" nstep {rk.nstep.float().mean():.2f}/{rp.nstep.float().mean():.2f} prot "
                 f"{int(rk.prot_break.sum())}/{int(rp.prot_break.sum())} "
@@ -890,7 +992,11 @@ def check_grad_functions(cap):
                 gc = flat(ig.fused_reattach_vjp_plain(*args, mode="f32"))
                 ctrl = min((rel_norm(a, b, base(n)), n)
                            for (n, a), (_, b) in zip(gc, flat(gp)) if n not in unrounded)
-                line += f" (limit {REATTACH_TOL[mode]:g}, least control {ctrl[0]:.3e} ({ctrl[1]}))"
+                line += f" (limit {REATTACH_TOL[mode]:g}, least control {ctrl[0]:.3e} ({ctrl[1]})"
+                ge = flat(ig._reattach_vjp(*args, dict(ig._PLAIN, rv_wgrad=so.rv_wgrad_exact),
+                                           mode))
+                floor = max((rel_norm(a, b, base(n)), n) for (n, a), (_, b) in zip(ge, flat(gp)))
+                line += f", sum-order floor {floor[0]:.3e} ({floor[1]}; rv_wgrad exact))"
             log(line + f" s {tk:.3f}/{tp:.3f} (kernels/plain)")
             for n, a, b in pairs:
                 assert torch.isfinite(a).all(), n
@@ -1055,7 +1161,7 @@ def check_estimator_kernels(cap, modes=("bf16", "f32")):
             mid = op["S1"].shape[1]
             b0, b1, b2 = wt["beta"]
             beta1_x = wt["betas"][0, 1]  # net x's slope, on the card
-            S, _ = ig.wgrad_splits(mid, mid, B * HW)
+            S, _ = ig.wgrad_splits(mid, mid, B, HW)
             # plain outputs first: each later kernel takes the plain result
             # of the one before as its input
             P = {k: new(Bt, mid, HW) for k in ("T2", "T1", "H1", "TH1", "H2", "TH2", "R2")}
@@ -1177,24 +1283,6 @@ def check_estimator_kernels(cap, modes=("bf16", "f32")):
     return rows
 
 
-def fp_conv_mid_exact(inp, inh, w, bias, beta_net, act, mode, out, H, W):
-    """fp_conv_mid's plain version with its bf16 product summed in float64
-    and rounded once to float32: the sums' order taken out (phase 9's
-    sum-order floor)."""
-    from implicit_normalizing_flows_torch.ops import fused_final as ff
-
-    N, nb = ff._nets(w, inp.shape[0])
-    for n in range(N):
-        e = slice(n * nb, (n + 1) * nb)
-        x = inp[e].reshape(nb, -1, H, W)
-        h = None if inh is None else inh[e].reshape(x.shape)
-        a = ff._act(x, h, None if beta_net is None else beta_net[n], act)
-        y = torch.nn.functional.conv2d(a.to(torch.bfloat16).double(), w[n].double()).float()
-        if bias is not None:
-            y = y + bias[n][None, :, None, None]
-        out[e] = y.reshape(out[e].shape)
-
-
 def check_estimator_functions(cap):
     """Phase 9: the whole Neumann chain (the captured n_power) and the whole
     final pair (T, d_h = (d_x | d_z) and every gradient of both nets) vs
@@ -1202,10 +1290,13 @@ def check_estimator_functions(cap):
     over acc - eps, the part the terms make) at CHAIN_TOL / FINAL_TOL; in
     bf16 beside the control (the plain version in mode f32 on the same
     inputs), which must lie above the limit for every output a product
-    reaches, and the final pair's sum-order floor (FINAL_TOL's comment).
-    Every reading is printed before the limits are checked."""
+    reaches, and the final pair's sum-order floors (FINAL_TOL's comment):
+    the plain path with fp_conv_mid, then with rv_wgrad (5f), summed
+    exactly (ops/sum_order.py). Every reading is printed before the limits
+    are checked."""
     from implicit_normalizing_flows_torch.ops import fused_chain as fc
     from implicit_normalizing_flows_torch.ops import fused_final as ff
+    from implicit_normalizing_flows_torch.ops import sum_order as so
     from implicit_normalizing_flows_torch.ops.implicit_grad import DATA_KEYS
 
     fails = []
@@ -1262,9 +1353,11 @@ def check_estimator_functions(cap):
                 ctrl = min((rel_norm(a, b), n) for (n, a), (_, b) in zip(gc, gp)
                            if not n.endswith(".b3"))
                 line += f" (limit {FINAL_TOL[mode]:g}, least control {ctrl[0]:.3e} ({ctrl[1]}))"
-                ge = pair(dict(ff._PLAIN, fp_conv_mid=fp_conv_mid_exact), mode, wt)
-                floor = max((rel_norm(a, b), n) for (n, a), (_, b) in zip(ge, gp))
-                line += f", sum-order floor {floor[0]:.3e} ({floor[1]})"
+                for k, fn in (("fp_conv_mid", so.fp_conv_mid_exact),
+                              ("rv_wgrad", so.rv_wgrad_exact)):
+                    ge = pair(dict(ff._PLAIN, **{k: fn}), mode, wt)
+                    floor = max((rel_norm(a, b), n) for (n, a), (_, b) in zip(ge, gp))
+                    line += f", sum-order floor {floor[0]:.3e} ({floor[1]}; {k} exact)"
             log(line + f" s {tk:.3f}/{tp:.3f} (kernels/plain)")
             for n, a in gk:
                 assert torch.isfinite(a).all(), n
@@ -1407,20 +1500,25 @@ def profile_train_step(step, x_u8, draws):
 
 
 def check_tensor_core_route(events, launched):
-    """The profiled --mem-eff False step ran nc_jt_mid on the tensor-core
-    kernel: its records (name, rank among the step's kernels by time, time,
-    launches recorded) beside the wrapper's ``launched`` count in that
-    step, and no record of the CUDA-core instantiation it replaced."""
+    """A profiled training step ran each wrapper of ``launched`` (its
+    launches in that step) on its tensor-core kernel (TC_ROUTES): the
+    kernel's records (name, rank among the step's kernels by time, time,
+    launches recorded), as many launches recorded as the wrapper made, and
+    no record of a CUDA-core instantiation they replaced."""
     ranked = sorted(events, key=_self_ms, reverse=True)
-    tc = [(i + 1, e) for i, e in enumerate(ranked) if TC_KERNEL in e.key]
     old = [e.key for e in events if REPLACED_SIMT.search(e.key)]
-    for rank, e in tc:
-        log(f"tensor-core 1x1 kernel: rank {rank}, {_self_ms(e):.2f} ms x{e.count} "
-            f"{e.key[:140]}")
-    log(f"tensor-core 1x1 kernel: {sum(e.count for _, e in tc)} launches recorded, "
-        f"{launched} by {' + '.join(TC_ENTRIES)}; replaced CUDA-core "
-        f"instantiations recorded: {len(old)}")
-    assert tc and launched > 0 and not old, (launched, old[:3])
+    fails = []
+    for name, n in launched.items():
+        tc = [(i + 1, e) for i, e in enumerate(ranked) if TC_ROUTES[name][0].search(e.key)]
+        for rank, e in tc:
+            log(f"tensor-core kernel of {name}: rank {rank}, {_self_ms(e):.2f} ms x{e.count} "
+                f"{e.key[:140]}")
+        recorded = sum(e.count for _, e in tc)
+        log(f"tensor-core kernel of {name}: {recorded} launches recorded, {n} by the wrapper")
+        if not 0 < n == recorded:
+            fails.append((name, recorded, n))
+    log(f"replaced CUDA-core instantiations recorded: {len(old)}")
+    assert not fails and not old, (fails, old[:3])
 
 
 def plain_versions(estimator, merged=False):
@@ -2197,9 +2295,10 @@ def main():
                        "the rest" if estimator else "estimator and the rest")
         before = launch_counts()
         events = profile_train_step(step, x_u8, tdraws(n + 1))
-        if estimator:
-            after = launch_counts()
-            check_tensor_core_route(events, sum(after[k] - before[k] for k in TC_ENTRIES))
+        after = launch_counts()
+        # nc_jt_mid runs only in the --mem-eff False chains
+        check_tensor_core_route(events, {k: after[k] - before[k] for k in TC_ROUTES
+                                         if estimator or k != "nc_jt_mid"})
         compare_plain_step(step, x_u8, lambda: tdraws(n + 2),
                            plain_versions(estimator, merged))
         return launches, ms[len(ms) // 2]
@@ -2264,8 +2363,8 @@ def main():
             path = tab_launches if mod is bu else merged_launches if mod is fb else launches
             row = dict(name=name, route="cuda", source=SOURCES[lib], replaces=tpu(name),
                        launches=path[name], **rows[name][0])
-            if name in TC_ENTRIES:  # mode bf16 on the tensor cores (wgmma)
-                row.update(source=TC_SOURCE, cores="tensor (wgmma bf16)")
+            if name in TC_ROUTES:  # mode bf16 on the tensor cores (wgmma)
+                row.update(source=TC_ROUTES[name][1], cores="tensor (wgmma bf16)")
             if mod is fs:
                 row["eval_launches"] = eval_launches[name]
             if mod in (fs, ig):

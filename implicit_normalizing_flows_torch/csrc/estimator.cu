@@ -169,7 +169,7 @@ cudaError_t nc_mid_mode(int mode, const void* w, int mid, const float* inp,
   const ST* sc = static_cast<const ST*>(scale);
   switch (mode) {
     case MODE_F32: return launch_conv_gemm<MODE_F32, 1, IN_ID, EPI_SCALE, ST>(static_cast<const float*>(w), nullptr, nullptr, mid, mid, inp, nullptr, nullptr, nullptr, B, mid, H, W, 0.f, 0.f, 1.f, sc, out, s, nets);
-    case MODE_BF16: return launch_tc_conv1x1<ST>(static_cast<const __nv_bfloat16*>(w), mid, mid, inp, B, nets, H * W, sc, out, s);
+    case MODE_BF16: return launch_tc_conv1x1<EPI_SCALE_RND>(static_cast<const __nv_bfloat16*>(w), mid, mid, inp, B, nets, H * W, sc, out, s);
   }
   return cudaErrorInvalidValue;
 }

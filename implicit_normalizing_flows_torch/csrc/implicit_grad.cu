@@ -37,17 +37,21 @@
 // backward solve reads s0/s1/s2 as the linearisation stores them, bfloat16
 // in mode bf16 (as the TPU kernel takes them), which halves their traffic.
 //
-// What bounds them on H100: FP32 CUDA-core operations. One J^T application
-// at 32x32 is ~296M MACs per example (268M in the 1x1); the re-attachment is
-// ~3 x 296M per net and example (forward, cotangent and weight-gradient
-// products). The GEMMs keep 64x64 tiles in shared memory with a 4x4
-// register micro-tile per thread (16 FMAs per loaded element); the weight
-// gradients, which reduce over batch x pixels (65,536 terms at 32x32), split
-// that reduction over enough blocks to fill the 132 SMs and sum the splits in
-// a second pass. Tensor cores (the bf16 mode maps onto them directly) are
-// later work.
+// What bounds them on H100. On the CUDA cores, FP32 operations: one J^T
+// application at 32x32 is ~296M MACs per example (268M in the 1x1); the
+// re-attachment is ~3 x 296M per net and example (forward, cotangent and
+// weight-gradient products). The GEMMs keep 64x64 tiles in shared memory
+// with a 4x4 register micro-tile per thread (16 FMAs per loaded element);
+// the weight gradients, which reduce over batch x pixels (65,536 terms at
+// 32x32), split that reduction into whole examples over enough blocks to
+// fill the 132 SMs and sum the splits in a second pass. In mode bf16 two
+// stages run on the tensor cores (wgmma), where bytes bound them:
+// jt_conv1x1_mid on mma_gemm.cuh's 1x1 kernel (EPI_SCALE, on the active
+// list) and rv_wgrad on wgrad_tc.cuh (a bf16 pre-pass, then the product);
+// those headers' notes give their bounds and designs. The 3x3 stages, the
+// rest of mode bf16 and modes f32 / tf32 stay on the CUDA cores.
 
-#include "conv_gemm.cuh"
+#include "wgrad_tc.cuh"
 
 namespace {
 
@@ -231,29 +235,29 @@ __global__ void __launch_bounds__(CS_THREADS) chan_sums_kernel(
 
 // The J^T stages read their derivative factors s0/s1/s2 as stored: float32
 // (ST float) or bfloat16 (ST __nv_bfloat16, mode bf16's linearisation).
-template <int MODE, typename ST>
-cudaError_t jt_gemm(int src, const float* w_hi, const float* w_lo, int M,
-                    int K, const float* inp, const int* idx, const int* count,
-                    int B, int C, int H, int W, const ST* scale, float* out,
-                    cudaStream_t s) {
-  if (src == 0)
-    return launch_conv_gemm<MODE, 0, IN_ID, EPI_SCALE, ST>(
-        w_hi, w_lo, nullptr, M, K, inp, nullptr, idx, count, B, C, H, W, 0.f,
-        0.f, 1.f, scale, out, s);
-  return launch_conv_gemm<MODE, 1, IN_ID, EPI_SCALE, ST>(
-      w_hi, w_lo, nullptr, M, K, inp, nullptr, idx, count, B, C, H, W, 0.f,
-      0.f, 1.f, scale, out, s);
-}
-
 template <typename ST>
-cudaError_t jt_gemm_mode(int mode, int src, const float* w_hi,
-                         const float* w_lo, int M, int K, const float* inp,
-                         const int* idx, const int* count, int B, int C, int H,
-                         int W, const void* scale, float* out, cudaStream_t s) {
+cudaError_t jt_in_mode(int mode, const float* w_hi, const float* w_lo, int M,
+                       int K, const float* inp, const int* idx, const int* count,
+                       int B, int C, int H, int W, const void* scale, float* out,
+                       cudaStream_t s) {
   const ST* sc = static_cast<const ST*>(scale);
   switch (mode) {
-    case MODE_F32: return jt_gemm<MODE_F32, ST>(src, w_hi, w_lo, M, K, inp, idx, count, B, C, H, W, sc, out, s);
-    case MODE_BF16: return jt_gemm<MODE_BF16, ST>(src, w_hi, w_lo, M, K, inp, idx, count, B, C, H, W, sc, out, s);
+    case MODE_F32: return launch_conv_gemm<MODE_F32, 0, IN_ID, EPI_SCALE, ST>(w_hi, w_lo, nullptr, M, K, inp, nullptr, idx, count, B, C, H, W, 0.f, 0.f, 1.f, sc, out, s);
+    case MODE_BF16: return launch_conv_gemm<MODE_BF16, 0, IN_ID, EPI_SCALE, ST>(w_hi, w_lo, nullptr, M, K, inp, nullptr, idx, count, B, C, H, W, 0.f, 0.f, 1.f, sc, out, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// C2^T t * s1: mode bf16 on the tensor cores (w bf16), mode f32 on the
+// CUDA cores (w float32)
+template <typename ST>
+cudaError_t jt_mid_mode(int mode, const void* w, int mid, const float* inp,
+                        const int* idx, const int* count, int B, int H, int W,
+                        const void* scale, float* out, cudaStream_t s) {
+  const ST* sc = static_cast<const ST*>(scale);
+  switch (mode) {
+    case MODE_F32: return launch_conv_gemm<MODE_F32, 1, IN_ID, EPI_SCALE, ST>(static_cast<const float*>(w), nullptr, nullptr, mid, mid, inp, nullptr, idx, count, B, mid, H, W, 0.f, 0.f, 1.f, sc, out, s);
+    case MODE_BF16: return launch_tc_conv1x1<EPI_SCALE>(static_cast<const __nv_bfloat16*>(w), mid, mid, inp, B, 1, H * W, sc, out, s, idx, count);
   }
   return cudaErrorInvalidValue;
 }
@@ -299,7 +303,8 @@ cudaError_t rv_gemm(int src, int act, const float* w_hi, const float* w_lo,
 //                  dW1 (DSWISH, ID | SWISH, 1)
 //   final pair     dW3 (ID, DSWISH, 1), dW2 (ID, DSWISH | SWISH, 0),
 //                  dW1 (ID, ID | SWISH | DSWISH, 1)
-// 16-row tiles when M < 64 (dW3: M = c is small), else 64.
+// On the CUDA cores (modes f32, tf32): 16-row tiles when M < 64 (dW3: M =
+// c is small), else 64. Mode bf16 runs wgrad_tc.cuh.
 template <int MODE, int WBM>
 cudaError_t wgrad_launch(int ain, int bin, int shift, dim3 grid,
                          const float* a, const float* ah, const float* beta_a,
@@ -353,18 +358,21 @@ int imnf_jt_conv3x3_in(int mode, const float* w_hi, const float* w_lo,
                        int W, int mid, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (scale_bf16)
-    return (int)jt_gemm_mode<__nv_bfloat16>(mode, 0, w_hi, w_lo, mid, C * 9, inp, idx, count, B, C, H, W, scale, out, s);
-  return (int)jt_gemm_mode<float>(mode, 0, w_hi, w_lo, mid, C * 9, inp, idx, count, B, C, H, W, scale, out, s);
+    return (int)jt_in_mode<__nv_bfloat16>(mode, w_hi, w_lo, mid, C * 9, inp, idx, count, B, C, H, W, scale, out, s);
+  return (int)jt_in_mode<float>(mode, w_hi, w_lo, mid, C * 9, inp, idx, count, B, C, H, W, scale, out, s);
 }
 
-int imnf_jt_conv1x1_mid(int mode, const float* w_hi, const float* w_lo,
+// w: W2^T (mid, mid), bfloat16 in mode bf16 (the tensor cores' operand),
+// float32 in mode f32; w_lo unused (both modes are single-pass)
+int imnf_jt_conv1x1_mid(int mode, const void* w, const float* w_lo,
                         const float* inp, const int* idx, const int* count,
                         const void* scale, int scale_bf16, int B, int mid,
                         int H, int W, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  (void)w_lo;
   if (scale_bf16)
-    return (int)jt_gemm_mode<__nv_bfloat16>(mode, 1, w_hi, w_lo, mid, mid, inp, idx, count, B, mid, H, W, scale, out, s);
-  return (int)jt_gemm_mode<float>(mode, 1, w_hi, w_lo, mid, mid, inp, idx, count, B, mid, H, W, scale, out, s);
+    return (int)jt_mid_mode<__nv_bfloat16>(mode, w, mid, inp, idx, count, B, H, W, scale, out, s);
+  return (int)jt_mid_mode<float>(mode, w, mid, inp, idx, count, B, H, W, scale, out, s);
 }
 
 int imnf_jt_conv3x3_out(int mode, const float* w_hi, const float* w_lo,
@@ -420,16 +428,18 @@ int imnf_rv_conv3x3_out(int mode, const float* w_hi, const float* w_lo,
 }
 
 // ain, bin: 0 IN_ID, 1 IN_SWISH, 2 IN_DSWISH; beta_a, beta_b device
-// pointers to the slopes (nullptr where unused)
+// pointers to the slopes (nullptr where unused); a16 (Bn, M, HW) and b16
+// (Bn, Cb, HW) bfloat16 scratch of mode bf16's pre-pass (nullptr in the
+// other modes)
 int imnf_rv_wgrad(int mode, int ain, int bin, int shift, const float* a,
                   const float* ah, const float* beta_a, const float* bsrc,
                   const float* bh, const float* beta_b, int M, int N, int Cb,
                   int H, int W, int Bn, int splits, long long kchunk,
-                  float* part, void* stream) {
+                  void* a16, void* b16, float* part, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case MODE_F32: return (int)wgrad_mode<MODE_F32>(ain, bin, shift, a, ah, beta_a, bsrc, bh, beta_b, M, N, Cb, H, W, Bn, splits, kchunk, part, s);
-    case MODE_BF16: return (int)wgrad_mode<MODE_BF16>(ain, bin, shift, a, ah, beta_a, bsrc, bh, beta_b, M, N, Cb, H, W, Bn, splits, kchunk, part, s);
+    case MODE_BF16: return (int)launch_wgrad_tc(ain, bin, shift, a, ah, beta_a, bsrc, bh, beta_b, M, N, Cb, H, W, Bn, splits, kchunk, static_cast<__nv_bfloat16*>(a16), static_cast<__nv_bfloat16*>(b16), part, s);
     case MODE_TF32: return (int)wgrad_mode<MODE_TF32>(ain, bin, shift, a, ah, beta_a, bsrc, bh, beta_b, M, N, Cb, H, W, Bn, splits, kchunk, part, s);
   }
   return (int)cudaErrorInvalidValue;

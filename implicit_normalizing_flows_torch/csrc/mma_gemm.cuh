@@ -1,23 +1,32 @@
-// Tensor-core (wgmma) 1x1 conv of mode bf16 for Hopper (sm_90a): the
-// Neumann chain's nc_jt_mid (estimator.cu),
+// Tensor-core (wgmma) 1x1 conv of mode bf16 for Hopper (sm_90a), the
+// J^T stage C2^T t * s1 of two TPU kernels:
 //
-//   out[slot][m][p] = bf16_round(scale[slot][m][p] *
-//                                sum_k W[net][m][k] * bf16(inp[slot][k][p]))
+//   out[slot][m][p] = EPI(sum_k W[net][m][k] * bf16(inp[slot][k][p]),
+//                         scale[e][m][p]),  e = idx[slot] (or slot)
 //
-// the chain's t1 = rnd(C2^T t2 * s1) of the TPU kernel's _make_apply_jt
-// (implicit_normalizing_flows_tpu/ops/fused_chain.py:182, in
-// fused_neumann_chain2 :333 and fused_neumann_chain :275), with s bf16 or
-// float32. Both operands are bf16 and the sums float32: _make_dot("bf16")
-// of the JAX kernels, the error model that conv_gemm.cuh's SIMT template
-// computes with FP32 FMAs on bf16-rounded values. Mode f32 stays on that
-// template (its error model needs CUDA-core float32).
+// * EPI_SCALE_RND, bf16_round(acc * s): the Neumann chain's nc_jt_mid
+//   (estimator.cu), t1 = rnd(C2^T t2 * s1) of _make_apply_jt
+//   (implicit_normalizing_flows_tpu/ops/fused_chain.py:182, in
+//   fused_neumann_chain2 :333 and fused_neumann_chain :275), s bf16 or
+//   float32, several nets a launch, every slot live;
+// * EPI_SCALE, acc * s unrounded: the backward solve's jt_conv1x1_mid
+//   (implicit_grad.cu), t = d2(t) * s1 of _make_apply_jt
+//   (implicit_normalizing_flows_tpu/ops/fused_solve.py:887, in
+//   fused_backward_solve :930), s1 bf16, one net, on an active list: slot
+//   s < *count is live, t and out are indexed by slot, s1 by example
+//   idx[slot]; a dead slot's out is never written.
+// Both operands are bf16 and the sums float32: _make_dot("bf16") of the
+// JAX kernels, the error model that conv_gemm.cuh's SIMT template computes
+// with FP32 FMAs on bf16-rounded values. Mode f32 stays on that template
+// (its error model needs CUDA-core float32).
 //
-// What bounds it on an H100 (32x32, B 64 x 2 nets, mid 512): bytes. The
-// product is 68.7 GFLOP (0.07 ms at 989 TFLOP/s), but it reads t2 as
-// float32 (256 MiB) and s1 (128 MiB bf16 or 256 MiB float32) and writes t1
-// as float32 (256 MiB): 0.20 ms (bf16 s) or 0.24 ms (float32 s) at 3.35
-// TB/s. The SIMT template re-read each activation once per 64-row M block
-// (8 times at mid 512) and ran the products on CUDA cores.
+// What bounds it on an H100 (32x32, mid 512): bytes. nc_jt_mid (B 64 x 2
+// nets) is 68.7 GFLOP (0.07 ms at 989 TFLOP/s), but reads t2 as float32
+// (256 MiB) and s1 (128 MiB bf16 or 256 MiB float32) and writes t1 as
+// float32 (256 MiB): 0.20 ms (bf16 s) or 0.24 ms (float32 s) at 3.35 TB/s;
+// jt_conv1x1_mid (B 64) moves 320 MiB, 0.10 ms. The SIMT template re-read
+// each activation once per 64-row M block (8 times at mid 512) and ran the
+// products on CUDA cores.
 //
 // The design against that bound:
 // * Activation-stationary: a block owns NP pixels of one slot (NP 128, or
@@ -50,6 +59,14 @@
 //   consecutive pixels of one row, scales and rounds them, and stores 16
 //   bytes; its s was read into registers once, at the chunk's first tile,
 //   under the chunk's products.
+// * Work items (live slot, NP-pixel tile, group of M chunks): where live
+//   slots x tiles fill less than the card (8x8 images, late iterations of
+//   the backward solve), the M chunks are split into groups (powers of
+//   two, at least TC_WGS chunks each, tc_groups) so that the items still
+//   fill it; each group re-reads its slot's panel (from L2). Without an
+//   active list every block takes one item. With one, the count is read on
+//   the device, so the grid cannot shrink with it: nsm blocks at most walk
+//   the live items in a loop (persistent).
 // One block of 256 threads per SM (225 KB of shared memory at NP 128): the
 // blocks' panel loads and products interleave across SMs.
 #pragma once
@@ -73,6 +90,14 @@ constexpr int TC_STAGING_BYTES = TC_WGS * TC_STAGES * TC_TILE_BYTES;
 constexpr int tc_smem_bytes(int np) {
   // the panel, both rings, and slack to align the base to 1024 bytes
   return np * TC_KMAX * 2 + TC_WGS * TC_STAGES * TC_TILE_BYTES + 1024;
+}
+
+// M-chunk groups per (slot, tile) item: double them while the items still
+// fit one block per SM and each group keeps TC_WGS chunks
+__host__ __device__ inline int tc_groups(int nmc, int live, int tiles, int nsm) {
+  int groups = 1;
+  while (2 * groups * TC_WGS <= nmc && 2 * groups * live * tiles <= nsm) groups *= 2;
+  return groups;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -165,9 +190,10 @@ __device__ __forceinline__ float4 widen4(uint2 u) {
   return make_float4(__low2float(a), __high2float(a), __low2float(b), __high2float(b));
 }
 
-// Grid (ceil(HW / NP), B slots); slot s belongs to net s / nb. Takes K <=
-// TC_KMAX with K % 8 == 0, HW % 4 == 0 and 16-byte aligned tensors (the
-// launcher checks the shapes, the wrapper the pointers).
+// Items (slot, tile, group), one a block or walked by a persistent grid
+// (above); slot s belongs to net s / nb. Takes K <= TC_KMAX with K % 8 ==
+// 0, HW % 4 == 0 and 16-byte aligned tensors (the launcher checks the
+// shapes, the wrapper the pointers).
 //
 // Phase 1, the panel: float32 slabs of SK k-rows x NP pixels (16 KB)
 // stream through the rings' space with cp.async, all but one of its slots
@@ -176,201 +202,232 @@ __device__ __forceinline__ float4 widen4(uint2 u) {
 // each warpgroup walks its (M chunk, K tile) weight tiles through its ring;
 // a chunk's scale is loaded into registers at its first tile and used by
 // its epilogue after its last.
-template <int NP, typename ST>
+template <int NP, typename ST, int EPI>
 __global__ void __launch_bounds__(TC_THREADS, 1) tc_conv1x1_kernel(
-    const __nv_bfloat16* __restrict__ w, int M, int K,
+    const __nv_bfloat16* __restrict__ w0, int M, int K,
     const float* __restrict__ inp, int HW, const ST* __restrict__ scale,
-    float* __restrict__ out, int nb) {
+    float* __restrict__ out, int nb, const int* __restrict__ idx,
+    const int* __restrict__ count, int B, int nsm) {
   extern __shared__ uint8_t tc_smem[];
   const uint32_t raw = smem_u32(tc_smem);
   const uint32_t panel = (raw + 1023u) & ~1023u;  // [K / 64][NP rows][128 bytes]
   uint8_t* const base = tc_smem + (panel - raw);   // its generic address
   const uint32_t rings = panel + NP * TC_KMAX * 2;
-  const int slot = blockIdx.y, net = slot / nb, p0 = blockIdx.x * NP;
   const int tid = threadIdx.x;
   // the warpgroup index, warp-uniform to the compiler: wgmma is issued on
   // a path it can prove converged
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0), wt = tid % 128;
-  w += (size_t)net * M * K;
   const int nkt = (K + TC_BK - 1) / TC_BK, nmc = (M + TC_BM - 1) / TC_BM;
-  const size_t src_off = (size_t)slot * K * HW;
+  const int tiles = (HW + NP - 1) / NP;
+  const int live = count != nullptr ? min(*count, B) : B;
+  const int groups = tc_groups(nmc, live, tiles, nsm);
+  const int cpg = (nmc + groups - 1) / groups;  // chunks per group
+  const int items = live * tiles * groups;
 
-  // phase 1: the panel
-  {
-    constexpr int SK = TC_SLAB_BYTES / (NP * 4);
-    constexpr int BUFS = TC_STAGING_BYTES / TC_SLAB_BYTES;
-    const int ns = nkt * TC_BK / SK;
-    auto load_slab = [&](int j) {
-      if (j < ns) {
-        const uint32_t buf = rings + (j % BUFS) * TC_SLAB_BYTES;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int g = item % groups, slot = item / (groups * tiles);
+    const int p0 = (item / groups) % tiles * NP, net = slot / nb;
+    const int e = idx != nullptr ? idx[slot] : slot;
+    const __nv_bfloat16* const w = w0 + (size_t)net * M * K;
+    const int c0 = g * cpg, nloc = min(nmc, c0 + cpg) - c0;  // this group's chunks
+    const size_t src_off = (size_t)slot * K * HW;
+
+    // phase 1: the panel
+    {
+      constexpr int SK = TC_SLAB_BYTES / (NP * 4);
+      constexpr int BUFS = TC_STAGING_BYTES / TC_SLAB_BYTES;
+      const int ns = nkt * TC_BK / SK;
+      auto load_slab = [&](int j) {
+        if (j < ns) {
+          const uint32_t buf = rings + (j % BUFS) * TC_SLAB_BYTES;
 #pragma unroll
-        for (int q = tid; q < TC_SLAB_BYTES / 16; q += TC_THREADS) {
-          const int k = j * SK + q / (NP / 4), p = p0 + (q % (NP / 4)) * 4;
-          const bool ok = k < K && p < HW;
-          cp_async16(buf + q * 16, ok ? inp + src_off + (size_t)k * HW + p : inp, ok);
+          for (int q = tid; q < TC_SLAB_BYTES / 16; q += TC_THREADS) {
+            const int k = j * SK + q / (NP / 4), p = p0 + (q % (NP / 4)) * 4;
+            const bool ok = k < K && p < HW;
+            cp_async16(buf + q * 16, ok ? inp + src_off + (size_t)k * HW + p : inp, ok);
+          }
+        }
+        cp_async_commit();
+      };
+#pragma unroll
+      for (int j = 0; j < BUFS - 1; ++j) load_slab(j);
+      const int kq = tid / (NP / 4), pg = tid % (NP / 4);  // this thread's 4 k x 4 pixels
+      for (int j = 0; j < ns; ++j) {
+        cp_async_wait<BUFS - 2>();  // this thread's copies of slab j landed
+        __syncthreads();            // everyone's; slab j - 1's buffer converted
+        load_slab(j + BUFS - 1);    // into slab j - 1's buffer
+        const float* sl = reinterpret_cast<const float*>(
+            base + NP * TC_KMAX * 2 + (j % BUFS) * TC_SLAB_BYTES);
+        float4 v[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          v[r] = *reinterpret_cast<const float4*>(sl + (kq * 4 + r) * NP + pg * 4);
+        uint2 px[4];
+#define TC_PACK(J, F) \
+        px[J] = make_uint2(pack_bf16(v[0].F, v[1].F), pack_bf16(v[2].F, v[3].F))
+        TC_PACK(0, x); TC_PACK(1, y); TC_PACK(2, z); TC_PACK(3, w);
+#undef TC_PACK
+        const int k = j * SK + kq * 4;
+        uint8_t* tile = base + (k / TC_BK) * NP * 128 + ((k % 8) / 4) * 8;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int jr = (jj + (pg >> 1)) & 3;
+          const uint2 val = jr == 0 ? px[0] : jr == 1 ? px[1] : jr == 2 ? px[2] : px[3];
+          *reinterpret_cast<uint2*>(tile + sw128(pg * 4 + jr, (k % TC_BK) / 8)) = val;
         }
       }
-      cp_async_commit();
+      cp_async_wait<0>();
+      fence_async_smem();
+      __syncthreads();  // the panel is whole; the staging space is the rings' again
+    }
+
+    // phase 2: this warpgroup's weight tiles t -> (M chunk c0 + wg + (t /
+    // nkt) TC_WGS, K tile t % nkt), TC_AHEAD ahead of the products
+    const int chunks = nloc > wg ? (nloc - wg + TC_WGS - 1) / TC_WGS : 0;
+    const int T = chunks * nkt;
+    const uint32_t ring = rings + wg * TC_STAGES * TC_TILE_BYTES;
+    auto load_w = [&](int t) {
+      if (t < T) {
+        const int m0 = (c0 + wg + (t / nkt) * TC_WGS) * TC_BM, k0 = (t % nkt) * TC_BK;
+        const uint32_t dst = ring + (t % TC_STAGES) * TC_TILE_BYTES;
+#pragma unroll
+        for (int i = wt; i < TC_BM * 8; i += 128) {
+          const int r = i / 8, c = i % 8, m = m0 + r, k = k0 + c * 8;
+          const bool ok = m < M && k < K;
+          cp_async16(dst + sw128(r, c), ok ? w + (size_t)m * K + k : w, ok);
+        }
+      }
+      cp_async_commit();  // an empty group past the last tile keeps the count
     };
 #pragma unroll
-    for (int j = 0; j < BUFS - 1; ++j) load_slab(j);
-    const int kq = tid / (NP / 4), pg = tid % (NP / 4);  // this thread's 4 k x 4 pixels
-    for (int j = 0; j < ns; ++j) {
-      cp_async_wait<BUFS - 2>();  // this thread's copies of slab j landed
-      __syncthreads();            // everyone's; slab j - 1's buffer converted
-      load_slab(j + BUFS - 1);    // into slab j - 1's buffer
-      const float* sl = reinterpret_cast<const float*>(
-          base + NP * TC_KMAX * 2 + (j % BUFS) * TC_SLAB_BYTES);
-      float4 v[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        v[r] = *reinterpret_cast<const float4*>(sl + (kq * 4 + r) * NP + pg * 4);
-      uint2 px[4];
-#define TC_PACK(J, F) \
-      px[J] = make_uint2(pack_bf16(v[0].F, v[1].F), pack_bf16(v[2].F, v[3].F))
-      TC_PACK(0, x); TC_PACK(1, y); TC_PACK(2, z); TC_PACK(3, w);
-#undef TC_PACK
-      const int k = j * SK + kq * 4;
-      uint8_t* tile = base + (k / TC_BK) * NP * 128 + ((k % 8) / 4) * 8;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int jr = (jj + (pg >> 1)) & 3;
-        const uint2 val = jr == 0 ? px[0] : jr == 1 ? px[1] : jr == 2 ? px[2] : px[3];
-        *reinterpret_cast<uint2*>(tile + sw128(pg * 4 + jr, (k % TC_BK) / 8)) = val;
-      }
-    }
-    cp_async_wait<0>();
-    fence_async_smem();
-    __syncthreads();  // the panel is whole; the staging space is the rings' again
-  }
+    for (int t = 0; t < TC_AHEAD; ++t) load_w(t);
 
-  // phase 2: this warpgroup's weight tiles t -> (M chunk wg + (t / nkt)
-  // TC_WGS, K tile t % nkt), TC_AHEAD ahead of the products
-  const int chunks = nmc > wg ? (nmc - wg + TC_WGS - 1) / TC_WGS : 0;
-  const int T = chunks * nkt;
-  const uint32_t ring = rings + wg * TC_STAGES * TC_TILE_BYTES;
-  auto load_w = [&](int t) {
-    if (t < T) {
-      const int m0 = (wg + (t / nkt) * TC_WGS) * TC_BM, k0 = (t % nkt) * TC_BK;
-      const uint32_t dst = ring + (t % TC_STAGES) * TC_TILE_BYTES;
-#pragma unroll
-      for (int i = wt; i < TC_BM * 8; i += 128) {
-        const int r = i / 8, c = i % 8, m = m0 + r, k = k0 + c * 8;
-        const bool ok = m < M && k < K;
-        cp_async16(dst + sw128(r, c), ok ? w + (size_t)m * K + k : w, ok);
-      }
-    }
-    cp_async_commit();  // an empty group past the last tile keeps the count
-  };
-#pragma unroll
-  for (int t = 0; t < TC_AHEAD; ++t) load_w(t);
-
-  constexpr int NH = NP / 64, NJ = NP / 8;  // 64-pixel halves, 8-pixel groups
-  float acc[NH][32], part[NH][32];
-#pragma unroll
-  for (int h = 0; h < NH; ++h)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
-  const int warp = wt / 32, lane = wt % 32;
-  const bool odd = lane & 1;
-  const int cq = 2 * ((lane % 4) & ~1);  // the lane pair's first pixel in 8
-  // the epilogue's operands of the current chunk: after the pair's exchange
-  // a lane holds row r (even lane) or r + 8 (odd lane), pixels p0 + 8 j + cq
-  // .. + 3
-  typename Vec4<ST>::type sv[NJ];
-  int r = 0;
-  size_t row = 0;
-
-  for (int t = 0; t < T; ++t) {
-    cp_async_wait<TC_AHEAD - 1>();  // this thread's copies of tile t landed
-    fence_async_smem();
-    warpgroup_bar(1 + wg);  // everyone's copies of tile t; tile t - 1's products done
-    load_w(t + TC_AHEAD);   // into tile t - 2's slot
-    const int kt = t % nkt;
-    if (kt == 0) {  // a new chunk: its epilogue's scale, loaded under its products
-      r = (wg + (t / nkt) * TC_WGS) * TC_BM + warp * 16 + lane / 4 + (odd ? 8 : 0);
-      row = ((size_t)slot * M + r) * HW;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int p = p0 + 8 * j + cq;
-        if (r < M && p < HW) sv[j] = ldv4(scale + row + p);
-      }
-    }
-    // the tile's products, each 64-pixel half into a fresh partial, then
-    // added to the chunk's sum with round-to-nearest adds
-    const uint32_t a = ring + (t % TC_STAGES) * TC_TILE_BYTES, b = panel + kt * NP * 128;
-    wgmma_fence();
-#pragma unroll
-    for (int h = 0; h < NH; ++h) {
-#pragma unroll
-      for (int kk = 0; kk < TC_BK / 16; ++kk)
-        wgmma_n64(part[h], tc_desc(a + 32 * kk), tc_desc(b + h * 64 * 128 + 32 * kk), kk);
-      wgmma_commit();
-    }
-    if constexpr (NH == 2) {
-      wgmma_wait<1>();
-      acc_fence(part[0]);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[0][i] = __fadd_rn(acc[0][i], part[0][i]);
-    }
-    wgmma_wait<0>();
-    acc_fence(part[NH - 1]);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[NH - 1][i] = __fadd_rn(acc[NH - 1][i], part[NH - 1][i]);
-    if (kt != nkt - 1) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int h = j / 8, i = 4 * (j % 8);  // compile-time after unrolling
-      const float a0 = acc[h][i], a1 = acc[h][i + 1], b0 = acc[h][i + 2], b1 = acc[h][i + 3];
-      const float x0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : b0, 1);
-      const float x1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : b1, 1);
-      float4 o = odd ? make_float4(x0, x1, b0, b1) : make_float4(a0, a1, x0, x1);
-      const float4 sc = widen4(sv[j]);
-      o = make_float4(bf16_round(__fmul_rn(o.x, sc.x)), bf16_round(__fmul_rn(o.y, sc.y)),
-                      bf16_round(__fmul_rn(o.z, sc.z)), bf16_round(__fmul_rn(o.w, sc.w)));
-      const int p = p0 + 8 * j + cq;
-      if (r < M && p < HW) *reinterpret_cast<float4*>(out + row + p) = o;
-    }
+    constexpr int NH = NP / 64, NJ = NP / 8;  // 64-pixel halves, 8-pixel groups
+    float acc[NH][32], part[NH][32];
 #pragma unroll
     for (int h = 0; h < NH; ++h)
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+    const int warp = wt / 32, lane = wt % 32;
+    const bool odd = lane & 1;
+    const int cq = 2 * ((lane % 4) & ~1);  // the lane pair's first pixel in 8
+    // the epilogue's operands of the current chunk: after the pair's exchange
+    // a lane holds row r (even lane) or r + 8 (odd lane), pixels p0 + 8 j + cq
+    // .. + 3
+    typename Vec4<ST>::type sv[NJ];
+    int r = 0;
+    size_t srow = 0, orow = 0;  // row r of scale (example e) and of out (slot)
+
+    for (int t = 0; t < T; ++t) {
+      cp_async_wait<TC_AHEAD - 1>();  // this thread's copies of tile t landed
+      fence_async_smem();
+      warpgroup_bar(1 + wg);  // everyone's copies of tile t; tile t - 1's products done
+      load_w(t + TC_AHEAD);   // into tile t - 2's slot
+      const int kt = t % nkt;
+      if (kt == 0) {  // a new chunk: its epilogue's scale, loaded under its products
+        r = (c0 + wg + (t / nkt) * TC_WGS) * TC_BM + warp * 16 + lane / 4 + (odd ? 8 : 0);
+        srow = ((size_t)e * M + r) * HW;
+        orow = ((size_t)slot * M + r) * HW;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int p = p0 + 8 * j + cq;
+          if (r < M && p < HW) sv[j] = ldv4(scale + srow + p);
+        }
+      }
+      // the tile's products, each 64-pixel half into a fresh partial, then
+      // added to the chunk's sum with round-to-nearest adds
+      const uint32_t a = ring + (t % TC_STAGES) * TC_TILE_BYTES, b = panel + kt * NP * 128;
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+#pragma unroll
+        for (int kk = 0; kk < TC_BK / 16; ++kk)
+          wgmma_n64(part[h], tc_desc(a + 32 * kk), tc_desc(b + h * 64 * 128 + 32 * kk), kk);
+        wgmma_commit();
+      }
+      if constexpr (NH == 2) {
+        wgmma_wait<1>();
+        acc_fence(part[0]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[0][i] = __fadd_rn(acc[0][i], part[0][i]);
+      }
+      wgmma_wait<0>();
+      acc_fence(part[NH - 1]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[NH - 1][i] = __fadd_rn(acc[NH - 1][i], part[NH - 1][i]);
+      if (kt != nkt - 1) continue;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int h = j / 8, i = 4 * (j % 8);  // compile-time after unrolling
+        const float a0 = acc[h][i], a1 = acc[h][i + 1], b0 = acc[h][i + 2], b1 = acc[h][i + 3];
+        const float x0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : b0, 1);
+        const float x1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : b1, 1);
+        float4 o = odd ? make_float4(x0, x1, b0, b1) : make_float4(a0, a1, x0, x1);
+        const float4 sc = widen4(sv[j]);
+        o = make_float4(__fmul_rn(o.x, sc.x), __fmul_rn(o.y, sc.y), __fmul_rn(o.z, sc.z),
+                        __fmul_rn(o.w, sc.w));
+        if (EPI == EPI_SCALE_RND)
+          o = make_float4(bf16_round(o.x), bf16_round(o.y), bf16_round(o.z), bf16_round(o.w));
+        const int p = p0 + 8 * j + cq;
+        if (r < M && p < HW) *reinterpret_cast<float4*>(out + orow + p) = o;
+      }
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+    }
+    cp_async_wait<0>();  // no copy outlives the item
+    __syncthreads();     // both warpgroups done with the panel and the rings
   }
-  cp_async_wait<0>();  // no copy outlives the block
 }
 
-template <int NP, typename ST>
+template <int NP, typename ST, int EPI>
 cudaError_t launch_tc_np(const __nv_bfloat16* w, int M, int K, const float* inp,
                          int B, int nb, int HW, const ST* scale, float* out,
-                         cudaStream_t s) {
-  auto kernel = tc_conv1x1_kernel<NP, ST>;
+                         const int* idx, const int* count, cudaStream_t s) {
+  auto kernel = tc_conv1x1_kernel<NP, ST, EPI>;
   constexpr int bytes = tc_smem_bytes(NP);
-  static bool attr = false;  // once per instantiation (one device)
-  if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-    attr = true;
+  static int nsm = 0;  // once per instantiation (one device)
+  if (nsm == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) {
+      nsm = 0;
+      return e;
+    }
   }
-  dim3 grid((HW + NP - 1) / NP, B);
-  kernel<<<grid, TC_THREADS, bytes, s>>>(w, M, K, inp, HW, scale, out, nb);
+  // every slot live: one block an item; an active list: nsm blocks at
+  // most, enough for every item at the most groups the kernel may choose
+  const int tiles = (HW + NP - 1) / NP, nmc = (M + TC_BM - 1) / TC_BM;
+  const long long most = (long long)B * tiles * (nmc / TC_WGS > 1 ? nmc / TC_WGS : 1);
+  const long long grid = count == nullptr ? (long long)B * tiles * tc_groups(nmc, B, tiles, nsm)
+                                          : most < nsm ? most : nsm;
+  kernel<<<(unsigned)grid, TC_THREADS, bytes, s>>>(
+      w, M, K, inp, HW, scale, out, nb, idx, count, B, nsm);
   return cudaGetLastError();
 }
 
-// The chain's bf16 1x1 stage on the tensor cores: B slots of `nets` nets
-// (B / nets each), weights (nets, M, K) bf16, inp (B, K, HW) float32
-// holding bf16 values, scale and out (B, M, HW).
+// A bf16 1x1 J^T stage on the tensor cores: B slots of `nets` nets (B /
+// nets each), weights (nets, M, K) bf16, inp (B, K, HW) float32, scale
+// (B, M, HW) indexed by idx[slot] (slot without idx), out (B, M, HW) by
+// slot; with count, slots past *count are not touched. EPI EPI_SCALE_RND
+// (the chain) or EPI_SCALE (the backward solve).
 // cudaErrorInvalidValue for shapes the kernel does not take.
-template <typename ST>
+template <int EPI, typename ST>
 cudaError_t launch_tc_conv1x1(const __nv_bfloat16* w, int M, int K, const float* inp,
                               int B, int nets, int HW, const ST* scale, float* out,
-                              cudaStream_t s) {
+                              cudaStream_t s, const int* idx = nullptr,
+                              const int* count = nullptr) {
   if (M < 1 || K < 8 || K > TC_KMAX || K % 8 || HW < 4 || HW % 4 || nets < 1 ||
       B % nets)
     return cudaErrorInvalidValue;
   if (HW <= 64)
-    return launch_tc_np<64, ST>(w, M, K, inp, B, B / nets, HW, scale, out, s);
-  return launch_tc_np<128, ST>(w, M, K, inp, B, B / nets, HW, scale, out, s);
+    return launch_tc_np<64, ST, EPI>(w, M, K, inp, B, B / nets, HW, scale, out, idx, count, s);
+  return launch_tc_np<128, ST, EPI>(w, M, K, inp, B, B / nets, HW, scale, out, idx, count, s);
 }
 
 }  // namespace imnf

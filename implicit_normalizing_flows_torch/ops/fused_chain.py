@@ -44,7 +44,7 @@ import ctypes
 import torch
 
 from .fused_solve import MODES, _check_cuda, _launch, _mconv, _ptr, _wide
-from .implicit_grad import _shapes, transpose_weights
+from .implicit_grad import _check_mid, _shapes, mid_weight_dtype, transpose_weights
 
 __all__ = ["fused_neumann_chain2", "fused_neumann_chain2_plain",
            "fused_neumann_chain", "fused_neumann_chain_plain", "KERNELS",
@@ -103,32 +103,6 @@ def _check(s, mode, **others):
         raise ValueError(f"chain mode {mode!r}: 'f32' | 'bf16'")
     _check_cuda(_dtypes=(s.dtype, torch.float32), s=s, **others)
     return int(s.dtype == torch.bfloat16)
-
-
-TC_KMAX = 512  # the largest K the tensor-core 1x1 product takes (csrc/mma_gemm.cuh)
-
-
-def mid_weight_dtype(mode):
-    """The dtype of ``nc_jt_mid``'s kernel on the card: bfloat16 in mode
-    bf16 (the tensor cores' operand, prepared once per step by
-    :func:`chain_operands`), float32 in mode f32."""
-    return torch.bfloat16 if mode == "bf16" else torch.float32
-
-
-def _check_mid(w, mode, K, HW, **tensors):
-    """Raise on what ``nc_jt_mid``'s kernels do not take: a kernel w not
-    in :func:`mid_weight_dtype`, and in mode bf16 (the tensor cores) K over
-    TC_KMAX or not a multiple of 8, H*W not a multiple of 4, or a tensor not
-    16-byte aligned."""
-    _check_cuda(_dtypes=(mid_weight_dtype(mode),), w=w)
-    if mode != "bf16":
-        return
-    if K > TC_KMAX or K % 8 or HW % 4:
-        raise ValueError(f"the tensor-core 1x1 product takes K <= {TC_KMAX} with K % 8 == 0 "
-                         f"and H*W % 4 == 0, got K {K}, H*W {HW}")
-    for name, t in dict(tensors, w=w).items():
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"{name}: not 16-byte aligned")
 
 
 # ---------------------------------------------------------------------------

@@ -373,7 +373,7 @@ def _backward(ops, mode, wt, Hs, E, ACCW, preact, datas):
     def wgrad(name, M, Nc, products):
         """The sum over products (a, b, bh, beta, bin, shift) of their
         weight gradients, into the shape of the net's tensor name."""
-        S, _ = wgrad_splits(M, Nc, B * HW)
+        S, _ = wgrad_splits(M, Nc, B, HW)
         part = new(len(products) * S, M, Nc)
         for j, (a, b, bh, beta, bin_, shift) in enumerate(products):
             ops["rv_wgrad"](a, None, None, b, bh, beta, bin_, shift, mode,

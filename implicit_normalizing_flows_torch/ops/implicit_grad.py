@@ -9,7 +9,10 @@ package. The TPU kernels hold one example's operands in VMEM per grid step;
 on Hopper both are host-driven sequences of batched kernels from
 ``csrc/implicit_grad.cu`` (that file's header says what bounds each on an
 H100 and what its design does about it), with the conv kernels shared with
-the forward solve through ``csrc/conv_gemm.cuh``:
+the forward solve through ``csrc/conv_gemm.cuh``. In mode bf16 two of them
+run on the tensor cores: ``jt_conv1x1_mid`` (``csrc/mma_gemm.cuh``, with
+W2^T cast to bfloat16 once per solve by :func:`prep_mid_weight`) and
+``rv_wgrad`` (``csrc/wgrad_tc.cuh``):
 
 * backward solve ``u (I + J_gz) = grad``: per iteration ``jt_conv3x3_in`` ->
   ``jt_conv1x1_mid`` -> ``jt_conv3x3_out`` evaluate the residual
@@ -50,14 +53,17 @@ __all__ = ["fused_backward_solve", "fused_backward_solve_plain",
            "fused_reattach_vjp", "fused_reattach_vjp_plain",
            "BackwardSolveResult", "transpose_weights", "KERNELS",
            "launch_counts", "reset_launch_counts", "BWD_MODES",
-           "REATTACH_MODES", "DATA_KEYS"]
+           "REATTACH_MODES", "DATA_KEYS", "mid_weight_dtype", "prep_mid_weight"]
 
 BWD_MODES = ("f32", "bf16")
 REATTACH_MODES = ("f32", "bf16", "tf32")
 DATA_KEYS = ("w1", "w2", "w3", "b1", "b2", "b3", "betas")
 ACTS = {"id": 0, "swish": 1, "dswish": 2}
-WG_BK = 16          # rv_wgrad's reduction step: splits hold multiples of it
-WG_TARGET_BLOCKS = 528  # 4 blocks per SM of the H100's 132
+WG_BK = 16          # rv_wgrad's reduction step on the CUDA cores
+WG_TILE = 128       # the tensor-core rv_wgrad's output tile (csrc/wgrad_tc.cuh)
+WG_KSTEP = 64       # its reduction step: H*W holds multiples of it
+WG_TARGET_BLOCKS = 264  # 2 blocks per SM of the H100's 132
+TC_KMAX = 512  # the largest K the tensor-core 1x1 product takes (csrc/mma_gemm.cuh)
 
 
 class BackwardSolveResult(NamedTuple):
@@ -94,7 +100,7 @@ _ARGTYPES = {
     "imnf_rv_conv3x3_out": [_I, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I,
                             _P, _P],
     "imnf_rv_wgrad": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                      _I, _I, _I, _L, _P, _P],
+                      _I, _I, _I, _L, _P, _P, _P, _P],
     "imnf_rv_wgrad_reduce": [_P, _I, _L, _F, _P, _P],
     "imnf_rv_chan_sums": [_P, _P, _F, _P, _I, _I, _I, _F, _P, _P, _P, _P],
 }
@@ -127,6 +133,40 @@ def _shapes(**named):
     for name, (t, shape) in named.items():
         if t is not None and tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def mid_weight_dtype(mode):
+    """The dtype of a bf16-mode 1x1 J^T stage's kernel on the card
+    (``jt_conv1x1_mid`` here, ``nc_jt_mid`` of ``ops.fused_chain``):
+    bfloat16 in mode bf16 (the tensor cores' operand, prepared once per
+    solve or step), float32 in mode f32."""
+    return torch.bfloat16 if mode == "bf16" else torch.float32
+
+
+def prep_mid_weight(w, mode):
+    """``(w, None)``: the 1x1 J^T kernel in :func:`mid_weight_dtype`, cast
+    once, exactly (its values are bfloat16 in mode bf16)."""
+    return w.detach().to(mid_weight_dtype(mode)).contiguous(), None
+
+
+def _check_mid(w, mode, K, HW, **tensors):
+    """Raise on what the 1x1 J^T kernels do not take: a kernel w not in
+    :func:`mid_weight_dtype`, and in mode bf16 (the tensor cores) K over
+    TC_KMAX or not a multiple of 8, H*W not a multiple of 4, or a tensor not
+    16-byte aligned."""
+    _check_cuda(_dtypes=(mid_weight_dtype(mode),), w=w)
+    if mode != "bf16":
+        return
+    if K > TC_KMAX or K % 8 or HW % 4:
+        raise ValueError(f"the tensor-core 1x1 product takes K <= {TC_KMAX} with K % 8 == 0 "
+                         f"and H*W % 4 == 0, got K {K}, H*W {HW}")
+    _check_aligned(w=w, **tensors)
+
+
+def _check_aligned(**tensors):
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
 
 
 def _scaled(y, s):
@@ -181,20 +221,22 @@ def _jt_conv1x1_mid_plain(t, idx, count, wp, s1, mode, out, H, W):
     n = int(count.item())
     e = idx[:n].long()
     mid = t.shape[1]
-    y = _mconv(t[:n].reshape(n, mid, H, W), wp, mode, 0)
+    y = _mconv(t[:n].reshape(n, mid, H, W), (wp[0].to(t.dtype), None), mode, 0)
     out[:n] = _scaled(y, s1.index_select(0, e)).reshape(n, mid, H * W)
 
 
 def jt_conv1x1_mid(t, idx, count, wp, s1, mode, out, H, W):
-    """out[s] = W2^T t[s] * s1[idx[s]] for live slots s."""
+    """out[s] = W2^T t[s] * s1[idx[s]] for live slots s; wp from
+    :func:`prep_mid_weight` (W2^T in bfloat16 in mode bf16, which runs on
+    the tensor cores); the dead slots of out are not written."""
     if not t.is_cuda:
         return _jt_conv1x1_mid_plain(t, idx, count, wp, s1, mode, out, H, W)
     B, mid, _ = t.shape
-    sbf16 = _check_scale(s1, t=t, idx=idx, count=count, w_hi=wp[0], w_lo=wp[1],
-                         out=out)
+    sbf16 = _check_scale(s1, t=t, idx=idx, count=count, out=out)
+    _check_mid(wp[0], mode, mid, H * W, t=t, s1=s1, out=out)
     _shapes(t=(t, (B, mid, H * W)), idx=(idx, (B,)), count=(count, (1,)),
             w=(wp[0], (mid, mid, 1, 1)), s1=(s1, t.shape), out=(out, t.shape))
-    _run("imnf_jt_conv1x1_mid", _mode(mode, BWD_MODES), _ptr(wp[0]), _ptr(wp[1]),
+    _run("imnf_jt_conv1x1_mid", _mode(mode, BWD_MODES), _ptr(wp[0]), None,
          _ptr(t), _ptr(idx), _ptr(count), _ptr(s1), sbf16, B, mid, H, W, _ptr(out))
     jt_conv1x1_mid.launches += 1
 
@@ -328,15 +370,15 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def wgrad_splits(M, N, K):
-    """(splits, kchunk) of rv_wgrad over K = batch x pixels: enough splits
-    that the grid holds about WG_TARGET_BLOCKS blocks (tiles of 64 columns
-    and 64 rows, 16 rows when M < 64), each split a multiple of WG_BK and at
-    least 8 of them."""
-    tiles = _cdiv(N, 64) * _cdiv(M, 16 if M < 64 else 64)
-    splits = max(1, min(_cdiv(WG_TARGET_BLOCKS, tiles), _cdiv(K, 8 * WG_BK)))
-    kchunk = _cdiv(_cdiv(K, splits), WG_BK) * WG_BK
-    return _cdiv(K, kchunk), kchunk
+def wgrad_splits(M, N, Bn, HW):
+    """(splits, kchunk) of rv_wgrad over K = Bn examples x HW pixels: splits
+    of whole examples (kchunk a multiple of HW), enough of them that the
+    tensor-core grid of mode bf16 holds about WG_TARGET_BLOCKS blocks of
+    WG_TILE x WG_TILE outputs. A shift never reaches across examples, so no
+    product of a shifted operand crosses a split."""
+    tiles = _cdiv(M * N, WG_TILE * WG_TILE)
+    per = _cdiv(Bn, max(1, min(Bn, _cdiv(WG_TARGET_BLOCKS, tiles))))
+    return _cdiv(Bn, per), per * HW
 
 
 def _wgrad_operands(a, ah, beta_a, b, bh, beta_b, bin_, shift, H, W):
@@ -357,7 +399,7 @@ def _wgrad_operands(a, ah, beta_a, b, bh, beta_b, bin_, shift, H, W):
 
 def _rv_wgrad_plain(a, ah, beta_a, b, bh, beta_b, bin_, shift, mode, part, H, W):
     A, Bm = _wgrad_operands(a, ah, beta_a, b, bh, beta_b, bin_, shift, H, W)
-    S, kchunk = wgrad_splits(A.shape[0], Bm.shape[0], A.shape[1])
+    S, kchunk = wgrad_splits(A.shape[0], Bm.shape[0], a.shape[0], H * W)
     if S != part.shape[0]:
         raise ValueError(f"part holds {part.shape[0]} splits, rv_wgrad makes {S}")
     (Ah, Al), (Bh, Bl) = _split(A, mode), _split(Bm, mode)
@@ -381,7 +423,10 @@ def rv_wgrad(a, ah, beta_a, b, bh, beta_b, bin_, shift, mode, part, H, W):
 
     The re-attachment's dW3 = cot x shift(swish(h2)), dW2 = t2 swish'(h2) x
     swish(h1) and dW1 = t1 swish'(h1) x shift([swish](x)), and the final
-    pair's products. The slopes are float32 device scalars (0-dim tensors),
+    pair's products. Mode bf16 runs on the tensor cores: a pre-pass rounds
+    A and B to bfloat16 scratch (allocated here) and a wgmma product sums
+    them; it takes H*W a multiple of 64, W a multiple of 8 and 16-byte
+    aligned inputs. The slopes are float32 device scalars (0-dim tensors),
     read by the kernel. ``part`` is (splits, M, N) with splits from
     :func:`wgrad_splits`."""
     if bin_ not in ACTS:
@@ -392,11 +437,14 @@ def rv_wgrad(a, ah, beta_a, b, bh, beta_b, bin_, shift, mode, part, H, W):
     Bn, M = a.shape[:2]
     Cb = b.shape[1]
     S, _, N = part.shape
-    splits, kchunk = wgrad_splits(M, N, Bn * H * W)
+    splits, kchunk = wgrad_splits(M, N, Bn, H * W)
     if splits != S:
         raise ValueError(f"part holds {S} splits, rv_wgrad makes {splits}")
     if (H * W) % WG_BK:
         raise ValueError(f"rv_wgrad takes H*W a multiple of {WG_BK}, not {H * W}")
+    if mode == "bf16" and ((H * W) % WG_KSTEP or W % 8):
+        raise ValueError(f"rv_wgrad in bf16 takes H*W % {WG_KSTEP} == 0 and W % 8 == 0, "
+                         f"not H {H}, W {W}")
     if ah is not None and beta_a is None:
         raise ValueError("ah needs beta_a")
     if bin_ != "id" and beta_b is None:
@@ -408,9 +456,14 @@ def rv_wgrad(a, ah, beta_a, b, bh, beta_b, bin_, shift, mode, part, H, W):
             b=(b.reshape(Bn, Cb, -1), (Bn, Cb, H * W)), bh=(bh, b.shape),
             beta_a=(beta_a, ()), beta_b=(beta_b, ()),
             part=(part, (S, M, Cb * 9 if shift else Cb)))
+    a16 = b16 = None
+    if mode == "bf16":  # the pre-pass's operands
+        _check_aligned(a=a, ah=ah, b=b, bh=bh)
+        a16 = torch.empty(Bn * M * H * W, device=a.device, dtype=torch.bfloat16)
+        b16 = torch.empty(Bn * Cb * H * W, device=a.device, dtype=torch.bfloat16)
     _run("imnf_rv_wgrad", _mode(mode, REATTACH_MODES), ACTS["id" if ah is None else "dswish"],
          ACTS[bin_], int(bool(shift)), _ptr(a), _ptr(ah), _ptr(beta_a), _ptr(b), _ptr(bh),
-         _ptr(beta_b), M, N, Cb, H, W, Bn, splits, kchunk, _ptr(part))
+         _ptr(beta_b), M, N, Cb, H, W, Bn, splits, kchunk, _ptr(a16), _ptr(b16), _ptr(part))
     rv_wgrad.launches += 1
 
 
@@ -507,7 +560,8 @@ def _backward_solve(grad, chain_data, ops, *, threshold, eps, stall_patience,
     S1 = sdt(s1).reshape(B, mid, HW).contiguous()
     S2 = sdt(s2).reshape(B, mid, HW).contiguous()
     w3t, w2t, w1t = transpose_weights(w1.float(), w2.float(), w3.float())
-    wp3, wp2, wp1 = (prep_weight(w, mode) for w in (w3t, w2t, w1t))
+    wp3, wp1 = prep_weight(w3t, mode), prep_weight(w1t, mode)
+    wp2 = prep_mid_weight(w2t, mode)  # bfloat16 in mode bf16, once per solve
     eps_i = float(eps) * D ** 0.5
     eps_f = float(torch.tensor(eps_i, dtype=torch.float32))
     guard_eps = (float(torch.tensor(stall_guard * eps_i, dtype=torch.float32))
@@ -608,7 +662,7 @@ def _net_vjp(ops, mode, data, h, u, csign, idx, cnt, dx_out):
             ("w2", T2, H2, bd[2], H1, "swish", bd[1], False, mid, mid, 1.0),
             ("w1", T1, H1, bd[1], hin, "swish" if preact else "id",
              bd[0] if preact else None, True, mid, c * 9, 1.0)):
-        splits, _ = wgrad_splits(M, N, B * HW)
+        splits, _ = wgrad_splits(M, N, B, HW)
         part = new(splits, M, N)
         ops["rv_wgrad"](a.reshape(B, M, HW) if name == "w3" else a, ah, beta_a,
                         b, None, beta_b, bin_, shift, mode, part, H, W)

@@ -1,0 +1,77 @@
+"""Plain versions of three kernels with their products summed exactly.
+
+Each function here is a kernel's plain version with its rounded (bf16, or
+split) product summed in float64 and rounded once to float32: the order of
+the float32 sums is taken out. Put in place of the plain version inside a
+whole function (the backward solve, the re-attachment VJP, the final pair),
+it reads that function's sum-order floor: how far any other order of that
+product's sums moves the function's outputs. A limit set below a floor fails
+every kernel that does not sum in the plain version's order.
+
+* :func:`jt_conv1x1_mid_exact`: ``ops.implicit_grad._jt_conv1x1_mid_plain``.
+* :func:`rv_wgrad_exact`: ``ops.implicit_grad._rv_wgrad_plain``.
+* :func:`fp_conv_mid_exact`: ``ops.fused_final._fp_conv_mid_plain``.
+
+They run on whatever device their tensors lie on.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .fused_solve import _split
+
+__all__ = ["jt_conv1x1_mid_exact", "rv_wgrad_exact", "fp_conv_mid_exact"]
+
+
+def _exact(x, w, mode, mm):
+    """``mm`` of the mode's passes (hi*hi [+ hi*lo + lo*hi [+ lo*lo]]) on
+    the split of x and w, summed in float64, rounded once to float32."""
+    (xh, xl), (wh, wl) = _split(x.float(), mode), _split(w.float(), mode)
+    d = lambda t: t.double()
+    out = mm(d(xh), d(wh))
+    if mode in ("tf32", "tf32x"):
+        out = out + mm(d(xh), d(wl)) + mm(d(xl), d(wh))
+        if mode == "tf32x":
+            out = out + mm(d(xl), d(wl))
+    return out.float()
+
+
+def jt_conv1x1_mid_exact(t, idx, count, wp, s1, mode, out, H, W):
+    """``_jt_conv1x1_mid_plain`` with ``W2^T t`` summed exactly."""
+    from .implicit_grad import _scaled
+
+    n = int(count.item())
+    mid = t.shape[1]
+    y = _exact(t[:n].reshape(n, mid, H, W), wp[0], mode, F.conv2d)
+    out[:n] = _scaled(y, s1.index_select(0, idx[:n].long())).reshape(n, mid, H * W)
+
+
+def rv_wgrad_exact(a, ah, beta_a, b, bh, beta_b, bin_, shift, mode, part, H, W):
+    """``_rv_wgrad_plain`` with each split's product summed exactly."""
+    from .implicit_grad import _wgrad_operands, wgrad_splits
+
+    A, Bm = _wgrad_operands(a, ah, beta_a, b, bh, beta_b, bin_, shift, H, W)
+    S, kchunk = wgrad_splits(A.shape[0], Bm.shape[0], a.shape[0], H * W)
+    if S != part.shape[0]:
+        raise ValueError(f"part holds {part.shape[0]} splits, rv_wgrad makes {S}")
+    for s in range(S):
+        k = slice(s * kchunk, (s + 1) * kchunk)
+        part[s] = _exact(A[:, k], Bm[:, k], mode, lambda x, y: x @ y.T)
+
+
+def fp_conv_mid_exact(inp, inh, w, bias, beta_net, act, mode, out, H, W):
+    """``_fp_conv_mid_plain`` with its product summed exactly (bias added
+    after the rounding, as the plain version adds it)."""
+    from . import fused_final as ff
+
+    N, nb = ff._nets(w, inp.shape[0])
+    for n in range(N):
+        e = slice(n * nb, (n + 1) * nb)
+        x = inp[e].reshape(nb, -1, H, W)
+        h = None if inh is None else inh[e].reshape(x.shape)
+        a = ff._act(x, h, None if beta_net is None else beta_net[n], act)
+        y = _exact(a, w[n], mode, F.conv2d)
+        if bias is not None:
+            y = y + bias[n][None, :, None, None]
+        out[e] = y.reshape(out[e].shape)

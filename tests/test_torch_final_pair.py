@@ -164,7 +164,7 @@ def test_wgrad_splits_sum_to_the_product(bin_, shift):
     a, b, bh = r(Bn, M, H * W), r(Bn, Cb, H, W), r(Bn, Cb, H, W)
     beta = torch.tensor(0.7, dtype=torch.float64)
     N = Cb * 9 if shift else Cb
-    splits, _ = ig.wgrad_splits(M, N, Bn * H * W)
+    splits, _ = ig.wgrad_splits(M, N, Bn, H * W)
     assert splits > 1
     part = torch.empty(splits, M, N, dtype=torch.float64)
     ig.rv_wgrad(a, None, None, b, bh, beta, bin_, shift, "f32", part, H, W)

@@ -136,7 +136,7 @@ def test_wgrad_splits_sum_to_the_product(kind):
     beta_a, beta_b = (torch.tensor(v, dtype=torch.float64) for v in (0.7, 1.3))
     bin_ = "id" if kind == "w1" else "swish"
     shift = kind != "w2"
-    splits, _ = ig.wgrad_splits(M, N, B * H * W)
+    splits, _ = ig.wgrad_splits(M, N, B, H * W)
     assert splits > 1
     part = torch.empty(splits, M, N, dtype=torch.float64)
     ig.rv_wgrad(a, ah, beta_a, b, None, beta_b, bin_, shift, "f32", part, H, W)
