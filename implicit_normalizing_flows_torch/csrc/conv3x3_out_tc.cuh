@@ -1,0 +1,275 @@
+// Tensor-core (mma.sync) 3x3 conv mid -> c of mode bf16 for Hopper
+// (sm_90a): the re-attachment's last cotangent product t0 = C1^T (t1
+// swish'(h1)),
+//
+//   out[e][co][p] = sum_{m, d} W[co][m][d] * bf16(t1[s][m][p + off(d)]
+//                   * swish'(h1[s][m][p + off(d)]; beta)),  e = idx[s],
+//
+// for the live slots s < *count, zero outside the image: R = dot(m1t, t1h)
+// and its shifted sum in _net_vjp_in_kernel
+// (implicit_normalizing_flows_tpu/ops/fused_solve.py:1093, in
+// fused_reattach_vjp :1226). Mode bf16 only (implicit_grad.cu's
+// rv_conv3x3_out); modes f32 and tf32, and every other 3x3 mid -> c conv,
+// stay on conv_gemm.cuh's conv3x3_out_kernel.
+//
+// What bounds it on an H100 (32x32, B 64, mid 512, c 3): bytes. It reads t1
+// and h1 as float32 once, 256 MiB: 0.080 ms at 3.35 TB/s; the product is
+// 1.8 GFLOP. The CUDA-core kernel ran one thread per pixel and group of 4
+// output channels and recomputed t1 swish'(h1) from two float32 loads for
+// each of the 9 taps and each channel group (302 M swish' at 32x32).
+//
+// The design against that bound:
+// * A block owns one slot's band of C3_TH image rows (all W columns) and
+//   walks the mid channels in chunks of 64. Each chunk it loads the band's
+//   t1 and h1 with a one-row halo above and below (16-byte loads, 32
+//   contiguous bytes of a channel row per lane pair), forms t1 swish'(h1)
+//   once per loaded element (the swish family rounded op by op as
+//   conv_gemm.cuh's in_xform), rounds it to bf16 and stores the tile
+//   pixel-major: a 128-byte row of 64 channels for each of the (C3_TH + 2)
+//   x (W + 2) halo pixels, the pixels outside the image zero, the row's
+//   16-byte chunks XOR-swizzled by the pixel's low 3 bits (sw128), so that
+//   the stores and the ldmatrix reads below are free of bank conflicts.
+// * The 9 taps are shifted reads of that tile: tap (dy, dx)'s A operand for
+//   output pixel (y, x) is halo pixel (y + 1 + dy, x + 1 + dx). The products
+//   run on mma.sync m16n8k16, bf16 x bf16 -> f32: M 16 pixels, N 8 output
+//   channels (c padded with zero weights to 8, 16 or 48), K 16 channels.
+//   mma.sync and not wgmma: wgmma takes A from shared memory only as a
+//   64-row tile in one fixed layout, which a shifted window of the halo
+//   tile is not; mma.sync takes A from registers (ldmatrix of any 16 rows)
+//   at N 8. The products are few: the tensor cores' rate does not bound it.
+// * The chunk's weights (float32 holding bf16 values, OIHW) are rounded to
+//   bf16 and stored the same way, one 128-byte row per (tap, output
+//   channel).
+// * Sums: each (tap, chunk) K tile of 64 products goes into a fresh float32
+//   partial, added to the sum with round-to-nearest adds: the tensor cores
+//   truncate as they add (mma_gemm.cuh).
+// * 256 threads a block and 42-67 KB of shared memory, 3-5 blocks per SM:
+//   one block's loads overlap another's products.
+#pragma once
+
+#include <stdint.h>
+
+#include "mma_gemm.cuh"
+
+namespace imnf {
+
+constexpr int C3_TH = 8;        // image rows a block owns
+constexpr int C3_MC = 64;       // mid channels a chunk: one 128-byte row a pixel
+constexpr int C3_THREADS = 256;
+
+constexpr int c3_smem_bytes(int tw, int nt) {
+  // the halo tile, the chunk's weights, slack to align the base to 128 bytes
+  return (C3_TH + 2) * (tw + 2) * 128 + 9 * 8 * nt * 128 + 128;
+}
+
+// the four 8x8 bf16 matrices at the lanes' row addresses
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d(16 x 8) += a(16 x 16) b(16 x 8), bf16 operands, f32 sums
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Grid (H / C3_TH bands, B slots); a slot at or past *count returns. TW is
+// the image width (8, 16 or 32), NT the 8-channel output tiles (c <= 8 NT).
+// The 8 warps split the band's 16-pixel M tiles (and, when there are fewer
+// than 8 of them, the N tiles).
+template <int TW, int NT>
+__global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
+    const float* __restrict__ w, const float* __restrict__ t,
+    const float* __restrict__ th, float beta, const int* __restrict__ idx,
+    const int* __restrict__ count, int C, int MID, int H,
+    float* __restrict__ out) {
+  constexpr int HPW = TW + 2, HP = (C3_TH + 2) * HPW;  // halo row, halo pixels
+  constexpr int NPAD = 8 * NT;
+  constexpr int MT = C3_TH * TW / 16;                  // M tiles of the band
+  constexpr int WM = MT >= 8 ? 8 : MT, WN = 8 / WM;    // warps along M and N
+  constexpr int MPW = MT / WM, NPW = (NT + WN - 1) / WN;
+  constexpr int NPG = TW / 4;                          // 4-pixel groups a row
+  extern __shared__ uint8_t c3_smem[];
+  const uint32_t raw = smem_u32(c3_smem);
+  const uint32_t act = (raw + 127u) & ~127u;  // [HP][128 bytes], swizzled
+  uint8_t* const act_g = c3_smem + (act - raw);
+  uint8_t* const ws_g = act_g + HP * 128;     // [9 * NPAD][128 bytes], swizzled
+
+  const int slot = blockIdx.y;
+  if (count != nullptr && slot >= *count) return;
+  const int e = idx != nullptr ? idx[slot] : slot;
+  const int HW = H * TW, y0 = blockIdx.x * C3_TH;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int wm = warp % WM, wn = warp / WM;
+  const float* const ts = t + (size_t)slot * MID * HW;
+  const float* const hs = th + (size_t)slot * MID * HW;
+
+  // the border pixels stay zero; the in-image ones are written every chunk
+  for (int i = tid; i < HP * 8; i += C3_THREADS)
+    reinterpret_cast<uint4*>(act_g)[i] = make_uint4(0u, 0u, 0u, 0u);
+
+  // the halo pixel of this lane's ldmatrix row (band pixel (mt * 16 + lane
+  // % 16)) at the centre tap, for each of the warp's M tiles mt
+  int hrow[MPW];
+#pragma unroll
+  for (int i = 0; i < MPW; ++i) {
+    const int q = (wm + i * WM) * 16 + lane % 16;
+    hrow[i] = (q / TW + 1) * HPW + q % TW + 1;
+  }
+  float acc[MPW][NPW][4];
+#pragma unroll
+  for (int i = 0; i < MPW; ++i)
+#pragma unroll
+    for (int j = 0; j < NPW; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
+
+  for (int m0 = 0; m0 < MID; m0 += C3_MC) {
+    __syncthreads();  // the zeroing, or the previous chunk's products, done
+    // the chunk's weights: row d * NPAD + co holds W[co][m0 .. m0 + 63][d]
+    for (int i = tid; i < NPAD * C3_MC; i += C3_THREADS) {
+      const int co = i / C3_MC, ch = i % C3_MC;
+      const float* src = w + ((size_t)co * MID + m0 + ch) * 9;
+#pragma unroll
+      for (int d = 0; d < 9; ++d) {
+        const float v = co < C ? __ldg(src + d) : 0.f;
+        *reinterpret_cast<__nv_bfloat16*>(ws_g + sw128(d * NPAD + co, ch / 8) + (ch % 8) * 2) =
+            __float2bfloat16_rn(v);
+      }
+    }
+    // the activations: unit u covers channels m0 + 2 cp, + 1 at 4 pixels of
+    // halo row hr; a warp takes 16 channel pairs x 2 neighbouring groups
+    constexpr int UNITS = (C3_TH + 2) * NPG * (C3_MC / 2);
+#pragma unroll 2
+    for (int u = tid; u < UNITS; u += C3_THREADS) {
+      const int cp = (u & 15) | (((u >> 5) & 1) << 4);
+      const int rest = u >> 6;
+      const int pg = ((rest % (NPG / 2)) << 1) | ((u >> 4) & 1);
+      const int hr = rest / (NPG / 2), y = y0 + hr - 1;
+      if (y < 0 || y >= H) continue;
+      const size_t off = (size_t)(m0 + 2 * cp) * HW + y * TW + 4 * pg;
+      const float4 ta = ldv4(ts + off), tb = ldv4(ts + off + HW);
+      const float4 ha = ldv4(hs + off), hb = ldv4(hs + off + HW);
+      const uint32_t px[4] = {
+          pack_bf16(__fmul_rn(ta.x, dswish(ha.x, beta)), __fmul_rn(tb.x, dswish(hb.x, beta))),
+          pack_bf16(__fmul_rn(ta.y, dswish(ha.y, beta)), __fmul_rn(tb.y, dswish(hb.y, beta))),
+          pack_bf16(__fmul_rn(ta.z, dswish(ha.z, beta)), __fmul_rn(tb.z, dswish(hb.z, beta))),
+          pack_bf16(__fmul_rn(ta.w, dswish(ha.w, beta)), __fmul_rn(tb.w, dswish(hb.w, beta)))};
+      const int hp0 = hr * HPW + 4 * pg + 1;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<uint32_t*>(act_g + sw128(hp0 + j, cp >> 2) + (cp & 3) * 4) = px[j];
+    }
+    __syncthreads();  // the tile and the weights are whole
+
+    // the products: per tap, 4 K steps of 16 channels into fresh partials
+#pragma unroll 1
+    for (int d = 0; d < 9; ++d) {
+      const int shift = (d / 3 - 1) * HPW + d % 3 - 1;
+      float part[MPW][NPW][4];
+#pragma unroll
+      for (int i = 0; i < MPW; ++i)
+#pragma unroll
+        for (int j = 0; j < NPW; ++j)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) part[i][j][k] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < C3_MC / 16; ++ks) {
+        uint32_t b[NPW][2];
+#pragma unroll
+        for (int j = 0; j < NPW; ++j) {
+          const int r = d * NPAD + (wn * NPW + j) * 8 + lane / 4;
+          const uint8_t* row = ws_g + (lane % 4) * 4;
+          b[j][0] = wn * NPW + j < NT ? *reinterpret_cast<const uint32_t*>(row + sw128(r, 2 * ks)) : 0u;
+          b[j][1] = wn * NPW + j < NT ? *reinterpret_cast<const uint32_t*>(row + sw128(r, 2 * ks + 1)) : 0u;
+        }
+#pragma unroll
+        for (int i = 0; i < MPW; ++i) {
+          uint32_t a[4];
+          ldmatrix_x4(a, act + sw128(hrow[i] + shift, 2 * ks + lane / 16));
+#pragma unroll
+          for (int j = 0; j < NPW; ++j)
+            if (wn * NPW + j < NT) mma_16816(part[i][j], a, b[j][0], b[j][1]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MPW; ++i)
+#pragma unroll
+        for (int j = 0; j < NPW; ++j)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[i][j][k] = __fadd_rn(acc[i][j][k], part[i][j][k]);
+    }
+  }
+
+  // the fragment's rows lane / 4 and + 8, columns 2 (lane % 4) and + 1
+#pragma unroll
+  for (int i = 0; i < MPW; ++i)
+#pragma unroll
+    for (int j = 0; j < NPW; ++j) {
+      const int nt = wn * NPW + j;
+      if (nt >= NT) continue;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int p = y0 * TW + (wm + i * WM) * 16 + lane / 4 + 8 * (k / 2);
+        const int co = nt * 8 + 2 * (lane % 4) + k % 2;
+        if (co < C) out[((size_t)e * C + co) * HW + p] = acc[i][j][k];
+      }
+    }
+}
+
+template <int TW, int NT>
+cudaError_t launch_c3_tc(const float* w, const float* t, const float* th, float beta,
+                         const int* idx, const int* count, int B, int C, int MID, int H,
+                         float* out, cudaStream_t s) {
+  auto kernel = conv3x3_out_tc_kernel<TW, NT>;
+  constexpr int bytes = c3_smem_bytes(TW, NT);
+  static bool ready = false;  // once per instantiation
+  if (!ready) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  kernel<<<dim3(H / C3_TH, B), C3_THREADS, bytes, s>>>(w, t, th, beta, idx, count, C, MID, H,
+                                                        out);
+  return cudaGetLastError();
+}
+
+template <int TW>
+cudaError_t launch_c3_tc_w(const float* w, const float* t, const float* th, float beta,
+                           const int* idx, const int* count, int B, int C, int MID, int H,
+                           float* out, cudaStream_t s) {
+  if (C <= 8) return launch_c3_tc<TW, 1>(w, t, th, beta, idx, count, B, C, MID, H, out, s);
+  if (C <= 16) return launch_c3_tc<TW, 2>(w, t, th, beta, idx, count, B, C, MID, H, out, s);
+  return launch_c3_tc<TW, 6>(w, t, th, beta, idx, count, B, C, MID, H, out, s);
+}
+
+// out[idx[s]] = C1^T (t[s] swish'(th[s]; beta)) on the tensor cores, for
+// slots s < *count: w (C, MID, 3, 3) float32 holding bf16 values (the
+// flipped, transposed w1), t and th (B, MID, H*W), out (B, C, H*W) by
+// example. Takes C <= 48, MID a multiple of 64, W 8, 16 or 32, H a multiple
+// of 8 and 16-byte aligned t and th (the wrapper checks the pointers);
+// cudaErrorInvalidValue otherwise.
+inline cudaError_t launch_conv3x3_out_tc(const float* w, const float* t, const float* th,
+                                         float beta, const int* idx, const int* count,
+                                         int B, int C, int MID, int H, int W, float* out,
+                                         cudaStream_t s) {
+  if (C < 1 || C > 48 || MID < C3_MC || MID % C3_MC || H < C3_TH || H % C3_TH)
+    return cudaErrorInvalidValue;
+  switch (W) {
+    case 8: return launch_c3_tc_w<8>(w, t, th, beta, idx, count, B, C, MID, H, out, s);
+    case 16: return launch_c3_tc_w<16>(w, t, th, beta, idx, count, B, C, MID, H, out, s);
+    case 32: return launch_c3_tc_w<32>(w, t, th, beta, idx, count, B, C, MID, H, out, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace imnf

@@ -26,7 +26,8 @@
 // final pair, primal:
 //   fp_conv_in     h1 = W1 a0 + b1; th1 = W1 ta0; r2 = C3^T acc
 //   fp_conv_mid    h2 = W2 swish(h1) + b2; th2 = W2 (swish'(h1) th1);
-//                  ra1 = W2^T rh2 and p_a1 = W2^T p_h2 (four "nets")
+//                  ra1 = W2^T rh2 and p_a1 = W2^T p_h2 (four "nets") (bf16:
+//                  tensor cores, mma_gemm.cuh)
 //   fp_tdot        T[e] = sum r2 (swish'(h2) th2)   (one block per example)
 // final pair, backward (the cotangent folded into acc by the caller):
 //   fp_second      rh = swish'(h) r, p = [swish'(h) q] + swish''(h) th r,
@@ -43,16 +44,18 @@
 // take it (conv_gemm.cuh). The chain reads s0/s1/s2 as stored: bf16 in mode
 // bf16, which halves their traffic.
 //
-// What bounds them on H100: the chain's 1x1 product of mode bf16
-// (nc_jt_mid; the J^T 1x1 is ~90% of a term's MACs: 268M of 296M per
-// example and net at 32x32) runs on the tensor cores (mma_gemm.cuh, whose
-// note gives its bytes bound and design); every other product, and mode
-// f32, runs as FP32 FMAs on the CUDA cores (conv_gemm.cuh), as the
-// implicit-gradient kernels do. fp_conv_mid stays there: it sums in the
-// plain version's order (cuDNN's, k by k), and the final pair's d_h and
-// weight gradients, small differences of large terms, move by 1.3e-5 under
-// any other order (an exactly rounded product included), above the limit
-// its check holds them to. The chain's design cost: the TPU
+// What bounds them on H100: the 1x1 products of mode bf16, the chain's
+// nc_jt_mid (the J^T 1x1 is ~90% of a term's MACs: 268M of 296M per
+// example and net at 32x32) and the final pair's fp_conv_mid, run on the
+// tensor cores (mma_gemm.cuh, whose note gives their bytes bounds and
+// design; fp_conv_mid applies its input transform once per element as the
+// panel is staged); every other product, and mode f32, runs as FP32 FMAs on
+// the CUDA cores (conv_gemm.cuh), as the implicit-gradient kernels do. The
+// tensor cores sum fp_conv_mid's products in another order than the plain
+// version (cuDNN's), which moves the final pair's d_h and weight gradients,
+// small differences of large terms, by up to 1.3e-5 whatever the order:
+// its check holds the kernels against the plain path with that product
+// summed exactly (chip_smoke.py, FINAL_TOL). The chain's design cost: the TPU
 // kernel keeps s0/s1/s2 resident across the series, so its traffic is
 // O(|s|); one net's s1 + s2 at 32x32, B = 64 is 128 MiB in bf16, more than
 // the 50 MB L2, so here every term streams them again: O(n_power |s|).
@@ -205,15 +208,24 @@ cudaError_t fp_gemm(int act, const float* w, const float* bias, int M, int K,
   return cudaErrorInvalidValue;
 }
 
-template <int SRC>
-cudaError_t fp_gemm_mode(int mode, int act, const float* w, const float* bias,
-                         int M, int K, const float* inp, const float* inh,
-                         int B, int nets, int C, int H, int W,
-                         const float* beta_net, float* out, cudaStream_t s) {
-  switch (mode) {
-    case MODE_F32: return fp_gemm<MODE_F32, SRC>(act, w, bias, M, K, inp, inh, B, nets, C, H, W, beta_net, out, s);
-    case MODE_BF16: return fp_gemm<MODE_BF16, SRC>(act, w, bias, M, K, inp, inh, B, nets, C, H, W, beta_net, out, s);
-  }
+// fp_conv_mid: the 1x1 mid -> mid, w bf16 on the tensor cores in mode
+// bf16, w float32 on the SIMT template in mode f32
+cudaError_t fp_mid_mode(int mode, int act, const void* w, const float* bias, int mid,
+                        const float* inp, const float* inh, int B, int nets, int H,
+                        int W, const float* beta_net, float* out, cudaStream_t s) {
+  if (mode == MODE_F32)
+    return fp_gemm<MODE_F32, 1>(act, static_cast<const float*>(w), bias, mid, mid, inp, inh, B, nets, mid, H, W, beta_net, out, s);
+  if (mode != MODE_BF16) return cudaErrorInvalidValue;
+  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
+  const float* no_scale = nullptr;
+#define FP_TC(IN)                                                            \
+  return launch_tc_conv1x1<EPI_AFFINE, IN>(wb, mid, mid, inp, B, nets, H * W, \
+                                           no_scale, out, s, nullptr, nullptr, \
+                                           inh, beta_net, bias)
+  if (act == IN_ID) FP_TC(IN_ID);
+  if (act == IN_SWISH) FP_TC(IN_SWISH);
+  if (act == IN_DSWISH) FP_TC(IN_DSWISH);
+#undef FP_TC
   return cudaErrorInvalidValue;
 }
 
@@ -225,8 +237,8 @@ extern "C" {
 // cudaGetLastError() right after its launch (0 on success). B counts the
 // examples of all `nets` nets together; every example is live (the conv
 // kernels get no active list). Weights are stacked per net, f32 (bf16
-// values in mode bf16), but nc_jt_mid's, which are bfloat16 in mode bf16
-// (the tensor-core operand) and float32 in mode f32.
+// values in mode bf16), but nc_jt_mid's and fp_conv_mid's, which are
+// bfloat16 in mode bf16 (the tensor-core operand) and float32 in mode f32.
 
 // chain: the derivative factors s2 / s1 / s0 as float32 or, with s_bf16,
 // bfloat16
@@ -263,14 +275,20 @@ int imnf_fp_conv_in(int mode, int act, const float* w, const float* bias,
                     const float* beta_net, const float* inp, const float* inh,
                     int B, int nets, int C, int H, int W, int mid, float* out,
                     void* stream) {
-  return (int)fp_gemm_mode<0>(mode, act, w, bias, mid, C * 9, inp, inh, B, nets, C, H, W, beta_net, out, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (mode) {
+    case MODE_F32: return (int)fp_gemm<MODE_F32, 0>(act, w, bias, mid, C * 9, inp, inh, B, nets, C, H, W, beta_net, out, s);
+    case MODE_BF16: return (int)fp_gemm<MODE_BF16, 0>(act, w, bias, mid, C * 9, inp, inh, B, nets, C, H, W, beta_net, out, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-int imnf_fp_conv_mid(int mode, int act, const float* w, const float* bias,
+// w: W2 or W2^T (nets, mid, mid), bfloat16 in mode bf16, float32 in mode f32
+int imnf_fp_conv_mid(int mode, int act, const void* w, const float* bias,
                      const float* beta_net, const float* inp, const float* inh,
                      int B, int nets, int mid, int H, int W, float* out,
                      void* stream) {
-  return (int)fp_gemm_mode<1>(mode, act, w, bias, mid, mid, inp, inh, B, nets, mid, H, W, beta_net, out, (cudaStream_t)stream);
+  return (int)fp_mid_mode(mode, act, w, bias, mid, inp, inh, B, nets, H, W, beta_net, out, (cudaStream_t)stream);
 }
 
 int imnf_fp_conv_out(int mode, const float* w, const float* t, int B, int nets,

@@ -19,7 +19,7 @@
 // re-attachment VJP, per net (x at x with cotangent u; z at z_hat with -u):
 //   rv_conv3x3_in   h1 = W1 [swish](h) + b1, and t2 = sign * C3^T u
 //   rv_conv1x1_mid  h2 = W2 swish(h1) + b2, and t1 = C2^T (t2 swish'(h2))
-//   rv_conv3x3_out  t0 = C1^T (t1 swish'(h1))
+//   rv_conv3x3_out  t0 = C1^T (t1 swish'(h1))   (bf16: tensor cores)
 //   rv_wgrad        split-K partial sums of dW3 = cot x shift(swish(h2)),
 //                   dW2 = t2 swish'(h2) x swish(h1), dW1 = t1 swish'(h1) x
 //                   shift(a0), summed over batch x pixels
@@ -47,10 +47,13 @@
 // fill the 132 SMs and sum the splits in a second pass. In mode bf16 two
 // stages run on the tensor cores (wgmma), where bytes bound them:
 // jt_conv1x1_mid on mma_gemm.cuh's 1x1 kernel (EPI_SCALE, on the active
-// list) and rv_wgrad on wgrad_tc.cuh (a bf16 pre-pass, then the product);
-// those headers' notes give their bounds and designs. The 3x3 stages, the
+// list), rv_wgrad on wgrad_tc.cuh (a bf16 pre-pass, then the product) and
+// rv_conv3x3_out on conv3x3_out_tc.cuh (t1 swish'(h1) formed once per
+// element into a halo tile, the 9 taps as shifted reads of it); those
+// headers' notes give their bounds and designs. The other 3x3 stages, the
 // rest of mode bf16 and modes f32 / tf32 stay on the CUDA cores.
 
+#include "conv3x3_out_tc.cuh"
 #include "wgrad_tc.cuh"
 
 namespace {
@@ -421,7 +424,7 @@ int imnf_rv_conv3x3_out(int mode, const float* w_hi, const float* w_lo,
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case MODE_F32: return (int)launch_conv3x3_out<MODE_F32, IN_DSWISH>(w_hi, w_lo, nullptr, t, th, beta_in, idx, count, B, C, mid, H, W, nullptr, 1.f, nullptr, nullptr, out, s);
-    case MODE_BF16: return (int)launch_conv3x3_out<MODE_BF16, IN_DSWISH>(w_hi, w_lo, nullptr, t, th, beta_in, idx, count, B, C, mid, H, W, nullptr, 1.f, nullptr, nullptr, out, s);
+    case MODE_BF16: return (int)launch_conv3x3_out_tc(w_hi, t, th, beta_in, idx, count, B, C, mid, H, W, out, s);
     case MODE_TF32: return (int)launch_conv3x3_out<MODE_TF32, IN_DSWISH>(w_hi, w_lo, nullptr, t, th, beta_in, idx, count, B, C, mid, H, W, nullptr, 1.f, nullptr, nullptr, out, s);
   }
   return (int)cudaErrorInvalidValue;

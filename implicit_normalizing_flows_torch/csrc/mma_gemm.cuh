@@ -1,8 +1,9 @@
 // Tensor-core (wgmma) 1x1 conv of mode bf16 for Hopper (sm_90a), the
-// J^T stage C2^T t * s1 of two TPU kernels:
+// J^T stage C2^T t * s1 of two TPU kernels and the final pair's 512 -> 512
+// products:
 //
-//   out[slot][m][p] = EPI(sum_k W[net][m][k] * bf16(inp[slot][k][p]),
-//                         scale[e][m][p]),  e = idx[slot] (or slot)
+//   out[slot][m][p] = EPI(sum_k W[net][m][k] * bf16(IN(inp[slot][k][p])),
+//                         scale[e][m][p] | bias[net][m]),  e = idx[slot] (or slot)
 //
 // * EPI_SCALE_RND, bf16_round(acc * s): the Neumann chain's nc_jt_mid
 //   (estimator.cu), t1 = rnd(C2^T t2 * s1) of _make_apply_jt
@@ -14,7 +15,16 @@
 //   (implicit_normalizing_flows_tpu/ops/fused_solve.py:887, in
 //   fused_backward_solve :930), s1 bf16, one net, on an active list: slot
 //   s < *count is live, t and out are indexed by slot, s1 by example
-//   idx[slot]; a dead slot's out is never written.
+//   idx[slot]; a dead slot's out is never written;
+// * EPI_AFFINE, acc [+ bias[net][m]] (the bias added after the product):
+//   the final pair's fp_conv_mid (estimator.cu), h2 = W2 swish(h1) + b2,
+//   th2 = W2 (th1 swish'(h1)) and W2^T on rh2 and p_h2 of
+//   _final_T_in_kernel / _final_grads_in_kernel
+//   (implicit_normalizing_flows_tpu/ops/fused_solve.py:1346, 1372, in
+//   fused_final_pair :1689), with the input transform IN (conv_gemm.cuh's
+//   IN_ID, IN_SWISH, IN_DSWISH with inh) at each net's slope beta_net[net],
+//   applied once per element as the panel is staged, 2 or 4 nets a launch,
+//   every slot live.
 // Both operands are bf16 and the sums float32: _make_dot("bf16") of the
 // JAX kernels, the error model that conv_gemm.cuh's SIMT template computes
 // with FP32 FMAs on bf16-rounded values. Mode f32 stays on that template
@@ -24,19 +34,22 @@
 // nets) is 68.7 GFLOP (0.07 ms at 989 TFLOP/s), but reads t2 as float32
 // (256 MiB) and s1 (128 MiB bf16 or 256 MiB float32) and writes t1 as
 // float32 (256 MiB): 0.20 ms (bf16 s) or 0.24 ms (float32 s) at 3.35 TB/s;
-// jt_conv1x1_mid (B 64) moves 320 MiB, 0.10 ms. The SIMT template re-read
-// each activation once per 64-row M block (8 times at mid 512) and ran the
+// jt_conv1x1_mid (B 64) moves 320 MiB, 0.10 ms; fp_conv_mid's th2 (B 64 x
+// 2 nets) reads th1 and h1 and writes th2, 768 MiB, 0.24 ms. The SIMT
+// template re-read each activation (and re-applied its transform, expf
+// included) once per 64-row M block (8 times at mid 512) and ran the
 // products on CUDA cores.
 //
 // The design against that bound:
 // * Activation-stationary: a block owns NP pixels of one slot (NP 128, or
 //   64 when H*W <= 64). It reads that tile's whole K <= 512 panel once, as
-//   float32 slabs streamed by cp.async (16-byte copies, 80 KB in flight)
-//   through the space the weight rings take later, rounds each element to
-//   bf16 once, and keeps the panel (NP x 512 bf16, 128 KB at NP 128) in
-//   dynamic shared memory for all M rows. Each activation and s element is
-//   read from device memory exactly once; each output is written once, 16
-//   bytes a thread.
+//   float32 slabs streamed by cp.async (16-byte copies, 80 KB in flight;
+//   with IN_DSWISH each slab of inp travels with the matching slab of inh)
+//   through the space the weight rings take later, transforms and rounds
+//   each element to bf16 once, and keeps the panel (NP x 512 bf16, 128 KB
+//   at NP 128) in dynamic shared memory for all M rows. Each activation
+//   and s element is read from device memory exactly once; each output is
+//   written once, 16 bytes a thread.
 // * Weights from L2: one net's 512x512 bf16 kernel is 512 KB and stays in
 //   the 50 MB L2. Each of the block's two consumer warpgroups takes every
 //   other 64-row M chunk and streams its 64x64 weight tiles through its own
@@ -56,9 +69,9 @@
 //   round-to-nearest adds.
 // * Epilogue per 64-row chunk, fused: a lane pair exchanges halves of its
 //   accumulator fragment (rows r and r+8) so that each lane holds 4
-//   consecutive pixels of one row, scales and rounds them, and stores 16
-//   bytes; its s was read into registers once, at the chunk's first tile,
-//   under the chunk's products.
+//   consecutive pixels of one row, scales and rounds them (or adds the
+//   row's bias), and stores 16 bytes; its s (or bias) was read into
+//   registers once, at the chunk's first tile, under the chunk's products.
 // * Work items (live slot, NP-pixel tile, group of M chunks): where live
 //   slots x tiles fill less than the card (8x8 images, late iterations of
 //   the backward solve), the M chunks are split into groups (powers of
@@ -197,17 +210,20 @@ __device__ __forceinline__ float4 widen4(uint2 u) {
 //
 // Phase 1, the panel: float32 slabs of SK k-rows x NP pixels (16 KB)
 // stream through the rings' space with cp.async, all but one of its slots
-// ahead (zero-filled past K and HW); each thread rounds 4 k x 4 pixels of
-// a slab and stores them K-major into the panel. Phase 2, the products:
-// each warpgroup walks its (M chunk, K tile) weight tiles through its ring;
-// a chunk's scale is loaded into registers at its first tile and used by
-// its epilogue after its last.
-template <int NP, typename ST, int EPI>
+// ahead (zero-filled past K and HW; IN_DSWISH: a slab of inp and one of inh
+// per slot, half as many slots); each thread transforms and rounds 4 k x 4
+// pixels of a slab and stores them K-major into the panel. Phase 2, the
+// products: each warpgroup walks its (M chunk, K tile) weight tiles through
+// its ring; a chunk's scale (or bias) is loaded into registers at its first
+// tile and used by its epilogue after its last.
+template <int NP, typename ST, int EPI, int IN>
 __global__ void __launch_bounds__(TC_THREADS, 1) tc_conv1x1_kernel(
     const __nv_bfloat16* __restrict__ w0, int M, int K,
     const float* __restrict__ inp, int HW, const ST* __restrict__ scale,
     float* __restrict__ out, int nb, const int* __restrict__ idx,
-    const int* __restrict__ count, int B, int nsm) {
+    const int* __restrict__ count, int B, int nsm,
+    const float* __restrict__ inh, const float* __restrict__ beta_net,
+    const float* __restrict__ bias) {
   extern __shared__ uint8_t tc_smem[];
   const uint32_t raw = smem_u32(tc_smem);
   const uint32_t panel = (raw + 1023u) & ~1023u;  // [K / 64][NP rows][128 bytes]
@@ -236,32 +252,58 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_conv1x1_kernel(
     {
       constexpr int SK = TC_SLAB_BYTES / (NP * 4);
       constexpr int BUFS = TC_STAGING_BYTES / TC_SLAB_BYTES;
+      constexpr int NSRC = IN == IN_DSWISH ? 2 : 1;  // inp [and inh] per slot
+      constexpr int SLOTS = BUFS / NSRC;
       const int ns = nkt * TC_BK / SK;
       auto load_slab = [&](int j) {
         if (j < ns) {
-          const uint32_t buf = rings + (j % BUFS) * TC_SLAB_BYTES;
 #pragma unroll
-          for (int q = tid; q < TC_SLAB_BYTES / 16; q += TC_THREADS) {
-            const int k = j * SK + q / (NP / 4), p = p0 + (q % (NP / 4)) * 4;
-            const bool ok = k < K && p < HW;
-            cp_async16(buf + q * 16, ok ? inp + src_off + (size_t)k * HW + p : inp, ok);
+          for (int src = 0; src < NSRC; ++src) {
+            const float* g = src == 0 ? inp : inh;
+            const uint32_t buf = rings + ((j % SLOTS) * NSRC + src) * TC_SLAB_BYTES;
+#pragma unroll
+            for (int q = tid; q < TC_SLAB_BYTES / 16; q += TC_THREADS) {
+              const int k = j * SK + q / (NP / 4), p = p0 + (q % (NP / 4)) * 4;
+              const bool ok = k < K && p < HW;
+              cp_async16(buf + q * 16, ok ? g + src_off + (size_t)k * HW + p : g, ok);
+            }
           }
         }
         cp_async_commit();
       };
 #pragma unroll
-      for (int j = 0; j < BUFS - 1; ++j) load_slab(j);
+      for (int j = 0; j < SLOTS - 1; ++j) load_slab(j);
       const int kq = tid / (NP / 4), pg = tid % (NP / 4);  // this thread's 4 k x 4 pixels
+      const float beta = IN == IN_ID ? 0.f : beta_net[net];
       for (int j = 0; j < ns; ++j) {
-        cp_async_wait<BUFS - 2>();  // this thread's copies of slab j landed
-        __syncthreads();            // everyone's; slab j - 1's buffer converted
-        load_slab(j + BUFS - 1);    // into slab j - 1's buffer
+        cp_async_wait<SLOTS - 2>();  // this thread's copies of slab j landed
+        __syncthreads();             // everyone's; slab j - 1's buffer converted
+        load_slab(j + SLOTS - 1);    // into slab j - 1's buffer
         const float* sl = reinterpret_cast<const float*>(
-            base + NP * TC_KMAX * 2 + (j % BUFS) * TC_SLAB_BYTES);
+            base + NP * TC_KMAX * 2 + (j % SLOTS) * NSRC * TC_SLAB_BYTES);
         float4 v[4];
 #pragma unroll
         for (int r = 0; r < 4; ++r)
           v[r] = *reinterpret_cast<const float4*>(sl + (kq * 4 + r) * NP + pg * 4);
+        // the input transform, once per element, rounded op by op as
+        // conv_gemm.cuh's in_xform (zero-filled entries stay zero)
+        if constexpr (IN == IN_SWISH) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            v[r] = make_float4(swish(v[r].x, beta), swish(v[r].y, beta),
+                               swish(v[r].z, beta), swish(v[r].w, beta));
+        }
+        if constexpr (IN == IN_DSWISH) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float4 h = *reinterpret_cast<const float4*>(
+                sl + TC_SLAB_BYTES / 4 + (kq * 4 + r) * NP + pg * 4);
+            v[r] = make_float4(__fmul_rn(v[r].x, dswish(h.x, beta)),
+                               __fmul_rn(v[r].y, dswish(h.y, beta)),
+                               __fmul_rn(v[r].z, dswish(h.z, beta)),
+                               __fmul_rn(v[r].w, dswish(h.w, beta)));
+          }
+        }
         uint2 px[4];
 #define TC_PACK(J, F) \
         px[J] = make_uint2(pack_bf16(v[0].F, v[1].F), pack_bf16(v[2].F, v[3].F))
@@ -315,6 +357,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_conv1x1_kernel(
     // a lane holds row r (even lane) or r + 8 (odd lane), pixels p0 + 8 j + cq
     // .. + 3
     typename Vec4<ST>::type sv[NJ];
+    float bv = 0.f;  // EPI_AFFINE: row r's bias
     int r = 0;
     size_t srow = 0, orow = 0;  // row r of scale (example e) and of out (slot)
 
@@ -328,10 +371,14 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_conv1x1_kernel(
         r = (c0 + wg + (t / nkt) * TC_WGS) * TC_BM + warp * 16 + lane / 4 + (odd ? 8 : 0);
         srow = ((size_t)e * M + r) * HW;
         orow = ((size_t)slot * M + r) * HW;
+        if constexpr (EPI == EPI_AFFINE) {
+          if (bias != nullptr && r < M) bv = __ldg(bias + (size_t)net * M + r);
+        } else {
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int p = p0 + 8 * j + cq;
-          if (r < M && p < HW) sv[j] = ldv4(scale + srow + p);
+          for (int j = 0; j < NJ; ++j) {
+            const int p = p0 + 8 * j + cq;
+            if (r < M && p < HW) sv[j] = ldv4(scale + srow + p);
+          }
         }
       }
       // the tile's products, each 64-pixel half into a fresh partial, then
@@ -363,11 +410,17 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_conv1x1_kernel(
         const float x0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : b0, 1);
         const float x1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : b1, 1);
         float4 o = odd ? make_float4(x0, x1, b0, b1) : make_float4(a0, a1, x0, x1);
-        const float4 sc = widen4(sv[j]);
-        o = make_float4(__fmul_rn(o.x, sc.x), __fmul_rn(o.y, sc.y), __fmul_rn(o.z, sc.z),
-                        __fmul_rn(o.w, sc.w));
-        if (EPI == EPI_SCALE_RND)
-          o = make_float4(bf16_round(o.x), bf16_round(o.y), bf16_round(o.z), bf16_round(o.w));
+        if constexpr (EPI == EPI_AFFINE) {
+          if (bias != nullptr)
+            o = make_float4(__fadd_rn(o.x, bv), __fadd_rn(o.y, bv), __fadd_rn(o.z, bv),
+                            __fadd_rn(o.w, bv));
+        } else {
+          const float4 sc = widen4(sv[j]);
+          o = make_float4(__fmul_rn(o.x, sc.x), __fmul_rn(o.y, sc.y), __fmul_rn(o.z, sc.z),
+                          __fmul_rn(o.w, sc.w));
+          if (EPI == EPI_SCALE_RND)
+            o = make_float4(bf16_round(o.x), bf16_round(o.y), bf16_round(o.z), bf16_round(o.w));
+        }
         const int p = p0 + 8 * j + cq;
         if (r < M && p < HW) *reinterpret_cast<float4*>(out + orow + p) = o;
       }
@@ -381,11 +434,12 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_conv1x1_kernel(
   }
 }
 
-template <int NP, typename ST, int EPI>
+template <int NP, typename ST, int EPI, int IN>
 cudaError_t launch_tc_np(const __nv_bfloat16* w, int M, int K, const float* inp,
                          int B, int nb, int HW, const ST* scale, float* out,
-                         const int* idx, const int* count, cudaStream_t s) {
-  auto kernel = tc_conv1x1_kernel<NP, ST, EPI>;
+                         const int* idx, const int* count, const float* inh,
+                         const float* beta_net, const float* bias, cudaStream_t s) {
+  auto kernel = tc_conv1x1_kernel<NP, ST, EPI, IN>;
   constexpr int bytes = tc_smem_bytes(NP);
   static int nsm = 0;  // once per instantiation (one device)
   if (nsm == 0) {
@@ -407,27 +461,34 @@ cudaError_t launch_tc_np(const __nv_bfloat16* w, int M, int K, const float* inp,
   const long long grid = count == nullptr ? (long long)B * tiles * tc_groups(nmc, B, tiles, nsm)
                                           : most < nsm ? most : nsm;
   kernel<<<(unsigned)grid, TC_THREADS, bytes, s>>>(
-      w, M, K, inp, HW, scale, out, nb, idx, count, B, nsm);
+      w, M, K, inp, HW, scale, out, nb, idx, count, B, nsm, inh, beta_net, bias);
   return cudaGetLastError();
 }
 
-// A bf16 1x1 J^T stage on the tensor cores: B slots of `nets` nets (B /
-// nets each), weights (nets, M, K) bf16, inp (B, K, HW) float32, scale
-// (B, M, HW) indexed by idx[slot] (slot without idx), out (B, M, HW) by
-// slot; with count, slots past *count are not touched. EPI EPI_SCALE_RND
-// (the chain) or EPI_SCALE (the backward solve).
+// A bf16 1x1 product on the tensor cores: B slots of `nets` nets (B / nets
+// each), weights (nets, M, K) bf16, inp (B, K, HW) float32 (inh the same,
+// for IN_DSWISH), out (B, M, HW) by slot. EPI EPI_SCALE_RND (the chain) or
+// EPI_SCALE (the backward solve) with IN_ID: scale (B, M, HW) indexed by
+// idx[slot] (slot without idx); with count, slots past *count are not
+// touched. EPI_AFFINE (the final pair): IN_ID | IN_SWISH | IN_DSWISH at
+// slope beta_net[net], bias (nets, M) or nullptr, scale nullptr.
 // cudaErrorInvalidValue for shapes the kernel does not take.
-template <int EPI, typename ST>
+template <int EPI, int IN = IN_ID, typename ST>
 cudaError_t launch_tc_conv1x1(const __nv_bfloat16* w, int M, int K, const float* inp,
                               int B, int nets, int HW, const ST* scale, float* out,
                               cudaStream_t s, const int* idx = nullptr,
-                              const int* count = nullptr) {
+                              const int* count = nullptr, const float* inh = nullptr,
+                              const float* beta_net = nullptr,
+                              const float* bias = nullptr) {
   if (M < 1 || K < 8 || K > TC_KMAX || K % 8 || HW < 4 || HW % 4 || nets < 1 ||
-      B % nets)
+      B % nets || (IN != IN_ID && beta_net == nullptr) ||
+      (IN == IN_DSWISH && inh == nullptr))
     return cudaErrorInvalidValue;
   if (HW <= 64)
-    return launch_tc_np<64, ST, EPI>(w, M, K, inp, B, B / nets, HW, scale, out, idx, count, s);
-  return launch_tc_np<128, ST, EPI>(w, M, K, inp, B, B / nets, HW, scale, out, idx, count, s);
+    return launch_tc_np<64, ST, EPI, IN>(w, M, K, inp, B, B / nets, HW, scale, out, idx,
+                                         count, inh, beta_net, bias, s);
+  return launch_tc_np<128, ST, EPI, IN>(w, M, K, inp, B, B / nets, HW, scale, out, idx,
+                                        count, inh, beta_net, bias, s);
 }
 
 }  // namespace imnf

@@ -8,8 +8,10 @@ kernel at ``fused_solve.py:1689``; ``_final_primal_kernel`` :1440 and
 kernels hold one example's forward and tangent intermediates in VMEM and sum
 the weight gradients across the sequential grid; on Hopper both directions
 are sequences of batched kernels of ``csrc/estimator.cu`` on the conv
-templates of ``csrc/conv_gemm.cuh``, the two nets' examples stacked along
-the batch so that one launch covers both:
+templates of ``csrc/conv_gemm.cuh`` (in mode bf16 ``fp_conv_mid`` on the
+tensor cores, ``csrc/mma_gemm.cuh``, with W2 and W2^T cast to bfloat16 once
+by :func:`_weights`), the two nets' examples stacked along the batch so that
+one launch covers both:
 
 * primal: ``fp_conv_in`` (``h1 = W1 a0 + b1``, ``th1 = W1 ta0``,
   ``r2 = C3^T acc``), ``fp_conv_mid`` (``h2 = W2 swish(h1) + b2``,
@@ -54,7 +56,7 @@ from .fused_chain import _nets
 from .fused_solve import (MODES, _check_cuda, _launch, _mconv, _ptr, d2swish,
                           ddswish_dbeta, dswish, dswish_dbeta, prep_weight,
                           swish)
-from .implicit_grad import (ACTS, DATA_KEYS, _shapes, transpose_weights,
+from .implicit_grad import (ACTS, DATA_KEYS, _check_mid, _shapes, transpose_weights,
                             wgrad_splits)
 
 __all__ = ["fused_final_pair", "fused_final_pair_plain", "FINAL_MODES",
@@ -115,7 +117,7 @@ def _fp_conv_plain(inp, inh, w, bias, beta_net, act, mode, out, H, W, padding):
         x = inp[e].reshape(nb, -1, H, W)
         hh = None if inh is None else inh[e].reshape(x.shape)
         y = _mconv(_act(x, hh, None if beta_net is None else beta_net[n], act),
-                   (w[n], None), mode, padding)
+                   (w[n].to(x.dtype), None), mode, padding)
         if bias is not None:
             y = y + bias[n][None, :, None, None]
         out[e] = y.reshape(out[e].shape)
@@ -131,7 +133,7 @@ def _fp_conv(name, inp, inh, w, bias, beta_net, act, mode, out, H, W, mid):
         raise ValueError(f"act {act!r} needs beta_net")
     if act == "dswish" and inh is None:
         raise ValueError("act 'dswish' needs inh")
-    _check_cuda(inp=inp, inh=inh, w=w, bias=bias, beta_net=beta_net, out=out)
+    _check_cuda(inp=inp, inh=inh, bias=bias, beta_net=beta_net, out=out)
     _shapes(inh=(inh, inp.shape), bias=(bias, (N, mid)),
             beta_net=(beta_net, (N,)), out=(out, (Bt, mid, H * W)))
     args = [_mode(mode), ACTS[act], _ptr(w), _ptr(bias), _ptr(beta_net), _ptr(inp),
@@ -154,6 +156,7 @@ def fp_conv_in(inp, inh, w, bias, beta_net, act, mode, out):
     _, c, H, W = inp.shape
     if not inp.is_cuda:
         return _fp_conv_in_plain(inp, inh, w, bias, beta_net, act, mode, out)
+    _check_cuda(w=w)
     _shapes(w=(w, (w.shape[0], w.shape[1], c, 3, 3)))
     _fp_conv("imnf_fp_conv_in", inp, inh, w, bias, beta_net, act, mode, out, H, W,
              w.shape[1])
@@ -166,10 +169,13 @@ def _fp_conv_mid_plain(inp, inh, w, bias, beta_net, act, mode, out, H, W):
 
 def fp_conv_mid(inp, inh, w, bias, beta_net, act, mode, out, H, W):
     """out = W[n] act(inp) [+ bias[n]], a 1x1 conv mid -> mid per net;
-    inp, inh, out (N*nb, mid, H*W); w (N, mid, mid, 1, 1)."""
+    inp, inh, out (N*nb, mid, H*W); w (N, mid, mid, 1, 1) as
+    :func:`_weights` casts it: bfloat16 in mode bf16, which runs on the
+    tensor cores (``csrc/mma_gemm.cuh``), float32 in mode f32."""
     if not inp.is_cuda:
         return _fp_conv_mid_plain(inp, inh, w, bias, beta_net, act, mode, out, H, W)
     mid = inp.shape[1]
+    _check_mid(w, mode, mid, H * W, inp=inp, inh=inh, out=out)
     _shapes(inp=(inp, (inp.shape[0], mid, H * W)), w=(w, (w.shape[0], mid, mid, 1, 1)))
     _fp_conv("imnf_fp_conv_mid", inp, inh, w, bias, beta_net, act, mode, out, H, W,
              mid)
@@ -296,13 +302,18 @@ def reset_launch_counts() -> None:
 
 def _weights(datas, mode, dt):
     """Both nets' kernels prepared for mode (bf16-rounded in mode bf16),
-    stacked per net, with their transposes, biases and slopes."""
+    stacked per net, with their transposes, biases and slopes. The 1x1
+    kernels that fp_conv_mid reads, w2 and w2t (both nets' W2^T twice: the
+    backward's rh2 and p_h2 in one launch), are cast once here to
+    bfloat16 in mode bf16, exactly (the tensor cores' operand)."""
     prep = lambda w: prep_weight(w.detach().to(dt), mode)[0]
     st = lambda ws: torch.stack(ws).contiguous()
+    mid = lambda w: (w.to(torch.bfloat16) if mode == "bf16" else w).contiguous()
     tr = [transpose_weights(*(d[k].detach().to(dt) for k in ("w1", "w2", "w3")))
           for d in datas]
     wt = {k: st([prep(d[k]) for d in datas]) for k in ("w1", "w2")}
-    wt["w3t"], wt["w2t"], wt["w1t"] = (st([prep(t[i]) for t in tr]) for i in range(3))
+    wt["w3t"], w2t, wt["w1t"] = (st([prep(t[i]) for t in tr]) for i in range(3))
+    wt["w2"], wt["w2t"] = mid(wt["w2"]), mid(torch.cat([w2t] * 2))
     for k in ("b1", "b2"):
         wt[k] = st([d[k].detach().to(dt) for d in datas])
     wt["betas"] = st([d["betas"].detach().to(dt) for d in datas])  # (N, 3)
@@ -352,8 +363,8 @@ def _backward(ops, mode, wt, Hs, E, ACCW, preact, datas):
     ops["fp_second"](R2, None, H2, TH2, b2, RP2[0], RP2[1], db2, dbt2)
     # ra1 = W2^T rh2, p_a1 = W2^T p_h2: one launch, the nets' W2^T twice
     RA = new(2, Bt, mid, HW)
-    ops["fp_conv_mid"](RP2.view(2 * Bt, mid, HW), None, torch.cat([wt["w2t"]] * 2),
-                       None, None, "id", mode, RA.view(2 * Bt, mid, HW), H, W)
+    ops["fp_conv_mid"](RP2.view(2 * Bt, mid, HW), None, wt["w2t"], None, None, "id",
+                       mode, RA.view(2 * Bt, mid, HW), H, W)
     # rh1 = swish'(h1) ra1, p_h1 = swish'(h1) p_a1 + swish''(h1) th1 ra1
     RP1, db1, dbt1 = new(2, Bt, mid, HW), new(N, mid), new(N, mid)
     ops["fp_second"](RA[0], RA[1], H1, TH1, b1, RP1[0], RP1[1], db1, dbt1)

@@ -9,10 +9,11 @@ package. The TPU kernels hold one example's operands in VMEM per grid step;
 on Hopper both are host-driven sequences of batched kernels from
 ``csrc/implicit_grad.cu`` (that file's header says what bounds each on an
 H100 and what its design does about it), with the conv kernels shared with
-the forward solve through ``csrc/conv_gemm.cuh``. In mode bf16 two of them
+the forward solve through ``csrc/conv_gemm.cuh``. In mode bf16 three of them
 run on the tensor cores: ``jt_conv1x1_mid`` (``csrc/mma_gemm.cuh``, with
-W2^T cast to bfloat16 once per solve by :func:`prep_mid_weight`) and
-``rv_wgrad`` (``csrc/wgrad_tc.cuh``):
+W2^T cast to bfloat16 once per solve by :func:`prep_mid_weight`),
+``rv_wgrad`` (``csrc/wgrad_tc.cuh``) and ``rv_conv3x3_out``
+(``csrc/conv3x3_out_tc.cuh``):
 
 * backward solve ``u (I + J_gz) = grad``: per iteration ``jt_conv3x3_in`` ->
   ``jt_conv1x1_mid`` -> ``jt_conv3x3_out`` evaluate the residual
@@ -150,7 +151,8 @@ def prep_mid_weight(w, mode):
 
 
 def _check_mid(w, mode, K, HW, **tensors):
-    """Raise on what the 1x1 J^T kernels do not take: a kernel w not in
+    """Raise on what the 1x1 kernels of ``csrc/mma_gemm.cuh`` (the J^T
+    stages, the final pair's fp_conv_mid) do not take: a kernel w not in
     :func:`mid_weight_dtype`, and in mode bf16 (the tensor cores) K over
     TC_KMAX or not a multiple of 8, H*W not a multiple of 4, or a tensor not
     16-byte aligned."""
@@ -350,14 +352,22 @@ def _rv_conv3x3_out_plain(t, th, beta_in, idx, count, wp, mode, out, H, W):
 
 
 def rv_conv3x3_out(t, th, beta_in, idx, count, wp, mode, out, H, W):
-    """out[idx[s]] = C1^T (t[s] * swish'(th[s]; beta_in)): the last
-    cotangent product t0. wp the split of w1t (c, mid, 3, 3); out
-    (B, c*H*W)."""
+    """out[idx[s]] = C1^T (t[s] * swish'(th[s]; beta_in)) for live slots s:
+    the last cotangent product t0. wp the split of w1t (c, mid, 3, 3); out
+    (B, c*H*W). Mode bf16 runs on the tensor cores
+    (``csrc/conv3x3_out_tc.cuh``): it takes c <= 48, mid a multiple of 64,
+    W 8, 16 or 32, H a multiple of 8 and 16-byte aligned t and th."""
     if not t.is_cuda:
         return _rv_conv3x3_out_plain(t, th, beta_in, idx, count, wp, mode, out, H, W)
     B, mid, _ = t.shape
     c = wp[0].shape[0]
     _check_cuda(t=t, th=th, idx=idx, count=count, w_hi=wp[0], w_lo=wp[1], out=out)
+    if mode == "bf16":
+        if c > 48 or mid % 64 or W not in (8, 16, 32) or H % 8:
+            raise ValueError(f"rv_conv3x3_out in bf16 takes c <= 48, mid % 64 == 0, "
+                             f"W 8 | 16 | 32 and H % 8 == 0, not c {c}, mid {mid}, "
+                             f"H {H}, W {W}")
+        _check_aligned(t=t, th=th)
     _shapes(t=(t, (B, mid, H * W)), th=(th, t.shape), idx=(idx, (B,)),
             count=(count, (1,)), w=(wp[0], (c, mid, 3, 3)), out=(out, (B, c * H * W)))
     _run("imnf_rv_conv3x3_out", _mode(mode, REATTACH_MODES), _ptr(wp[0]),

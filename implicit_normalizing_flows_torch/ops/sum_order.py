@@ -1,16 +1,23 @@
-"""Plain versions of three kernels with their products summed exactly.
+"""Plain versions of four kernels with their products summed exactly, and
+one with its product summed in the tensor cores' order.
 
-Each function here is a kernel's plain version with its rounded (bf16, or
-split) product summed in float64 and rounded once to float32: the order of
-the float32 sums is taken out. Put in place of the plain version inside a
-whole function (the backward solve, the re-attachment VJP, the final pair),
-it reads that function's sum-order floor: how far any other order of that
-product's sums moves the function's outputs. A limit set below a floor fails
-every kernel that does not sum in the plain version's order.
+Each ``*_exact`` function here is a kernel's plain version with its rounded
+(bf16, or split) product summed in float64 and rounded once to float32: the
+order of the float32 sums is taken out. Put in place of the plain version
+inside a whole function (the backward solve, the re-attachment VJP, the
+final pair), it reads that function's sum-order floor: how far any other
+order of that product's sums moves the function's outputs. A limit set below
+a floor fails every kernel that does not sum in the plain version's order.
 
 * :func:`jt_conv1x1_mid_exact`: ``ops.implicit_grad._jt_conv1x1_mid_plain``.
 * :func:`rv_wgrad_exact`: ``ops.implicit_grad._rv_wgrad_plain``.
+* :func:`rv_conv3x3_out_exact`: ``ops.implicit_grad._rv_conv3x3_out_plain``.
 * :func:`fp_conv_mid_exact`: ``ops.fused_final._fp_conv_mid_plain``.
+
+:func:`fp_conv_mid_tiled` is ``_fp_conv_mid_plain`` in mode bf16 with its
+product summed as the tensor-core kernel (``csrc/mma_gemm.cuh``) sums it:
+each K tile of ``TC_BK`` channels into a fresh float32 partial, the partials
+added in order. It stands in for that kernel on the CPU.
 
 They run on whatever device their tensors lie on.
 """
@@ -19,9 +26,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .fused_solve import _split
+from .fused_solve import _split, dswish
 
-__all__ = ["jt_conv1x1_mid_exact", "rv_wgrad_exact", "fp_conv_mid_exact"]
+__all__ = ["jt_conv1x1_mid_exact", "rv_wgrad_exact", "rv_conv3x3_out_exact",
+           "fp_conv_mid_exact", "fp_conv_mid_tiled", "TC_BK"]
+
+TC_BK = 64  # the K tile of the tensor-core 1x1 product (csrc/mma_gemm.cuh)
 
 
 def _exact(x, w, mode, mm):
@@ -60,9 +70,19 @@ def rv_wgrad_exact(a, ah, beta_a, b, bh, beta_b, bin_, shift, mode, part, H, W):
         part[s] = _exact(A[:, k], Bm[:, k], mode, lambda x, y: x @ y.T)
 
 
-def fp_conv_mid_exact(inp, inh, w, bias, beta_net, act, mode, out, H, W):
-    """``_fp_conv_mid_plain`` with its product summed exactly (bias added
-    after the rounding, as the plain version adds it)."""
+def rv_conv3x3_out_exact(t, th, beta_in, idx, count, wp, mode, out, H, W):
+    """``_rv_conv3x3_out_plain`` with ``C1^T`` summed exactly."""
+    n = int(count.item())
+    mid = t.shape[1]
+    v = (t[:n] * dswish(th[:n], beta_in)).reshape(n, mid, H, W)
+    w = wp[0] if wp[1] is None else wp[0] + wp[1]  # splits again into (hi, lo)
+    y = _exact(v, w, mode, lambda x, k: F.conv2d(x, k, padding=1))
+    out[idx[:n].long()] = y.reshape(n, -1)
+
+
+def _fp_conv_mid_by(product, inp, inh, w, bias, beta_net, act, mode, out, H, W):
+    """``_fp_conv_mid_plain`` with ``product(a, w[n], mode)`` for its 1x1
+    product (bias added after it, as the plain version adds it)."""
     from . import fused_final as ff
 
     N, nb = ff._nets(w, inp.shape[0])
@@ -71,7 +91,32 @@ def fp_conv_mid_exact(inp, inh, w, bias, beta_net, act, mode, out, H, W):
         x = inp[e].reshape(nb, -1, H, W)
         h = None if inh is None else inh[e].reshape(x.shape)
         a = ff._act(x, h, None if beta_net is None else beta_net[n], act)
-        y = _exact(a, w[n], mode, F.conv2d)
+        y = product(a, w[n], mode)
         if bias is not None:
             y = y + bias[n][None, :, None, None]
         out[e] = y.reshape(out[e].shape)
+
+
+def fp_conv_mid_exact(inp, inh, w, bias, beta_net, act, mode, out, H, W):
+    """``_fp_conv_mid_plain`` with its product summed exactly."""
+    _fp_conv_mid_by(lambda a, k, m: _exact(a, k, m, F.conv2d), inp, inh, w, bias,
+                    beta_net, act, mode, out, H, W)
+
+
+def _tiled(a, k, mode):
+    """The bf16 1x1 product summed by K tiles: each tile's products into a
+    fresh float32 partial, the partials added in order."""
+    if mode != "bf16":
+        raise ValueError(f"the tensor cores' order is mode bf16's, not {mode!r}")
+    ah, kh = _split(a.float(), mode)[0], _split(k.float(), mode)[0]
+    acc = None
+    for k0 in range(0, a.shape[1], TC_BK):
+        part = F.conv2d(ah[:, k0:k0 + TC_BK], kh[:, k0:k0 + TC_BK])
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def fp_conv_mid_tiled(inp, inh, w, bias, beta_net, act, mode, out, H, W):
+    """``_fp_conv_mid_plain`` in mode bf16 with its product summed in the
+    tensor-core kernel's order (K tiles of ``TC_BK``)."""
+    _fp_conv_mid_by(_tiled, inp, inh, w, bias, beta_net, act, mode, out, H, W)

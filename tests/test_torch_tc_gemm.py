@@ -1,7 +1,7 @@
 """The Python side of the 1x1 products of mode bf16 on the CPU: the
-Neumann chain's ``nc_jt_mid``, whose kernel runs on the tensor cores
-(``csrc/mma_gemm.cuh``), and the final pair's ``fp_conv_mid``, whose kernel
-stays on the CUDA cores (it sums in its plain version's order).
+Neumann chain's ``nc_jt_mid`` and the final pair's ``fp_conv_mid``, whose
+kernels run on the tensor cores (``csrc/mma_gemm.cuh``; the kernel's sum
+order for ``fp_conv_mid`` is ``test_torch_tc_order.py``'s).
 
 * The once-per-step weight preparation: in mode bf16 the kernel that
   ``nc_jt_mid`` reads (``chain_operands``' W2T) is bfloat16, contiguous, in
