@@ -1,7 +1,8 @@
 """Readings for comparing two trees of the port on one NVIDIA GPU (H100).
 
     python3 chip_ab.py checks    # chip_smoke.py phases 6 and 9
-    python3 chip_ab.py kernels   # device times of four bf16 products
+    python3 chip_ab.py kernels   # device times of the tensor-core products
+    python3 chip_ab.py step      # the main path's step and the eval batch
 
 Run from the root of a checkout; it drives the port and the chip_smoke.py
 found there. To read another commit (a parent) with this commit's checks,
@@ -15,11 +16,20 @@ kernel times, run ``kernels`` in both trees in one call, in turns.
   on the real inputs of one training step from the committed checkpoint.
   Every reading is printed; a failed phase is reported and the other still
   runs; the exit code is 1 if any failed.
+* ``step``: the main path, chip_smoke.py's flagship at --mem-eff False
+  from the committed checkpoint: 5 settle and 5 timed training steps (host
+  clock; their median) and one profiled step (device busy time, the union
+  of the kernels' intervals, and the idle share), then one profiled eval
+  batch (the same readings).
 * ``kernels``: device time per call (CUDA events around 30 calls, after a
-  warm-up) of nc_jt_mid, jt_conv1x1_mid, fp_conv_mid (th2's dswish form)
-  and rv_conv3x3_out in mode bf16, on seeded random inputs at the
-  flagship's 32x32 shapes (batch 64, mid 512, c 3; both nets for the
-  estimator's two), and rv_conv3x3_out's error against its plain version.
+  warm-up) of nc_jt_mid, jt_conv1x1_mid, fp_conv_mid (th2's dswish form),
+  rv_conv3x3_out and rv_conv1x1_mid (h2's swish and t1's dswish forms) in
+  mode bf16 and conv1x1_mid in tf32 and tf32x, on seeded random inputs at
+  the flagship's 32x32 shapes (batch 64, mid 512, c 3; both nets for the
+  estimator's two), and rv_conv3x3_out's, rv_conv1x1_mid's and
+  conv1x1_mid's errors against their plain versions. A tree from before
+  conv1x1_mid / rv_conv1x1_mid took their tensor-core weights gets its own
+  float32 ones (and rv_conv1x1_mid its slope as a float).
 
 Each run prints the card's name and power limit first. Without a CUDA
 device it exits non-zero.
@@ -78,9 +88,10 @@ def kernels():
     from implicit_normalizing_flows_torch.ops import cuda_build
     from implicit_normalizing_flows_torch.ops import fused_chain as fc
     from implicit_normalizing_flows_torch.ops import fused_final as ff
+    from implicit_normalizing_flows_torch.ops import fused_solve as fs
     from implicit_normalizing_flows_torch.ops import implicit_grad as ig
 
-    cuda_build.build_all(["implicit_grad", "estimator"])
+    cuda_build.build_all(["fused_solve", "implicit_grad", "estimator"])
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     r = lambda *s: torch.randn(*s, generator=g, device=dev)
@@ -105,37 +116,93 @@ def kernels():
     t2, s1 = r(2 * B, mid, HW), u(2 * B, mid, HW).to(torch.bfloat16)
     w2t = (0.04 * r(2, mid, mid, 1, 1)).to(torch.bfloat16)
     w1t = (0.02 * r(c, mid, 3, 3)).to(torch.bfloat16).float()
+    w2f = 0.04 * r(mid, mid, 1, 1)
+    b2 = 0.1 * r(mid)
     beta = torch.tensor([1.1, 0.9], device=dev)
-    # a tree before the tensor-core fp_conv_mid takes its kernel in float32
-    w2 = w2t if hasattr(ff, "_check_mid") else w2t.float()
     o1, o2 = torch.empty(B, mid, HW, device=dev), torch.empty(2 * B, mid, HW, device=dev)
     o3, o4 = (torch.empty(B, c * HW, device=dev) for _ in range(2))
-    times = {
-        "nc_jt_mid": ms(lambda: fc.nc_jt_mid(t2, w2t, s1, "bf16", o2, H, H)),
-        "jt_conv1x1_mid": ms(lambda: ig.jt_conv1x1_mid(t, idx, cnt, (w2t[0], None), s1[:B],
-                                                       "bf16", o1, H, H)),
-        "fp_conv_mid (dswish)": ms(lambda: ff.fp_conv_mid(t2, t2, w2, None, beta, "dswish",
-                                                         "bf16", o2, H, H)),
-        "rv_conv3x3_out": ms(lambda: ig.rv_conv3x3_out(t, th, 1.1, idx, cnt, (w1t, None),
-                                                       "bf16", o3, H, H)),
-    }
+    o5 = torch.empty(B, mid, HW, device=dev)
+    # the tensors whose form depends on the tree come last, so that every
+    # other tensor lies at the same address in both trees
+    # a tree before the tensor-core fp_conv_mid takes its kernel in float32
+    w2 = w2t if hasattr(ff, "_check_mid") else w2t.float()
+    # a tree before the tensor-core conv1x1_mid / rv_conv1x1_mid: float32
+    # weights, the slope as a float
+    split_w = getattr(fs, "prep_conv1x1_mid", lambda wp, m: wp)
+    tc_rv = hasattr(ig, "prep_rv_mid_weight")
+    rv_w = ig.prep_rv_mid_weight(w2f, "bf16") if tc_rv else ig.prep_weight(w2f, "bf16")
+    rv_beta = (lambda i: beta[i:i + 1]) if tc_rv else (lambda i: float(beta[i]))
+    times, errs = {}, {}
+    times["nc_jt_mid"] = ms(lambda: fc.nc_jt_mid(t2, w2t, s1, "bf16", o2, H, H))
+    times["jt_conv1x1_mid"] = ms(lambda: ig.jt_conv1x1_mid(t, idx, cnt, (w2t[0], None), s1[:B],
+                                                           "bf16", o1, H, H))
+    times["fp_conv_mid (dswish)"] = ms(lambda: ff.fp_conv_mid(t2, t2, w2, None, beta, "dswish",
+                                                              "bf16", o2, H, H))
+    times["rv_conv3x3_out"] = ms(lambda: ig.rv_conv3x3_out(t, th, 1.1, idx, cnt, (w1t, None),
+                                                           "bf16", o3, H, H))
     ig._rv_conv3x3_out_plain(t, th, 1.1, idx, cnt, (w1t, None), "bf16", o4, H, H)
     torch.cuda.synchronize()
-    err = float((o3 - o4).abs().max() / o4.abs().max())
+    errs["rv_conv3x3_out"] = float((o3 - o4).abs().max() / o4.abs().max())
+    for act, inh, bias, i in (("swish", t, b2, 0), ("dswish", th, None, 1)):
+        run = lambda f, o: f(t, inh, cnt, rv_w, bias, 1.0, rv_beta(i), act, "bf16", o, H, H)
+        name = f"rv_conv1x1_mid ({act})"
+        times[name] = ms(lambda: run(ig.rv_conv1x1_mid, o1))
+        run(ig._rv_conv1x1_mid_plain, o5)
+        torch.cuda.synchronize()
+        errs[name] = float((o1 - o5).abs().max() / o5.abs().max())
+    for mode in ("tf32", "tf32x"):
+        wp = split_w(fs.prep_weight(w2f, mode), mode)
+        run = lambda f, o: f(t, cnt, wp, b2, 1.1, mode, o, H, H)
+        name = f"conv1x1_mid ({mode})"
+        times[name] = ms(lambda: run(fs.conv1x1_mid, o1))
+        run(fs._conv1x1_mid_plain, o5)
+        torch.cuda.synchronize()
+        errs[name] = float((o1 - o5).abs().max() / o5.abs().max())
     for name, v in times.items():
-        print(f"kernel {name} 32x32 bf16: {v:.4f} ms", flush=True)
-    print(f"rv_conv3x3_out max_rel_err against its plain version {err:.3e}", flush=True)
+        print(f"kernel {name} 32x32: {v:.4f} ms", flush=True)
+    for name, v in errs.items():
+        print(f"{name} max_rel_err against its plain version {v:.3e}", flush=True)
+    return 0
+
+
+def step():
+    import chip_smoke as cs
+    from implicit_normalizing_flows_torch.data import synthetic_structured
+    from implicit_normalizing_flows_torch.ops import cuda_build
+    from implicit_normalizing_flows_torch.ops.logdet import Draws
+    from implicit_normalizing_flows_torch.training import (adam, linear_warmup,
+                                                           make_image_eval_step,
+                                                           make_image_train_step)
+
+    dev = torch.device("cuda")
+    cuda_build.build_all(list(cs.SOURCES))
+    x_u8 = torch.from_numpy(synthetic_structured(cs.BATCH, 3, cs.SIZE, cs.SIZE, seed=1))
+    tdraws = lambda i: Draws(torch.Generator(device=dev).manual_seed(2000 + i))
+    model = cs.build_model(dev, grad_in_forward=False)
+    opt = adam(linear_warmup(1e-3, 1000), betas=(0.9, 0.99), grad_clip=1.0)
+    train = make_image_train_step(model, opt, ema_decay=0.999, n_lipschitz_iters=None,
+                                  imagesize=cs.SIZE)
+    cs.train_steps(train, x_u8, tdraws, 0, cs.SETTLE_STEPS)
+    timed = sorted(t for _, t in cs.train_steps(train, x_u8, tdraws, cs.SETTLE_STEPS,
+                                                cs.TIMED_STEPS))
+    cs.log(f"--mem-eff False step: median {timed[len(timed) // 2]:.1f} ms")
+    cs.profile_train_step(train, x_u8, tdraws(cs.SETTLE_STEPS + cs.TIMED_STEPS))
+    draws = lambda i: Draws(torch.Generator(device=dev).manual_seed(1000 + i))
+    evaluate = make_image_eval_step(model, imagesize=cs.SIZE)
+    evaluate(x_u8, draws(0))  # warm-up
+    cs.profile_batch(model, evaluate, x_u8, draws(0))
     return 0
 
 
 def main():
-    if not torch.cuda.is_available() or len(sys.argv) != 2 or sys.argv[1] not in (
-            "checks", "kernels"):
-        print("usage, on a CUDA device: python3 chip_ab.py checks|kernels", file=sys.stderr)
+    modes = {"checks": checks, "kernels": kernels, "step": step}
+    if not torch.cuda.is_available() or len(sys.argv) != 2 or sys.argv[1] not in modes:
+        print("usage, on a CUDA device: python3 chip_ab.py checks|kernels|step",
+              file=sys.stderr)
         return 1
     print(card(), flush=True)
     t0 = time.perf_counter()
-    rc = checks() if sys.argv[1] == "checks" else kernels()
+    rc = modes[sys.argv[1]]()
     print(f"{sys.argv[1]}: {time.perf_counter() - t0:.1f} s", flush=True)
     return rc
 

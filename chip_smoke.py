@@ -16,13 +16,20 @@ Phases (any failure exits non-zero; nothing is caught):
      conv kernel in tf32 against its plain version in tf32 and against two
      controls that must read above the limit, the plain version in f32 and
      native TF32 emulated (both operands rounded to 10 mantissa bits), and
-     in tf32x against plain tf32x and the control plain tf32;
+     in tf32x against plain tf32x and the control plain tf32; conv1x1_mid
+     runs tf32 and tf32x on the tensor cores (csrc/mma_gemm.cuh, the bf16
+     split's 3 or 4 passes) and is also timed in tf32x;
   3. the whole fused forward solve against its plain version, per scale and
-     mode;
+     mode, each run beside its sum-order floor (the plain solve with
+     conv1x1_mid summed exactly, ops/sum_order.py, against the plain solve:
+     max|dz|, |d nstep| counts, flags that differ), every reading printed
+     before any limit is checked;
   4. the flagship evaluation (bits/dim of 64 structured-synthetic images,
      seed 1) through the port's entry points, with the forward-solve
-     kernels' launch counts over that run, and the plain path's bpd on the
-     same draws;
+     kernels' launch counts over that run, a profiled batch (which must
+     record conv1x1_mid's tensor-core kernel as often as the wrapper
+     launched it in the split modes), and the plain path's bpd on the same
+     draws;
   5. each implicit-gradient kernel (backward solve, re-attachment VJP)
      against its plain version at the flagship's shapes, on the blocks' real
      inputs and cotangents captured from one training step, in bf16 and f32:
@@ -30,16 +37,18 @@ Phases (any failure exits non-zero; nothing is caught):
      and a library call's time; in bf16 also the control, the plain version
      in mode f32 on the same inputs against the bf16 one, which must lie
      above the limit. rv_wgrad is read at every weight gradient the
-     re-attachment launches (dW2, dW3, dW1 with and without preact), and
-     jt_conv1x1_mid and rv_conv3x3_out also on a partial active list (count
-     B/2, a permuted idx), whose dead slots (examples) must stay bitwise
-     untouched. In mode bf16 these three run on the tensor cores
-     (jt_conv1x1_mid on csrc/mma_gemm.cuh, rv_wgrad on csrc/wgrad_tc.cuh,
+     re-attachment launches (dW2, dW3, dW1 with and without preact),
+     rv_conv1x1_mid in both its forms (h2, swish; t1, swish'), and
+     jt_conv1x1_mid, rv_conv3x3_out and rv_conv1x1_mid also on a partial
+     active list (count B/2, a permuted idx; rv_conv1x1_mid takes the count
+     alone), whose dead slots (examples) must stay bitwise untouched. In
+     mode bf16 these four run on the tensor cores (jt_conv1x1_mid and
+     rv_conv1x1_mid on csrc/mma_gemm.cuh, rv_wgrad on csrc/wgrad_tc.cuh,
      rv_conv3x3_out on csrc/conv3x3_out_tc.cuh);
   6. the whole backward solve and the whole re-attachment VJP against their
      plain versions, per scale and mode, each rounding mode with its
      control and its sum-order floors (the plain path with jt_conv1x1_mid;
-     or with rv_wgrad, then rv_conv3x3_out, summed exactly:
+     or with rv_wgrad, rv_conv3x3_out or rv_conv1x1_mid summed exactly:
      ops/sum_order.py);
   7. flagship training steps (batch 64, --mem-eff True) from the committed
      checkpoint with Adam, warmup, power iteration and EMA as the benchmark
@@ -72,11 +81,11 @@ Phases (any failure exits non-zero; nothing is caught):
      chains, final-pair primal and backward, backward solves,
      re-attachments, update, rest), a profiled step (which must record each
      tensor-core kernel, TC_ROUTES, as many times as its wrapper launched
-     it, none of the CUDA-core bf16 instantiations they replaced, and the
-     ones fp_conv_mid shared with rv_conv1x1_mid as often as that launched;
-     a step whose record lost launches is profiled again, up to
-     ROUTE_ATTEMPTS times; the profiled steps of phases 7 and 16 are held to
-     the same), and the step
+     it there, the instantiations fp_conv_mid and rv_conv1x1_mid share as
+     often as the two launched them together, and none of the CUDA-core
+     instantiations they replaced; a step whose record lost launches is
+     profiled again, up to ROUTE_ATTEMPTS times; the profiled steps of
+     phases 7 and 16 are held to the same), and the step
      with all five plain versions forced against the kernels';
  11. the generic Broyden solver's rank-1 update (csrc/broyden_update.cu)
      against its plain version at the tabular POWER recipe's shapes (B 1000
@@ -228,38 +237,51 @@ FINAL_TOL = {"f32": 1e-5, "bf16": 1e-5}
 # chain runs in bf16 and re-rounds every stage (phase 9's ties), its control
 # the f32 chain. The one-net chain is phase 9's chain on one net.
 BLOCK_ACC_TOL = {"f32": 1e-4, "tf32": 5e-4}
-# The wrappers whose mode bf16 runs on the tensor cores, each with its
-# kernel's profiler name, source and instruction: the 1x1 products on
-# mma_gemm.cuh's tc_conv1x1_kernel<NP, ST, EPI, IN> (nc_jt_mid EPI_SCALE_RND
-# 3, jt_conv1x1_mid EPI_SCALE 2, both IN_ID 0; fp_conv_mid EPI_AFFINE 1 with
-# IN_ID, IN_SWISH or IN_DSWISH), rv_wgrad on wgrad_tc.cuh's product (after
-# its two bf16 pre-passes, wgrad_prep_kernel) and rv_conv3x3_out on
-# conv3x3_out_tc.cuh. A profiled training step must record each as many
-# times as its wrapper launched it, and none of the CUDA-core
-# instantiations they replaced (MODE_BF16 = 1): conv_gemm_kernel<1, SRC 1,
-# IN_ID, EPI_AFFINE | EPI_SCALE | EPI_SCALE_RND> and conv3x3_out_kernel<1,
-# IN_DSWISH, ...>, which only those stages made, and every wgrad_kernel<1,
-# ...>. fp_conv_mid's swish and swish' instantiations, conv_gemm_kernel<1,
-# 1, IN_SWISH | IN_DSWISH, EPI_AFFINE>, are rv_conv1x1_mid's too, which
-# stays on them (SHARED_SIMT): they must be recorded exactly as often as
-# rv_conv1x1_mid launched.
+# The wrappers that run on the tensor cores (mode bf16; conv1x1_mid in
+# tf32 / tf32x), each with its kernel's profiler name, source and
+# instruction: the 1x1 products on mma_gemm.cuh's tc_conv1x1_kernel<NP, ST,
+# EPI, IN, PASSES> (nc_jt_mid EPI_SCALE_RND 3, jt_conv1x1_mid EPI_SCALE 2,
+# both IN_ID 0; fp_conv_mid EPI_AFFINE 1 with IN_ID, IN_SWISH or
+# IN_DSWISH; rv_conv1x1_mid EPI_AFFINE 1 with IN_SWISH or IN_DSWISH; all
+# PASSES 1; conv1x1_mid EPI_SWISH 0, IN_ID, PASSES 3 / 4 at NP 64),
+# rv_wgrad on wgrad_tc.cuh's product (after its two bf16 pre-passes,
+# wgrad_prep_kernel) and rv_conv3x3_out on conv3x3_out_tc.cuh. A profiled
+# training step (and the eval profile, for conv1x1_mid) must record each as
+# many times as its wrapper launched it there (conv1x1_mid: its launches in
+# the split modes, TC_COUNT), and none of the CUDA-core instantiations they
+# replaced: conv_gemm_kernel<MODE_BF16 1, SRC 1, IN_ID, EPI_AFFINE |
+# EPI_SCALE | EPI_SCALE_RND> and <1, 1, IN_SWISH | IN_DSWISH, EPI_AFFINE>,
+# conv_gemm_kernel<MODE_TF32 2 | MODE_TF32X 3, 1, IN_ID, EPI_SWISH>,
+# conv3x3_out_kernel<1, IN_DSWISH, ...> and every wgrad_kernel<1, ...>,
+# which only those stages made. fp_conv_mid and rv_conv1x1_mid share the
+# swish and swish' instantiations (SHARED_TC): the profiler records them
+# under one name, so a step must record them as often as the two wrappers
+# launched them together.
 TC_ROUTES = {
-    "nc_jt_mid": (re.compile(r"tc_conv1x1_kernel<\d+, ?[\w:]+, ?3, ?0>"),
+    "nc_jt_mid": (re.compile(r"tc_conv1x1_kernel<\d+, ?[\w:]+, ?3, ?0, ?1>"),
                   "implicit_normalizing_flows_torch/csrc/mma_gemm.cuh", "wgmma bf16"),
-    "jt_conv1x1_mid": (re.compile(r"tc_conv1x1_kernel<\d+, ?[\w:]+, ?2, ?0>"),
+    "jt_conv1x1_mid": (re.compile(r"tc_conv1x1_kernel<\d+, ?[\w:]+, ?2, ?0, ?1>"),
                        "implicit_normalizing_flows_torch/csrc/mma_gemm.cuh", "wgmma bf16"),
-    "fp_conv_mid": (re.compile(r"tc_conv1x1_kernel<\d+, ?float, ?1, ?[012]>"),
+    "fp_conv_mid": (re.compile(r"tc_conv1x1_kernel<\d+, ?float, ?1, ?[012], ?1>"),
                     "implicit_normalizing_flows_torch/csrc/mma_gemm.cuh", "wgmma bf16"),
+    "rv_conv1x1_mid": (re.compile(r"tc_conv1x1_kernel<\d+, ?float, ?1, ?[12], ?1>"),
+                       "implicit_normalizing_flows_torch/csrc/mma_gemm.cuh", "wgmma bf16"),
+    "conv1x1_mid": (re.compile(r"tc_conv1x1_kernel<64, ?float, ?0, ?0, ?[34]>"),
+                    "implicit_normalizing_flows_torch/csrc/mma_gemm.cuh",
+                    "wgmma bf16, the 3- or 4-pass split of tf32 / tf32x; f32 on CUDA cores"),
     "rv_wgrad": (re.compile(r"wgrad_tc_kernel<"),
                  "implicit_normalizing_flows_torch/csrc/wgrad_tc.cuh", "wgmma bf16"),
     "rv_conv3x3_out": (re.compile(r"conv3x3_out_tc_kernel<"),
                        "implicit_normalizing_flows_torch/csrc/conv3x3_out_tc.cuh",
                        "mma.sync bf16"),
 }
+TC_SPLIT = "conv1x1_mid (tensor cores)"  # launch_counts()'s key of those launches
+TC_COUNT = {"conv1x1_mid": TC_SPLIT}  # the count a route is held to, where not its wrapper's
+SHARED_TC = [("fp_conv_mid", "rv_conv1x1_mid")]
 ESTIMATOR_ONLY = ("nc_jt_mid", "fp_conv_mid")  # run only in --mem-eff False's estimator
-REPLACED_SIMT = re.compile(r"conv_gemm_kernel<1, ?1, ?0, ?[123],|conv3x3_out_kernel<1, ?2,"
+REPLACED_SIMT = re.compile(r"conv_gemm_kernel<1, ?1, ?0, ?[123],|conv_gemm_kernel<1, ?1, ?[12], ?1,"
+                           r"|conv_gemm_kernel<[23], ?1, ?0, ?0,|conv3x3_out_kernel<1, ?2,"
                            r"|wgrad_kernel<1,")
-SHARED_SIMT = {"rv_conv1x1_mid": re.compile(r"conv_gemm_kernel<1, ?1, ?[12], ?1,")}
 ROUTE_ATTEMPTS = 3  # profiled steps that may show the routes (train_path)
 TAB_DIM, TAB_BATCH, TAB_EVAL_BATCH = 6, 1000, 4000
 TAB_WARMUP, TAB_SETTLE, TAB_TIMED = 110, 5, 10
@@ -422,12 +444,15 @@ def check_kernels(blocks, mode="tf32"):
                 (t1k, t1p),
                 4 * (B * D + 2 * w1.numel() + mid + B * mid * HW),
                 B * mid * c * 9 * HW),
+            # modes tf32 / tf32x on the tensor cores: W2's bf16 halves
+            # (2 bytes an entry each)
             "conv1x1_mid": (
-                lambda: fs.conv1x1_mid(t1p, cnt, wp["w2"], b2, betas[2], mode, t2k, H, W),
-                lambda: fs._conv1x1_mid_plain(t1p, cnt, wp["w2"], b2, betas[2], mode, t2p, H, W),
+                lambda: fs.conv1x1_mid(t1p, cnt, wp["w2_mid"], b2, betas[2], mode, t2k, H, W),
+                lambda: fs._conv1x1_mid_plain(t1p, cnt, wp["w2_mid"], b2, betas[2], mode, t2p,
+                                              H, W),
                 lambda: torch.nn.functional.conv2d(t1p.view(B, mid, H, W), w2, b2),
                 (t2k, t2p),
-                4 * (2 * B * mid * HW + 2 * w2.numel() + mid),
+                4 * (2 * B * mid * HW + mid) + 4 * w2.numel(),
                 B * mid * mid * HW),
             "conv3x3_out": (
                 lambda: fs.conv3x3_out(t2p, idx, cnt, wp["w3"], b3, mode, xf, -1.0, xf, gk, H, W),
@@ -437,7 +462,13 @@ def check_kernels(blocks, mode="tf32"):
                 4 * (B * mid * HW + 2 * w3.numel() + c + 3 * B * D),
                 B * c * mid * 9 * HW),
         }
+        wx = fs.prep_weights(data, "tf32x")["w2_mid"]
+        calls["conv1x1_mid (tf32x)"] = (
+            lambda: fs.conv1x1_mid(t1p, cnt, wx, b2, betas[2], "tf32x", t2k, H, W),
+            lambda: fs._conv1x1_mid_plain(t1p, cnt, wx, b2, betas[2], "tf32x", t2p, H, W),
+            *calls["conv1x1_mid"][2:])
         for name, (kern, plain, lib, (out_k, out_p), nbytes, macs) in calls.items():
+            m = "tf32x" if name.endswith("(tf32x)") else mode
             plain()
             kern()
             torch.cuda.synchronize()
@@ -445,10 +476,11 @@ def check_kernels(blocks, mode="tf32"):
             # float32 sums in another order over K <= 4608 products
             assert math.isfinite(err) and err <= SPLIT_TOL, (name, s, err)
             ms, pms, lms = (device_ms(lambda i, f=f: f()) for f in (kern, plain, lib))
-            bms, by = bound_ms(nbytes, macs, mode)
-            log(f"kernel {name} scale{s} ({c}x{H}x{W}, B={B}, {mode}): "
+            bms, by = bound_ms(nbytes, macs, m)
+            log(f"kernel {name} scale{s} ({c}x{H}x{W}, B={B}, {m}): "
                 f"max_rel_err {err:.3e} ms {ms:.4f} plain_ms {pms:.4f} "
-                f"library_ms {lms:.4f} bound_ms {bms:.4f} ({by})")
+                f"library_ms {lms:.4f} bound_ms {bms:.4f} ({by}) share {bms / ms:.3f} "
+                f"bytes/s {nbytes / ms * 1e3:.4g}")
             rows.setdefault(name, {})[s] = dict(
                 max_abs_err=float((out_k - out_p).abs().max()), ms=ms,
                 plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=by)
@@ -508,7 +540,7 @@ def check_kernels(blocks, mode="tf32"):
         def conv_mid(f):
             def run(m, x, w):
                 o = torch.zeros(PB, mid, HW, device=dev)
-                f(x, pcnt, fs.prep_weight(w, m), zm, 1.0, m, o, H, W)
+                f(x, pcnt, fs.prep_conv1x1_mid(fs.prep_weight(w, m), m), zm, 1.0, m, o, H, W)
                 return [o]
             return run
 
@@ -576,8 +608,13 @@ def check_solves(blocks):
     the tolerance is noise there: those runs are held to equal converged and
     protective-break flags and close roots. Per-example iteration counts
     must agree within one where the tolerance lies above the floor: in f32,
-    and in the split modes at eps 1e-5."""
+    and in the split modes at eps 1e-5. Each run also reads its sum-order
+    floor: the plain solve with conv1x1_mid summed exactly
+    (ops/sum_order.py) against the plain solve, by the same measures (no
+    limit is held to it). Every reading is printed before any limit is
+    checked."""
     from implicit_normalizing_flows_torch.ops import fused_solve as fs
+    from implicit_normalizing_flows_torch.ops import sum_order as so
 
     kw = dict(threshold=30, stall_patience=5, stall_rtol=0.05, stall_guard=3.0,
               newton_init=True, warm_start=True)
@@ -585,6 +622,19 @@ def check_solves(blocks):
     configs = [("f32", 1e-6, {}), ("tf32", 1e-6, {}), ("tf32x", 1e-6, {}),
                ("tf32", 1e-6, ladder(15)), ("tf32", 1e-5, {}),
                ("tf32x", 1e-5, {}), ("tf32", 1e-5, ladder(6))]
+    exact_ops = dict(fs._PLAIN, conv1x1_mid=so.conv1x1_mid_exact)
+    full = dict(stall_guard=None, newton_init=False, warm_start=False, tail_mode=None,
+                tail_start=None, line_search=False)
+
+    def against(r, ref):
+        """(max|dz|, |d nstep| counts, max |d nstep|, examples whose
+        converged flag differs, whose protective break differs)."""
+        dn = (r.nstep - ref.nstep).abs().long()
+        return (float((r.result - ref.result).abs().max()), torch.bincount(dn).tolist(),
+                int(dn.max()), int((r.converged != ref.converged).sum()),
+                int((r.prot_break != ref.prot_break).sum()))
+
+    fails = []
     for s, (block, x) in enumerate(blocks):
         dx = block.nnet_x.conv_forward_data()
         dz = block.nnet_z.conv_forward_data()
@@ -599,27 +649,33 @@ def check_solves(blocks):
                                                   **kw, **extra)
                 torch.cuda.synchronize()
                 tp = time.perf_counter() - t0
-                dz_max = float((rk.result - rp.result).abs().max())
-                dn = (rk.nstep - rp.nstep).abs().long()
+                rx = fs._solve(x, dx, dz, exact_ops, **dict(full, **kw, **extra), mode=mode,
+                               eps=eps)[0]
+                dz_max, counts, dn_max, dconv, dprot = against(rk, rp)
+                fz, fcounts, fdn, fconv, fprot = against(rx, rp)
                 label = f"{mode}{'+ladder' if extra else ''} eps {eps:g}"
                 log(f"solve scale{s} {label}: max|dz| {dz_max:.3e} "
-                    f"|d nstep| counts {torch.bincount(dn).tolist()} "
+                    f"|d nstep| counts {counts} "
                     f"nstep mean {rk.nstep.float().mean():.2f}/{rp.nstep.float().mean():.2f} "
                     f"converged {rk.converged.float().mean():.3f}/{rp.converged.float().mean():.3f} "
                     f"prot {int(rk.prot_break.sum())}/{int(rp.prot_break.sum())} "
-                    f"s {tk:.3f}/{tp:.3f} (kernels/plain)")
-                assert torch.isfinite(rk.result).all()
-                assert torch.equal(rk.prot_break, rp.prot_break), (s, label)
-                assert torch.equal(rk.converged, rp.converged), (s, label)
-                assert dz_max <= 5e-4, (s, label, dz_max)
-                if mode == "f32" or eps > 1e-6:
-                    assert int(dn.max()) <= 1, (s, label, int(dn.max()))
+                    f"s {tk:.3f}/{tp:.3f} (kernels/plain); sum-order floor (conv1x1_mid "
+                    f"exact vs plain): max|dz| {fz:.3e} |d nstep| counts {fcounts} "
+                    f"converged flags differing {fconv} prot flags differing {fprot}")
+                if not torch.isfinite(rk.result).all():
+                    fails.append((s, label, "non-finite root"))
+                if dprot or dconv or not dz_max <= 5e-4:
+                    fails.append((s, label, "flags or dz", dprot, dconv, dz_max))
+                if (mode == "f32" or eps > 1e-6) and dn_max > 1:
+                    fails.append((s, label, "nstep", dn_max))
+    assert not fails, ("phase 3 (scale, run, what, readings)", fails)
 
 
 def profile_batch(model, step, x_u8, draws):
     """Device time by kernel over one main-path batch, the device's idle
     share (1 - busy time / wall time, :func:`device_busy`), and the host-clock time
-    spent in the blocks' solves (synchronised around each)."""
+    spent in the blocks' solves (synchronised around each); returns the
+    kernels' profiler records."""
     from torch.profiler import ProfilerActivity, profile
 
     solve_ms = []
@@ -658,6 +714,7 @@ def profile_batch(model, step, x_u8, draws):
         f"{ours:.1f} ms, other device work {total - ours:.1f} ms")
     for e in sorted(events, key=_self_ms, reverse=True)[:15]:
         log(f"  {_self_ms(e):9.2f} ms  x{e.count:<5d} {e.key[:110]}")
+    return events
 
 
 def rel_max(a, b):
@@ -755,9 +812,11 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
             src = (ig.transpose_weights(w1c.float(), w2c.float(), w3c.float())
                    + (w1, w2) + ig.transpose_weights(w1, w2, w3))
             # (jt3, jt2, jt1, f1, f2, t3, t2, t1) prepared for mode m, jt2 as
-            # the backward solve prepares it (bfloat16 in mode bf16)
-            prep = lambda m: [ig.prep_mid_weight(w, m) if i == 1 else prep_weight(w, m)
-                              for i, w in enumerate(src)]
+            # the backward solve prepares it and f2, t2 as the re-attachment
+            # does (bfloat16 in mode bf16)
+            prep = lambda m: [ig.prep_mid_weight(w, m) if i == 1
+                              else ig.prep_rv_mid_weight(w, m) if i in (4, 6)
+                              else prep_weight(w, m) for i, w in enumerate(src)]
             jt3, jt2, jt1, f1, f2, t3, t2, t1 = prep(mode)
             # plain outputs first: each later kernel takes the plain result
             # of the one before as its input
@@ -817,10 +876,15 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
                         lambda: F.conv2d(lib(x), lib(w1), lib(bb1), padding=1),
                         (B, mid, HW), (x, f1[0], bb1), B * mid * c * 9 * HW),
                     "rv_conv1x1_mid": (
-                        lambda o: ig.rv_conv1x1_mid(P["H1"], P["H1"], cnt, f2, bb2, 1.0, b1, "swish", m, o, H, W),
-                        lambda o: ig._rv_conv1x1_mid_plain(P["H1"], P["H1"], cnt, f2, bb2, 1.0, b1, "swish", m, o, H, W),
+                        lambda o: ig.rv_conv1x1_mid(P["H1"], P["H1"], cnt, f2, bb2, 1.0, bd[1:2], "swish", m, o, H, W),
+                        lambda o: ig._rv_conv1x1_mid_plain(P["H1"], P["H1"], cnt, f2, bb2, 1.0, bd[1:2], "swish", m, o, H, W),
                         lambda: F.conv2d(lib(swish(P["H1"], b1)).view(B, mid, H, W), lib(w2), lib(bb2)),
                         (B, mid, HW), (P["H1"], f2[0], bb2), B * mid * mid * HW),
+                    "rv_conv1x1_mid (dswish)": (
+                        lambda o: ig.rv_conv1x1_mid(P["C2"], P["H2"], cnt, t2, None, 1.0, bd[2:3], "dswish", m, o, H, W),
+                        lambda o: ig._rv_conv1x1_mid_plain(P["C2"], P["H2"], cnt, t2, None, 1.0, bd[2:3], "dswish", m, o, H, W),
+                        lambda: F.conv_transpose2d(lib(P["C2"] * dswish(P["H2"], b2)).view(B, mid, H, W), lib(w2)),
+                        (B, mid, HW), (P["C2"], P["H2"], t2[0]), B * mid * mid * HW),
                     "rv_conv3x3_out": (
                         lambda o: ig.rv_conv3x3_out(P["C1"], P["H1"], b1, idx, cnt, t1, m, o, H, W),
                         lambda o: ig._rv_conv3x3_out_plain(P["C1"], P["H1"], b1, idx, cnt, t1, m, o, H, W),
@@ -902,10 +966,18 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
                     rows.setdefault(name, {})[s] = dict(
                         max_abs_err=float((ok_ - op).abs().max()), ms=ms, plain_ms=pms,
                         library_ms=lms, bound_ms=bms, bound_by=by)
-            # the two tensor-core kernels that take an active list, on half
-            # the slots under a permuted idx
+            # the tensor-core kernels that take an active list, on half the
+            # slots under a permuted idx (rv_conv1x1_mid: a count, no idx)
             ctrl_w = prep("f32")
             label = f"scale{s} ({c}x{H}x{W}, B={B})"
+            rm = lambda wp, m: lambda i, n, o: ig.rv_conv1x1_mid(P["H1"], P["H1"], n, wp, bb2, 1.0,
+                                                                 bd[1:2], "swish", m, o, H, W)
+            rmp = lambda wp, m: lambda i, n, o: ig._rv_conv1x1_mid_plain(
+                P["H1"], P["H1"], n, wp, bb2, 1.0, bd[1:2], "swish", m, o, H, W)
+            fails += check_partial_list(
+                "rv_conv1x1_mid", rm(f2, mode), rmp(f2, mode),
+                rmp(ctrl_w[4], "f32") if mode != "f32" else None, (B, mid, HW), False, mode,
+                label, dev)
             jt = lambda wp, m: lambda i, n, o: ig.jt_conv1x1_mid(P["T2"], i, n, wp, S1, m, o, H, W)
             jtp = lambda wp, m: lambda i, n, o: ig._jt_conv1x1_mid_plain(P["T2"], i, n, wp, S1,
                                                                          m, o, H, W)
@@ -1037,7 +1109,8 @@ def check_grad_functions(cap):
                            for (n, a), (_, b) in zip(gc, flat(gp)) if n not in unrounded)
                 line += f" (limit {REATTACH_TOL[mode]:g}, least control {ctrl[0]:.3e} ({ctrl[1]})"
                 for k, fn in (("rv_wgrad", so.rv_wgrad_exact),
-                              ("rv_conv3x3_out", so.rv_conv3x3_out_exact)):
+                              ("rv_conv3x3_out", so.rv_conv3x3_out_exact),
+                              ("rv_conv1x1_mid", so.rv_conv1x1_mid_exact)):
                     ge = flat(ig._reattach_vjp(*args, dict(ig._PLAIN, **{k: fn}), mode))
                     floor = max((rel_norm(a, b, base(n)), n)
                                 for (n, a), (_, b) in zip(ge, flat(gp)))
@@ -1437,7 +1510,11 @@ def kernel_modules():
 
 
 def launch_counts():
-    return {k: v for _, m, _ in kernel_modules() for k, v in m.launch_counts().items()}
+    from implicit_normalizing_flows_torch.ops import fused_solve as fs
+
+    counts = {k: v for _, m, _ in kernel_modules() for k, v in m.launch_counts().items()}
+    counts[TC_SPLIT] = fs.conv1x1_mid.tc_launches
+    return counts
 
 
 def reset_launch_counts():
@@ -1552,37 +1629,59 @@ def profile_train_step(step, x_u8, draws):
     return events
 
 
-def check_tensor_core_route(events, launched, shared):
-    """A profiled training step ran each wrapper of ``launched`` (its
-    launches in that step) on its tensor-core kernel (TC_ROUTES): the
-    kernel's records (name, rank among the step's kernels by time, time,
-    launches recorded), as many launches recorded as the wrapper made, no
-    record of a CUDA-core instantiation they replaced (asserted), and the
-    shared ones (SHARED_SIMT) recorded as often as ``shared`` (the launches
-    of the wrappers that keep them) says. Returns the counts that differ,
-    (name, recorded, launched): the profiler now and then loses a stretch
+def check_tensor_core_route(events, launched):
+    """A profiled run ran each wrapper of ``launched`` (its tensor-core
+    launches in that run) on its tensor-core kernel (TC_ROUTES): the
+    kernel's records (name, rank among the run's kernels by time, time,
+    launches recorded), as many launches recorded as the wrapper made (the
+    wrappers of a SHARED_TC group together), and no record of a CUDA-core
+    instantiation they replaced (asserted). Returns the counts that differ,
+    (names, recorded, launched): the profiler now and then loses a stretch
     of a long step's records (device_ms), which reads as too few."""
     ranked = sorted(events, key=_self_ms, reverse=True)
     old = [e.key for e in events if REPLACED_SIMT.search(e.key)]
+    groups = [g for g in (tuple(n for n in grp if n in launched) for grp in SHARED_TC) if g]
+    groups += [(n,) for n in launched if not any(n in g for g in groups)]
     fails = []
-    for name, n in launched.items():
-        tc = [(i + 1, e) for i, e in enumerate(ranked) if TC_ROUTES[name][0].search(e.key)]
+    for group in groups:
+        pattern = re.compile("|".join(TC_ROUTES[n][0].pattern for n in group))
+        tc = [(i + 1, e) for i, e in enumerate(ranked) if pattern.search(e.key)]
+        names = " + ".join(group)
         for rank, e in tc:
-            log(f"tensor-core kernel of {name}: rank {rank}, {_self_ms(e):.2f} ms x{e.count} "
+            log(f"tensor-core kernel of {names}: rank {rank}, {_self_ms(e):.2f} ms x{e.count} "
                 f"{e.key[:140]}")
-        recorded = sum(e.count for _, e in tc)
-        log(f"tensor-core kernel of {name}: {recorded} launches recorded, {n} by the wrapper")
-        if not 0 < n == recorded:
-            fails.append((name, recorded, n))
-    for name, pattern in SHARED_SIMT.items():
-        recorded = sum(e.count for e in events if pattern.search(e.key))
-        log(f"shared CUDA-core instantiations of {name}: {recorded} launches recorded, "
-            f"{shared[name]} by {name}")
-        if recorded != shared[name]:
-            fails.append((name, recorded, shared[name]))
+        recorded, n = sum(e.count for _, e in tc), sum(launched[k] for k in group)
+        log(f"tensor-core kernel of {names}: {recorded} launches recorded, {n} by the wrapper"
+            + ("s" if len(group) > 1 else ""))
+        if not (all(launched[k] > 0 for k in group) and n == recorded):
+            fails.append((names, recorded, n))
     log(f"replaced CUDA-core instantiations recorded: {len(old)}")
     assert not old, old[:3]
     return fails
+
+
+def routes_of(delta, names):
+    """The launches each route of ``names`` is held to, from a run's launch
+    counts ``delta`` (TC_COUNT)."""
+    return {k: delta[TC_COUNT.get(k, k)] for k in names}
+
+
+def profiled_routes(run, names, label):
+    """Profile ``run()`` (which returns the kernels' records) up to
+    ROUTE_ATTEMPTS times, until one record holds every route of ``names``
+    exactly (a record holds a launch that ran and never one that did not,
+    so one exact record shows the routes); asserts that one did."""
+    for attempt in range(1, ROUTE_ATTEMPTS + 1):
+        before = launch_counts()
+        events = run()
+        after = launch_counts()
+        fails = check_tensor_core_route(
+            events, routes_of({k: after[k] - before[k] for k in after}, names))
+        log(f"profiled run {attempt} of at most {ROUTE_ATTEMPTS} ({label}): counts that "
+            f"differ (names, recorded, launched) {fails}")
+        if not fails:
+            return
+    assert not fails, fails
 
 
 def plain_versions(estimator, merged=False):
@@ -2316,7 +2415,9 @@ def main():
     log("eval path kernels " + json.dumps(eval_launches))
     assert all(eval_launches[n] > 0 for n in fs.KERNELS), eval_launches
 
-    profile_batch(model, eval_step, x_u8, draws(0))
+    # the eval profile, with conv1x1_mid's route
+    profiled_routes(lambda: profile_batch(model, eval_step, x_u8, draws(0)),
+                    ["conv1x1_mid"], "eval batch")
 
     # the plain path on batch 0's draws
     implicit_block.fused_broyden_solve = fs.fused_broyden_solve_plain
@@ -2360,19 +2461,9 @@ def main():
         # a record holds a launch that ran and never one that did not, so
         # one profiled step with every count exact shows the routes; a step
         # whose record lost launches is profiled again, up to ROUTE_ATTEMPTS
-        for attempt in range(1, ROUTE_ATTEMPTS + 1):
-            before = launch_counts()
-            events = profile_train_step(step, x_u8, tdraws(n + 1))
-            after = launch_counts()
-            delta = {k: after[k] - before[k] for k in after}
-            fails = check_tensor_core_route(
-                events, {k: delta[k] for k in TC_ROUTES if estimator or k not in ESTIMATOR_ONLY},
-                {k: delta[k] for k in SHARED_SIMT})
-            log(f"profiled step {attempt} of at most {ROUTE_ATTEMPTS} ({label}): counts that "
-                f"differ (name, recorded, launched) {fails}")
-            if not fails:
-                break
-        assert not fails, fails
+        profiled_routes(lambda: profile_train_step(step, x_u8, tdraws(n + 1)),
+                        [k for k in TC_ROUTES if estimator or k not in ESTIMATOR_ONLY],
+                        f"{label} step")
         compare_plain_step(step, x_u8, lambda: tdraws(n + 2),
                            plain_versions(estimator, merged))
         return launches, ms[len(ms) // 2]

@@ -21,17 +21,21 @@
 //                the precision ladder's re-arm.
 //
 // The conv kernels and the precision model (modes f32 / bf16 / tf32 /
-// tf32x) are shared with the implicit-gradient kernels: conv_gemm.cuh.
+// tf32x) are shared with the implicit-gradient kernels: conv_gemm.cuh, and
+// mma_gemm.cuh for conv1x1_mid in the split modes.
 //
-// What bounds them on H100: the two GEMM-shaped convs (conv1x1_mid is
-// ~90% of the MACs: 268M of 296M per example per net eval at 32x32) are
-// bound by FP32 CUDA-core operations (3-4 FMAs per MAC in the split modes);
-// the design keeps them in 64x64 shared-memory tiles with a 4x4 register
-// micro-tile so each loaded element feeds 16 FMAs. broyden_step is bound by
-// the bytes of the U/V planes it streams (2 x nstep x D floats per example).
-// mma/wgmma (the bf16 split maps onto bf16 tensor cores) is later work.
+// What bounds them on H100: conv1x1_mid is ~90% of the MACs (268M of 296M
+// per example per net eval at 32x32). In modes tf32 / tf32x it runs on the
+// tensor cores (mma_gemm.cuh's tc_conv1x1_kernel with PASSES 3 / 4: the
+// bf16 split's 3 or 4 passes of wgmma on a hi and a lo panel, each
+// activation read and split once; that header gives its bound and design).
+// conv3x3_in, conv3x3_out and modes f32 / bf16 of conv1x1_mid are bound by
+// FP32 CUDA-core operations (3-4 FMAs per MAC in the split modes); they keep
+// 64x64 shared-memory tiles with a 4x4 register micro-tile so each loaded
+// element feeds 16 FMAs. broyden_step is bound by the bytes of the U/V
+// planes it streams (2 x nstep x D floats per example).
 
-#include "conv_gemm.cuh"
+#include "mma_gemm.cuh"
 
 namespace {
 
@@ -245,15 +249,11 @@ __global__ void __launch_bounds__(STEP_THREADS) broyden_step_kernel(
 }
 
 template <int MODE>
-cudaError_t launch_gemm(int src, int preact, const float* w_hi,
-                        const float* w_lo, const float* bias, int M, int K,
-                        const float* inp, const int* idx, const int* count,
-                        int B, int C, int H, int W, float beta_pre,
-                        float beta_post, float* out, cudaStream_t s) {
-  if (src == 1)
-    return launch_conv_gemm<MODE, 1, IN_ID, EPI_SWISH>(
-        w_hi, w_lo, bias, M, K, inp, nullptr, idx, count, B, C, H, W, 0.f,
-        beta_post, 1.f, nullptr, out, s);
+cudaError_t launch_in(int preact, const float* w_hi, const float* w_lo,
+                      const float* bias, int M, int K, const float* inp,
+                      const int* idx, const int* count, int B, int C, int H,
+                      int W, float beta_pre, float beta_post, float* out,
+                      cudaStream_t s) {
   if (preact)
     return launch_conv_gemm<MODE, 0, IN_SWISH, EPI_SWISH>(
         w_hi, w_lo, bias, M, K, inp, nullptr, idx, count, B, C, H, W,
@@ -261,21 +261,6 @@ cudaError_t launch_gemm(int src, int preact, const float* w_hi,
   return launch_conv_gemm<MODE, 0, IN_ID, EPI_SWISH>(
       w_hi, w_lo, bias, M, K, inp, nullptr, idx, count, B, C, H, W, beta_pre,
       beta_post, 1.f, nullptr, out, s);
-}
-
-cudaError_t dispatch_gemm(int mode, int src, const float* w_hi,
-                          const float* w_lo, const float* bias, int M, int K,
-                          const float* inp, const int* idx, const int* count,
-                          int B, int C, int H, int W, int preact,
-                          float beta_pre, float beta_post, float* out,
-                          cudaStream_t s) {
-  switch (mode) {
-    case MODE_F32: return launch_gemm<MODE_F32>(src, preact, w_hi, w_lo, bias, M, K, inp, idx, count, B, C, H, W, beta_pre, beta_post, out, s);
-    case MODE_BF16: return launch_gemm<MODE_BF16>(src, preact, w_hi, w_lo, bias, M, K, inp, idx, count, B, C, H, W, beta_pre, beta_post, out, s);
-    case MODE_TF32: return launch_gemm<MODE_TF32>(src, preact, w_hi, w_lo, bias, M, K, inp, idx, count, B, C, H, W, beta_pre, beta_post, out, s);
-    case MODE_TF32X: return launch_gemm<MODE_TF32X>(src, preact, w_hi, w_lo, bias, M, K, inp, idx, count, B, C, H, W, beta_pre, beta_post, out, s);
-  }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -290,18 +275,35 @@ int imnf_conv3x3_in(int mode, int preact, const float* w_hi,
                     float beta1, const float* inp, const int* idx,
                     const int* count, int B, int C, int H, int W, int mid,
                     float* out, void* stream) {
-  return (int)dispatch_gemm(mode, 0, w_hi, w_lo, bias, mid, C * 9, inp, idx,
-                            count, B, C, H, W, preact, beta0, beta1, out,
-                            (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (mode) {
+    case MODE_F32: return (int)launch_in<MODE_F32>(preact, w_hi, w_lo, bias, mid, C * 9, inp, idx, count, B, C, H, W, beta0, beta1, out, s);
+    case MODE_BF16: return (int)launch_in<MODE_BF16>(preact, w_hi, w_lo, bias, mid, C * 9, inp, idx, count, B, C, H, W, beta0, beta1, out, s);
+    case MODE_TF32: return (int)launch_in<MODE_TF32>(preact, w_hi, w_lo, bias, mid, C * 9, inp, idx, count, B, C, H, W, beta0, beta1, out, s);
+    case MODE_TF32X: return (int)launch_in<MODE_TF32X>(preact, w_hi, w_lo, bias, mid, C * 9, inp, idx, count, B, C, H, W, beta0, beta1, out, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-int imnf_conv1x1_mid(int mode, const float* w_hi, const float* w_lo,
+// w_hi / w_lo: W2's split, bfloat16 in modes tf32 / tf32x (the tensor
+// cores' operands, cast once per solve), float32 in modes f32 / bf16 (the
+// CUDA cores; w_lo unused there)
+int imnf_conv1x1_mid(int mode, const void* w_hi, const void* w_lo,
                      const float* bias, float beta2, const float* inp,
                      const int* count, int B, int mid, int H, int W,
                      float* out, void* stream) {
-  return (int)dispatch_gemm(mode, 1, w_hi, w_lo, bias, mid, mid, inp, nullptr,
-                            count, B, mid, H, W, 0, 0.f, beta2, out,
-                            (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  const __nv_bfloat16* wh = static_cast<const __nv_bfloat16*>(w_hi);
+  const __nv_bfloat16* wl = static_cast<const __nv_bfloat16*>(w_lo);
+  const float* fh = static_cast<const float*>(w_hi);
+  const float* no_scale = nullptr;
+  switch (mode) {
+    case MODE_F32: return (int)launch_conv_gemm<MODE_F32, 1, IN_ID, EPI_SWISH>(fh, nullptr, bias, mid, mid, inp, nullptr, nullptr, count, B, mid, H, W, 0.f, beta2, 1.f, nullptr, out, s);
+    case MODE_BF16: return (int)launch_conv_gemm<MODE_BF16, 1, IN_ID, EPI_SWISH>(fh, nullptr, bias, mid, mid, inp, nullptr, nullptr, count, B, mid, H, W, 0.f, beta2, 1.f, nullptr, out, s);
+    case MODE_TF32: return (int)launch_tc_conv1x1<EPI_SWISH, IN_ID, 3>(wh, mid, mid, inp, B, 1, H * W, no_scale, out, s, nullptr, count, nullptr, nullptr, bias, wl, beta2);
+    case MODE_TF32X: return (int)launch_tc_conv1x1<EPI_SWISH, IN_ID, 4>(wh, mid, mid, inp, B, 1, H * W, no_scale, out, s, nullptr, count, nullptr, nullptr, bias, wl, beta2);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int imnf_conv3x3_out(int mode, const float* w_hi, const float* w_lo,

@@ -19,6 +19,7 @@
 // re-attachment VJP, per net (x at x with cotangent u; z at z_hat with -u):
 //   rv_conv3x3_in   h1 = W1 [swish](h) + b1, and t2 = sign * C3^T u
 //   rv_conv1x1_mid  h2 = W2 swish(h1) + b2, and t1 = C2^T (t2 swish'(h2))
+//                   (bf16: tensor cores)
 //   rv_conv3x3_out  t0 = C1^T (t1 swish'(h1))   (bf16: tensor cores)
 //   rv_wgrad        split-K partial sums of dW3 = cot x shift(swish(h2)),
 //                   dW2 = t2 swish'(h2) x swish(h1), dW1 = t1 swish'(h1) x
@@ -44,10 +45,12 @@
 // with a 4x4 register micro-tile per thread (16 FMAs per loaded element);
 // the weight gradients, which reduce over batch x pixels (65,536 terms at
 // 32x32), split that reduction into whole examples over enough blocks to
-// fill the 132 SMs and sum the splits in a second pass. In mode bf16 two
-// stages run on the tensor cores (wgmma), where bytes bound them:
+// fill the 132 SMs and sum the splits in a second pass. In mode bf16 four
+// stages run on the tensor cores, where bytes bound them:
 // jt_conv1x1_mid on mma_gemm.cuh's 1x1 kernel (EPI_SCALE, on the active
-// list), rv_wgrad on wgrad_tc.cuh (a bf16 pre-pass, then the product) and
+// list), rv_conv1x1_mid on the same kernel (EPI_AFFINE, its swish / swish'
+// applied once per element as the panel is staged, W2 / W2^T bfloat16, the
+// slope read on the device), rv_wgrad on wgrad_tc.cuh (a bf16 pre-pass, then the product) and
 // rv_conv3x3_out on conv3x3_out_tc.cuh (t1 swish'(h1) formed once per
 // element into a halo tile, the 9 taps as shifted reads of it); those
 // headers' notes give their bounds and designs. The other 3x3 stages, the
@@ -279,25 +282,44 @@ cudaError_t jt_out_mode(int mode, const float* w_hi, const float* w_lo,
   return cudaErrorInvalidValue;
 }
 
-// act: 0 IN_ID, 1 IN_SWISH, 2 IN_DSWISH
-template <int MODE>
-cudaError_t rv_gemm(int src, int act, const float* w_hi, const float* w_lo,
+// act: 0 IN_ID, 1 IN_SWISH, 2 IN_DSWISH; SRC 0 the 3x3 convs (slope
+// beta_in), SRC 1 the 1x1 (slope *beta_net, on the device)
+template <int MODE, int SRC>
+cudaError_t rv_gemm(int act, const float* w_hi, const float* w_lo,
                     const float* bias, int M, int K, const float* inp,
                     const float* inh, const int* idx, const int* count, int B,
-                    int C, int H, int W, float beta_in, float alpha,
-                    float* out, cudaStream_t s) {
-#define RV_GEMM(SRC, IN)                                                     \
+                    int C, int H, int W, float beta_in, const float* beta_net,
+                    float alpha, float* out, cudaStream_t s) {
+#define RV_GEMM(IN)                                                          \
   return launch_conv_gemm<MODE, SRC, IN, EPI_AFFINE>(                        \
       w_hi, w_lo, bias, M, K, inp, inh, idx, count, B, C, H, W, beta_in,     \
-      0.f, alpha, nullptr, out, s)
-  if (src == 0) {
-    if (act == IN_ID) RV_GEMM(0, IN_ID);
-    if (act == IN_SWISH) RV_GEMM(0, IN_SWISH);
+      0.f, alpha, nullptr, out, s, 1, beta_net)
+  if constexpr (SRC == 0) {
+    if (act == IN_ID) RV_GEMM(IN_ID);
+    if (act == IN_SWISH) RV_GEMM(IN_SWISH);
   } else {
-    if (act == IN_SWISH) RV_GEMM(1, IN_SWISH);
-    if (act == IN_DSWISH) RV_GEMM(1, IN_DSWISH);
+    if (act == IN_SWISH) RV_GEMM(IN_SWISH);
+    if (act == IN_DSWISH) RV_GEMM(IN_DSWISH);
   }
 #undef RV_GEMM
+  return cudaErrorInvalidValue;
+}
+
+// rv_conv1x1_mid in mode bf16 on the tensor cores: W (mid, mid) bfloat16,
+// every slot below *count, no idx, alpha 1 (both call sites; anything else
+// is refused, not ignored)
+cudaError_t rv_mid_tc(int act, const __nv_bfloat16* w, const float* bias, float alpha,
+                      const float* beta, const float* inp, const float* inh,
+                      const int* count, int B, int mid, int HW, float* out,
+                      cudaStream_t s) {
+  const float* no_scale = nullptr;
+  if (alpha != 1.f) return cudaErrorInvalidValue;
+  if (act == IN_SWISH)
+    return launch_tc_conv1x1<EPI_AFFINE, IN_SWISH>(w, mid, mid, inp, B, 1, HW, no_scale, out, s,
+                                                   nullptr, count, nullptr, beta, bias);
+  if (act == IN_DSWISH)
+    return launch_tc_conv1x1<EPI_AFFINE, IN_DSWISH>(w, mid, mid, inp, B, 1, HW, no_scale, out, s,
+                                                    nullptr, count, inh, beta, bias);
   return cudaErrorInvalidValue;
 }
 
@@ -396,23 +418,27 @@ int imnf_rv_conv3x3_in(int mode, int act, const float* w_hi,
                        float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
-    case MODE_F32: return (int)rv_gemm<MODE_F32>(0, act, w_hi, w_lo, bias, mid, C * 9, inp, nullptr, idx, count, B, C, H, W, beta_in, alpha, out, s);
-    case MODE_BF16: return (int)rv_gemm<MODE_BF16>(0, act, w_hi, w_lo, bias, mid, C * 9, inp, nullptr, idx, count, B, C, H, W, beta_in, alpha, out, s);
-    case MODE_TF32: return (int)rv_gemm<MODE_TF32>(0, act, w_hi, w_lo, bias, mid, C * 9, inp, nullptr, idx, count, B, C, H, W, beta_in, alpha, out, s);
+    case MODE_F32: return (int)rv_gemm<MODE_F32, 0>(act, w_hi, w_lo, bias, mid, C * 9, inp, nullptr, idx, count, B, C, H, W, beta_in, nullptr, alpha, out, s);
+    case MODE_BF16: return (int)rv_gemm<MODE_BF16, 0>(act, w_hi, w_lo, bias, mid, C * 9, inp, nullptr, idx, count, B, C, H, W, beta_in, nullptr, alpha, out, s);
+    case MODE_TF32: return (int)rv_gemm<MODE_TF32, 0>(act, w_hi, w_lo, bias, mid, C * 9, inp, nullptr, idx, count, B, C, H, W, beta_in, nullptr, alpha, out, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-int imnf_rv_conv1x1_mid(int mode, int act, const float* w_hi,
+// w_hi: W (mid, mid), bfloat16 in mode bf16 (the tensor cores' operand),
+// float32 in modes f32 / tf32 (w_lo its lo half in tf32); beta: a device
+// pointer to the input transform's slope
+int imnf_rv_conv1x1_mid(int mode, int act, const void* w_hi,
                         const float* w_lo, const float* bias, float alpha,
-                        float beta_in, const float* inp, const float* inh,
+                        const float* beta, const float* inp, const float* inh,
                         const int* count, int B, int mid, int H, int W,
                         float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const float* wf = static_cast<const float*>(w_hi);
   switch (mode) {
-    case MODE_F32: return (int)rv_gemm<MODE_F32>(1, act, w_hi, w_lo, bias, mid, mid, inp, inh, nullptr, count, B, mid, H, W, beta_in, alpha, out, s);
-    case MODE_BF16: return (int)rv_gemm<MODE_BF16>(1, act, w_hi, w_lo, bias, mid, mid, inp, inh, nullptr, count, B, mid, H, W, beta_in, alpha, out, s);
-    case MODE_TF32: return (int)rv_gemm<MODE_TF32>(1, act, w_hi, w_lo, bias, mid, mid, inp, inh, nullptr, count, B, mid, H, W, beta_in, alpha, out, s);
+    case MODE_F32: return (int)rv_gemm<MODE_F32, 1>(act, wf, w_lo, bias, mid, mid, inp, inh, nullptr, count, B, mid, H, W, 0.f, beta, alpha, out, s);
+    case MODE_BF16: return (int)rv_mid_tc(act, static_cast<const __nv_bfloat16*>(w_hi), bias, alpha, beta, inp, inh, count, B, mid, H * W, out, s);
+    case MODE_TF32: return (int)rv_gemm<MODE_TF32, 1>(act, wf, w_lo, bias, mid, mid, inp, inh, nullptr, count, B, mid, H, W, 0.f, beta, alpha, out, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,9 @@
-// Tensor-core (wgmma) 1x1 conv of mode bf16 for Hopper (sm_90a), the
-// J^T stage C2^T t * s1 of two TPU kernels and the final pair's 512 -> 512
-// products:
+// Tensor-core (wgmma) 1x1 conv for Hopper (sm_90a): the J^T stage C2^T t *
+// s1 of two TPU kernels, the final pair's and the re-attachment's 512 ->
+// 512 products (mode bf16), and the forward solve's 512 -> 512 product in
+// the bf16 split modes tf32 / tf32x:
 //
-//   out[slot][m][p] = EPI(sum_k W[net][m][k] * bf16(IN(inp[slot][k][p])),
+//   out[slot][m][p] = EPI(sum_k W[net][m][k] * X(IN(inp[slot][k][p])),
 //                         scale[e][m][p] | bias[net][m]),  e = idx[slot] (or slot)
 //
 // * EPI_SCALE_RND, bf16_round(acc * s): the Neumann chain's nc_jt_mid
@@ -21,40 +22,64 @@
 //   th2 = W2 (th1 swish'(h1)) and W2^T on rh2 and p_h2 of
 //   _final_T_in_kernel / _final_grads_in_kernel
 //   (implicit_normalizing_flows_tpu/ops/fused_solve.py:1346, 1372, in
-//   fused_final_pair :1689), with the input transform IN (conv_gemm.cuh's
-//   IN_ID, IN_SWISH, IN_DSWISH with inh) at each net's slope beta_net[net],
-//   applied once per element as the panel is staged, 2 or 4 nets a launch,
-//   every slot live.
-// Both operands are bf16 and the sums float32: _make_dot("bf16") of the
-// JAX kernels, the error model that conv_gemm.cuh's SIMT template computes
-// with FP32 FMAs on bf16-rounded values. Mode f32 stays on that template
-// (its error model needs CUDA-core float32).
+//   fused_final_pair :1689), 2 or 4 nets a launch, every slot live; and
+//   the re-attachment's rv_conv1x1_mid (implicit_grad.cu), h2 = W2
+//   swish(h1) + b2 and t1 = W2^T (t2 swish'(h2)) of _net_vjp_in_kernel
+//   (fused_solve.py:1112, 1124, in fused_reattach_vjp :1226), one net,
+//   slots past *count never written; both with the input transform IN
+//   (conv_gemm.cuh's IN_ID, IN_SWISH, IN_DSWISH with inh) at each net's
+//   slope beta_net[net] (a device pointer), applied once per element as
+//   the panel is staged;
+// * EPI_SWISH, swish(acc + bias[m]; beta_out), rounded op by op as
+//   conv_gemm.cuh's epilogue: the forward solve's conv1x1_mid
+//   (fused_solve.cu), h2 = d2(t) + b2; t = swish(h2) of _make_eval
+//   (fused_solve.py:269-270, in fused_broyden_solve :1921), in the split
+//   modes, one net, on the solve's active list (count, no idx).
+// PASSES 1 (mode bf16): both operands bf16, the sums float32,
+// _make_dot("bf16") of the JAX kernels. PASSES 3 / 4 (modes tf32 / tf32x,
+// _make_dot's split, fused_solve.py:101-135): W and X each split into
+// bf16 hi = rn(v) and lo = rn(v - hi); the products hi*hi + hi*lo + lo*hi
+// (+ lo*lo) of bf16 values, each exact in float32, summed in float32.
+// Native TF32 (10 mantissa bits) is never used: it is another error model.
+// conv_gemm.cuh's SIMT template computes the same models with FP32 FMAs;
+// mode f32 stays on it (its error model needs CUDA-core float32).
 //
-// What bounds it on an H100 (32x32, mid 512): bytes. nc_jt_mid (B 64 x 2
-// nets) is 68.7 GFLOP (0.07 ms at 989 TFLOP/s), but reads t2 as float32
-// (256 MiB) and s1 (128 MiB bf16 or 256 MiB float32) and writes t1 as
-// float32 (256 MiB): 0.20 ms (bf16 s) or 0.24 ms (float32 s) at 3.35 TB/s;
-// jt_conv1x1_mid (B 64) moves 320 MiB, 0.10 ms; fp_conv_mid's th2 (B 64 x
-// 2 nets) reads th1 and h1 and writes th2, 768 MiB, 0.24 ms. The SIMT
-// template re-read each activation (and re-applied its transform, expf
-// included) once per 64-row M block (8 times at mid 512) and ran the
-// products on CUDA cores.
+// What bounds it on an H100 (32x32, mid 512): bytes in mode bf16, the
+// products in the split modes. nc_jt_mid (B 64 x 2 nets) is 68.7 GFLOP
+// (0.07 ms at 989 TFLOP/s), but reads t2 as float32 (256 MiB) and s1 (128
+// MiB bf16 or 256 MiB float32) and writes t1 as float32 (256 MiB): 0.20 ms
+// (bf16 s) or 0.24 ms (float32 s) at 3.35 TB/s; jt_conv1x1_mid (B 64) moves
+// 320 MiB, 0.10 ms; fp_conv_mid's th2 (B 64 x 2 nets) reads th1 and h1 and
+// writes th2, 768 MiB, 0.24 ms; rv_conv1x1_mid's h2 (B 64) 256 MiB, 0.08
+// ms. conv1x1_mid (B 64) moves 256 MiB (0.08 ms) for 3 x 34.4 GFLOP in
+// tf32 (0.104 ms) and 4 x in tf32x (0.139 ms). The SIMT template re-read
+// each activation (and re-applied its transform or its split) once per
+// 64-row M block (8 times at mid 512) and ran the products on CUDA cores
+// (3 or 4 FMAs per MAC in the split modes).
 //
 // The design against that bound:
 // * Activation-stationary: a block owns NP pixels of one slot (NP 128, or
-//   64 when H*W <= 64). It reads that tile's whole K <= 512 panel once, as
-//   float32 slabs streamed by cp.async (16-byte copies, 80 KB in flight;
-//   with IN_DSWISH each slab of inp travels with the matching slab of inh)
-//   through the space the weight rings take later, transforms and rounds
-//   each element to bf16 once, and keeps the panel (NP x 512 bf16, 128 KB
-//   at NP 128) in dynamic shared memory for all M rows. Each activation
-//   and s element is read from device memory exactly once; each output is
-//   written once, 16 bytes a thread.
-// * Weights from L2: one net's 512x512 bf16 kernel is 512 KB and stays in
-//   the 50 MB L2. Each of the block's two consumer warpgroups takes every
-//   other 64-row M chunk and streams its 64x64 weight tiles through its own
-//   ring of TC_STAGES shared-memory slots with cp.async (zero-filled past
-//   M and K), four tiles ahead of the products.
+//   64 when H*W <= 64 and in the split modes). It reads that tile's whole
+//   K <= 512 panel once, as float32 slabs streamed by cp.async (16-byte
+//   copies, 80 KB in flight; with IN_DSWISH each slab of inp travels with
+//   the matching slab of inh) through the space the weight rings take
+//   later, transforms (and splits) each element once, and keeps the panel
+//   (NP x 512 bf16, 128 KB at NP 128; in the split modes a hi and a lo
+//   panel, 2 x 64 KB at NP 64, which is why they take NP 64: 230,400 B
+//   with the rings, of the 232,448 an SM grants) in dynamic shared memory
+//   for all M rows. Each activation and s element is read from device
+//   memory exactly once; each output is written once, 16 bytes a thread.
+// * Weights from L2: one net's 512x512 bf16 kernel is 512 KB (its hi and
+//   lo halves 1 MB) and stays in the 50 MB L2. Each of the block's two
+//   consumer warpgroups takes every other 64-row M chunk and streams its
+//   64x64 weight tiles through its own ring of TC_STAGES shared-memory
+//   slots with cp.async (zero-filled past M and K): in mode bf16 one tile
+//   a K step, four steps ahead of the products; in the split modes a W_hi
+//   and a W_lo tile a K step (3 steps in the ring), two steps ahead (the
+//   step before's slots are free once the warpgroup's barrier shows its
+//   products done). At NP 64 each 64-pixel tile re-reads the 1 MB pair
+//   from L2: 1 GB at 32x32, B 64, which with the products bounds the split
+//   kernel above its device-memory bound.
 // * Products: wgmma.mma_async m64n64k16, bf16 x bf16 -> f32, both operands
 //   from shared memory, K-major, 128-byte swizzle (A: a weight tile's rows
 //   m, B: 64 of the panel's rows p). wgmma and not mma.sync: it reads both
@@ -66,12 +91,17 @@
 // * Sums: the tensor cores truncate as they add, a bias toward zero that
 //   grows with the number of products summed there. Each weight tile's 64
 //   products go into a fresh partial that is added to the float32 sum with
-//   round-to-nearest adds.
+//   round-to-nearest adds. In the split modes hi*hi has its partial and
+//   sum, and the small passes (hi*lo, lo*hi [, lo*lo], about 2^-8 of it)
+//   share a second partial and sum; the epilogue adds the two, hh + (hl +
+//   lh [+ ll]) where JAX adds ((hh + hl) + lh) [+ ll]: the two orders
+//   differ as any two float32 orders of the same sums do.
 // * Epilogue per 64-row chunk, fused: a lane pair exchanges halves of its
 //   accumulator fragment (rows r and r+8) so that each lane holds 4
 //   consecutive pixels of one row, scales and rounds them (or adds the
-//   row's bias), and stores 16 bytes; its s (or bias) was read into
-//   registers once, at the chunk's first tile, under the chunk's products.
+//   row's bias [and applies swish]), and stores 16 bytes; its s (or bias)
+//   was read into registers once, at the chunk's first tile, under the
+//   chunk's products.
 // * Work items (live slot, NP-pixel tile, group of M chunks): where live
 //   slots x tiles fill less than the card (8x8 images, late iterations of
 //   the backward solve), the M chunks are split into groups (powers of
@@ -80,8 +110,8 @@
 //   active list every block takes one item. With one, the count is read on
 //   the device, so the grid cannot shrink with it: nsm blocks at most walk
 //   the live items in a loop (persistent).
-// One block of 256 threads per SM (225 KB of shared memory at NP 128): the
-// blocks' panel loads and products interleave across SMs.
+// One block of 256 threads per SM (225 KB of shared memory): the blocks'
+// panel loads and products interleave across SMs.
 #pragma once
 
 #include <stdint.h>
@@ -100,9 +130,11 @@ constexpr int TC_TILE_BYTES = TC_BM * TC_BK * 2;
 constexpr int TC_SLAB_BYTES = 16384;
 constexpr int TC_STAGING_BYTES = TC_WGS * TC_STAGES * TC_TILE_BYTES;
 
-constexpr int tc_smem_bytes(int np) {
-  // the panel, both rings, and slack to align the base to 1024 bytes
-  return np * TC_KMAX * 2 + TC_WGS * TC_STAGES * TC_TILE_BYTES + 1024;
+constexpr int TC_SMEM_MAX = 232448;  // the dynamic shared memory an SM grants a block
+
+__host__ __device__ constexpr int tc_smem_bytes(int np, int panels) {
+  // the panel(s), both rings, and slack to align the base to 1024 bytes
+  return panels * np * TC_KMAX * 2 + TC_WGS * TC_STAGES * TC_TILE_BYTES + 1024;
 }
 
 // M-chunk groups per (slot, tile) item: double them while the items still
@@ -206,29 +238,43 @@ __device__ __forceinline__ float4 widen4(uint2 u) {
 // Items (slot, tile, group), one a block or walked by a persistent grid
 // (above); slot s belongs to net s / nb. Takes K <= TC_KMAX with K % 8 ==
 // 0, HW % 4 == 0 and 16-byte aligned tensors (the launcher checks the
-// shapes, the wrapper the pointers).
+// shapes, the wrapper the pointers). PASSES 3 / 4 read W's lo half at wl0
+// (same layout as w0) and keep a lo panel beside the hi one.
 //
 // Phase 1, the panel: float32 slabs of SK k-rows x NP pixels (16 KB)
 // stream through the rings' space with cp.async, all but one of its slots
 // ahead (zero-filled past K and HW; IN_DSWISH: a slab of inp and one of inh
-// per slot, half as many slots); each thread transforms and rounds 4 k x 4
-// pixels of a slab and stores them K-major into the panel. Phase 2, the
-// products: each warpgroup walks its (M chunk, K tile) weight tiles through
-// its ring; a chunk's scale (or bias) is loaded into registers at its first
-// tile and used by its epilogue after its last.
-template <int NP, typename ST, int EPI, int IN>
+// per slot, half as many slots); each thread transforms, rounds (and
+// splits) 4 k x 4 pixels of a slab and stores them K-major into the
+// panel(s). Phase 2, the products: each warpgroup walks its (M chunk, K
+// tile) weight tiles (a hi and a lo tile a step in the split modes)
+// through its ring; a chunk's scale (or bias) is loaded into registers at
+// its first tile and used by its epilogue after its last.
+template <int NP, typename ST, int EPI, int IN, int PASSES>
 __global__ void __launch_bounds__(TC_THREADS, 1) tc_conv1x1_kernel(
     const __nv_bfloat16* __restrict__ w0, int M, int K,
     const float* __restrict__ inp, int HW, const ST* __restrict__ scale,
     float* __restrict__ out, int nb, const int* __restrict__ idx,
     const int* __restrict__ count, int B, int nsm,
     const float* __restrict__ inh, const float* __restrict__ beta_net,
-    const float* __restrict__ bias) {
+    const float* __restrict__ bias, const __nv_bfloat16* __restrict__ wl0,
+    float beta_out) {
+  constexpr bool SPLIT = PASSES > 1;
+  constexpr int NPANELS = SPLIT ? 2 : 1;        // hi [and lo] panels
+  constexpr int PANEL_BYTES = NP * TC_KMAX * 2;
+  constexpr int TPS = SPLIT ? 2 : 1;            // weight tiles a K step: hi [and lo]
+  constexpr int SP = TC_STAGES / TPS;           // K steps a ring holds
+  // steps loaded ahead of the products: the split modes' ring holds three,
+  // so the step before's slots (its products done by the barrier) take the
+  // next; mode bf16 keeps its four of six
+  constexpr int AHEAD = SPLIT ? SP - 1 : TC_AHEAD;
+  static_assert(PASSES == 1 || PASSES == 3 || PASSES == 4, "1, 3 or 4 passes");
+  static_assert(tc_smem_bytes(NP, NPANELS) <= TC_SMEM_MAX, "the panels and rings fit an SM");
   extern __shared__ uint8_t tc_smem[];
   const uint32_t raw = smem_u32(tc_smem);
-  const uint32_t panel = (raw + 1023u) & ~1023u;  // [K / 64][NP rows][128 bytes]
+  const uint32_t panel = (raw + 1023u) & ~1023u;  // [K / 64][NP rows][128 bytes] (hi)
   uint8_t* const base = tc_smem + (panel - raw);   // its generic address
-  const uint32_t rings = panel + NP * TC_KMAX * 2;
+  const uint32_t rings = panel + NPANELS * PANEL_BYTES;  // the lo panel sits at panel + PANEL_BYTES
   const int tid = threadIdx.x;
   // the warpgroup index, warp-uniform to the compiler: wgmma is issued on
   // a path it can prove converged
@@ -245,10 +291,11 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_conv1x1_kernel(
     const int p0 = (item / groups) % tiles * NP, net = slot / nb;
     const int e = idx != nullptr ? idx[slot] : slot;
     const __nv_bfloat16* const w = w0 + (size_t)net * M * K;
+    const __nv_bfloat16* const wl = SPLIT ? wl0 + (size_t)net * M * K : w;
     const int c0 = g * cpg, nloc = min(nmc, c0 + cpg) - c0;  // this group's chunks
     const size_t src_off = (size_t)slot * K * HW;
 
-    // phase 1: the panel
+    // phase 1: the panel(s)
     {
       constexpr int SK = TC_SLAB_BYTES / (NP * 4);
       constexpr int BUFS = TC_STAGING_BYTES / TC_SLAB_BYTES;
@@ -280,7 +327,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_conv1x1_kernel(
         __syncthreads();             // everyone's; slab j - 1's buffer converted
         load_slab(j + SLOTS - 1);    // into slab j - 1's buffer
         const float* sl = reinterpret_cast<const float*>(
-            base + NP * TC_KMAX * 2 + (j % SLOTS) * NSRC * TC_SLAB_BYTES);
+            base + NPANELS * PANEL_BYTES + (j % SLOTS) * NSRC * TC_SLAB_BYTES);
         float4 v[4];
 #pragma unroll
         for (int r = 0; r < 4; ++r)
@@ -304,52 +351,85 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_conv1x1_kernel(
                                __fmul_rn(v[r].w, dswish(h.w, beta)));
           }
         }
-        uint2 px[4];
-#define TC_PACK(J, F) \
-        px[J] = make_uint2(pack_bf16(v[0].F, v[1].F), pack_bf16(v[2].F, v[3].F))
-        TC_PACK(0, x); TC_PACK(1, y); TC_PACK(2, z); TC_PACK(3, w);
+        // the split's lo half, v - rn(v) (exact in float32), as
+        // conv_gemm.cuh's split(); the hi half is rn(v), packed below
+        float4 lo[SPLIT ? 4 : 1];
+        if constexpr (SPLIT) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            lo[r] = make_float4(__fsub_rn(v[r].x, bf16_round(v[r].x)),
+                                __fsub_rn(v[r].y, bf16_round(v[r].y)),
+                                __fsub_rn(v[r].z, bf16_round(v[r].z)),
+                                __fsub_rn(v[r].w, bf16_round(v[r].w)));
+        }
+        uint2 px[4], pl[4];
+#define TC_PACK(D, S, J, F) \
+        D[J] = make_uint2(pack_bf16(S[0].F, S[1].F), pack_bf16(S[2].F, S[3].F))
+        TC_PACK(px, v, 0, x); TC_PACK(px, v, 1, y); TC_PACK(px, v, 2, z); TC_PACK(px, v, 3, w);
+        if constexpr (SPLIT) {
+          TC_PACK(pl, lo, 0, x); TC_PACK(pl, lo, 1, y); TC_PACK(pl, lo, 2, z);
+          TC_PACK(pl, lo, 3, w);
+        }
 #undef TC_PACK
         const int k = j * SK + kq * 4;
         uint8_t* tile = base + (k / TC_BK) * NP * 128 + ((k % 8) / 4) * 8;
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
+          // the value selected into a register, then one store: a store
+          // under each branch on jr made the bf16 kernels 2-3% slower (H100)
           const int jr = (jj + (pg >> 1)) & 3;
           const uint2 val = jr == 0 ? px[0] : jr == 1 ? px[1] : jr == 2 ? px[2] : px[3];
           *reinterpret_cast<uint2*>(tile + sw128(pg * 4 + jr, (k % TC_BK) / 8)) = val;
+          if constexpr (SPLIT) {
+            const uint2 lv = jr == 0 ? pl[0] : jr == 1 ? pl[1] : jr == 2 ? pl[2] : pl[3];
+            *reinterpret_cast<uint2*>(tile + PANEL_BYTES + sw128(pg * 4 + jr, (k % TC_BK) / 8)) =
+                lv;
+          }
         }
       }
       cp_async_wait<0>();
       fence_async_smem();
-      __syncthreads();  // the panel is whole; the staging space is the rings' again
+      __syncthreads();  // the panels are whole; the staging space is the rings' again
     }
 
-    // phase 2: this warpgroup's weight tiles t -> (M chunk c0 + wg + (t /
-    // nkt) TC_WGS, K tile t % nkt), TC_AHEAD ahead of the products
+    // phase 2: this warpgroup's K steps t -> (M chunk c0 + wg + (t / nkt)
+    // TC_WGS, K tile t % nkt), AHEAD ahead of the products
     const int chunks = nloc > wg ? (nloc - wg + TC_WGS - 1) / TC_WGS : 0;
     const int T = chunks * nkt;
     const uint32_t ring = rings + wg * TC_STAGES * TC_TILE_BYTES;
     auto load_w = [&](int t) {
       if (t < T) {
         const int m0 = (c0 + wg + (t / nkt) * TC_WGS) * TC_BM, k0 = (t % nkt) * TC_BK;
-        const uint32_t dst = ring + (t % TC_STAGES) * TC_TILE_BYTES;
+        const uint32_t dst = ring + (t % SP) * TPS * TC_TILE_BYTES;
 #pragma unroll
-        for (int i = wt; i < TC_BM * 8; i += 128) {
-          const int r = i / 8, c = i % 8, m = m0 + r, k = k0 + c * 8;
-          const bool ok = m < M && k < K;
-          cp_async16(dst + sw128(r, c), ok ? w + (size_t)m * K + k : w, ok);
+        for (int q = 0; q < TPS; ++q) {
+          const __nv_bfloat16* const src = q == 0 ? w : wl;
+#pragma unroll
+          for (int i = wt; i < TC_BM * 8; i += 128) {
+            const int r = i / 8, c = i % 8, m = m0 + r, k = k0 + c * 8;
+            const bool ok = m < M && k < K;
+            cp_async16(dst + q * TC_TILE_BYTES + sw128(r, c),
+                       ok ? src + (size_t)m * K + k : src, ok);
+          }
         }
       }
-      cp_async_commit();  // an empty group past the last tile keeps the count
+      cp_async_commit();  // an empty group past the last step keeps the count
     };
 #pragma unroll
-    for (int t = 0; t < TC_AHEAD; ++t) load_w(t);
+    for (int t = 0; t < AHEAD; ++t) load_w(t);
 
     constexpr int NH = NP / 64, NJ = NP / 8;  // 64-pixel halves, 8-pixel groups
+    static_assert(!SPLIT || NH == 1, "the split modes take NP 64");
     float acc[NH][32], part[NH][32];
+    // the split modes' small passes (hi*lo, lo*hi [, lo*lo]): their sum
+    // and per-tile partial
+    float accl[SPLIT ? 32 : 1], partl[SPLIT ? 32 : 1];
 #pragma unroll
     for (int h = 0; h < NH; ++h)
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (SPLIT ? 32 : 1); ++i) accl[i] = 0.f;
     const int warp = wt / 32, lane = wt % 32;
     const bool odd = lane & 1;
     const int cq = 2 * ((lane % 4) & ~1);  // the lane pair's first pixel in 8
@@ -357,21 +437,21 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_conv1x1_kernel(
     // a lane holds row r (even lane) or r + 8 (odd lane), pixels p0 + 8 j + cq
     // .. + 3
     typename Vec4<ST>::type sv[NJ];
-    float bv = 0.f;  // EPI_AFFINE: row r's bias
+    float bv = 0.f;  // EPI_AFFINE, EPI_SWISH: row r's bias
     int r = 0;
     size_t srow = 0, orow = 0;  // row r of scale (example e) and of out (slot)
 
     for (int t = 0; t < T; ++t) {
-      cp_async_wait<TC_AHEAD - 1>();  // this thread's copies of tile t landed
+      cp_async_wait<AHEAD - 1>();  // this thread's copies of step t landed
       fence_async_smem();
-      warpgroup_bar(1 + wg);  // everyone's copies of tile t; tile t - 1's products done
-      load_w(t + TC_AHEAD);   // into tile t - 2's slot
+      warpgroup_bar(1 + wg);  // everyone's copies of step t; step t - 1's products done
+      load_w(t + AHEAD);      // into the slots of step t + AHEAD - SP
       const int kt = t % nkt;
       if (kt == 0) {  // a new chunk: its epilogue's scale, loaded under its products
         r = (c0 + wg + (t / nkt) * TC_WGS) * TC_BM + warp * 16 + lane / 4 + (odd ? 8 : 0);
         srow = ((size_t)e * M + r) * HW;
         orow = ((size_t)slot * M + r) * HW;
-        if constexpr (EPI == EPI_AFFINE) {
+        if constexpr (EPI == EPI_AFFINE || EPI == EPI_SWISH) {
           if (bias != nullptr && r < M) bv = __ldg(bias + (size_t)net * M + r);
         } else {
 #pragma unroll
@@ -381,28 +461,61 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_conv1x1_kernel(
           }
         }
       }
-      // the tile's products, each 64-pixel half into a fresh partial, then
-      // added to the chunk's sum with round-to-nearest adds
-      const uint32_t a = ring + (t % TC_STAGES) * TC_TILE_BYTES, b = panel + kt * NP * 128;
+      // the step's products, each 64-pixel half (or pass group) into a
+      // fresh partial, then added to its sum with round-to-nearest adds
+      const uint32_t a = ring + (t % SP) * TPS * TC_TILE_BYTES, b = panel + kt * NP * 128;
       wgmma_fence();
+      if constexpr (SPLIT) {
+        const uint32_t al = a + TC_TILE_BYTES, bl = b + PANEL_BYTES;  // W_lo, X_lo
 #pragma unroll
-      for (int h = 0; h < NH; ++h) {
-#pragma unroll
-        for (int kk = 0; kk < TC_BK / 16; ++kk)
-          wgmma_n64(part[h], tc_desc(a + 32 * kk), tc_desc(b + h * 64 * 128 + 32 * kk), kk);
+        for (int kk = 0; kk < TC_BK / 16; ++kk)  // hi * hi
+          wgmma_n64(part[0], tc_desc(a + 32 * kk), tc_desc(b + 32 * kk), kk);
         wgmma_commit();
-      }
-      if constexpr (NH == 2) {
+#pragma unroll
+        for (int kk = 0; kk < TC_BK / 16; ++kk)  // hi * lo
+          wgmma_n64(partl, tc_desc(a + 32 * kk), tc_desc(bl + 32 * kk), kk);
+#pragma unroll
+        for (int kk = 0; kk < TC_BK / 16; ++kk)  // lo * hi
+          wgmma_n64(partl, tc_desc(al + 32 * kk), tc_desc(b + 32 * kk), 1);
+        if constexpr (PASSES == 4) {
+#pragma unroll
+          for (int kk = 0; kk < TC_BK / 16; ++kk)  // lo * lo
+            wgmma_n64(partl, tc_desc(al + 32 * kk), tc_desc(bl + 32 * kk), 1);
+        }
+        wgmma_commit();
         wgmma_wait<1>();
         acc_fence(part[0]);
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc[0][i] = __fadd_rn(acc[0][i], part[0][i]);
-      }
-      wgmma_wait<0>();
-      acc_fence(part[NH - 1]);
+        wgmma_wait<0>();
+        acc_fence(partl);
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[NH - 1][i] = __fadd_rn(acc[NH - 1][i], part[NH - 1][i]);
+        for (int i = 0; i < 32; ++i) accl[i] = __fadd_rn(accl[i], partl[i]);
+      } else {
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+#pragma unroll
+          for (int kk = 0; kk < TC_BK / 16; ++kk)
+            wgmma_n64(part[h], tc_desc(a + 32 * kk), tc_desc(b + h * 64 * 128 + 32 * kk), kk);
+          wgmma_commit();
+        }
+        if constexpr (NH == 2) {
+          wgmma_wait<1>();
+          acc_fence(part[0]);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[0][i] = __fadd_rn(acc[0][i], part[0][i]);
+        }
+        wgmma_wait<0>();
+        acc_fence(part[NH - 1]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          acc[NH - 1][i] = __fadd_rn(acc[NH - 1][i], part[NH - 1][i]);
+      }
       if (kt != nkt - 1) continue;
+      if constexpr (SPLIT) {  // hh + (hl + lh [+ ll])
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[0][i] = __fadd_rn(acc[0][i], accl[i]);
+      }
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int h = j / 8, i = 4 * (j % 8);  // compile-time after unrolling
@@ -414,6 +527,9 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_conv1x1_kernel(
           if (bias != nullptr)
             o = make_float4(__fadd_rn(o.x, bv), __fadd_rn(o.y, bv), __fadd_rn(o.z, bv),
                             __fadd_rn(o.w, bv));
+        } else if constexpr (EPI == EPI_SWISH) {
+          o = make_float4(swish(__fadd_rn(o.x, bv), beta_out), swish(__fadd_rn(o.y, bv), beta_out),
+                          swish(__fadd_rn(o.z, bv), beta_out), swish(__fadd_rn(o.w, bv), beta_out));
         } else {
           const float4 sc = widen4(sv[j]);
           o = make_float4(__fmul_rn(o.x, sc.x), __fmul_rn(o.y, sc.y), __fmul_rn(o.z, sc.z),
@@ -428,19 +544,28 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_conv1x1_kernel(
       for (int h = 0; h < NH; ++h)
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < (SPLIT ? 32 : 1); ++i) accl[i] = 0.f;
     }
     cp_async_wait<0>();  // no copy outlives the item
-    __syncthreads();     // both warpgroups done with the panel and the rings
+    __syncthreads();     // both warpgroups done with the panels and the rings
   }
 }
 
-template <int NP, typename ST, int EPI, int IN>
-cudaError_t launch_tc_np(const __nv_bfloat16* w, int M, int K, const float* inp,
-                         int B, int nb, int HW, const ST* scale, float* out,
-                         const int* idx, const int* count, const float* inh,
-                         const float* beta_net, const float* bias, cudaStream_t s) {
-  auto kernel = tc_conv1x1_kernel<NP, ST, EPI, IN>;
-  constexpr int bytes = tc_smem_bytes(NP);
+// static: internal linkage, so that each library that includes this
+// header (estimator.cu, implicit_grad.cu and fused_solve.cu share
+// instantiations) keeps its own `nsm` below. A function-local static of a
+// template with external linkage is one object across every loaded library
+// (a GNU-unique symbol): the second library would find it set and launch
+// its own copy of the kernel without ever raising its shared-memory limit.
+template <int NP, typename ST, int EPI, int IN, int PASSES>
+static cudaError_t launch_tc_np(const __nv_bfloat16* w, int M, int K, const float* inp,
+                                int B, int nb, int HW, const ST* scale, float* out,
+                                const int* idx, const int* count, const float* inh,
+                                const float* beta_net, const float* bias,
+                                const __nv_bfloat16* w_lo, float beta_out, cudaStream_t s) {
+  auto kernel = tc_conv1x1_kernel<NP, ST, EPI, IN, PASSES>;
+  constexpr int bytes = tc_smem_bytes(NP, PASSES > 1 ? 2 : 1);
   static int nsm = 0;  // once per instantiation (one device)
   if (nsm == 0) {
     int dev = 0;
@@ -461,34 +586,45 @@ cudaError_t launch_tc_np(const __nv_bfloat16* w, int M, int K, const float* inp,
   const long long grid = count == nullptr ? (long long)B * tiles * tc_groups(nmc, B, tiles, nsm)
                                           : most < nsm ? most : nsm;
   kernel<<<(unsigned)grid, TC_THREADS, bytes, s>>>(
-      w, M, K, inp, HW, scale, out, nb, idx, count, B, nsm, inh, beta_net, bias);
+      w, M, K, inp, HW, scale, out, nb, idx, count, B, nsm, inh, beta_net, bias, w_lo,
+      beta_out);
   return cudaGetLastError();
 }
 
-// A bf16 1x1 product on the tensor cores: B slots of `nets` nets (B / nets
+// A 1x1 product on the tensor cores: B slots of `nets` nets (B / nets
 // each), weights (nets, M, K) bf16, inp (B, K, HW) float32 (inh the same,
-// for IN_DSWISH), out (B, M, HW) by slot. EPI EPI_SCALE_RND (the chain) or
-// EPI_SCALE (the backward solve) with IN_ID: scale (B, M, HW) indexed by
-// idx[slot] (slot without idx); with count, slots past *count are not
-// touched. EPI_AFFINE (the final pair): IN_ID | IN_SWISH | IN_DSWISH at
-// slope beta_net[net], bias (nets, M) or nullptr, scale nullptr.
-// cudaErrorInvalidValue for shapes the kernel does not take.
-template <int EPI, int IN = IN_ID, typename ST>
+// for IN_DSWISH), out (B, M, HW) by slot; with count, slots past *count
+// are not touched. EPI EPI_SCALE_RND (the chain) or EPI_SCALE (the
+// backward solve) with IN_ID: scale (B, M, HW) indexed by idx[slot] (slot
+// without idx). EPI_AFFINE (the final pair, the re-attachment): IN_ID |
+// IN_SWISH | IN_DSWISH at slope beta_net[net], bias (nets, M) or nullptr,
+// scale nullptr. EPI_SWISH (the forward solve): swish(acc + bias; beta_out).
+// PASSES 1 (mode bf16), or 3 / 4 (tf32 / tf32x: w the hi half, w_lo the lo
+// half of W's bf16 split, same layout). cudaErrorInvalidValue for shapes
+// the kernel does not take.
+template <int EPI, int IN = IN_ID, int PASSES = 1, typename ST>
 cudaError_t launch_tc_conv1x1(const __nv_bfloat16* w, int M, int K, const float* inp,
                               int B, int nets, int HW, const ST* scale, float* out,
                               cudaStream_t s, const int* idx = nullptr,
                               const int* count = nullptr, const float* inh = nullptr,
                               const float* beta_net = nullptr,
-                              const float* bias = nullptr) {
+                              const float* bias = nullptr,
+                              const __nv_bfloat16* w_lo = nullptr, float beta_out = 0.f) {
   if (M < 1 || K < 8 || K > TC_KMAX || K % 8 || HW < 4 || HW % 4 || nets < 1 ||
       B % nets || (IN != IN_ID && beta_net == nullptr) ||
-      (IN == IN_DSWISH && inh == nullptr))
+      (IN == IN_DSWISH && inh == nullptr) || (PASSES > 1 && w_lo == nullptr))
     return cudaErrorInvalidValue;
-  if (HW <= 64)
-    return launch_tc_np<64, ST, EPI, IN>(w, M, K, inp, B, B / nets, HW, scale, out, idx,
-                                         count, inh, beta_net, bias, s);
-  return launch_tc_np<128, ST, EPI, IN>(w, M, K, inp, B, B / nets, HW, scale, out, idx,
-                                        count, inh, beta_net, bias, s);
+  if constexpr (PASSES > 1) {  // two panels: NP 64 at every size
+    return launch_tc_np<64, ST, EPI, IN, PASSES>(w, M, K, inp, B, B / nets, HW, scale, out,
+                                                 idx, count, inh, beta_net, bias, w_lo,
+                                                 beta_out, s);
+  } else {
+    if (HW <= 64)
+      return launch_tc_np<64, ST, EPI, IN, 1>(w, M, K, inp, B, B / nets, HW, scale, out, idx,
+                                              count, inh, beta_net, bias, nullptr, 0.f, s);
+    return launch_tc_np<128, ST, EPI, IN, 1>(w, M, K, inp, B, B / nets, HW, scale, out, idx,
+                                             count, inh, beta_net, bias, nullptr, 0.f, s);
+  }
 }
 
 }  // namespace imnf

@@ -7,7 +7,8 @@ over four batched kernels of ``csrc/fused_solve.cu`` (that file's header
 says what bounds each on an H100 and what its design does about it):
 
 * ``conv3x3_in``  ``[swish(b0)] -> conv3x3 c->mid + b1 -> swish(b1)``
-* ``conv1x1_mid`` ``mid->mid + b2 -> swish(b2)``
+* ``conv1x1_mid`` ``mid->mid + b2 -> swish(b2)`` (modes ``tf32`` / ``tf32x``
+  on the tensor cores, ``csrc/mma_gemm.cuh``)
 * ``conv3x3_out`` ``conv3x3 mid->c + b3`` fused with the residual
 * ``broyden_step`` secant update, best iterate, protective break, stall
   exit, next direction (also the init and the ladder's re-arm)
@@ -44,13 +45,15 @@ import torch.nn.functional as F
 __all__ = ["fused_broyden_solve", "fused_broyden_solve_plain",
            "FusedSolveResult", "conv3x3_in", "conv1x1_mid", "conv3x3_out",
            "broyden_step", "KERNELS", "launch_counts", "reset_launch_counts",
-           "prep_weight", "prep_weights", "norm_ladder", "swish", "dswish",
-           "dswish_dbeta", "d2swish", "ddswish_dbeta"]
+           "prep_weight", "prep_weights", "prep_conv1x1_mid", "norm_ladder",
+           "swish", "dswish", "dswish_dbeta", "d2swish", "ddswish_dbeta"]
 
 PROTECT_THRES = 1e6  # reference: broyden.py:150
 MODES = {"f32": 0, "bf16": 1, "tf32": 2, "tf32x": 3}
 PHASE_INIT, PHASE_STEP, PHASE_REARM = 0, 1, 2
 KMAX = 64  # largest threshold broyden_step takes (its shared-memory rows)
+TC_KMAX = 512  # the largest K the tensor-core 1x1 product takes (csrc/mma_gemm.cuh)
+SPLIT_MODES = ("tf32", "tf32x")  # conv1x1_mid's modes on the tensor cores
 
 
 class FusedSolveResult(NamedTuple):
@@ -146,10 +149,30 @@ def prep_weight(w, mode):
     return tuple(None if t is None else t.contiguous() for t in _split(w, mode))
 
 
+def prep_conv1x1_mid(wp, mode):
+    """``conv1x1_mid``'s kernel from :func:`prep_weight`'s ``(hi, lo)``: in
+    the split modes both halves cast once to bfloat16 (exactly: their
+    values are bfloat16), the tensor cores' operands; modes f32 and bf16
+    keep ``wp`` (float32, the CUDA cores)."""
+    if mode not in SPLIT_MODES:
+        return wp
+    return tuple(w.to(torch.bfloat16).contiguous() for w in wp)
+
+
 def prep_weights(data, mode):
     """:func:`prep_weight` of ``data``'s w1/w2/w3, once per solve and mode:
-    ``{'w1'|'w2'|'w3': (hi, lo)}``."""
-    return {k: prep_weight(data[k], mode) for k in ("w1", "w2", "w3")}
+    ``{'w1'|'w2'|'w3': (hi, lo)}``, and ``'w2_mid'``, w2's as
+    ``conv1x1_mid`` takes it (:func:`prep_conv1x1_mid`)."""
+    out = {k: prep_weight(data[k], mode) for k in ("w1", "w2", "w3")}
+    out["w2_mid"] = prep_conv1x1_mid(out["w2"], mode)
+    return out
+
+
+def _widened(wp):
+    """A kernel pair as the plain versions take it: bfloat16 halves widened
+    to float32, exactly."""
+    return tuple(w.float() if w is not None and w.dtype == torch.bfloat16 else w
+                 for w in wp)
 
 
 def _mconv(x, wp, mode, padding):
@@ -214,6 +237,12 @@ def _check_cuda(_dtypes=(torch.float32, torch.int32), **tensors):
             raise ValueError(f"{name}: dtype {t.dtype} not taken")
 
 
+def _check_aligned(**tensors):
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
+
+
 def _launch(fn, *args, lib=None):
     rc = getattr(lib or _lib(), fn)(*args, _ptr_stream())
     if rc != 0:
@@ -260,20 +289,37 @@ def _conv1x1_mid_plain(t1, count, wp, b2, beta2, mode, out, H, W):
     n = int(count.item())
     mid = t1.shape[1]
     h = t1[:n].reshape(n, mid, H, W)
-    y = swish(_mconv(h, wp, mode, 0) + b2[None, :, None, None], beta2)
+    y = swish(_mconv(h, _widened(wp), mode, 0) + b2[None, :, None, None], beta2)
     out[:n] = y.reshape(n, mid, H * W)
 
 
 def conv1x1_mid(t1, count, wp, b2, beta2, mode, out, H, W):
-    """out[s] = swish(W2 @ t1[s] + b2, beta2) for live slots s."""
+    """out[s] = swish(W2 @ t1[s] + b2, beta2) for live slots s; the dead
+    slots of out are not written. wp from :func:`prep_conv1x1_mid`: in the
+    split modes, which run on the tensor cores (``tc_launches`` counts
+    those launches), bfloat16 halves, K = mid <= TC_KMAX with mid % 8 == 0,
+    H*W % 4 == 0 and 16-byte aligned tensors."""
     if not t1.is_cuda:
         return _conv1x1_mid_plain(t1, count, wp, b2, beta2, mode, out, H, W)
     B, mid, HW = t1.shape
-    _check_cuda(t1=t1, count=count, w_hi=wp[0], w_lo=wp[1], b2=b2, out=out)
+    split = mode in SPLIT_MODES
+    _check_cuda(t1=t1, count=count, b2=b2, out=out)
+    _check_cuda(_dtypes=(torch.bfloat16 if split else torch.float32,), w_hi=wp[0],
+                w_lo=wp[1])
+    if tuple(out.shape) != (B, mid, HW) or tuple(wp[0].shape) != (mid, mid, 1, 1):
+        raise ValueError(f"conv1x1_mid: t1 {tuple(t1.shape)}, w {tuple(wp[0].shape)}, "
+                         f"out {tuple(out.shape)}")
+    if split:
+        if mid > TC_KMAX or mid % 8 or HW % 4 or wp[1] is None:
+            raise ValueError(f"conv1x1_mid in {mode} takes mid <= {TC_KMAX} with mid % 8 "
+                             f"== 0, H*W % 4 == 0 and both halves, got mid {mid}, H*W {HW}")
+        _check_aligned(t1=t1, out=out, w_hi=wp[0], w_lo=wp[1])
     _launch("imnf_conv1x1_mid", MODES[mode], _ptr(wp[0]), _ptr(wp[1]),
             _ptr(b2), float(beta2), _ptr(t1), _ptr(count), B, mid, H, W,
             _ptr(out))
     conv1x1_mid.launches += 1
+    if split:
+        conv1x1_mid.tc_launches += 1
 
 
 def _conv3x3_out_plain(t2, idx, count, wp, b3, mode, base, sgn, sub, out, H, W):
@@ -418,6 +464,7 @@ _PLAIN = {"conv3x3_in": _conv3x3_in_plain, "conv1x1_mid": _conv1x1_mid_plain,
           "conv3x3_out": _conv3x3_out_plain, "broyden_step": _broyden_step_plain}
 for _fn in KERNELS.values():
     _fn.launches = 0
+conv1x1_mid.tc_launches = 0  # its launches on the tensor cores (split modes)
 
 
 def launch_counts() -> dict:
@@ -427,6 +474,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    conv1x1_mid.tc_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -501,7 +549,7 @@ def _solve(x, data_x, data_z, ops, *, threshold, eps, stall_patience,
         if s is None:
             ops["conv3x3_in"](inp.view(B, c, H, W), idx, cnt, wp["w1"], nd["b1"],
                               nd["betas"], nd["preact"], m, T1)
-            ops["conv1x1_mid"](T1, cnt, wp["w2"], nd["b2"], nd["betas"][2], m, T2, H, W)
+            ops["conv1x1_mid"](T1, cnt, wp["w2_mid"], nd["b2"], nd["betas"][2], m, T2, H, W)
         else:
             ops["lin_conv3x3_in"](inp.view(B, c, H, W), wp["w1"], nd["b1"], nd["betas"],
                                   nd["preact"], m, T1, s[1], s[0])

@@ -9,11 +9,12 @@ package. The TPU kernels hold one example's operands in VMEM per grid step;
 on Hopper both are host-driven sequences of batched kernels from
 ``csrc/implicit_grad.cu`` (that file's header says what bounds each on an
 H100 and what its design does about it), with the conv kernels shared with
-the forward solve through ``csrc/conv_gemm.cuh``. In mode bf16 three of them
+the forward solve through ``csrc/conv_gemm.cuh``. In mode bf16 four of them
 run on the tensor cores: ``jt_conv1x1_mid`` (``csrc/mma_gemm.cuh``, with
 W2^T cast to bfloat16 once per solve by :func:`prep_mid_weight`),
-``rv_wgrad`` (``csrc/wgrad_tc.cuh``) and ``rv_conv3x3_out``
-(``csrc/conv3x3_out_tc.cuh``):
+``rv_conv1x1_mid`` (the same kernel, W2 and W2^T cast to bfloat16 once per
+VJP by :func:`prep_rv_mid_weight`), ``rv_wgrad`` (``csrc/wgrad_tc.cuh``) and
+``rv_conv3x3_out`` (``csrc/conv3x3_out_tc.cuh``):
 
 * backward solve ``u (I + J_gz) = grad``: per iteration ``jt_conv3x3_in`` ->
   ``jt_conv1x1_mid`` -> ``jt_conv3x3_out`` evaluate the residual
@@ -45,16 +46,17 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .fused_solve import (MODES, PHASE_INIT, PHASE_STEP, _broyden_step_plain,
-                          _check_cuda, _launch, _mconv, _ptr, _split, _wide,
-                          broyden_step, dswish, dswish_dbeta, prep_weight,
-                          swish)
+from .fused_solve import (MODES, PHASE_INIT, PHASE_STEP, TC_KMAX, _broyden_step_plain,
+                          _check_aligned, _check_cuda, _launch, _mconv, _ptr, _split,
+                          _wide, _widened, broyden_step, dswish, dswish_dbeta,
+                          prep_weight, swish)
 
 __all__ = ["fused_backward_solve", "fused_backward_solve_plain",
            "fused_reattach_vjp", "fused_reattach_vjp_plain",
            "BackwardSolveResult", "transpose_weights", "KERNELS",
            "launch_counts", "reset_launch_counts", "BWD_MODES",
-           "REATTACH_MODES", "DATA_KEYS", "mid_weight_dtype", "prep_mid_weight"]
+           "REATTACH_MODES", "DATA_KEYS", "mid_weight_dtype", "prep_mid_weight",
+           "prep_rv_mid_weight"]
 
 BWD_MODES = ("f32", "bf16")
 REATTACH_MODES = ("f32", "bf16", "tf32")
@@ -64,7 +66,6 @@ WG_BK = 16          # rv_wgrad's reduction step on the CUDA cores
 WG_TILE = 128       # the tensor-core rv_wgrad's output tile (csrc/wgrad_tc.cuh)
 WG_KSTEP = 64       # its reduction step: H*W holds multiples of it
 WG_TARGET_BLOCKS = 264  # 2 blocks per SM of the H100's 132
-TC_KMAX = 512  # the largest K the tensor-core 1x1 product takes (csrc/mma_gemm.cuh)
 
 
 class BackwardSolveResult(NamedTuple):
@@ -96,7 +97,7 @@ _ARGTYPES = {
                             _I, _P, _P, _P],
     "imnf_rv_conv3x3_in": [_I, _I, _P, _P, _P, _F, _F, _P, _P, _P, _I, _I, _I,
                            _I, _I, _P, _P],
-    "imnf_rv_conv1x1_mid": [_I, _I, _P, _P, _P, _F, _F, _P, _P, _P, _I, _I, _I,
+    "imnf_rv_conv1x1_mid": [_I, _I, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I,
                             _I, _P, _P],
     "imnf_rv_conv3x3_out": [_I, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I,
                             _P, _P],
@@ -150,6 +151,14 @@ def prep_mid_weight(w, mode):
     return w.detach().to(mid_weight_dtype(mode)).contiguous(), None
 
 
+def prep_rv_mid_weight(w, mode):
+    """``rv_conv1x1_mid``'s kernel (W2 or W2^T): in mode bf16 ``(w, None)``
+    cast once to bfloat16 (the tensor cores' operand; the cast is exact, as
+    :func:`prep_weight` rounds it to the same values), else
+    :func:`prep_weight`'s split for the CUDA cores."""
+    return prep_mid_weight(w, mode) if mode == "bf16" else prep_weight(w, mode)
+
+
 def _check_mid(w, mode, K, HW, **tensors):
     """Raise on what the 1x1 kernels of ``csrc/mma_gemm.cuh`` (the J^T
     stages, the final pair's fp_conv_mid) do not take: a kernel w not in
@@ -163,12 +172,6 @@ def _check_mid(w, mode, K, HW, **tensors):
         raise ValueError(f"the tensor-core 1x1 product takes K <= {TC_KMAX} with K % 8 == 0 "
                          f"and H*W % 4 == 0, got K {K}, H*W {HW}")
     _check_aligned(w=w, **tensors)
-
-
-def _check_aligned(**tensors):
-    for name, t in tensors.items():
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"{name}: not 16-byte aligned")
 
 
 def _scaled(y, s):
@@ -321,25 +324,35 @@ def _rv_conv1x1_mid_plain(inp, inh, count, wp, bias, alpha, beta_in, act, mode,
     n = int(count.item())
     mid = inp.shape[1]
     h = _act(inp[:n], inh[:n], beta_in, act).reshape(n, mid, H, W)
-    out[:n] = _affine(_mconv(h, wp, mode, 0), alpha, bias).reshape(n, mid, H * W)
+    out[:n] = _affine(_mconv(h, _widened(wp), mode, 0), alpha, bias).reshape(n, mid, H * W)
 
 
 def rv_conv1x1_mid(inp, inh, count, wp, bias, alpha, beta_in, act, mode, out, H, W):
-    """out[s] = alpha * W act(inp[s]) [+ bias], act 'swish' (h2 = W2
-    swish(h1) + b2) or 'dswish' (inp * swish'(inh): t1 = W2^T (t2
-    swish'(h2))). inp, inh, out (B, mid, H*W)."""
+    """out[s] = alpha * W act(inp[s]) [+ bias] for slots s < count, act
+    'swish' (h2 = W2 swish(h1) + b2) or 'dswish' (inp * swish'(inh): t1 =
+    W2^T (t2 swish'(h2))); the slots past count are not written. inp, inh,
+    out (B, mid, H*W); beta_in the slope, a one-element tensor on the
+    device (read there: no host read); wp from :func:`prep_rv_mid_weight`.
+    Mode bf16 runs on the tensor cores (``csrc/mma_gemm.cuh``): it takes
+    alpha 1, mid <= TC_KMAX with mid % 8 == 0, H*W % 4 == 0 and 16-byte
+    aligned tensors."""
     if not inp.is_cuda:
         return _rv_conv1x1_mid_plain(inp, inh, count, wp, bias, alpha, beta_in,
                                      act, mode, out, H, W)
     if act not in ("swish", "dswish"):
         raise ValueError(f"rv_conv1x1_mid takes act 'swish' | 'dswish', not {act!r}")
+    if not torch.is_tensor(beta_in) or beta_in.numel() != 1:
+        raise ValueError("rv_conv1x1_mid: beta_in must be a one-element tensor on the device")
     B, mid, _ = inp.shape
-    _check_cuda(inp=inp, inh=inh, count=count, w_hi=wp[0], w_lo=wp[1], bias=bias,
-                out=out)
+    _check_cuda(inp=inp, inh=inh, count=count, beta_in=beta_in, bias=bias, out=out)
+    _check_mid(wp[0], mode, mid, H * W, inp=inp, inh=inh, out=out)
+    _check_cuda(w_lo=wp[1])
+    if mode == "bf16" and float(alpha) != 1.0:
+        raise ValueError(f"rv_conv1x1_mid in bf16 takes alpha 1, not {alpha}")
     _shapes(inp=(inp, (B, mid, H * W)), inh=(inh, inp.shape), count=(count, (1,)),
             w=(wp[0], (mid, mid, 1, 1)), bias=(bias, (mid,)), out=(out, inp.shape))
     _run("imnf_rv_conv1x1_mid", _mode(mode, REATTACH_MODES), ACTS[act],
-         _ptr(wp[0]), _ptr(wp[1]), _ptr(bias), float(alpha), float(beta_in),
+         _ptr(wp[0]), _ptr(wp[1]), _ptr(bias), float(alpha), _ptr(beta_in),
          _ptr(inp), _ptr(inh), _ptr(count), B, mid, H, W, _ptr(out))
     rv_conv1x1_mid.launches += 1
 
@@ -648,25 +661,27 @@ def _net_vjp(ops, mode, data, h, u, csign, idx, cnt, dx_out):
     preact = bool(data["preact"])
     mid = w2.shape[0]
     hin = h.detach().to(dt).contiguous()
-    wp1, wp2 = prep_weight(w1, mode), prep_weight(w2, mode)
-    wt3, wt2, wt1 = (prep_weight(w, mode) for w in transpose_weights(w1, w2, w3))
+    wp1, wp2 = prep_weight(w1, mode), prep_rv_mid_weight(w2, mode)
+    w3t, w2t, w1t = transpose_weights(w1, w2, w3)
+    wt3, wt1 = prep_weight(w3t, mode), prep_weight(w1t, mode)
+    wt2 = prep_rv_mid_weight(w2t, mode)  # bfloat16 in mode bf16, once per VJP
+    bd = data["betas"].detach().to(dt).contiguous()  # the slopes on the device
     new = lambda *s: torch.empty(*s, device=dev, dtype=dt)
     H1, H2, T2, T1 = (new(B, mid, HW) for _ in range(4))
 
     # forward: the pre-activations h1, h2
     ops["rv_conv3x3_in"](hin, idx, cnt, wp1, b1, 1.0, beta0,
                          "swish" if preact else "id", mode, H1)
-    ops["rv_conv1x1_mid"](H1, H1, cnt, wp2, b2, 1.0, beta1, "swish", mode, H2, H, W)
+    ops["rv_conv1x1_mid"](H1, H1, cnt, wp2, b2, 1.0, bd[1:2], "swish", mode, H2, H, W)
     # cotangents: t2 = C3^T cot, t1 = C2^T (t2 swish'(h2)), t0 = C1^T (...)
     ops["rv_conv3x3_in"](u, idx, cnt, wt3, None, csign, 0.0, "id", mode, T2)
-    ops["rv_conv1x1_mid"](T2, H2, cnt, wt2, None, 1.0, beta2, "dswish", mode, T1, H, W)
+    ops["rv_conv1x1_mid"](T2, H2, cnt, wt2, None, 1.0, bd[2:3], "dswish", mode, T1, H, W)
     T0 = None
     if dx_out is not None or preact:
         T0 = new(B, c * HW)
         ops["rv_conv3x3_out"](T1, H1, beta1, idx, cnt, wt1, mode, T0, H, W)
 
     grads = {}
-    bd = data["betas"].detach().to(dt).contiguous()  # the slopes on the device
     for name, a, ah, beta_a, b, bin_, beta_b, shift, M, N, alpha in (
             ("w3", u, None, None, H2, "swish", bd[2], True, c, mid * 9, csign),
             ("w2", T2, H2, bd[2], H1, "swish", bd[1], False, mid, mid, 1.0),

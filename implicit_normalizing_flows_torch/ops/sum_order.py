@@ -1,5 +1,5 @@
-"""Plain versions of four kernels with their products summed exactly, and
-one with its product summed in the tensor cores' order.
+"""Plain versions of six kernels with their products summed exactly, and
+three with their products summed in the tensor cores' order.
 
 Each ``*_exact`` function here is a kernel's plain version with its rounded
 (bf16, or split) product summed in float64 and rounded once to float32: the
@@ -13,11 +13,20 @@ a floor fails every kernel that does not sum in the plain version's order.
 * :func:`rv_wgrad_exact`: ``ops.implicit_grad._rv_wgrad_plain``.
 * :func:`rv_conv3x3_out_exact`: ``ops.implicit_grad._rv_conv3x3_out_plain``.
 * :func:`fp_conv_mid_exact`: ``ops.fused_final._fp_conv_mid_plain``.
+* :func:`conv1x1_mid_exact`: ``ops.fused_solve._conv1x1_mid_plain`` (modes
+  tf32 / tf32x: every pass of the split summed together).
+* :func:`rv_conv1x1_mid_exact`: ``ops.implicit_grad._rv_conv1x1_mid_plain``.
 
-:func:`fp_conv_mid_tiled` is ``_fp_conv_mid_plain`` in mode bf16 with its
-product summed as the tensor-core kernel (``csrc/mma_gemm.cuh``) sums it:
-each K tile of ``TC_BK`` channels into a fresh float32 partial, the partials
-added in order. It stands in for that kernel on the CPU.
+The ``*_tiled`` functions are plain versions with their products summed as
+the tensor-core kernel (``csrc/mma_gemm.cuh``) sums them: each K tile of
+``TC_BK`` channels into a fresh float32 partial, the partials added in
+order. They stand in for that kernel on the CPU:
+
+* :func:`fp_conv_mid_tiled` and :func:`rv_conv1x1_mid_tiled` (mode bf16);
+* :func:`conv1x1_mid_tiled` (tf32 / tf32x): per K tile one partial of
+  hi*hi and one of the small passes hi*lo + lo*hi (+ lo*lo), each added to
+  its own float32 sum; the epilogue adds the two sums, then b2, then swish
+  (modes f32 / bf16, on the CUDA cores: the plain version).
 
 They run on whatever device their tensors lie on.
 """
@@ -26,18 +35,21 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .fused_solve import _split, dswish
+from .fused_solve import SPLIT_MODES, _conv1x1_mid_plain, _split, _widened, dswish, swish
 
 __all__ = ["jt_conv1x1_mid_exact", "rv_wgrad_exact", "rv_conv3x3_out_exact",
-           "fp_conv_mid_exact", "fp_conv_mid_tiled", "TC_BK"]
+           "fp_conv_mid_exact", "fp_conv_mid_tiled", "conv1x1_mid_exact",
+           "conv1x1_mid_tiled", "rv_conv1x1_mid_exact", "rv_conv1x1_mid_tiled", "TC_BK"]
 
 TC_BK = 64  # the K tile of the tensor-core 1x1 product (csrc/mma_gemm.cuh)
 
 
 def _exact(x, w, mode, mm):
     """``mm`` of the mode's passes (hi*hi [+ hi*lo + lo*hi [+ lo*lo]]) on
-    the split of x and w, summed in float64, rounded once to float32."""
-    (xh, xl), (wh, wl) = _split(x.float(), mode), _split(w.float(), mode)
+    the split of x and w (or w's split, a (hi, lo) pair), summed in float64,
+    rounded once to float32."""
+    xh, xl = _split(x.float(), mode)
+    wh, wl = _widened(w) if isinstance(w, tuple) else _split(w.float(), mode)
     d = lambda t: t.double()
     out = mm(d(xh), d(wh))
     if mode in ("tf32", "tf32x"):
@@ -120,3 +132,64 @@ def fp_conv_mid_tiled(inp, inh, w, bias, beta_net, act, mode, out, H, W):
     """``_fp_conv_mid_plain`` in mode bf16 with its product summed in the
     tensor-core kernel's order (K tiles of ``TC_BK``)."""
     _fp_conv_mid_by(_tiled, inp, inh, w, bias, beta_net, act, mode, out, H, W)
+
+
+def conv1x1_mid_exact(t1, count, wp, b2, beta2, mode, out, H, W):
+    """``_conv1x1_mid_plain`` with its product summed exactly (every pass of
+    the split in float64, rounded once), then ``+ b2`` and swish as there;
+    wp the kernel's (hi, lo), used as it is."""
+    n = int(count.item())
+    mid = t1.shape[1]
+    y = _exact(t1[:n].reshape(n, mid, H, W), tuple(wp), mode, F.conv2d)
+    out[:n] = swish(y + b2[None, :, None, None], beta2).reshape(n, mid, H * W)
+
+
+def conv1x1_mid_tiled(t1, count, wp, b2, beta2, mode, out, H, W):
+    """``conv1x1_mid`` as its wrapper routes it: in mode tf32 / tf32x
+    ``_conv1x1_mid_plain`` with its product summed as the tensor-core kernel
+    sums it (per K tile a fresh float32 partial of hi*hi and one of hi*lo +
+    lo*hi (+ lo*lo), each added to its float32 sum; then the two sums
+    added, ``+ b2`` and swish); in modes f32 / bf16, which stay on the CUDA
+    cores, the plain version."""
+    if mode not in SPLIT_MODES:
+        return _conv1x1_mid_plain(t1, count, wp, b2, beta2, mode, out, H, W)
+    n = int(count.item())
+    mid = t1.shape[1]
+    xh, xl = _split(t1[:n].reshape(n, mid, H, W).float(), mode)
+    wh, wl = _widened(wp)
+    big = small = None
+    add = lambda a, b: b if a is None else a + b
+    for k0 in range(0, mid, TC_BK):
+        k = slice(k0, k0 + TC_BK)
+        big = add(big, F.conv2d(xh[:, k], wh[:, k]))
+        part = F.conv2d(xl[:, k], wh[:, k]) + F.conv2d(xh[:, k], wl[:, k])
+        if mode == "tf32x":
+            part = part + F.conv2d(xl[:, k], wl[:, k])
+        small = add(small, part)
+    y = big + small
+    out[:n] = swish(y + b2[None, :, None, None], beta2).reshape(n, mid, H * W)
+
+
+def _rv_conv1x1_mid_by(product, inp, inh, count, wp, bias, alpha, beta_in, act, mode,
+                       out, H, W):
+    """``_rv_conv1x1_mid_plain`` with ``product(a, wp, mode)`` for its 1x1
+    product (alpha and the bias applied after it, as there)."""
+    from .implicit_grad import _act, _affine
+
+    n = int(count.item())
+    mid = inp.shape[1]
+    a = _act(inp[:n], inh[:n], beta_in, act).reshape(n, mid, H, W)
+    out[:n] = _affine(product(a, tuple(wp), mode), alpha, bias).reshape(n, mid, H * W)
+
+
+def rv_conv1x1_mid_exact(inp, inh, count, wp, bias, alpha, beta_in, act, mode, out, H, W):
+    """``_rv_conv1x1_mid_plain`` with its product summed exactly."""
+    _rv_conv1x1_mid_by(lambda a, w, m: _exact(a, w, m, F.conv2d), inp, inh, count, wp,
+                       bias, alpha, beta_in, act, mode, out, H, W)
+
+
+def rv_conv1x1_mid_tiled(inp, inh, count, wp, bias, alpha, beta_in, act, mode, out, H, W):
+    """``_rv_conv1x1_mid_plain`` in mode bf16 with its product summed in the
+    tensor-core kernel's order (K tiles of ``TC_BK``)."""
+    _rv_conv1x1_mid_by(lambda a, w, m: _tiled(a, w[0].float(), m), inp, inh, count, wp,
+                       bias, alpha, beta_in, act, mode, out, H, W)
