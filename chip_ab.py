@@ -23,13 +23,17 @@ kernel times, run ``kernels`` in both trees in one call, in turns.
   batch (the same readings).
 * ``kernels``: device time per call (CUDA events around 30 calls, after a
   warm-up) of nc_jt_mid, jt_conv1x1_mid, fp_conv_mid (th2's dswish form),
-  rv_conv3x3_out and rv_conv1x1_mid (h2's swish and t1's dswish forms) in
-  mode bf16 and conv1x1_mid in tf32 and tf32x, on seeded random inputs at
-  the flagship's 32x32 shapes (batch 64, mid 512, c 3; both nets for the
-  estimator's two), and rv_conv3x3_out's, rv_conv1x1_mid's and
-  conv1x1_mid's errors against their plain versions. A tree from before
-  conv1x1_mid / rv_conv1x1_mid took their tensor-core weights gets its own
-  float32 ones (and rv_conv1x1_mid its slope as a float).
+  rv_conv3x3_out, jt_conv3x3_out (s0 bfloat16, on every slot) and
+  rv_conv1x1_mid (h2's swish and t1's dswish forms) in mode bf16 (the two
+  3x3 products also at the 16x16 and 8x8 scales' shapes, c 12 and 48,
+  beside one cuDNN call of the same product in bf16), and
+  conv1x1_mid and lin_conv1x1_mid in tf32 and tf32x, on seeded random
+  inputs at the flagship's 32x32 shapes (batch 64, mid 512, c 3; both nets
+  for the estimator's two), and rv_conv3x3_out's, jt_conv3x3_out's,
+  rv_conv1x1_mid's, conv1x1_mid's and lin_conv1x1_mid's (both outputs)
+  errors against their plain versions. A tree from before conv1x1_mid /
+  rv_conv1x1_mid / lin_conv1x1_mid took their tensor-core weights gets its
+  own float32 ones (and rv_conv1x1_mid its slope as a float).
 
 Each run prints the card's name and power limit first. Without a CUDA
 device it exits non-zero.
@@ -86,12 +90,13 @@ def checks():
 
 def kernels():
     from implicit_normalizing_flows_torch.ops import cuda_build
+    from implicit_normalizing_flows_torch.ops import fused_block as fb
     from implicit_normalizing_flows_torch.ops import fused_chain as fc
     from implicit_normalizing_flows_torch.ops import fused_final as ff
     from implicit_normalizing_flows_torch.ops import fused_solve as fs
     from implicit_normalizing_flows_torch.ops import implicit_grad as ig
 
-    cuda_build.build_all(["fused_solve", "implicit_grad", "estimator"])
+    cuda_build.build_all(["fused_solve", "implicit_grad", "estimator", "block_forward"])
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     r = lambda *s: torch.randn(*s, generator=g, device=dev)
@@ -122,6 +127,14 @@ def kernels():
     o1, o2 = torch.empty(B, mid, HW, device=dev), torch.empty(2 * B, mid, HW, device=dev)
     o3, o4 = (torch.empty(B, c * HW, device=dev) for _ in range(2))
     o5 = torch.empty(B, mid, HW, device=dev)
+    o6, o7 = (torch.empty(B, mid, HW, device=dev) for _ in range(2))
+    s0 = u(B, c * HW).to(torch.bfloat16)
+    base, sub = r(B, c * HW), r(B, c * HW)
+    # the 3x3 products at the smaller scales: (c, H, t, th, w1t, s0, base, sub, out)
+    small = [(cs, hs, r(B, mid, hs * hs), r(B, mid, hs * hs),
+              (0.02 * r(cs, mid, 3, 3)).to(torch.bfloat16).float(),
+              u(B, cs * hs * hs).to(torch.bfloat16), r(B, cs * hs * hs), r(B, cs * hs * hs),
+              torch.empty(B, cs * hs * hs, device=dev)) for cs, hs in ((12, 16), (48, 8))]
     # the tensors whose form depends on the tree come last, so that every
     # other tensor lies at the same address in both trees
     # a tree before the tensor-core fp_conv_mid takes its kernel in float32
@@ -129,6 +142,7 @@ def kernels():
     # a tree before the tensor-core conv1x1_mid / rv_conv1x1_mid: float32
     # weights, the slope as a float
     split_w = getattr(fs, "prep_conv1x1_mid", lambda wp, m: wp)
+    lin_w = split_w if hasattr(fs, "check_mid_product") else lambda wp, m: wp
     tc_rv = hasattr(ig, "prep_rv_mid_weight")
     rv_w = ig.prep_rv_mid_weight(w2f, "bf16") if tc_rv else ig.prep_weight(w2f, "bf16")
     rv_beta = (lambda i: beta[i:i + 1]) if tc_rv else (lambda i: float(beta[i]))
@@ -143,6 +157,28 @@ def kernels():
     ig._rv_conv3x3_out_plain(t, th, 1.1, idx, cnt, (w1t, None), "bf16", o4, H, H)
     torch.cuda.synchronize()
     errs["rv_conv3x3_out"] = float((o3 - o4).abs().max() / o4.abs().max())
+    jo = lambda f, o: f(t, idx, cnt, (w1t, None), s0, "bf16", base, sub, o, H, H)
+    times["jt_conv3x3_out"] = ms(lambda: jo(ig.jt_conv3x3_out, o3))
+    jo(ig._jt_conv3x3_out_plain, o4)
+    torch.cuda.synchronize()
+    errs["jt_conv3x3_out"] = float((o3 - o4).abs().max() / o4.abs().max())
+    F = torch.nn.functional
+    for cs, hs, ts, ths, ws, s0s, bs, ss, os_ in [(c, H, t, th, w1t, s0, base, sub, o3)] + small:
+        tag = f"{hs}x{hs}, c {cs}"
+        if hs != H:
+            rv = lambda f: f(ts, ths, 1.1, idx, cnt, (ws, None), "bf16", os_, hs, hs)
+            jt = lambda f: f(ts, idx, cnt, (ws, None), s0s, "bf16", bs, ss, os_, hs, hs)
+            for name, run, kern, plain in (
+                    ("rv_conv3x3_out", rv, ig.rv_conv3x3_out, ig._rv_conv3x3_out_plain),
+                    ("jt_conv3x3_out", jt, ig.jt_conv3x3_out, ig._jt_conv3x3_out_plain)):
+                times[f"{name} {tag}"] = ms(lambda: run(kern))
+                got = os_.clone()
+                run(plain)
+                torch.cuda.synchronize()
+                errs[f"{name} {tag}"] = float((got - os_).abs().max() / os_.abs().max())
+        tb, wb = ts.view(B, mid, hs, hs).to(torch.bfloat16), ws.to(torch.bfloat16)
+        times[f"cuDNN conv2d bf16 {tag} (the 3x3 products' library call)"] = ms(
+            lambda: F.conv2d(tb, wb, padding=1))
     for act, inh, bias, i in (("swish", t, b2, 0), ("dswish", th, None, 1)):
         run = lambda f, o: f(t, inh, cnt, rv_w, bias, 1.0, rv_beta(i), act, "bf16", o, H, H)
         name = f"rv_conv1x1_mid ({act})"
@@ -158,8 +194,17 @@ def kernels():
         run(fs._conv1x1_mid_plain, o5)
         torch.cuda.synchronize()
         errs[name] = float((o1 - o5).abs().max() / o5.abs().max())
+    for mode in ("tf32", "tf32x"):
+        wp = lin_w(fs.prep_weight(w2f, mode), mode)
+        run = lambda f, o, s2: f(t, wp, b2, 1.1, mode, o, s2, H, H)
+        name = f"lin_conv1x1_mid ({mode})"
+        times[name] = ms(lambda: run(fb.lin_conv1x1_mid, o1, o6))
+        run(fb._lin_conv1x1_mid_plain, o5, o7)
+        torch.cuda.synchronize()
+        errs[name] = max(float((a - b).abs().max() / b.abs().max())
+                         for a, b in ((o1, o5), (o6, o7)))
     for name, v in times.items():
-        print(f"kernel {name} 32x32: {v:.4f} ms", flush=True)
+        print(f"kernel {name}{'' if ', c ' in name else ' 32x32'}: {v:.4f} ms", flush=True)
     for name, v in errs.items():
         print(f"{name} max_rel_err against its plain version {v:.3e}", flush=True)
     return 0

@@ -39,17 +39,19 @@ Phases (any failure exits non-zero; nothing is caught):
      above the limit. rv_wgrad is read at every weight gradient the
      re-attachment launches (dW2, dW3, dW1 with and without preact),
      rv_conv1x1_mid in both its forms (h2, swish; t1, swish'), and
-     jt_conv1x1_mid, rv_conv3x3_out and rv_conv1x1_mid also on a partial
-     active list (count B/2, a permuted idx; rv_conv1x1_mid takes the count
-     alone), whose dead slots (examples) must stay bitwise untouched. In
-     mode bf16 these four run on the tensor cores (jt_conv1x1_mid and
-     rv_conv1x1_mid on csrc/mma_gemm.cuh, rv_wgrad on csrc/wgrad_tc.cuh,
-     rv_conv3x3_out on csrc/conv3x3_out_tc.cuh);
+     jt_conv1x1_mid, jt_conv3x3_out, rv_conv3x3_out and rv_conv1x1_mid also
+     on a partial active list (count B/2, a permuted idx; rv_conv1x1_mid
+     takes the count alone), whose dead slots (examples) must stay bitwise
+     untouched. In mode bf16 these five run on the tensor cores
+     (jt_conv1x1_mid and rv_conv1x1_mid on csrc/mma_gemm.cuh, rv_wgrad on
+     csrc/wgrad_tc.cuh, rv_conv3x3_out and jt_conv3x3_out on
+     csrc/conv3x3_out_tc.cuh);
   6. the whole backward solve and the whole re-attachment VJP against their
      plain versions, per scale and mode, each rounding mode with its
-     control and its sum-order floors (the plain path with jt_conv1x1_mid;
-     or with rv_wgrad, rv_conv3x3_out or rv_conv1x1_mid summed exactly:
-     ops/sum_order.py);
+     control and its sum-order floors (the plain path with jt_conv1x1_mid,
+     jt_conv3x3_out or both; or with rv_wgrad, rv_conv3x3_out or
+     rv_conv1x1_mid summed exactly: ops/sum_order.py), every reading
+     printed before any limit is checked;
   7. flagship training steps (batch 64, --mem-eff True) from the committed
      checkpoint with Adam, warmup, power iteration and EMA as the benchmark
      sets them: 5 settle and 5 timed steps with the forward-solve and
@@ -116,13 +118,16 @@ Phases (any failure exits non-zero; nothing is caught):
      two convs, and the chain's three stages with float32 derivative
      factors) against its plain version on the real inputs of one merged
      training step (every scale merged for the capture), per scale, in the
-     main path's mode and in bf16 and f32, with controls, device time, plain
-     time, bound and a library call's time; and the linearisation kernels
-     on phase 2's precision probe;
+     main path's mode (and the linearisation kernels in tf32x; both write
+     swish and swish', lin_conv1x1_mid on the tensor cores in both) and in
+     bf16 and f32, with controls, device time, plain time, bound and a
+     library call's time; and the linearisation kernels on phase 2's
+     precision probe;
  15. the whole merged forward against its plain version, per scale and
-     mode (roots, flags, iteration counts, both accs, with a control), and
-     the one-net Neumann chain (fused_neumann_chain) against its plain
-     version;
+     mode (roots, flags, iteration counts, both accs, with a control), each
+     run beside its sum-order floor (the plain forward with lin_conv1x1_mid
+     summed exactly against the plain forward, as phase 3), and the one-net
+     Neumann chain (fused_neumann_chain) against its plain version;
  16. the merged path: flagship training at --mem-eff False with
      IMNF_FUSED_BLOCK=1 from the checkpoint (the 32x32 and 16x16 blocks
      merged, the 8x8 ones split), as phase 10: 5 settle and 5 timed steps
@@ -237,26 +242,30 @@ FINAL_TOL = {"f32": 1e-5, "bf16": 1e-5}
 # chain runs in bf16 and re-rounds every stage (phase 9's ties), its control
 # the f32 chain. The one-net chain is phase 9's chain on one net.
 BLOCK_ACC_TOL = {"f32": 1e-4, "tf32": 5e-4}
-# The wrappers that run on the tensor cores (mode bf16; conv1x1_mid in
-# tf32 / tf32x), each with its kernel's profiler name, source and
-# instruction: the 1x1 products on mma_gemm.cuh's tc_conv1x1_kernel<NP, ST,
-# EPI, IN, PASSES> (nc_jt_mid EPI_SCALE_RND 3, jt_conv1x1_mid EPI_SCALE 2,
-# both IN_ID 0; fp_conv_mid EPI_AFFINE 1 with IN_ID, IN_SWISH or
-# IN_DSWISH; rv_conv1x1_mid EPI_AFFINE 1 with IN_SWISH or IN_DSWISH; all
-# PASSES 1; conv1x1_mid EPI_SWISH 0, IN_ID, PASSES 3 / 4 at NP 64),
-# rv_wgrad on wgrad_tc.cuh's product (after its two bf16 pre-passes,
-# wgrad_prep_kernel) and rv_conv3x3_out on conv3x3_out_tc.cuh. A profiled
-# training step (and the eval profile, for conv1x1_mid) must record each as
-# many times as its wrapper launched it there (conv1x1_mid: its launches in
-# the split modes, TC_COUNT), and none of the CUDA-core instantiations they
-# replaced: conv_gemm_kernel<MODE_BF16 1, SRC 1, IN_ID, EPI_AFFINE |
-# EPI_SCALE | EPI_SCALE_RND> and <1, 1, IN_SWISH | IN_DSWISH, EPI_AFFINE>,
-# conv_gemm_kernel<MODE_TF32 2 | MODE_TF32X 3, 1, IN_ID, EPI_SWISH>,
-# conv3x3_out_kernel<1, IN_DSWISH, ...> and every wgrad_kernel<1, ...>,
-# which only those stages made. fp_conv_mid and rv_conv1x1_mid share the
-# swish and swish' instantiations (SHARED_TC): the profiler records them
-# under one name, so a step must record them as often as the two wrappers
-# launched them together.
+# The wrappers that run on the tensor cores (mode bf16; conv1x1_mid and
+# lin_conv1x1_mid in tf32 / tf32x), each with its kernel's profiler name,
+# source and instruction: the 1x1 products on mma_gemm.cuh's
+# tc_conv1x1_kernel<NP, ST, EPI, IN, PASSES> (nc_jt_mid EPI_SCALE_RND 3,
+# jt_conv1x1_mid EPI_SCALE 2, both IN_ID 0; fp_conv_mid EPI_AFFINE 1 with
+# IN_ID, IN_SWISH or IN_DSWISH; rv_conv1x1_mid EPI_AFFINE 1 with IN_SWISH or
+# IN_DSWISH; all PASSES 1; conv1x1_mid EPI_SWISH 0 and lin_conv1x1_mid
+# EPI_SWISH_LIN 4, IN_ID, PASSES 3 / 4 at NP 64), rv_wgrad on wgrad_tc.cuh's
+# product (after its two bf16 pre-passes, wgrad_prep_kernel), and
+# rv_conv3x3_out and jt_conv3x3_out on conv3x3_out_tc.cuh's
+# conv3x3_out_tc_kernel<TW, NT, IN, EPI, ST> (IN_DSWISH 2 with C3_STORE 0,
+# IN_ID 0 with C3_RESID 1). A profiled training step (and the eval profile,
+# for conv1x1_mid) must record each as many times as its wrapper launched it
+# there (conv1x1_mid, lin_conv1x1_mid: their launches in the split modes,
+# TC_COUNT), and none of the CUDA-core instantiations they replaced:
+# conv_gemm_kernel<MODE_BF16 1, SRC 1, IN_ID, EPI_AFFINE | EPI_SCALE |
+# EPI_SCALE_RND> and <1, 1, IN_SWISH | IN_DSWISH, EPI_AFFINE>,
+# conv_gemm_kernel<MODE_TF32 2 | MODE_TF32X 3, 1, IN_ID, EPI_SWISH |
+# EPI_SWISH_LIN>, conv3x3_out_kernel<1, IN_DSWISH, ...>, conv3x3_out_kernel<1,
+# IN_ID, __nv_bfloat16, false> (the float32 form stays: fp_conv_out runs it)
+# and every wgrad_kernel<1, ...>, which only those stages made. fp_conv_mid
+# and rv_conv1x1_mid share the swish and swish' instantiations (SHARED_TC):
+# the profiler records them under one name, so a step must record them as
+# often as the two wrappers launched them together.
 TC_ROUTES = {
     "nc_jt_mid": (re.compile(r"tc_conv1x1_kernel<\d+, ?[\w:]+, ?3, ?0, ?1>"),
                   "implicit_normalizing_flows_torch/csrc/mma_gemm.cuh", "wgmma bf16"),
@@ -269,18 +278,29 @@ TC_ROUTES = {
     "conv1x1_mid": (re.compile(r"tc_conv1x1_kernel<64, ?float, ?0, ?0, ?[34]>"),
                     "implicit_normalizing_flows_torch/csrc/mma_gemm.cuh",
                     "wgmma bf16, the 3- or 4-pass split of tf32 / tf32x; f32 on CUDA cores"),
+    "lin_conv1x1_mid": (re.compile(r"tc_conv1x1_kernel<64, ?float, ?4, ?0, ?[34]>"),
+                        "implicit_normalizing_flows_torch/csrc/mma_gemm.cuh",
+                        "wgmma bf16, the 3- or 4-pass split of tf32 / tf32x; f32 and bf16 on "
+                        "CUDA cores"),
     "rv_wgrad": (re.compile(r"wgrad_tc_kernel<"),
                  "implicit_normalizing_flows_torch/csrc/wgrad_tc.cuh", "wgmma bf16"),
-    "rv_conv3x3_out": (re.compile(r"conv3x3_out_tc_kernel<"),
+    "rv_conv3x3_out": (re.compile(r"conv3x3_out_tc_kernel<\d+, ?\d+, ?2, ?0,"),
+                       "implicit_normalizing_flows_torch/csrc/conv3x3_out_tc.cuh",
+                       "mma.sync bf16"),
+    "jt_conv3x3_out": (re.compile(r"conv3x3_out_tc_kernel<\d+, ?\d+, ?0, ?1,"),
                        "implicit_normalizing_flows_torch/csrc/conv3x3_out_tc.cuh",
                        "mma.sync bf16"),
 }
 TC_SPLIT = "conv1x1_mid (tensor cores)"  # launch_counts()'s key of those launches
-TC_COUNT = {"conv1x1_mid": TC_SPLIT}  # the count a route is held to, where not its wrapper's
+TC_LIN = "lin_conv1x1_mid (tensor cores)"
+# the count a route is held to, where not its wrapper's
+TC_COUNT = {"conv1x1_mid": TC_SPLIT, "lin_conv1x1_mid": TC_LIN}
 SHARED_TC = [("fp_conv_mid", "rv_conv1x1_mid")]
 ESTIMATOR_ONLY = ("nc_jt_mid", "fp_conv_mid")  # run only in --mem-eff False's estimator
+MERGED_ONLY = ("lin_conv1x1_mid",)  # run only in the merged forward (IMNF_FUSED_BLOCK=1)
 REPLACED_SIMT = re.compile(r"conv_gemm_kernel<1, ?1, ?0, ?[123],|conv_gemm_kernel<1, ?1, ?[12], ?1,"
-                           r"|conv_gemm_kernel<[23], ?1, ?0, ?0,|conv3x3_out_kernel<1, ?2,"
+                           r"|conv_gemm_kernel<[23], ?1, ?0, ?[04],|conv3x3_out_kernel<1, ?2,"
+                           r"|conv3x3_out_kernel<1, ?0, ?__nv_bfloat16, ?false>"
                            r"|wgrad_kernel<1,")
 ROUTE_ATTEMPTS = 3  # profiled steps that may show the routes (train_path)
 TAB_DIM, TAB_BATCH, TAB_EVAL_BATCH = 6, 1000, 4000
@@ -993,6 +1013,14 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
                 "rv_conv3x3_out", rv(t1, mode), rvp(t1, mode),
                 rvp(ctrl_w[7], "f32") if mode != "f32" else None, (B, D), True, mode, label,
                 dev)
+            jo = lambda wp, m: lambda i, n, o: ig.jt_conv3x3_out(P["T1"], i, n, wp, S0, m, U, Gf,
+                                                                 o, H, W)
+            jop = lambda wp, m: lambda i, n, o: ig._jt_conv3x3_out_plain(P["T1"], i, n, wp, S0,
+                                                                         m, U, Gf, o, H, W)
+            fails += check_partial_list(
+                "jt_conv3x3_out", jo(jt1, mode), jop(jt1, mode),
+                jop(ctrl_w[2], "f32") if mode != "f32" else None, (B, D), True, mode, label,
+                dev)
     assert not fails, ("phase 5 (name, scale, mode, error, control)", fails)
     return rows
 
@@ -1039,9 +1067,10 @@ def check_grad_functions(cap):
     f32 against the mode's), which in bf16 must lie above the limit for
     every tensor that a product reaches. Every reading is printed before the
     limits are checked. In bf16 and tf32 each function also prints its
-    sum-order floor: the plain path with one product summed exactly
-    (ops/sum_order.py; jt_conv1x1_mid in the backward solve, rv_wgrad in
-    the re-attachment) against the plain path. No limit is held to it."""
+    sum-order floors: the plain path with one product summed exactly
+    (ops/sum_order.py; in the backward solve jt_conv1x1_mid, jt_conv3x3_out,
+    and both; in the re-attachment rv_wgrad, rv_conv3x3_out and
+    rv_conv1x1_mid) against the plain path. No limit is held to them."""
     from implicit_normalizing_flows_torch.ops import implicit_grad as ig
     from implicit_normalizing_flows_torch.ops import sum_order as so
 
@@ -1064,24 +1093,32 @@ def check_grad_functions(cap):
             torch.cuda.synchronize()
             tp = time.perf_counter() - t0
             err = rel_norm(rk.u, rp.u, grad)
-            control = floor = None
+            control, floors = None, []
             if mode != "f32":
                 control = rel_norm(ig.fused_backward_solve_plain(
                     grad, cd, mode="f32", **kw).u, rp.u, grad)
-                exact = dict(ig._PLAIN, jt_conv1x1_mid=so.jt_conv1x1_mid_exact)
-                floor = rel_norm(ig._backward_solve(grad, cd, exact, mode=mode, **kw).u,
-                                 rp.u, grad)
+                for what, exact in (
+                        ("jt_conv1x1_mid", dict(jt_conv1x1_mid=so.jt_conv1x1_mid_exact)),
+                        ("jt_conv3x3_out", dict(jt_conv3x3_out=so.jt_conv3x3_out_exact)),
+                        ("both", dict(jt_conv1x1_mid=so.jt_conv1x1_mid_exact,
+                                      jt_conv3x3_out=so.jt_conv3x3_out_exact))):
+                    ue = ig._backward_solve(grad, cd, dict(ig._PLAIN, **exact), mode=mode,
+                                            **kw).u
+                    floors.append(f"{rel_norm(ue, rp.u, grad):.3e} ({what} exact)")
             log(f"backward solve scale{s} {mode}: rel_norm {err:.3e}"
                 + ("" if control is None else f" (limit {BWD_TOL[mode]:g}, control {control:.3e}, "
-                   f"sum-order floor {floor:.3e} (jt_conv1x1_mid exact))")
+                   f"sum-order floors {', '.join(floors)})")
                 + f" max|du|/max|u| {rel_max(rk.u, rp.u):.3e}"
                 f" nstep {rk.nstep.float().mean():.2f}/{rp.nstep.float().mean():.2f} prot "
                 f"{int(rk.prot_break.sum())}/{int(rp.prot_break.sum())} "
                 f"s {tk:.3f}/{tp:.3f} (kernels/plain)")
-            assert torch.isfinite(rk.u).all()
-            assert torch.equal(rk.nstep, rp.nstep) and torch.equal(rk.prot_break, rp.prot_break)
+            if not (bool(torch.isfinite(rk.u).all()) and torch.equal(rk.nstep, rp.nstep)
+                    and torch.equal(rk.prot_break, rp.prot_break)):
+                fails.append(("backward solve", s, mode, "non-finite u, nstep or prot differ"))
             if mode == "f32":
-                torch.testing.assert_close(rk.u, rp.u, rtol=1e-4, atol=1e-5)
+                if not torch.allclose(rk.u, rp.u, rtol=1e-4, atol=1e-5):
+                    fails.append(("backward solve", s, mode, "not within rtol 1e-4 / atol 1e-5",
+                                  rel_max(rk.u, rp.u)))
             elif not err <= BWD_TOL[mode] < control:
                 fails.append(("backward solve", s, mode, err, control))
 
@@ -1118,9 +1155,11 @@ def check_grad_functions(cap):
                 line += ")"
             log(line + f" s {tk:.3f}/{tp:.3f} (kernels/plain)")
             for n, a, b in pairs:
-                assert torch.isfinite(a).all(), n
-                if mode == "f32":
-                    torch.testing.assert_close(a, b, rtol=5e-4, atol=1e-5, msg=n)
+                if not bool(torch.isfinite(a).all()):
+                    fails.append(("reattach vjp", s, mode, n, "non-finite"))
+                if mode == "f32" and not torch.allclose(a, b, rtol=5e-4, atol=1e-5):
+                    fails.append(("reattach vjp", s, mode, n, "not within rtol 5e-4 / atol 1e-5",
+                                  rel_max(a, b)))
             if mode != "f32" and not (worst[0] <= REATTACH_TOL[mode]
                                       and (mode != "bf16" or ctrl[0] > REATTACH_TOL[mode])):
                 fails.append(("reattach vjp", s, mode, worst, ctrl))
@@ -1512,8 +1551,11 @@ def kernel_modules():
 def launch_counts():
     from implicit_normalizing_flows_torch.ops import fused_solve as fs
 
+    from implicit_normalizing_flows_torch.ops import fused_block as fb
+
     counts = {k: v for _, m, _ in kernel_modules() for k, v in m.launch_counts().items()}
     counts[TC_SPLIT] = fs.conv1x1_mid.tc_launches
+    counts[TC_LIN] = fb.lin_conv1x1_mid.tc_launches
     return counts
 
 
@@ -1807,8 +1849,10 @@ def block_operands(d, mode):
 def check_block_kernels(cap):
     """Phase 14: the merged forward's kernels vs their plain versions on the
     captured inputs, per scale: the linearisation variants (net x at x, its
-    phase-1 evaluation) in tf32 (the main path's mode, timed), bf16 (with
-    the control: the plain version in mode f32 on the same inputs) and f32;
+    phase-1 evaluation; both outputs: swish(h) and s) in tf32 (the main
+    path's mode, timed and kept), tf32x (timed; lin_conv1x1_mid runs both on
+    the tensor cores), bf16 (with the control: the plain version in mode f32
+    on the same inputs) and f32, and on the precision probe (phase 2's);
     the chain's nc_jt_* kernels (phase 8's) on the merged path's float32 s
     factors of both nets in bf16 (timed, with the control) and f32. Errors
     as phases 2 and 8: max error over the largest entry, by rel_norm for the
@@ -1831,7 +1875,7 @@ def check_block_kernels(cap):
         b1, b2 = (data_x[k].detach().float().contiguous() for k in ("b1", "b2"))
         w1, w2 = (data_x[k].detach().float() for k in ("w1", "w2"))
         view = lambda t, ch: t.reshape(-1, ch, H, W)
-        for mode in ("tf32", "bf16", "f32"):
+        for mode in ("tf32", "tf32x", "bf16", "f32"):
             wp = fs.prep_weights(data_x, mode)
             mid = w2.shape[0]
             t1 = new(B, mid, HW)  # the plain t1: conv1x1's input
@@ -1850,17 +1894,22 @@ def check_block_kernels(cap):
                         lambda: F.conv2d(x, w1, b1, padding=1),
                         lambda: [new(B, mid, HW), new(B, mid, HW)] + [new(B, D)] * preact,
                         (x, wm["w1"][0], wm["w1"][1], b1), B * mid * c * 9 * HW),
+                    # in tf32 / tf32x on the tensor cores: W2's bf16 halves
                     "lin_conv1x1_mid": (
-                        lambda o: fb.lin_conv1x1_mid(t1, wm["w2"], b2, betas[2], m, *o, H, W),
-                        lambda o: fb._lin_conv1x1_mid_plain(t1, wm["w2"], b2, betas[2], m, *o,
-                                                            H, W),
+                        lambda o: fb.lin_conv1x1_mid(t1, wm["w2_mid"], b2, betas[2], m, *o, H,
+                                                     W),
+                        lambda o: fb._lin_conv1x1_mid_plain(t1, wm["w2_mid"], b2, betas[2], m,
+                                                            *o, H, W),
                         lambda: F.conv2d(view(t1, mid), w2, b2),
                         lambda: [new(B, mid, HW), new(B, mid, HW)],
-                        (t1, wm["w2"][0], wm["w2"][1], b2), B * mid * mid * HW),
+                        (t1, *(w for w in wm["w2_mid"] if w is not None), b2),
+                        B * mid * mid * HW),
                 }
 
             check_cases(cases(mode), cases("f32") if mode == "bf16" else {}, mode,
-                        f"c{c} ({H}x{W}, B={B})", rows, fails, timed="tf32", keep=c == 3)
+                        f"c{c} ({H}x{W}, B={B})", rows, fails,
+                        timed=mode if mode in fs.SPLIT_MODES else None,
+                        keep=c == 3 and mode == "tf32")
         # the linearisation kernels on the precision probe (no preact: the
         # probe's x is the conv's operand)
         PB = PROBE_BATCH
@@ -1876,7 +1925,8 @@ def check_block_kernels(cap):
         def lin_mid(f):
             def run(m, t, w):
                 o = [torch.zeros(PB, mid, HW, device=dev) for _ in range(2)]
-                f(t, fs.prep_weight(w, m), torch.zeros(mid, device=dev), 1.0, m, *o, H, W)
+                f(t, fs.prep_conv1x1_mid(fs.prep_weight(w, m), m), torch.zeros(mid, device=dev),
+                  1.0, m, *o, H, W)
                 return o
             return run
 
@@ -1936,13 +1986,20 @@ def check_block_functions(cap):
     within one where the tolerance lies above the split modes' floor (f32,
     and eps 1e-5: see phase 3), the accs by rel_norm over acc - eps at
     BLOCK_ACC_TOL with the control (the plain version in mode f32 against
-    the tf32 one) above it. Then the one-net chain (fused_neumann_chain,
-    the row-2 kernels on one net) on net x's captured operands vs its plain
+    the tf32 one) above it. Each run also reads its sum-order floor, as
+    phase 3: the plain forward with lin_conv1x1_mid summed exactly
+    (ops/sum_order.py) against the plain forward, by the same measures (no
+    limit is held to it). Then the one-net chain (fused_neumann_chain, the
+    row-2 kernels on one net) on net x's captured operands vs its plain
     version, with its device time, plain time and bound. Every reading is
     printed before the limits are checked."""
     from implicit_normalizing_flows_torch.ops import fused_block as fb
     from implicit_normalizing_flows_torch.ops import fused_chain as fc
+    from implicit_normalizing_flows_torch.ops import sum_order as so
 
+    exact_ops = dict(fb._PLAIN_OPS, lin_conv1x1_mid=so.lin_conv1x1_mid_exact)
+    full = dict(stall_guard=None, newton_init=False, warm_start=False, tail_mode=None,
+                tail_start=None, line_search=False)
     fails = []
     for c, d in cap.items():
         args, kw0 = d["args"], d["kw"]
@@ -1961,10 +2018,13 @@ def check_block_functions(cap):
                 rp, *ap = fb.fused_block_forward_plain(*args, **kw)
                 torch.cuda.synchronize()
                 tp = time.perf_counter() - t0
+                rx, *ax = fb._block_forward(exact_ops, *args, **dict(full, **kw))
             accs[mode, eps] = ap
             dz = float((rk.result - rp.result).abs().max())
             dn = (rk.nstep - rp.nstep).abs().long()
             err = max(rel_norm(a, b, e) for a, b, e in zip(ak, ap, (eps_x, eps_z)))
+            fdn = (rx.nstep - rp.nstep).abs().long()
+            ferr = max(rel_norm(a, b, e) for a, b, e in zip(ax, ap, (eps_x, eps_z)))
             tol = BLOCK_ACC_TOL[mode]
             label = f"c{c} {mode} eps {eps:g}"
             log(f"merged forward {label}: max|dz| {dz:.3e} |d nstep| counts "
@@ -1972,7 +2032,12 @@ def check_block_functions(cap):
                 f"{rp.nstep.float().mean():.2f} converged {rk.converged.float().mean():.3f}/"
                 f"{rp.converged.float().mean():.3f} prot {int(rk.prot_break.sum())}/"
                 f"{int(rp.prot_break.sum())} accs rel_norm {err:.3e} (limit {tol:g}) "
-                f"s {tk:.3f}/{tp:.3f} (kernels/plain)")
+                f"s {tk:.3f}/{tp:.3f} (kernels/plain); sum-order floor (lin_conv1x1_mid "
+                f"exact vs plain): max|dz| {float((rx.result - rp.result).abs().max()):.3e} "
+                f"|d nstep| counts {torch.bincount(fdn).tolist()} converged flags differing "
+                f"{int((rx.converged != rp.converged).sum())} prot flags differing "
+                f"{int((rx.prot_break != rp.prot_break).sum())} accs rel_norm {ferr:.3e} "
+                f"(limit {tol:g})")
             ok = (bool(torch.isfinite(rk.result).all()) and dz <= 5e-4
                   and torch.equal(rk.prot_break, rp.prot_break)
                   and torch.equal(rk.converged, rp.converged) and err <= tol
@@ -2008,7 +2073,7 @@ def check_block_functions(cap):
             f"{CHAIN_TOL['bf16']:g}) ms {ms:.4f} plain_ms {pms:.4f} bound_ms {bms:.4f} ({by})")
         if not err <= CHAIN_TOL["bf16"]:
             fails.append(("one-net chain", c, err))
-        del lin, chain, accs
+        del lin, chain, accs, ax
     assert not fails, ("phase 15", fails)
 
 
@@ -2462,8 +2527,8 @@ def main():
         # one profiled step with every count exact shows the routes; a step
         # whose record lost launches is profiled again, up to ROUTE_ATTEMPTS
         profiled_routes(lambda: profile_train_step(step, x_u8, tdraws(n + 1)),
-                        [k for k in TC_ROUTES if estimator or k not in ESTIMATOR_ONLY],
-                        f"{label} step")
+                        [k for k in TC_ROUTES if (estimator or k not in ESTIMATOR_ONLY)
+                         and (merged or k not in MERGED_ONLY)], f"{label} step")
         compare_plain_step(step, x_u8, lambda: tdraws(n + 2),
                            plain_versions(estimator, merged))
         return launches, ms[len(ms) // 2]

@@ -29,28 +29,28 @@
 // float32 swish' of the float32 pre-activations of the solve's own
 // evaluation, as the TPU kernel takes them (:1790-1793).
 //
-// What bounds them on H100: the products, on FP32 CUDA cores, as the
-// kernels they extend (the 1x1 is ~90% of the MACs); the linearisation adds
-// two float32 writes of 512 x HW per example to an evaluation (s1 + s2 of
-// both nets at 32x32, B = 64: 512 MiB, held in HBM between stages B and C,
-// and streamed once per chain term). Keeping them on chip, and tensor
-// cores, are later work.
+// What bounds them on H100: lin_conv1x1_mid (~90% of the MACs) runs on the
+// tensor cores in the split modes tf32 / tf32x (mma_gemm.cuh's 1x1 kernel,
+// EPI_SWISH_LIN: the bf16 split's 3 / 4 wgmma passes, as the forward solve's
+// conv1x1_mid, with s2 written beside swish(h2)), where its products bound
+// it; modes f32 / bf16 and lin_conv3x3_in run on the CUDA cores, bound by
+// their FP32 products. The linearisation adds two float32 writes of 512 x
+// HW per example to an evaluation (s1 + s2 of both nets at 32x32, B = 64:
+// 512 MiB, held in HBM between stages B and C, and streamed once per chain
+// term). Keeping them on chip is later work.
 
-#include "conv_gemm.cuh"
+#include "mma_gemm.cuh"
 
 namespace {
 
 using namespace imnf;
 
+// the 3x3 c -> mid conv on the CUDA cores
 template <int MODE>
-cudaError_t lin_gemm(int src, int preact, const float* w_hi, const float* w_lo,
-                     const float* bias, int M, int K, const float* inp, int B,
-                     int C, int H, int W, float beta_pre, float beta_post,
-                     float* out, float* s, float* s0, cudaStream_t st) {
-  if (src == 1)
-    return launch_conv_gemm<MODE, 1, IN_ID, EPI_SWISH_LIN>(
-        w_hi, w_lo, bias, M, K, inp, nullptr, nullptr, nullptr, B, C, H, W,
-        0.f, beta_post, 1.f, nullptr, out, st, 1, nullptr, s, nullptr);
+cudaError_t lin_in(int preact, const float* w_hi, const float* w_lo,
+                   const float* bias, int M, int K, const float* inp, int B, int C,
+                   int H, int W, float beta_pre, float beta_post, float* out,
+                   float* s, float* s0, cudaStream_t st) {
   if (preact)
     return launch_conv_gemm<MODE, 0, IN_SWISH, EPI_SWISH_LIN>(
         w_hi, w_lo, bias, M, K, inp, nullptr, nullptr, nullptr, B, C, H, W,
@@ -58,20 +58,6 @@ cudaError_t lin_gemm(int src, int preact, const float* w_hi, const float* w_lo,
   return launch_conv_gemm<MODE, 0, IN_ID, EPI_SWISH_LIN>(
       w_hi, w_lo, bias, M, K, inp, nullptr, nullptr, nullptr, B, C, H, W,
       beta_pre, beta_post, 1.f, nullptr, out, st, 1, nullptr, s, nullptr);
-}
-
-cudaError_t dispatch_lin(int mode, int src, int preact, const float* w_hi,
-                         const float* w_lo, const float* bias, int M, int K,
-                         const float* inp, int B, int C, int H, int W,
-                         float beta_pre, float beta_post, float* out, float* s,
-                         float* s0, cudaStream_t st) {
-  switch (mode) {
-    case MODE_F32: return lin_gemm<MODE_F32>(src, preact, w_hi, w_lo, bias, M, K, inp, B, C, H, W, beta_pre, beta_post, out, s, s0, st);
-    case MODE_BF16: return lin_gemm<MODE_BF16>(src, preact, w_hi, w_lo, bias, M, K, inp, B, C, H, W, beta_pre, beta_post, out, s, s0, st);
-    case MODE_TF32: return lin_gemm<MODE_TF32>(src, preact, w_hi, w_lo, bias, M, K, inp, B, C, H, W, beta_pre, beta_post, out, s, s0, st);
-    case MODE_TF32X: return lin_gemm<MODE_TF32X>(src, preact, w_hi, w_lo, bias, M, K, inp, B, C, H, W, beta_pre, beta_post, out, s, s0, st);
-  }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -88,18 +74,35 @@ int imnf_lin_conv3x3_in(int mode, int preact, const float* w_hi,
                         float beta1, const float* inp, int B, int C, int H,
                         int W, int mid, float* out, float* s1, float* s0,
                         void* stream) {
-  return (int)dispatch_lin(mode, 0, preact, w_hi, w_lo, bias, mid, C * 9, inp,
-                           B, C, H, W, beta0, beta1, out, s1, s0,
-                           (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (mode) {
+    case MODE_F32: return (int)lin_in<MODE_F32>(preact, w_hi, w_lo, bias, mid, C * 9, inp, B, C, H, W, beta0, beta1, out, s1, s0, s);
+    case MODE_BF16: return (int)lin_in<MODE_BF16>(preact, w_hi, w_lo, bias, mid, C * 9, inp, B, C, H, W, beta0, beta1, out, s1, s0, s);
+    case MODE_TF32: return (int)lin_in<MODE_TF32>(preact, w_hi, w_lo, bias, mid, C * 9, inp, B, C, H, W, beta0, beta1, out, s1, s0, s);
+    case MODE_TF32X: return (int)lin_in<MODE_TF32X>(preact, w_hi, w_lo, bias, mid, C * 9, inp, B, C, H, W, beta0, beta1, out, s1, s0, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-int imnf_lin_conv1x1_mid(int mode, const float* w_hi, const float* w_lo,
+// w_hi / w_lo: W2's split, bfloat16 in modes tf32 / tf32x (the tensor
+// cores' operands, cast once per solve), float32 in modes f32 / bf16 (the
+// CUDA cores; w_lo unused there)
+int imnf_lin_conv1x1_mid(int mode, const void* w_hi, const void* w_lo,
                          const float* bias, float beta2, const float* inp,
                          int B, int mid, int H, int W, float* out, float* s2,
                          void* stream) {
-  return (int)dispatch_lin(mode, 1, 0, w_hi, w_lo, bias, mid, mid, inp, B, mid,
-                           H, W, 0.f, beta2, out, s2, nullptr,
-                           (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  const __nv_bfloat16* wh = static_cast<const __nv_bfloat16*>(w_hi);
+  const __nv_bfloat16* wl = static_cast<const __nv_bfloat16*>(w_lo);
+  const float* fh = static_cast<const float*>(w_hi);
+  const float* no_scale = nullptr;
+  switch (mode) {
+    case MODE_F32: return (int)launch_conv_gemm<MODE_F32, 1, IN_ID, EPI_SWISH_LIN>(fh, nullptr, bias, mid, mid, inp, nullptr, nullptr, nullptr, B, mid, H, W, 0.f, beta2, 1.f, nullptr, out, s, 1, nullptr, s2);
+    case MODE_BF16: return (int)launch_conv_gemm<MODE_BF16, 1, IN_ID, EPI_SWISH_LIN>(fh, nullptr, bias, mid, mid, inp, nullptr, nullptr, nullptr, B, mid, H, W, 0.f, beta2, 1.f, nullptr, out, s, 1, nullptr, s2);
+    case MODE_TF32: return (int)launch_tc_conv1x1<EPI_SWISH_LIN, IN_ID, 3>(wh, mid, mid, inp, B, 1, H * W, no_scale, out, s, nullptr, nullptr, nullptr, nullptr, bias, wl, beta2, s2);
+    case MODE_TF32X: return (int)launch_tc_conv1x1<EPI_SWISH_LIN, IN_ID, 4>(wh, mid, mid, inp, B, 1, H * W, no_scale, out, s, nullptr, nullptr, nullptr, nullptr, bias, wl, beta2, s2);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,34 +1,43 @@
 // Tensor-core (mma.sync) 3x3 conv mid -> c of mode bf16 for Hopper
-// (sm_90a): the re-attachment's last cotangent product t0 = C1^T (t1
-// swish'(h1)),
+// (sm_90a), in two forms that share the product:
 //
-//   out[e][co][p] = sum_{m, d} W[co][m][d] * bf16(t1[s][m][p + off(d)]
-//                   * swish'(h1[s][m][p + off(d)]; beta)),  e = idx[s],
+//   acc[e][co][p] = sum_{m, d} W[co][m][d] * bf16(IN(t[s][m][p + off(d)])),
+//                   e = idx[s],
 //
-// for the live slots s < *count, zero outside the image: R = dot(m1t, t1h)
-// and its shifted sum in _net_vjp_in_kernel
-// (implicit_normalizing_flows_tpu/ops/fused_solve.py:1093, in
-// fused_reattach_vjp :1226). Mode bf16 only (implicit_grad.cu's
-// rv_conv3x3_out); modes f32 and tf32, and every other 3x3 mid -> c conv,
+// for the live slots s < *count, zero outside the image.
+// * IN_DSWISH, C3_STORE: the re-attachment's last cotangent product t0 =
+//   C1^T (t1 swish'(h1)), out[e] = acc with IN(t) = t1 swish'(h1): R =
+//   dot(m1t, t1h) and its shifted sum in _net_vjp_in_kernel
+//   (implicit_normalizing_flows_tpu/ops/fused_solve.py:1093, in
+//   fused_reattach_vjp :1226); implicit_grad.cu's rv_conv3x3_out.
+// * IN_ID, C3_RESID: the backward solve's residual u + J^T u - grad, out[e]
+//   = base[e] + acc * s0[e] - sub[e] (each op rounded, as conv_gemm.cuh's
+//   conv3x3_out_kernel), s0 float32 or bfloat16 (ST): R = d1(t), the taps'
+//   shifted sum and v * s0 of _make_apply_jt (fused_solve.py:867-888, in
+//   resid :909 of fused_backward_solve :930); implicit_grad.cu's
+//   jt_conv3x3_out.
+// Mode bf16 only; modes f32 and tf32, and every other 3x3 mid -> c conv,
 // stay on conv_gemm.cuh's conv3x3_out_kernel.
 //
-// What bounds it on an H100 (32x32, B 64, mid 512, c 3): bytes. It reads t1
-// and h1 as float32 once, 256 MiB: 0.080 ms at 3.35 TB/s; the product is
-// 1.8 GFLOP. The CUDA-core kernel ran one thread per pixel and group of 4
-// output channels and recomputed t1 swish'(h1) from two float32 loads for
-// each of the 9 taps and each channel group (302 M swish' at 32x32).
+// What bounds it on an H100 (32x32, B 64, mid 512, c 3): bytes. The
+// re-attachment's form reads t1 and h1 as float32 once, 256 MiB: 0.080 ms at
+// 3.35 TB/s; the backward solve's reads t once, 128 MiB: 0.041 ms; the
+// product is 1.8 GFLOP. The CUDA-core kernel ran one thread per pixel and
+// group of 4 output channels and re-read each input (and recomputed t1
+// swish'(h1) from two float32 loads) for each of the 9 taps and each
+// channel group.
 //
 // The design against that bound:
 // * A block owns one slot's band of C3_TH image rows (all W columns) and
 //   walks the mid channels in chunks of 64. Each chunk it loads the band's
-//   t1 and h1 with a one-row halo above and below (16-byte loads, 32
-//   contiguous bytes of a channel row per lane pair), forms t1 swish'(h1)
-//   once per loaded element (the swish family rounded op by op as
-//   conv_gemm.cuh's in_xform), rounds it to bf16 and stores the tile
-//   pixel-major: a 128-byte row of 64 channels for each of the (C3_TH + 2)
-//   x (W + 2) halo pixels, the pixels outside the image zero, the row's
-//   16-byte chunks XOR-swizzled by the pixel's low 3 bits (sw128), so that
-//   the stores and the ldmatrix reads below are free of bank conflicts.
+//   t (and h1) with a one-row halo above and below (16-byte loads, 32
+//   contiguous bytes of a channel row per lane pair), forms IN(t) once per
+//   loaded element (the swish family rounded op by op as conv_gemm.cuh's
+//   in_xform), rounds it to bf16 and stores the tile pixel-major: a 128-byte
+//   row of 64 channels for each of the (C3_TH + 2) x (W + 2) halo pixels,
+//   the pixels outside the image zero, the row's 16-byte chunks
+//   XOR-swizzled by the pixel's low 3 bits (sw128), so that the stores and
+//   the ldmatrix reads below are free of bank conflicts.
 // * The 9 taps are shifted reads of that tile: tap (dy, dx)'s A operand for
 //   output pixel (y, x) is halo pixel (y + 1 + dy, x + 1 + dx). The products
 //   run on mma.sync m16n8k16, bf16 x bf16 -> f32: M 16 pixels, N 8 output
@@ -80,16 +89,24 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The epilogues: out = acc, or the backward solve's residual
+enum { C3_STORE = 0, C3_RESID = 1 };
+
 // Grid (H / C3_TH bands, B slots); a slot at or past *count returns. TW is
-// the image width (8, 16 or 32), NT the 8-channel output tiles (c <= 8 NT).
-// The 8 warps split the band's 16-pixel M tiles (and, when there are fewer
-// than 8 of them, the N tiles).
-template <int TW, int NT>
+// the image width (8, 16 or 32), NT the 8-channel output tiles (c <= 8 NT),
+// IN the input form (IN_DSWISH with th and beta, or IN_ID), EPI the
+// epilogue (C3_RESID reads base, scale and sub, indexed as out). The 8 warps
+// split the band's 16-pixel M tiles (and, when there are fewer than 8 of
+// them, the N tiles).
+template <int TW, int NT, int IN, int EPI, typename ST>
 __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
     const float* __restrict__ w, const float* __restrict__ t,
     const float* __restrict__ th, float beta, const int* __restrict__ idx,
     const int* __restrict__ count, int C, int MID, int H,
-    float* __restrict__ out) {
+    float* __restrict__ out, const float* __restrict__ base,
+    const ST* __restrict__ scale, const float* __restrict__ sub) {
+  static_assert((IN == IN_DSWISH && EPI == C3_STORE) || (IN == IN_ID && EPI == C3_RESID),
+                "the re-attachment's form or the backward solve's");
   constexpr int HPW = TW + 2, HP = (C3_TH + 2) * HPW;  // halo row, halo pixels
   constexpr int NPAD = 8 * NT;
   constexpr int MT = C3_TH * TW / 16;                  // M tiles of the band
@@ -110,7 +127,7 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
   const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
   const int wm = warp % WM, wn = warp / WM;
   const float* const ts = t + (size_t)slot * MID * HW;
-  const float* const hs = th + (size_t)slot * MID * HW;
+  const float* const hs = IN == IN_DSWISH ? th + (size_t)slot * MID * HW : nullptr;
 
   // the border pixels stay zero; the in-image ones are written every chunk
   for (int i = tid; i < HP * 8; i += C3_THREADS)
@@ -157,12 +174,19 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
       if (y < 0 || y >= H) continue;
       const size_t off = (size_t)(m0 + 2 * cp) * HW + y * TW + 4 * pg;
       const float4 ta = ldv4(ts + off), tb = ldv4(ts + off + HW);
-      const float4 ha = ldv4(hs + off), hb = ldv4(hs + off + HW);
-      const uint32_t px[4] = {
-          pack_bf16(__fmul_rn(ta.x, dswish(ha.x, beta)), __fmul_rn(tb.x, dswish(hb.x, beta))),
-          pack_bf16(__fmul_rn(ta.y, dswish(ha.y, beta)), __fmul_rn(tb.y, dswish(hb.y, beta))),
-          pack_bf16(__fmul_rn(ta.z, dswish(ha.z, beta)), __fmul_rn(tb.z, dswish(hb.z, beta))),
-          pack_bf16(__fmul_rn(ta.w, dswish(ha.w, beta)), __fmul_rn(tb.w, dswish(hb.w, beta)))};
+      uint32_t px[4];
+      if constexpr (IN == IN_DSWISH) {
+        const float4 ha = ldv4(hs + off), hb = ldv4(hs + off + HW);
+        px[0] = pack_bf16(__fmul_rn(ta.x, dswish(ha.x, beta)), __fmul_rn(tb.x, dswish(hb.x, beta)));
+        px[1] = pack_bf16(__fmul_rn(ta.y, dswish(ha.y, beta)), __fmul_rn(tb.y, dswish(hb.y, beta)));
+        px[2] = pack_bf16(__fmul_rn(ta.z, dswish(ha.z, beta)), __fmul_rn(tb.z, dswish(hb.z, beta)));
+        px[3] = pack_bf16(__fmul_rn(ta.w, dswish(ha.w, beta)), __fmul_rn(tb.w, dswish(hb.w, beta)));
+      } else {
+        px[0] = pack_bf16(ta.x, tb.x);
+        px[1] = pack_bf16(ta.y, tb.y);
+        px[2] = pack_bf16(ta.z, tb.z);
+        px[3] = pack_bf16(ta.w, tb.w);
+      }
       const int hp0 = hr * HPW + 4 * pg + 1;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -220,16 +244,29 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
       for (int k = 0; k < 4; ++k) {
         const int p = y0 * TW + (wm + i * WM) * 16 + lane / 4 + 8 * (k / 2);
         const int co = nt * 8 + 2 * (lane % 4) + k % 2;
-        if (co < C) out[((size_t)e * C + co) * HW + p] = acc[i][j][k];
+        if constexpr (EPI == C3_RESID) {
+          const size_t o = ((size_t)e * C + co) * HW + p;
+          if (co < C)
+            out[o] = __fsub_rn(__fadd_rn(base[o], __fmul_rn(acc[i][j][k], ld(scale, o))), sub[o]);
+        } else {
+          if (co < C) out[((size_t)e * C + co) * HW + p] = acc[i][j][k];
+        }
       }
     }
 }
 
-template <int TW, int NT>
-cudaError_t launch_c3_tc(const float* w, const float* t, const float* th, float beta,
-                         const int* idx, const int* count, int B, int C, int MID, int H,
-                         float* out, cudaStream_t s) {
-  auto kernel = conv3x3_out_tc_kernel<TW, NT>;
+// static: internal linkage, so that each library that includes this
+// header keeps its own `ready` below (as mma_gemm.cuh's launch_tc_np). A
+// function-local static of a template with external linkage is one object
+// across every loaded library (a GNU-unique symbol): the second library
+// would find it set and launch its own copy of the kernel without ever
+// raising its shared-memory limit.
+template <int TW, int NT, int IN, int EPI, typename ST>
+static cudaError_t launch_c3_tc(const float* w, const float* t, const float* th, float beta,
+                                const int* idx, const int* count, int B, int C, int MID, int H,
+                                float* out, const float* base, const ST* scale,
+                                const float* sub, cudaStream_t s) {
+  auto kernel = conv3x3_out_tc_kernel<TW, NT, IN, EPI, ST>;
   constexpr int bytes = c3_smem_bytes(TW, NT);
   static bool ready = false;  // once per instantiation
   if (!ready) {
@@ -239,17 +276,33 @@ cudaError_t launch_c3_tc(const float* w, const float* t, const float* th, float 
     ready = true;
   }
   kernel<<<dim3(H / C3_TH, B), C3_THREADS, bytes, s>>>(w, t, th, beta, idx, count, C, MID, H,
-                                                        out);
+                                                        out, base, scale, sub);
   return cudaGetLastError();
 }
 
-template <int TW>
-cudaError_t launch_c3_tc_w(const float* w, const float* t, const float* th, float beta,
-                           const int* idx, const int* count, int B, int C, int MID, int H,
-                           float* out, cudaStream_t s) {
-  if (C <= 8) return launch_c3_tc<TW, 1>(w, t, th, beta, idx, count, B, C, MID, H, out, s);
-  if (C <= 16) return launch_c3_tc<TW, 2>(w, t, th, beta, idx, count, B, C, MID, H, out, s);
-  return launch_c3_tc<TW, 6>(w, t, th, beta, idx, count, B, C, MID, H, out, s);
+template <int IN, int EPI, typename ST>
+cudaError_t launch_c3_tc_any(const float* w, const float* t, const float* th, float beta,
+                             const int* idx, const int* count, int B, int C, int MID, int H,
+                             int W, float* out, const float* base, const ST* scale,
+                             const float* sub, cudaStream_t s) {
+  if (C < 1 || C > 48 || MID < C3_MC || MID % C3_MC || H < C3_TH || H % C3_TH)
+    return cudaErrorInvalidValue;
+#define C3_W(TW)                                                                             \
+  if (W == TW) {                                                                             \
+    if (C <= 8)                                                                              \
+      return launch_c3_tc<TW, 1, IN, EPI>(w, t, th, beta, idx, count, B, C, MID, H, out,     \
+                                          base, scale, sub, s);                              \
+    if (C <= 16)                                                                             \
+      return launch_c3_tc<TW, 2, IN, EPI>(w, t, th, beta, idx, count, B, C, MID, H, out,     \
+                                          base, scale, sub, s);                              \
+    return launch_c3_tc<TW, 6, IN, EPI>(w, t, th, beta, idx, count, B, C, MID, H, out, base, \
+                                        scale, sub, s);                                      \
+  }
+  C3_W(8)
+  C3_W(16)
+  C3_W(32)
+#undef C3_W
+  return cudaErrorInvalidValue;
 }
 
 // out[idx[s]] = C1^T (t[s] swish'(th[s]; beta)) on the tensor cores, for
@@ -262,14 +315,23 @@ inline cudaError_t launch_conv3x3_out_tc(const float* w, const float* t, const f
                                          float beta, const int* idx, const int* count,
                                          int B, int C, int MID, int H, int W, float* out,
                                          cudaStream_t s) {
-  if (C < 1 || C > 48 || MID < C3_MC || MID % C3_MC || H < C3_TH || H % C3_TH)
-    return cudaErrorInvalidValue;
-  switch (W) {
-    case 8: return launch_c3_tc_w<8>(w, t, th, beta, idx, count, B, C, MID, H, out, s);
-    case 16: return launch_c3_tc_w<16>(w, t, th, beta, idx, count, B, C, MID, H, out, s);
-    case 32: return launch_c3_tc_w<32>(w, t, th, beta, idx, count, B, C, MID, H, out, s);
-  }
-  return cudaErrorInvalidValue;
+  return launch_c3_tc_any<IN_DSWISH, C3_STORE, float>(w, t, th, beta, idx, count, B, C, MID,
+                                                      H, W, out, nullptr, nullptr, nullptr, s);
+}
+
+// out[e] = base[e] + s0[e] * C1^T t[s] - sub[e], e = idx[s], on the tensor
+// cores, for slots s < *count: the backward solve's residual. w as above,
+// t (B, MID, H*W) by slot, base, s0 (float32 or bfloat16), sub and out (B,
+// C, H*W) by example. Takes what launch_conv3x3_out_tc takes, with a
+// 16-byte aligned t; cudaErrorInvalidValue otherwise.
+template <typename ST>
+cudaError_t launch_jt_conv3x3_out_tc(const float* w, const float* t, const int* idx,
+                                     const int* count, int B, int C, int MID, int H, int W,
+                                     const float* base, const ST* s0, const float* sub,
+                                     float* out, cudaStream_t s) {
+  if (base == nullptr || s0 == nullptr || sub == nullptr) return cudaErrorInvalidValue;
+  return launch_c3_tc_any<IN_ID, C3_RESID, ST>(w, t, nullptr, 0.f, idx, count, B, C, MID, H,
+                                               W, out, base, s0, sub, s);
 }
 
 }  // namespace imnf

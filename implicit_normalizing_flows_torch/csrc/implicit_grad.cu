@@ -16,6 +16,7 @@
 //   jt_conv3x3_in   C3^T u * s2          c -> mid, flipped w3   (im2col GEMM)
 //   jt_conv1x1_mid  C2^T t * s1          mid -> mid, w2^T        (tiled GEMM)
 //   jt_conv3x3_out  u + s0 * C1^T t - grad   mid -> c, flipped w1
+//                   (bf16: tensor cores)
 // re-attachment VJP, per net (x at x with cotangent u; z at z_hat with -u):
 //   rv_conv3x3_in   h1 = W1 [swish](h) + b1, and t2 = sign * C3^T u
 //   rv_conv1x1_mid  h2 = W2 swish(h1) + b2, and t1 = C2^T (t2 swish'(h2))
@@ -45,14 +46,16 @@
 // with a 4x4 register micro-tile per thread (16 FMAs per loaded element);
 // the weight gradients, which reduce over batch x pixels (65,536 terms at
 // 32x32), split that reduction into whole examples over enough blocks to
-// fill the 132 SMs and sum the splits in a second pass. In mode bf16 four
+// fill the 132 SMs and sum the splits in a second pass. In mode bf16 five
 // stages run on the tensor cores, where bytes bound them:
 // jt_conv1x1_mid on mma_gemm.cuh's 1x1 kernel (EPI_SCALE, on the active
 // list), rv_conv1x1_mid on the same kernel (EPI_AFFINE, its swish / swish'
 // applied once per element as the panel is staged, W2 / W2^T bfloat16, the
-// slope read on the device), rv_wgrad on wgrad_tc.cuh (a bf16 pre-pass, then the product) and
+// slope read on the device), rv_wgrad on wgrad_tc.cuh (a bf16 pre-pass, then the product),
 // rv_conv3x3_out on conv3x3_out_tc.cuh (t1 swish'(h1) formed once per
-// element into a halo tile, the 9 taps as shifted reads of it); those
+// element into a halo tile, the 9 taps as shifted reads of it) and
+// jt_conv3x3_out on the same kernel (t rounded once per element into the
+// tile, the residual in its epilogue, on the active list); those
 // headers' notes give their bounds and designs. The other 3x3 stages, the
 // rest of mode bf16 and modes f32 / tf32 stay on the CUDA cores.
 
@@ -268,6 +271,8 @@ cudaError_t jt_mid_mode(int mode, const void* w, int mid, const float* inp,
   return cudaErrorInvalidValue;
 }
 
+// u + s0 C1^T t - grad: mode bf16 on the tensor cores, mode f32 on the CUDA
+// cores (w_lo unused in both)
 template <typename ST>
 cudaError_t jt_out_mode(int mode, const float* w_hi, const float* w_lo,
                         const float* t, const int* idx, const int* count, int B,
@@ -277,7 +282,7 @@ cudaError_t jt_out_mode(int mode, const float* w_hi, const float* w_lo,
   const ST* sc = static_cast<const ST*>(scale);
   switch (mode) {
     case MODE_F32: return launch_conv3x3_out<MODE_F32, IN_ID, ST>(w_hi, w_lo, nullptr, t, nullptr, 0.f, idx, count, B, C, mid, H, W, base, 1.f, sc, sub, out, s);
-    case MODE_BF16: return launch_conv3x3_out<MODE_BF16, IN_ID, ST>(w_hi, w_lo, nullptr, t, nullptr, 0.f, idx, count, B, C, mid, H, W, base, 1.f, sc, sub, out, s);
+    case MODE_BF16: return launch_jt_conv3x3_out_tc<ST>(w_hi, t, idx, count, B, C, mid, H, W, base, sc, sub, out, s);
   }
   return cudaErrorInvalidValue;
 }

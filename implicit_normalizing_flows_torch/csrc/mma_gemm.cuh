@@ -34,7 +34,12 @@
 //   conv_gemm.cuh's epilogue: the forward solve's conv1x1_mid
 //   (fused_solve.cu), h2 = d2(t) + b2; t = swish(h2) of _make_eval
 //   (fused_solve.py:269-270, in fused_broyden_solve :1921), in the split
-//   modes, one net, on the solve's active list (count, no idx).
+//   modes, one net, on the solve's active list (count, no idx);
+// * EPI_SWISH_LIN, EPI_SWISH's output and aux[slot][m][p] = swish'(acc +
+//   bias[m]; beta_out): the merged block forward's lin_conv1x1_mid
+//   (block_forward.cu), h2 and s2 = _dswish(h2) of _block_fwd_kernel
+//   (fused_solve.py:1792, in fused_block_forward :1814), in the split
+//   modes, one net, every slot live.
 // PASSES 1 (mode bf16): both operands bf16, the sums float32,
 // _make_dot("bf16") of the JAX kernels. PASSES 3 / 4 (modes tf32 / tf32x,
 // _make_dot's split, fused_solve.py:101-135): W and X each split into
@@ -52,7 +57,8 @@
 // 320 MiB, 0.10 ms; fp_conv_mid's th2 (B 64 x 2 nets) reads th1 and h1 and
 // writes th2, 768 MiB, 0.24 ms; rv_conv1x1_mid's h2 (B 64) 256 MiB, 0.08
 // ms. conv1x1_mid (B 64) moves 256 MiB (0.08 ms) for 3 x 34.4 GFLOP in
-// tf32 (0.104 ms) and 4 x in tf32x (0.139 ms). The SIMT template re-read
+// tf32 (0.104 ms) and 4 x in tf32x (0.139 ms); lin_conv1x1_mid writes s2
+// too, 384 MiB (0.12 ms). The SIMT template re-read
 // each activation (and re-applied its transform or its split) once per
 // 64-row M block (8 times at mid 512) and ran the products on CUDA cores
 // (3 or 4 FMAs per MAC in the split modes).
@@ -99,7 +105,8 @@
 // * Epilogue per 64-row chunk, fused: a lane pair exchanges halves of its
 //   accumulator fragment (rows r and r+8) so that each lane holds 4
 //   consecutive pixels of one row, scales and rounds them (or adds the
-//   row's bias [and applies swish]), and stores 16 bytes; its s (or bias)
+//   row's bias [and applies swish [and swish']]), and stores 16 bytes (and
+//   16 of swish'); its s (or bias)
 //   was read into registers once, at the chunk's first tile, under the
 //   chunk's products.
 // * Work items (live slot, NP-pixel tile, group of M chunks): where live
@@ -258,7 +265,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_conv1x1_kernel(
     const int* __restrict__ count, int B, int nsm,
     const float* __restrict__ inh, const float* __restrict__ beta_net,
     const float* __restrict__ bias, const __nv_bfloat16* __restrict__ wl0,
-    float beta_out) {
+    float beta_out, float* __restrict__ aux) {
   constexpr bool SPLIT = PASSES > 1;
   constexpr int NPANELS = SPLIT ? 2 : 1;        // hi [and lo] panels
   constexpr int PANEL_BYTES = NP * TC_KMAX * 2;
@@ -437,7 +444,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_conv1x1_kernel(
     // a lane holds row r (even lane) or r + 8 (odd lane), pixels p0 + 8 j + cq
     // .. + 3
     typename Vec4<ST>::type sv[NJ];
-    float bv = 0.f;  // EPI_AFFINE, EPI_SWISH: row r's bias
+    float bv = 0.f;  // EPI_AFFINE, EPI_SWISH[_LIN]: row r's bias
     int r = 0;
     size_t srow = 0, orow = 0;  // row r of scale (example e) and of out (slot)
 
@@ -451,7 +458,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_conv1x1_kernel(
         r = (c0 + wg + (t / nkt) * TC_WGS) * TC_BM + warp * 16 + lane / 4 + (odd ? 8 : 0);
         srow = ((size_t)e * M + r) * HW;
         orow = ((size_t)slot * M + r) * HW;
-        if constexpr (EPI == EPI_AFFINE || EPI == EPI_SWISH) {
+        if constexpr (EPI == EPI_AFFINE || EPI == EPI_SWISH || EPI == EPI_SWISH_LIN) {
           if (bias != nullptr && r < M) bv = __ldg(bias + (size_t)net * M + r);
         } else {
 #pragma unroll
@@ -530,6 +537,16 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_conv1x1_kernel(
         } else if constexpr (EPI == EPI_SWISH) {
           o = make_float4(swish(__fadd_rn(o.x, bv), beta_out), swish(__fadd_rn(o.y, bv), beta_out),
                           swish(__fadd_rn(o.z, bv), beta_out), swish(__fadd_rn(o.w, bv), beta_out));
+        } else if constexpr (EPI == EPI_SWISH_LIN) {
+          const float4 h = make_float4(__fadd_rn(o.x, bv), __fadd_rn(o.y, bv), __fadd_rn(o.z, bv),
+                                       __fadd_rn(o.w, bv));
+          o = make_float4(swish(h.x, beta_out), swish(h.y, beta_out), swish(h.z, beta_out),
+                          swish(h.w, beta_out));
+          const int p = p0 + 8 * j + cq;
+          if (r < M && p < HW)
+            *reinterpret_cast<float4*>(aux + orow + p) =
+                make_float4(dswish(h.x, beta_out), dswish(h.y, beta_out),
+                            dswish(h.z, beta_out), dswish(h.w, beta_out));
         } else {
           const float4 sc = widen4(sv[j]);
           o = make_float4(__fmul_rn(o.x, sc.x), __fmul_rn(o.y, sc.y), __fmul_rn(o.z, sc.z),
@@ -563,7 +580,8 @@ static cudaError_t launch_tc_np(const __nv_bfloat16* w, int M, int K, const floa
                                 int B, int nb, int HW, const ST* scale, float* out,
                                 const int* idx, const int* count, const float* inh,
                                 const float* beta_net, const float* bias,
-                                const __nv_bfloat16* w_lo, float beta_out, cudaStream_t s) {
+                                const __nv_bfloat16* w_lo, float beta_out, float* aux,
+                                cudaStream_t s) {
   auto kernel = tc_conv1x1_kernel<NP, ST, EPI, IN, PASSES>;
   constexpr int bytes = tc_smem_bytes(NP, PASSES > 1 ? 2 : 1);
   static int nsm = 0;  // once per instantiation (one device)
@@ -587,7 +605,7 @@ static cudaError_t launch_tc_np(const __nv_bfloat16* w, int M, int K, const floa
                                           : most < nsm ? most : nsm;
   kernel<<<(unsigned)grid, TC_THREADS, bytes, s>>>(
       w, M, K, inp, HW, scale, out, nb, idx, count, B, nsm, inh, beta_net, bias, w_lo,
-      beta_out);
+      beta_out, aux);
   return cudaGetLastError();
 }
 
@@ -598,7 +616,9 @@ static cudaError_t launch_tc_np(const __nv_bfloat16* w, int M, int K, const floa
 // backward solve) with IN_ID: scale (B, M, HW) indexed by idx[slot] (slot
 // without idx). EPI_AFFINE (the final pair, the re-attachment): IN_ID |
 // IN_SWISH | IN_DSWISH at slope beta_net[net], bias (nets, M) or nullptr,
-// scale nullptr. EPI_SWISH (the forward solve): swish(acc + bias; beta_out).
+// scale nullptr. EPI_SWISH (the forward solve): swish(acc + bias; beta_out);
+// EPI_SWISH_LIN (the merged forward) also writes aux (B, M, HW) by slot,
+// swish'(acc + bias; beta_out).
 // PASSES 1 (mode bf16), or 3 / 4 (tf32 / tf32x: w the hi half, w_lo the lo
 // half of W's bf16 split, same layout). cudaErrorInvalidValue for shapes
 // the kernel does not take.
@@ -609,21 +629,23 @@ cudaError_t launch_tc_conv1x1(const __nv_bfloat16* w, int M, int K, const float*
                               const int* count = nullptr, const float* inh = nullptr,
                               const float* beta_net = nullptr,
                               const float* bias = nullptr,
-                              const __nv_bfloat16* w_lo = nullptr, float beta_out = 0.f) {
+                              const __nv_bfloat16* w_lo = nullptr, float beta_out = 0.f,
+                              float* aux = nullptr) {
   if (M < 1 || K < 8 || K > TC_KMAX || K % 8 || HW < 4 || HW % 4 || nets < 1 ||
       B % nets || (IN != IN_ID && beta_net == nullptr) ||
-      (IN == IN_DSWISH && inh == nullptr) || (PASSES > 1 && w_lo == nullptr))
+      (IN == IN_DSWISH && inh == nullptr) || (PASSES > 1 && w_lo == nullptr) ||
+      (EPI == EPI_SWISH_LIN && aux == nullptr))
     return cudaErrorInvalidValue;
   if constexpr (PASSES > 1) {  // two panels: NP 64 at every size
     return launch_tc_np<64, ST, EPI, IN, PASSES>(w, M, K, inp, B, B / nets, HW, scale, out,
                                                  idx, count, inh, beta_net, bias, w_lo,
-                                                 beta_out, s);
+                                                 beta_out, aux, s);
   } else {
     if (HW <= 64)
       return launch_tc_np<64, ST, EPI, IN, 1>(w, M, K, inp, B, B / nets, HW, scale, out, idx,
-                                              count, inh, beta_net, bias, nullptr, 0.f, s);
+                                              count, inh, beta_net, bias, nullptr, 0.f, aux, s);
     return launch_tc_np<128, ST, EPI, IN, 1>(w, M, K, inp, B, B / nets, HW, scale, out, idx,
-                                             count, inh, beta_net, bias, nullptr, 0.f, s);
+                                             count, inh, beta_net, bias, nullptr, 0.f, aux, s);
   }
 }
 

@@ -232,10 +232,16 @@ cudaError_t wgrad_prep(const float* v, const float* h, const float* beta, long l
   return cudaGetLastError();
 }
 
+// static: internal linkage, so that each library that includes this
+// header keeps its own once-per-instantiation state below (as
+// mma_gemm.cuh's launch_tc_np). A function-local static of a function with
+// external linkage is one object across every loaded library (a GNU-unique
+// symbol): the second library would find it set and launch its own copy of
+// the kernel without ever raising its shared-memory limit.
 template <int SH>
-cudaError_t wgrad_product(const __nv_bfloat16* X, int R, const __nv_bfloat16* Y, int Cy,
-                          int NC, int H, int W, int steps, int total, int splits,
-                          float* part, int M, int N, cudaStream_t s) {
+static cudaError_t wgrad_product(const __nv_bfloat16* X, int R, const __nv_bfloat16* Y,
+                                 int Cy, int NC, int H, int W, int steps, int total,
+                                 int splits, float* part, int M, int N, cudaStream_t s) {
   auto kernel = wgrad_tc_kernel<SH>;
   static bool attr = false;  // once per instantiation (one device)
   if (!attr) {
@@ -255,7 +261,7 @@ cudaError_t wgrad_product(const __nv_bfloat16* X, int R, const __nv_bfloat16* Y,
 // IN_SWISH | IN_DSWISH; the splits hold whole examples (kchunk % HW == 0),
 // H * W % 64 == 0 and W % 8 == 0, the float32 tensors 16-byte aligned.
 // cudaErrorInvalidValue for what it does not take.
-inline cudaError_t launch_wgrad_tc(int ain, int bin, int shift, const float* a,
+static cudaError_t launch_wgrad_tc(int ain, int bin, int shift, const float* a,
                                    const float* ah, const float* beta_a, const float* bsrc,
                                    const float* bh, const float* beta_b, int M, int N,
                                    int Cb, int H, int W, int Bn, int splits, long long kchunk,

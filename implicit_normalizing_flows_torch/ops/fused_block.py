@@ -10,7 +10,9 @@ says what bounds its kernels on an H100 and what the design does about it):
 
 A. the forward solve of ``ops.fused_solve`` with the phase-1 evaluation of
    net x at x through ``lin_conv3x3_in`` / ``lin_conv1x1_mid``, which also
-   write the float32 swish derivatives s0 (under preact), s1 and s2;
+   write the float32 swish derivatives s0 (under preact), s1 and s2
+   (``lin_conv1x1_mid`` in modes tf32 / tf32x on the tensor cores,
+   ``csrc/mma_gemm.cuh``, as the solve's ``conv1x1_mid``);
 B. net z once more at the best iterate ``z_hat``, in the phase-1 mode,
    through the same kernels (``fused_solve.py:1780``);
 C. both nets' chains, ``acc = eps + sum_k c_k (J^T)^k eps``, on
@@ -37,7 +39,7 @@ import torch
 
 from . import fused_chain as fc
 from . import fused_solve as fs
-from .fused_solve import MODES, _check_cuda, _launch, _mconv, _ptr, dswish, swish
+from .fused_solve import MODES, _check_cuda, _launch, _mconv, _ptr, _widened, dswish, swish
 from .implicit_grad import _shapes
 
 __all__ = ["fused_block_forward", "fused_block_forward_plain", "lin_conv3x3_in",
@@ -104,22 +106,27 @@ def lin_conv3x3_in(inp, wp, b1, betas, preact, mode, out, s1, s0):
 
 def _lin_conv1x1_mid_plain(t1, wp, b2, beta2, mode, out, s2, H, W):
     B, mid, _ = t1.shape
-    h2 = _mconv(t1.reshape(B, mid, H, W), wp, mode, 0) + b2[None, :, None, None]
+    h2 = _mconv(t1.reshape(B, mid, H, W), _widened(wp), mode, 0) + b2[None, :, None, None]
     out.copy_(swish(h2, beta2).reshape(out.shape))
     s2.copy_(dswish(h2, beta2).reshape(s2.shape))
 
 
 def lin_conv1x1_mid(t1, wp, b2, beta2, mode, out, s2, H, W):
     """out = swish(h2, beta2) and s2 = swish'(h2, beta2) with h2 = W2 t1 +
-    b2; t1, out, s2 (B, mid, H*W)."""
+    b2; t1, out, s2 (B, mid, H*W). wp from
+    :func:`~.fused_solve.prep_conv1x1_mid`: in the split modes, which run
+    on the tensor cores (``tc_launches`` counts those launches), bfloat16
+    halves, with what :func:`~.fused_solve.check_mid_product` asks of the
+    shapes; float32 in modes f32 / bf16 (the CUDA cores)."""
     if not t1.is_cuda:
         return _lin_conv1x1_mid_plain(t1, wp, b2, beta2, mode, out, s2, H, W)
-    B, mid, HW = t1.shape
-    _check_cuda(t1=t1, w_hi=wp[0], w_lo=wp[1], b2=b2, out=out, s2=s2)
-    _shapes(t1=(t1, (B, mid, H * W)), out=(out, t1.shape), s2=(s2, t1.shape))
+    B, mid, _ = t1.shape
+    split = fs.check_mid_product("lin_conv1x1_mid", t1, wp, mode, b2=b2, out=out, s2=s2)
     _run("imnf_lin_conv1x1_mid", MODES[mode], _ptr(wp[0]), _ptr(wp[1]), _ptr(b2),
          float(beta2), _ptr(t1), B, mid, H, W, _ptr(out), _ptr(s2))
     lin_conv1x1_mid.launches += 1
+    if split:
+        lin_conv1x1_mid.tc_launches += 1
 
 
 KERNELS = {"lin_conv3x3_in": lin_conv3x3_in, "lin_conv1x1_mid": lin_conv1x1_mid}
@@ -127,6 +134,7 @@ _PLAIN = {"lin_conv3x3_in": _lin_conv3x3_in_plain,
           "lin_conv1x1_mid": _lin_conv1x1_mid_plain}
 for _fn in KERNELS.values():
     _fn.launches = 0
+lin_conv1x1_mid.tc_launches = 0  # its launches on the tensor cores (split modes)
 
 
 def launch_counts() -> dict:
@@ -136,6 +144,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    lin_conv1x1_mid.tc_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -45,7 +45,8 @@ import torch.nn.functional as F
 __all__ = ["fused_broyden_solve", "fused_broyden_solve_plain",
            "FusedSolveResult", "conv3x3_in", "conv1x1_mid", "conv3x3_out",
            "broyden_step", "KERNELS", "launch_counts", "reset_launch_counts",
-           "prep_weight", "prep_weights", "prep_conv1x1_mid", "norm_ladder",
+           "prep_weight", "prep_weights", "prep_conv1x1_mid", "check_mid_product",
+           "norm_ladder",
            "swish", "dswish", "dswish_dbeta", "d2swish", "ddswish_dbeta"]
 
 PROTECT_THRES = 1e6  # reference: broyden.py:150
@@ -293,6 +294,33 @@ def _conv1x1_mid_plain(t1, count, wp, b2, beta2, mode, out, H, W):
     out[:n] = y.reshape(n, mid, H * W)
 
 
+def check_mid_product(name, t1, wp, mode, **tensors):
+    """Raise on what the forward 1x1 kernels (``conv1x1_mid``, the merged
+    forward's ``lin_conv1x1_mid``) do not take: CUDA, contiguous float32
+    ``tensors`` (int32 ``count``), those other than ``count`` and ``b2`` in
+    t1's shape; wp from
+    :func:`prep_conv1x1_mid`, bfloat16 halves in the split modes (the tensor
+    cores: mid <= TC_KMAX with mid % 8 == 0, H*W % 4 == 0, both halves and
+    16-byte aligned tensors), float32 in modes f32 / bf16. Returns whether
+    the split modes' tensor-core kernel runs."""
+    B, mid, HW = t1.shape
+    split = mode in SPLIT_MODES
+    _check_cuda(t1=t1, **tensors)
+    _check_cuda(_dtypes=(torch.bfloat16 if split else torch.float32,), w_hi=wp[0],
+                w_lo=wp[1])
+    outs = {k: t for k, t in tensors.items() if k not in ("count", "b2")}
+    if (any(tuple(t.shape) != (B, mid, HW) for t in outs.values())
+            or tuple(wp[0].shape) != (mid, mid, 1, 1)):
+        raise ValueError(f"{name}: t1 {tuple(t1.shape)}, w {tuple(wp[0].shape)}, "
+                         + ", ".join(f"{k} {tuple(t.shape)}" for k, t in outs.items()))
+    if split:
+        if mid > TC_KMAX or mid % 8 or HW % 4 or wp[1] is None:
+            raise ValueError(f"{name} in {mode} takes mid <= {TC_KMAX} with mid % 8 "
+                             f"== 0, H*W % 4 == 0 and both halves, got mid {mid}, H*W {HW}")
+        _check_aligned(t1=t1, w_hi=wp[0], w_lo=wp[1], **outs)
+    return split
+
+
 def conv1x1_mid(t1, count, wp, b2, beta2, mode, out, H, W):
     """out[s] = swish(W2 @ t1[s] + b2, beta2) for live slots s; the dead
     slots of out are not written. wp from :func:`prep_conv1x1_mid`: in the
@@ -301,19 +329,8 @@ def conv1x1_mid(t1, count, wp, b2, beta2, mode, out, H, W):
     H*W % 4 == 0 and 16-byte aligned tensors."""
     if not t1.is_cuda:
         return _conv1x1_mid_plain(t1, count, wp, b2, beta2, mode, out, H, W)
-    B, mid, HW = t1.shape
-    split = mode in SPLIT_MODES
-    _check_cuda(t1=t1, count=count, b2=b2, out=out)
-    _check_cuda(_dtypes=(torch.bfloat16 if split else torch.float32,), w_hi=wp[0],
-                w_lo=wp[1])
-    if tuple(out.shape) != (B, mid, HW) or tuple(wp[0].shape) != (mid, mid, 1, 1):
-        raise ValueError(f"conv1x1_mid: t1 {tuple(t1.shape)}, w {tuple(wp[0].shape)}, "
-                         f"out {tuple(out.shape)}")
-    if split:
-        if mid > TC_KMAX or mid % 8 or HW % 4 or wp[1] is None:
-            raise ValueError(f"conv1x1_mid in {mode} takes mid <= {TC_KMAX} with mid % 8 "
-                             f"== 0, H*W % 4 == 0 and both halves, got mid {mid}, H*W {HW}")
-        _check_aligned(t1=t1, out=out, w_hi=wp[0], w_lo=wp[1])
+    B, mid, _ = t1.shape
+    split = check_mid_product("conv1x1_mid", t1, wp, mode, count=count, b2=b2, out=out)
     _launch("imnf_conv1x1_mid", MODES[mode], _ptr(wp[0]), _ptr(wp[1]),
             _ptr(b2), float(beta2), _ptr(t1), _ptr(count), B, mid, H, W,
             _ptr(out))
@@ -553,7 +570,7 @@ def _solve(x, data_x, data_z, ops, *, threshold, eps, stall_patience,
         else:
             ops["lin_conv3x3_in"](inp.view(B, c, H, W), wp["w1"], nd["b1"], nd["betas"],
                                   nd["preact"], m, T1, s[1], s[0])
-            ops["lin_conv1x1_mid"](T1, wp["w2"], nd["b2"], nd["betas"][2], m, T2, s[2],
+            ops["lin_conv1x1_mid"](T1, wp["w2_mid"], nd["b2"], nd["betas"][2], m, T2, s[2],
                                    H, W)
         if out is not None:
             ops["conv3x3_out"](T2, idx, cnt, wp["w3"], nd["b3"], m, base, sgn, sub,

@@ -9,12 +9,12 @@ package. The TPU kernels hold one example's operands in VMEM per grid step;
 on Hopper both are host-driven sequences of batched kernels from
 ``csrc/implicit_grad.cu`` (that file's header says what bounds each on an
 H100 and what its design does about it), with the conv kernels shared with
-the forward solve through ``csrc/conv_gemm.cuh``. In mode bf16 four of them
+the forward solve through ``csrc/conv_gemm.cuh``. In mode bf16 five of them
 run on the tensor cores: ``jt_conv1x1_mid`` (``csrc/mma_gemm.cuh``, with
 W2^T cast to bfloat16 once per solve by :func:`prep_mid_weight`),
 ``rv_conv1x1_mid`` (the same kernel, W2 and W2^T cast to bfloat16 once per
-VJP by :func:`prep_rv_mid_weight`), ``rv_wgrad`` (``csrc/wgrad_tc.cuh``) and
-``rv_conv3x3_out`` (``csrc/conv3x3_out_tc.cuh``):
+VJP by :func:`prep_rv_mid_weight`), ``rv_wgrad`` (``csrc/wgrad_tc.cuh``),
+``rv_conv3x3_out`` and ``jt_conv3x3_out`` (``csrc/conv3x3_out_tc.cuh``):
 
 * backward solve ``u (I + J_gz) = grad``: per iteration ``jt_conv3x3_in`` ->
   ``jt_conv1x1_mid`` -> ``jt_conv3x3_out`` evaluate the residual
@@ -254,16 +254,32 @@ def _jt_conv3x3_out_plain(t, idx, count, wp, s0, mode, base, sub, out, H, W):
     out[e] = base.index_select(0, e) + y * s0.index_select(0, e) - sub.index_select(0, e)
 
 
+def _check_conv3x3_out_tc(name, c, mid, H, W, **aligned):
+    """Raise on what the tensor-core 3x3 mid -> c kernel
+    (``csrc/conv3x3_out_tc.cuh``) does not take: c over 48, mid not a
+    multiple of 64, W other than 8, 16 or 32, H not a multiple of 8, or an
+    input of ``aligned`` not 16-byte aligned."""
+    if c > 48 or mid % 64 or W not in (8, 16, 32) or H % 8:
+        raise ValueError(f"{name} in bf16 takes c <= 48, mid % 64 == 0, W 8 | 16 | 32 and "
+                         f"H % 8 == 0, not c {c}, mid {mid}, H {H}, W {W}")
+    _check_aligned(**aligned)
+
+
 def jt_conv3x3_out(t, idx, count, wp, s0, mode, base, sub, out, H, W):
     """out[e] = base[e] + s0[e] * C1^T t[s] - sub[e], e = idx[s], for live
-    slots s: the residual ``u + J^T u - grad``. wp the split of w1t
-    (c, mid, 3, 3); s0, base, sub, out (B, c*H*W)."""
+    slots s: the residual ``u + J^T u - grad``; the dead examples of out are
+    not written. wp the split of w1t (c, mid, 3, 3); s0, base, sub, out (B,
+    c*H*W). Mode bf16 runs on the tensor cores
+    (``csrc/conv3x3_out_tc.cuh``): it takes c <= 48, mid a multiple of 64,
+    W 8, 16 or 32, H a multiple of 8 and a 16-byte aligned t."""
     if not t.is_cuda:
         return _jt_conv3x3_out_plain(t, idx, count, wp, s0, mode, base, sub, out, H, W)
     B, mid, _ = t.shape
     c = wp[0].shape[0]
     sbf16 = _check_scale(s0, t=t, idx=idx, count=count, w_hi=wp[0], w_lo=wp[1],
                          base=base, sub=sub, out=out)
+    if mode == "bf16":
+        _check_conv3x3_out_tc("jt_conv3x3_out", c, mid, H, W, t=t)
     D = (B, c * H * W)
     _shapes(t=(t, (B, mid, H * W)), idx=(idx, (B,)), count=(count, (1,)),
             w=(wp[0], (c, mid, 3, 3)), s0=(s0, D), base=(base, D), sub=(sub, D),
@@ -376,11 +392,7 @@ def rv_conv3x3_out(t, th, beta_in, idx, count, wp, mode, out, H, W):
     c = wp[0].shape[0]
     _check_cuda(t=t, th=th, idx=idx, count=count, w_hi=wp[0], w_lo=wp[1], out=out)
     if mode == "bf16":
-        if c > 48 or mid % 64 or W not in (8, 16, 32) or H % 8:
-            raise ValueError(f"rv_conv3x3_out in bf16 takes c <= 48, mid % 64 == 0, "
-                             f"W 8 | 16 | 32 and H % 8 == 0, not c {c}, mid {mid}, "
-                             f"H {H}, W {W}")
-        _check_aligned(t=t, th=th)
+        _check_conv3x3_out_tc("rv_conv3x3_out", c, mid, H, W, t=t, th=th)
     _shapes(t=(t, (B, mid, H * W)), th=(th, t.shape), idx=(idx, (B,)),
             count=(count, (1,)), w=(wp[0], (c, mid, 3, 3)), out=(out, (B, c * H * W)))
     _run("imnf_rv_conv3x3_out", _mode(mode, REATTACH_MODES), _ptr(wp[0]),

@@ -1,5 +1,5 @@
-"""Plain versions of six kernels with their products summed exactly, and
-three with their products summed in the tensor cores' order.
+"""Plain versions of eight kernels with their products summed exactly, and
+five with their products summed in the tensor cores' order.
 
 Each ``*_exact`` function here is a kernel's plain version with its rounded
 (bf16, or split) product summed in float64 and rounded once to float32: the
@@ -16,17 +16,29 @@ a floor fails every kernel that does not sum in the plain version's order.
 * :func:`conv1x1_mid_exact`: ``ops.fused_solve._conv1x1_mid_plain`` (modes
   tf32 / tf32x: every pass of the split summed together).
 * :func:`rv_conv1x1_mid_exact`: ``ops.implicit_grad._rv_conv1x1_mid_plain``.
+* :func:`jt_conv3x3_out_exact`: ``ops.implicit_grad._jt_conv3x3_out_plain``
+  (``C1^T t`` over mid x 9 terms; the residual's ops rounded in float32 as
+  there).
+* :func:`lin_conv1x1_mid_exact`: ``ops.fused_block._lin_conv1x1_mid_plain``
+  (as :func:`conv1x1_mid_exact`, with s2 = swish'(h2) written too).
 
 The ``*_tiled`` functions are plain versions with their products summed as
-the tensor-core kernel (``csrc/mma_gemm.cuh``) sums them: each K tile of
-``TC_BK`` channels into a fresh float32 partial, the partials added in
-order. They stand in for that kernel on the CPU:
+the tensor-core kernels sum them. They stand in for those kernels on the
+CPU. The 1x1 kernel (``csrc/mma_gemm.cuh``) sums each K tile of ``TC_BK``
+channels into a fresh float32 partial, the partials added in order:
 
 * :func:`fp_conv_mid_tiled` and :func:`rv_conv1x1_mid_tiled` (mode bf16);
-* :func:`conv1x1_mid_tiled` (tf32 / tf32x): per K tile one partial of
-  hi*hi and one of the small passes hi*lo + lo*hi (+ lo*lo), each added to
-  its own float32 sum; the epilogue adds the two sums, then b2, then swish
-  (modes f32 / bf16, on the CUDA cores: the plain version).
+* :func:`conv1x1_mid_tiled` and :func:`lin_conv1x1_mid_tiled` (tf32 /
+  tf32x): per K tile one partial of hi*hi and one of the small passes
+  hi*lo + lo*hi (+ lo*lo), each added to its own float32 sum; the epilogue
+  adds the two sums, then b2, then swish (and swish') (modes f32 / bf16, on
+  the CUDA cores: the plain version).
+
+The 3x3 kernel (``csrc/conv3x3_out_tc.cuh``) takes the mid channels in
+chunks of ``C3_MC`` and, within a chunk, the 9 taps in order, each (chunk,
+tap) K tile into a fresh float32 partial added to the sum:
+
+* :func:`jt_conv3x3_out_tiled` (mode bf16).
 
 They run on whatever device their tensors lie on.
 """
@@ -39,9 +51,12 @@ from .fused_solve import SPLIT_MODES, _conv1x1_mid_plain, _split, _widened, dswi
 
 __all__ = ["jt_conv1x1_mid_exact", "rv_wgrad_exact", "rv_conv3x3_out_exact",
            "fp_conv_mid_exact", "fp_conv_mid_tiled", "conv1x1_mid_exact",
-           "conv1x1_mid_tiled", "rv_conv1x1_mid_exact", "rv_conv1x1_mid_tiled", "TC_BK"]
+           "conv1x1_mid_tiled", "rv_conv1x1_mid_exact", "rv_conv1x1_mid_tiled",
+           "jt_conv3x3_out_exact", "jt_conv3x3_out_tiled", "lin_conv1x1_mid_exact",
+           "lin_conv1x1_mid_tiled", "TC_BK", "C3_MC"]
 
 TC_BK = 64  # the K tile of the tensor-core 1x1 product (csrc/mma_gemm.cuh)
+C3_MC = 64  # the mid channels of a chunk of the tensor-core 3x3 product (csrc/conv3x3_out_tc.cuh)
 
 
 def _exact(x, w, mode, mm):
@@ -82,14 +97,60 @@ def rv_wgrad_exact(a, ah, beta_a, b, bh, beta_b, bin_, shift, mode, part, H, W):
         part[s] = _exact(A[:, k], Bm[:, k], mode, lambda x, y: x @ y.T)
 
 
+def _conv3x3_exact(v, wp, mode):
+    """The 3x3 conv (padding 1) of v by wp's kernel, summed exactly."""
+    w = wp[0] if wp[1] is None else wp[0] + wp[1]  # splits again into (hi, lo)
+    return _exact(v, w, mode, lambda x, k: F.conv2d(x, k, padding=1))
+
+
 def rv_conv3x3_out_exact(t, th, beta_in, idx, count, wp, mode, out, H, W):
     """``_rv_conv3x3_out_plain`` with ``C1^T`` summed exactly."""
     n = int(count.item())
     mid = t.shape[1]
     v = (t[:n] * dswish(th[:n], beta_in)).reshape(n, mid, H, W)
-    w = wp[0] if wp[1] is None else wp[0] + wp[1]  # splits again into (hi, lo)
-    y = _exact(v, w, mode, lambda x, k: F.conv2d(x, k, padding=1))
-    out[idx[:n].long()] = y.reshape(n, -1)
+    out[idx[:n].long()] = _conv3x3_exact(v, wp, mode).reshape(n, -1)
+
+
+def _jt_conv3x3_out_by(product, t, idx, count, wp, s0, mode, base, sub, out, H, W):
+    """``_jt_conv3x3_out_plain`` with ``product(t, wp, mode)`` for its 3x3
+    conv; the residual ``base + y * s0 - sub`` rounded op by op in float32,
+    as there."""
+    n = int(count.item())
+    e = idx[:n].long()
+    mid = t.shape[1]
+    y = product(t[:n].reshape(n, mid, H, W), wp, mode).reshape(n, -1)
+    out[e] = base.index_select(0, e) + y * s0.index_select(0, e) - sub.index_select(0, e)
+
+
+def jt_conv3x3_out_exact(t, idx, count, wp, s0, mode, base, sub, out, H, W):
+    """``_jt_conv3x3_out_plain`` with ``C1^T t`` summed exactly (all mid x 9
+    terms in float64, rounded once)."""
+    _jt_conv3x3_out_by(_conv3x3_exact, t, idx, count, wp, s0, mode, base, sub, out, H, W)
+
+
+def _conv3x3_tiled(v, wp, mode):
+    """The bf16 3x3 conv (padding 1) summed as the tensor-core kernel sums
+    it: for each chunk of C3_MC channels, and within it each tap in order,
+    a fresh float32 partial of the chunk's products, added to the sum."""
+    if mode != "bf16":
+        raise ValueError(f"the tensor cores' order is mode bf16's, not {mode!r}")
+    vh, wh = _split(v.float(), mode)[0], _split(wp[0].float(), mode)[0]
+    H, W = v.shape[2:]
+    vp = F.pad(vh, (1, 1, 1, 1))
+    acc = None
+    for k0 in range(0, v.shape[1], C3_MC):
+        k = slice(k0, k0 + C3_MC)
+        for ky in range(3):
+            for kx in range(3):
+                part = F.conv2d(vp[:, k, ky:ky + H, kx:kx + W], wh[:, k, ky:ky + 1, kx:kx + 1])
+                acc = part if acc is None else acc + part
+    return acc
+
+
+def jt_conv3x3_out_tiled(t, idx, count, wp, s0, mode, base, sub, out, H, W):
+    """``_jt_conv3x3_out_plain`` in mode bf16 with ``C1^T t`` summed in the
+    tensor-core kernel's order (chunks of ``C3_MC`` channels, then taps)."""
+    _jt_conv3x3_out_by(_conv3x3_tiled, t, idx, count, wp, s0, mode, base, sub, out, H, W)
 
 
 def _fp_conv_mid_by(product, inp, inh, w, bias, beta_net, act, mode, out, H, W):
@@ -144,30 +205,63 @@ def conv1x1_mid_exact(t1, count, wp, b2, beta2, mode, out, H, W):
     out[:n] = swish(y + b2[None, :, None, None], beta2).reshape(n, mid, H * W)
 
 
-def conv1x1_mid_tiled(t1, count, wp, b2, beta2, mode, out, H, W):
-    """``conv1x1_mid`` as its wrapper routes it: in mode tf32 / tf32x
-    ``_conv1x1_mid_plain`` with its product summed as the tensor-core kernel
-    sums it (per K tile a fresh float32 partial of hi*hi and one of hi*lo +
-    lo*hi (+ lo*lo), each added to its float32 sum; then the two sums
-    added, ``+ b2`` and swish); in modes f32 / bf16, which stay on the CUDA
-    cores, the plain version."""
-    if mode not in SPLIT_MODES:
-        return _conv1x1_mid_plain(t1, count, wp, b2, beta2, mode, out, H, W)
-    n = int(count.item())
-    mid = t1.shape[1]
-    xh, xl = _split(t1[:n].reshape(n, mid, H, W).float(), mode)
+def _split_tiled(x, wp, mode):
+    """The split modes' 1x1 product summed as the tensor-core kernel sums
+    it: per K tile a fresh float32 partial of hi*hi and one of hi*lo + lo*hi
+    (+ lo*lo), each added to its float32 sum; then the two sums added."""
+    xh, xl = _split(x.float(), mode)
     wh, wl = _widened(wp)
     big = small = None
     add = lambda a, b: b if a is None else a + b
-    for k0 in range(0, mid, TC_BK):
+    for k0 in range(0, x.shape[1], TC_BK):
         k = slice(k0, k0 + TC_BK)
         big = add(big, F.conv2d(xh[:, k], wh[:, k]))
         part = F.conv2d(xl[:, k], wh[:, k]) + F.conv2d(xh[:, k], wl[:, k])
         if mode == "tf32x":
             part = part + F.conv2d(xl[:, k], wl[:, k])
         small = add(small, part)
-    y = big + small
+    return big + small
+
+
+def conv1x1_mid_tiled(t1, count, wp, b2, beta2, mode, out, H, W):
+    """``conv1x1_mid`` as its wrapper routes it: in mode tf32 / tf32x
+    ``_conv1x1_mid_plain`` with its product summed as the tensor-core kernel
+    sums it (:func:`_split_tiled`; then ``+ b2`` and swish); in modes f32 /
+    bf16, which stay on the CUDA cores, the plain version."""
+    if mode not in SPLIT_MODES:
+        return _conv1x1_mid_plain(t1, count, wp, b2, beta2, mode, out, H, W)
+    n = int(count.item())
+    mid = t1.shape[1]
+    y = _split_tiled(t1[:n].reshape(n, mid, H, W), wp, mode)
     out[:n] = swish(y + b2[None, :, None, None], beta2).reshape(n, mid, H * W)
+
+
+def _lin_conv1x1_mid_by(product, t1, wp, b2, beta2, mode, out, s2, H, W):
+    """``_lin_conv1x1_mid_plain`` with ``product(t1, wp, mode)`` for its 1x1
+    product (b2, swish and swish' after it, as there)."""
+    B, mid, _ = t1.shape
+    h2 = product(t1.reshape(B, mid, H, W), tuple(wp), mode) + b2[None, :, None, None]
+    out.copy_(swish(h2, beta2).reshape(out.shape))
+    s2.copy_(dswish(h2, beta2).reshape(s2.shape))
+
+
+def lin_conv1x1_mid_exact(t1, wp, b2, beta2, mode, out, s2, H, W):
+    """``_lin_conv1x1_mid_plain`` with its product summed exactly (every pass
+    of the split in float64, rounded once); wp the kernel's (hi, lo)."""
+    _lin_conv1x1_mid_by(lambda x, w, m: _exact(x, w, m, F.conv2d), t1, wp, b2, beta2, mode,
+                        out, s2, H, W)
+
+
+def lin_conv1x1_mid_tiled(t1, wp, b2, beta2, mode, out, s2, H, W):
+    """``lin_conv1x1_mid`` as its wrapper routes it: in mode tf32 / tf32x
+    ``_lin_conv1x1_mid_plain`` with its product summed as the tensor-core
+    kernel sums it (:func:`_split_tiled`); in modes f32 / bf16, which stay
+    on the CUDA cores, the plain version."""
+    from .fused_block import _lin_conv1x1_mid_plain
+
+    if mode not in SPLIT_MODES:
+        return _lin_conv1x1_mid_plain(t1, wp, b2, beta2, mode, out, s2, H, W)
+    _lin_conv1x1_mid_by(_split_tiled, t1, wp, b2, beta2, mode, out, s2, H, W)
 
 
 def _rv_conv1x1_mid_by(product, inp, inh, count, wp, bias, alpha, beta_in, act, mode,
