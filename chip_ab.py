@@ -3,6 +3,7 @@
     python3 chip_ab.py checks    # chip_smoke.py phases 6 and 9
     python3 chip_ab.py kernels   # device times of the tensor-core products
     python3 chip_ab.py step      # the main path's step and the eval batch
+    python3 chip_ab.py sass DIR  # each kernel's SASS against the tree in DIR
 
 Run from the root of a checkout; it drives the port and the chip_smoke.py
 found there. To read another commit (a parent) with this commit's checks,
@@ -31,18 +32,32 @@ kernel times, run ``kernels`` in both trees in one call, in turns.
   inputs at the flagship's 32x32 shapes (batch 64, mid 512, c 3; both nets
   for the estimator's two), and rv_conv3x3_out's, jt_conv3x3_out's,
   rv_conv1x1_mid's, conv1x1_mid's and lin_conv1x1_mid's (both outputs)
-  errors against their plain versions. A tree from before conv1x1_mid /
-  rv_conv1x1_mid / lin_conv1x1_mid took their tensor-core weights gets its
-  own float32 ones (and rv_conv1x1_mid its slope as a float).
+  errors against their plain versions; then the c -> mid 3x3 products at
+  each scale (32x32 c 3, 16x16 c 12, 8x8 c 48): nc_jt_in in mode bf16 with
+  s2 bfloat16 and float32 (both nets; error by rel_norm, its outputs being
+  rounded to bfloat16) and lin_conv3x3_in in tf32 and tf32x under preact
+  (its three outputs), each beside one cuDNN conv2d of the same product (bf16,
+  f32). A tree from before conv1x1_mid / rv_conv1x1_mid / lin_conv1x1_mid /
+  nc_jt_in / lin_conv3x3_in took their tensor-core weights gets its own
+  float32 ones (and rv_conv1x1_mid its slope as a float).
+* ``sass DIR``: every ``csrc/*.cu`` of this tree and of the tree in DIR
+  (a parent, unpacked) compiled for sm_90a with the flags of
+  ``ops/cuda_build.py``, one nvcc each, all started together; for each
+  kernel instantiation (demangled), its registers and spilled bytes in
+  both trees and whether its SASS is identical, and the instantiations
+  found in one tree only.
 
 Each run prints the card's name and power limit first. Without a CUDA
 device it exits non-zero.
 """
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
+from pathlib import Path
 
 import torch
 
@@ -203,6 +218,48 @@ def kernels():
         torch.cuda.synchronize()
         errs[name] = max(float((a - b).abs().max() / b.abs().max())
                          for a, b in ((o1, o5), (o6, o7)))
+    # the c -> mid 3x3 products at each scale: nc_jt_in (both nets, bf16, s2
+    # bfloat16 or float32) and lin_conv3x3_in (tf32, tf32x; preact) beside
+    # one cuDNN call of the same product (bf16, f32). A tree from before
+    # their tensor-core kernels takes float32 weights.
+    tc_in = hasattr(fs, "check_conv3x3_tc")
+    for cs, hs in ((c, H), (12, 16), (48, 8)):
+        tag, hws = f"{hs}x{hs}, c {cs}", hs * hs
+        uu = r(2 * B, cs, hs, hs).to(torch.bfloat16).float()
+        w3 = (0.1 * r(2, mid, cs, 3, 3)).to(torch.bfloat16)
+        w3k = w3 if tc_in else w3.float()
+        oa, ob = (torch.empty(2 * B, mid, hws, device=dev) for _ in range(2))
+        for sd in (torch.bfloat16, torch.float32):
+            s2 = u(2 * B, mid, hws).to(sd)
+            run = lambda f, o: f(uu, w3k, s2, "bf16", o)
+            name = f"nc_jt_in (s {'bf16' if sd == torch.bfloat16 else 'f32'}) {tag}"
+            times[name] = ms(lambda: run(fc.nc_jt_in, oa))
+            run(fc._nc_jt_in_plain, ob)
+            torch.cuda.synchronize()
+            errs[name] = float((oa - ob).norm() / ob.norm())  # rel_norm: bf16 ties
+        ub, wb = uu.to(torch.bfloat16), w3[0]
+        times[f"cuDNN conv2d bf16 {tag} (nc_jt_in's library call)"] = ms(
+            lambda: F.conv2d(ub, wb, padding=1))
+        del oa, ob, s2
+        xx, w1 = r(B, cs, hs, hs), 0.1 * r(mid, cs, 3, 3)
+        b1 = 0.1 * r(mid)
+        outs = [torch.empty(B, mid, hws, device=dev) for _ in range(4)]
+        s0s = [torch.empty(B, cs * hws, device=dev) for _ in range(2)]
+        for mode in ("tf32", "tf32x"):
+            wp = fs.prep_weight(w1, mode)
+            wk = fs.prep_conv1x1_mid(wp, mode) if tc_in else wp
+            run = lambda f, w, i: f(xx, w, b1, [1.1, 0.9, 1.0], True, mode, outs[2 * i],
+                                    outs[2 * i + 1], s0s[i])
+            name = f"lin_conv3x3_in ({mode}) {tag}"
+            times[name] = ms(lambda: run(fb.lin_conv3x3_in, wk, 0))
+            run(fb._lin_conv3x3_in_plain, wp, 1)
+            torch.cuda.synchronize()
+            errs[name] = max(float((a - b).abs().max() / b.abs().max())
+                             for a, b in ((outs[0], outs[2]), (outs[1], outs[3]),
+                                          (s0s[0], s0s[1])))
+        times[f"cuDNN conv2d f32 {tag} (lin_conv3x3_in's library call)"] = ms(
+            lambda: F.conv2d(xx, w1, b1, padding=1))
+        del outs, s0s
     for name, v in times.items():
         print(f"kernel {name}{'' if ', c ' in name else ' 32x32'}: {v:.4f} ms", flush=True)
     for name, v in errs.items():
@@ -239,10 +296,77 @@ def step():
     return 0
 
 
+def _sass_of(tree, src, out):
+    """{instantiation: (registers, spilled bytes, SASS lines)} of one
+    source of ``tree``, compiled to a cubin in ``out``."""
+    from implicit_normalizing_flows_torch.ops import cuda_build
+
+    tool = lambda name: str(Path(cuda_build.nvcc_path()).parent / name)
+    cubin = out / f"{abs(hash(tree))}_{src}.cubin"
+    cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v", "-cubin",
+           "-o", str(cubin), f"{tree}/implicit_normalizing_flows_torch/csrc/{src}.cu"]
+    return subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True), cubin, tool
+
+
+def _read_sass(proc, cubin, tool):
+    err = proc.communicate()[1]
+    assert proc.returncode == 0, err
+    demangle = lambda n: re.sub(r"\((int|bool|unsigned int)\)", "", subprocess.run(
+        [tool("cu++filt"), n], capture_output=True, text=True).stdout.strip()).split("(")[0]
+    use, cur = {}, None
+    for line in err.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        cur = m[1] if m else cur
+        m = re.search(r"(\d+) bytes spill stores", line) or re.search(r"Used (\d+) registers",
+                                                                       line)
+        if m and cur:
+            use.setdefault(cur, []).append(int(m[1]))
+    text = subprocess.run([tool("cuobjdump"), "-sass", str(cubin)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            spill, regs = (use.get(m[1], []) + [None, None])[:2]
+            cur = funcs.setdefault(demangle(m[1]), (regs, spill, []))[2]
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s*(.*?);", line)
+        if m and cur is not None:
+            cur.append(re.sub(r"\s+", " ", m[1]))
+    return funcs
+
+
+def sass():
+    """Registers, spills and SASS identity of every kernel instantiation of
+    this tree against the tree in sys.argv[2]."""
+    other = sys.argv[2]
+    srcs = sorted(p.stem for p in Path("implicit_normalizing_flows_torch/csrc").glob("*.cu"))
+    out = Path(tempfile.mkdtemp())
+    jobs = {(t, s): _sass_of(t, s, out) for t in (other, ".") for s in srcs
+            if Path(f"{t}/implicit_normalizing_flows_torch/csrc/{s}.cu").exists()}
+    got = {k: _read_sass(*v) for k, v in jobs.items()}
+    same = differ = 0
+    for src in srcs:
+        old, new = got.get((other, src), {}), got.get((".", src), {})
+        for name in sorted(set(old) | set(new)):
+            a, b = old.get(name), new.get(name)
+            if a is None or b is None:
+                print(f"{src}: only in {'this tree' if a is None else other}: {name}")
+                continue
+            same += a[2] == b[2]
+            differ += a[2] != b[2]
+            print(f"{src}: {'identical' if a[2] == b[2] else 'DIFFERS'} {name}: registers "
+                  f"{a[0]} -> {b[0]}, spilled bytes {a[1]} -> {b[1]}, {len(a[2])} -> "
+                  f"{len(b[2])} instructions")
+    print(f"SASS identical for {same} instantiations, different for {differ}")
+    return 0
+
+
 def main():
-    modes = {"checks": checks, "kernels": kernels, "step": step}
-    if not torch.cuda.is_available() or len(sys.argv) != 2 or sys.argv[1] not in modes:
-        print("usage, on a CUDA device: python3 chip_ab.py checks|kernels|step",
+    modes = {"checks": checks, "kernels": kernels, "step": step, "sass": sass}
+    nargs = 3 if sys.argv[1:2] == ["sass"] else 2
+    if not torch.cuda.is_available() or len(sys.argv) != nargs or sys.argv[1] not in modes:
+        print("usage, on a CUDA device: python3 chip_ab.py checks|kernels|step|sass DIR",
               file=sys.stderr)
         return 1
     print(card(), flush=True)

@@ -51,7 +51,10 @@ Phases (any failure exits non-zero; nothing is caught):
      control and its sum-order floors (the plain path with jt_conv1x1_mid,
      jt_conv3x3_out or both; or with rv_wgrad, rv_conv3x3_out or
      rv_conv1x1_mid summed exactly: ops/sum_order.py), every reading
-     printed before any limit is checked;
+     printed before any limit is checked; phases 5 and 6 read inputs
+     captured from a training step with every plain version forced, so that
+     a floor measures its product and not how the port's kernels moved its
+     inputs;
   7. flagship training steps (batch 64, --mem-eff True) from the committed
      checkpoint with Adam, warmup, power iteration and EMA as the benchmark
      sets them: 5 settle and 5 timed steps with the forward-solve and
@@ -68,11 +71,15 @@ Phases (any failure exits non-zero; nothing is caught):
      bound and the bytes/s achieved, a library call's time and the control
      (the plain version in mode f32 on the same inputs, which must read
      above the limit); the bf16 1x1 products nc_jt_mid and fp_conv_mid run
-     on the tensor cores (csrc/mma_gemm.cuh), and fp_conv_mid is read with
-     each act (id on the backward's four "nets", swish, dswish);
+     on the tensor cores (csrc/mma_gemm.cuh), and so does the chain's 3x3
+     c -> mid product nc_jt_in (csrc/conv3x3_in_tc.cuh, also read on
+     float32 s); fp_conv_mid is read with each act (id on the backward's
+     four "nets", swish, dswish);
   9. the whole Neumann chain (the step's n_power) and the whole final pair
      (T, d_h and every gradient) against their plain versions, per scale
-     and mode, by rel_norm with controls; in bf16 the final pair is held
+     and mode, by rel_norm with controls; in bf16 the chain beside its
+     sum-order floor (the plain chain with nc_jt_in summed exactly against
+     the plain chain), printed before any limit is checked, and the final pair is held
      against the plain path with fp_conv_mid summed exactly (FINAL_TOL's
      comment), beside its reading against the plain path and the sum-order
      floors of fp_conv_mid and rv_wgrad;
@@ -119,14 +126,19 @@ Phases (any failure exits non-zero; nothing is caught):
      factors) against its plain version on the real inputs of one merged
      training step (every scale merged for the capture), per scale, in the
      main path's mode (and the linearisation kernels in tf32x; both write
-     swish and swish', lin_conv1x1_mid on the tensor cores in both) and in
+     swish and swish', both on the tensor cores in both: lin_conv3x3_in on
+     csrc/conv3x3_in_tc.cuh, lin_conv1x1_mid on csrc/mma_gemm.cuh) and in
      bf16 and f32, with controls, device time, plain time, bound and a
      library call's time; and the linearisation kernels on phase 2's
-     precision probe;
+     precision probe; then the c -> mid 3x3 kernel (nc_jt_in in bf16,
+     lin_conv3x3_in in tf32 and tf32x) at mid 64, 192 and 384 on seeded
+     random inputs at each scale, its outputs started as NaN so that a
+     channel chunk it leaves unwritten fails;
  15. the whole merged forward against its plain version, per scale and
      mode (roots, flags, iteration counts, both accs, with a control), each
-     run beside its sum-order floor (the plain forward with lin_conv1x1_mid
-     summed exactly against the plain forward, as phase 3), and the one-net
+     run beside its sum-order floors (the plain forward with lin_conv1x1_mid,
+     lin_conv3x3_in or both summed exactly against the plain forward, as
+     phase 3), and the one-net
      Neumann chain (fused_neumann_chain) against its plain version;
  16. the merged path: flagship training at --mem-eff False with
      IMNF_FUSED_BLOCK=1 from the checkpoint (the 32x32 and 16x16 blocks
@@ -206,7 +218,7 @@ NO_ROUNDING = ("rv_wgrad_reduce", "rv_chan_sums",  # sums only: no mode
 # entry. Phase 8 holds them by rel_norm over the whole output at
 # ROUNDED_TOL: such entries moved it by up to 7.0e-5 (16x16), a skipped
 # rounding (the control) by 1.3e-3 or more.
-ROUNDED_OUTPUT = ("nc_jt_in", "nc_jt_mid", "nc_jt_out_acc")
+ROUNDED_OUTPUT = ("nc_jt_in", "nc_jt_in (float32 s)", "nc_jt_mid", "nc_jt_out_acc")
 ROUNDED_TOL = 2e-4
 # Phase 9 (rel_norm). The chain re-rounds every stage of every term, so
 # the ties' moves are carried on through the series (measured up to 9.7e-5
@@ -253,16 +265,21 @@ BLOCK_ACC_TOL = {"f32": 1e-4, "tf32": 5e-4}
 # product (after its two bf16 pre-passes, wgrad_prep_kernel), and
 # rv_conv3x3_out and jt_conv3x3_out on conv3x3_out_tc.cuh's
 # conv3x3_out_tc_kernel<TW, NT, IN, EPI, ST> (IN_DSWISH 2 with C3_STORE 0,
-# IN_ID 0 with C3_RESID 1). A profiled training step (and the eval profile,
-# for conv1x1_mid) must record each as many times as its wrapper launched it
-# there (conv1x1_mid, lin_conv1x1_mid: their launches in the split modes,
+# IN_ID 0 with C3_RESID 1), and nc_jt_in and lin_conv3x3_in on
+# conv3x3_in_tc.cuh's conv3x3_in_tc_kernel<TW, EPI, PASSES, ST>
+# (EPI_SCALE_RND 3 with PASSES 1; EPI_SWISH_LIN 4 with PASSES 3 / 4). A
+# profiled training step (and the eval profile, for conv1x1_mid) must record
+# each as many times as its wrapper launched it there (conv1x1_mid,
+# lin_conv1x1_mid, lin_conv3x3_in: their launches in the split modes,
 # TC_COUNT), and none of the CUDA-core instantiations they replaced:
 # conv_gemm_kernel<MODE_BF16 1, SRC 1, IN_ID, EPI_AFFINE | EPI_SCALE |
 # EPI_SCALE_RND> and <1, 1, IN_SWISH | IN_DSWISH, EPI_AFFINE>,
 # conv_gemm_kernel<MODE_TF32 2 | MODE_TF32X 3, 1, IN_ID, EPI_SWISH |
 # EPI_SWISH_LIN>, conv3x3_out_kernel<1, IN_DSWISH, ...>, conv3x3_out_kernel<1,
-# IN_ID, __nv_bfloat16, false> (the float32 form stays: fp_conv_out runs it)
-# and every wgrad_kernel<1, ...>, which only those stages made. fp_conv_mid
+# IN_ID, __nv_bfloat16, false> (the float32 form stays: fp_conv_out runs it),
+# every wgrad_kernel<1, ...>, conv_gemm_kernel<1, SRC 0, IN_ID,
+# EPI_SCALE_RND> and conv_gemm_kernel<2 | 3, 0, IN_ID | IN_SWISH,
+# EPI_SWISH_LIN>, which only those stages made. fp_conv_mid
 # and rv_conv1x1_mid share the swish and swish' instantiations (SHARED_TC):
 # the profiler records them under one name, so a step must record them as
 # often as the two wrappers launched them together.
@@ -290,18 +307,28 @@ TC_ROUTES = {
     "jt_conv3x3_out": (re.compile(r"conv3x3_out_tc_kernel<\d+, ?\d+, ?0, ?1,"),
                        "implicit_normalizing_flows_torch/csrc/conv3x3_out_tc.cuh",
                        "mma.sync bf16"),
+    "nc_jt_in": (re.compile(r"conv3x3_in_tc_kernel<\d+, ?3, ?1,"),
+                 "implicit_normalizing_flows_torch/csrc/conv3x3_in_tc.cuh", "mma.sync bf16"),
+    "lin_conv3x3_in": (re.compile(r"conv3x3_in_tc_kernel<\d+, ?4, ?[34],"),
+                       "implicit_normalizing_flows_torch/csrc/conv3x3_in_tc.cuh",
+                       "mma.sync bf16, the 3- or 4-pass split of tf32 / tf32x; f32 and bf16 on "
+                       "CUDA cores"),
 }
 TC_SPLIT = "conv1x1_mid (tensor cores)"  # launch_counts()'s key of those launches
 TC_LIN = "lin_conv1x1_mid (tensor cores)"
+TC_LIN3 = "lin_conv3x3_in (tensor cores)"
 # the count a route is held to, where not its wrapper's
-TC_COUNT = {"conv1x1_mid": TC_SPLIT, "lin_conv1x1_mid": TC_LIN}
+TC_COUNT = {"conv1x1_mid": TC_SPLIT, "lin_conv1x1_mid": TC_LIN, "lin_conv3x3_in": TC_LIN3}
 SHARED_TC = [("fp_conv_mid", "rv_conv1x1_mid")]
-ESTIMATOR_ONLY = ("nc_jt_mid", "fp_conv_mid")  # run only in --mem-eff False's estimator
-MERGED_ONLY = ("lin_conv1x1_mid",)  # run only in the merged forward (IMNF_FUSED_BLOCK=1)
+# run only in --mem-eff False's estimator
+ESTIMATOR_ONLY = ("nc_jt_in", "nc_jt_mid", "fp_conv_mid")
+# run only in the merged forward (IMNF_FUSED_BLOCK=1)
+MERGED_ONLY = ("lin_conv3x3_in", "lin_conv1x1_mid")
 REPLACED_SIMT = re.compile(r"conv_gemm_kernel<1, ?1, ?0, ?[123],|conv_gemm_kernel<1, ?1, ?[12], ?1,"
                            r"|conv_gemm_kernel<[23], ?1, ?0, ?[04],|conv3x3_out_kernel<1, ?2,"
                            r"|conv3x3_out_kernel<1, ?0, ?__nv_bfloat16, ?false>"
-                           r"|wgrad_kernel<1,")
+                           r"|wgrad_kernel<1,|conv_gemm_kernel<1, ?0, ?0, ?3,"
+                           r"|conv_gemm_kernel<[23], ?0, ?[01], ?4,")
 ROUTE_ATTEMPTS = 3  # profiled steps that may show the routes (train_path)
 TAB_DIM, TAB_BATCH, TAB_EVAL_BATCH = 6, 1000, 4000
 TAB_WARMUP, TAB_SETTLE, TAB_TIMED = 110, 5, 10
@@ -755,8 +782,15 @@ def rel_norm(a, b, base=None):
 
 def capture_grad_inputs(step, x_u8, draws):
     """The implicit gradient's real inputs at each scale's last block, from
-    one training step's gradient: {c: dict(block, grad, z, x, z_hat, u,
-    data_x, data_z)} keyed by the scale's channel count."""
+    one training step's gradient with every plain version forced
+    (plain_versions), so that the inputs, and the floors phase 6 reads on
+    them, do not move with the port's kernels: {c: dict(block, grad, z, x,
+    z_hat, u, data_x, data_z)} keyed by the scale's channel count."""
+    with patched(plain_versions(False)):
+        return _capture_grad_inputs(step, x_u8, draws)
+
+
+def _capture_grad_inputs(step, x_u8, draws):
     from implicit_normalizing_flows_torch.layers import ImplicitBlock, implicit_block
 
     seen = {}
@@ -1316,6 +1350,7 @@ def check_estimator_kernels(cap, modes=("bf16", "f32")):
         for mode in modes:
             op, wt, Hs, E, ACC, ACCW = estimator_operands(d, mode)
             wt32 = ff._weights(d["datas"], "f32", torch.float32)
+            S2f = op["S2"].float()  # nc_jt_in on float32 s (the merged path's)
             mid = op["S1"].shape[1]
             b0, b1, b2 = wt["beta"]
             beta1_x = wt["betas"][0, 1]  # net x's slope, on the card
@@ -1359,6 +1394,11 @@ def check_estimator_kernels(cap, modes=("bf16", "f32")):
                         lambda: F.conv2d(lib(op["U"]), lib(op["W3T"][0]), padding=1),
                         lambda: [new(Bt, mid, HW)], (hv(op["U"]), op["S2"], hv(op["W3T"])),
                         Bt * mid * c * 9 * HW),
+                    **({"nc_jt_in (float32 s)": (
+                        lambda o: fc.nc_jt_in(op["U"], op["W3T"], S2f, m, o[0]),
+                        lambda o: fc._nc_jt_in_plain(op["U"], op["W3T"], S2f, m, o[0]),
+                        None, lambda: [new(Bt, mid, HW)], (hv(op["U"]), S2f, hv(op["W3T"])),
+                        Bt * mid * c * 9 * HW)} if mode == "bf16" else {}),
                     "nc_jt_mid": (
                         lambda o: fc.nc_jt_mid(P["T2"], op["W2T"], op["S1"], m, o[0], H, W),
                         lambda o: fc._nc_jt_mid_plain(P["T2"], op["W2T"], op["S1"], m, o[0], H, W),
@@ -1437,6 +1477,7 @@ def check_estimator_kernels(cap, modes=("bf16", "f32")):
                         mode, f"c{c}{'' if preact else ' (no preact)'} ({H}x{W}, B={B} x 2 nets)",
                         rows, fails, timed="bf16", rounded=ROUNDED_OUTPUT,
                         keep=(c, preact) == (3, True))
+            del S2f
     assert not fails, ("phase 8 (name, block, mode, error, control)", fails)
     return rows
 
@@ -1475,14 +1516,18 @@ def check_estimator_functions(cap):
             tp = time.perf_counter() - t0
             eps = [ch[0].float() for ch in chains]
             err = max(rel_norm(a, b, e) for a, b, e in zip(ak, ap, eps))
-            control = None
+            control = floor = None
             if mode == "bf16":
                 c32 = [tuple(a.float() for a in ch) for ch in chains]
                 ac = fc.fused_neumann_chain2_plain(*c32, d["signed"], d["n_power"])
                 control = min(rel_norm(a, b, e) for a, b, e in zip(ac, ap, eps))
+                ax = fc._chain(chains, d["signed"], d["n_power"],
+                               dict(fc._PLAIN, nc_jt_in=so.nc_jt_in_exact))
+                floor = max(rel_norm(a, b, e) for a, b, e in zip(ax, ap, eps))
             log(f"neumann chain {label} {mode} n_power {d['n_power']}: rel_norm {err:.3e} "
                 f"(limit {CHAIN_TOL[mode]:g}"
-                + ("" if control is None else f", control {control:.3e}")
+                + ("" if control is None else f", control {control:.3e}, sum-order floor "
+                   f"(the plain chain with nc_jt_in exact against the plain chain) {floor:.3e}")
                 + f") s {tk:.3f}/{tp:.3f} (kernels/plain)")
             assert all(bool(torch.isfinite(a).all()) for a in ak)
             if not (err <= CHAIN_TOL[mode] and (control is None or control > CHAIN_TOL[mode])):
@@ -1556,6 +1601,7 @@ def launch_counts():
     counts = {k: v for _, m, _ in kernel_modules() for k, v in m.launch_counts().items()}
     counts[TC_SPLIT] = fs.conv1x1_mid.tc_launches
     counts[TC_LIN] = fb.lin_conv1x1_mid.tc_launches
+    counts[TC_LIN3] = fb.lin_conv3x3_in.tc_launches
     return counts
 
 
@@ -1885,15 +1931,18 @@ def check_block_kernels(cap):
 
             def cases(m):
                 wm = fs.prep_weights(data_x, m)
+                wm["w1_lin"] = fs.prep_conv1x1_mid(wm["w1"], m)
                 return {
+                    # in tf32 / tf32x on the tensor cores: W1's bf16 halves
                     "lin_conv3x3_in": (
-                        lambda o: fb.lin_conv3x3_in(x, wm["w1"], b1, betas, preact, m, o[0],
+                        lambda o: fb.lin_conv3x3_in(x, wm["w1_lin"], b1, betas, preact, m, o[0],
                                                     o[1], s0(o)),
-                        lambda o: fb._lin_conv3x3_in_plain(x, wm["w1"], b1, betas, preact, m,
-                                                           o[0], o[1], s0(o)),
+                        lambda o: fb._lin_conv3x3_in_plain(x, wm["w1_lin"], b1, betas, preact,
+                                                           m, o[0], o[1], s0(o)),
                         lambda: F.conv2d(x, w1, b1, padding=1),
                         lambda: [new(B, mid, HW), new(B, mid, HW)] + [new(B, D)] * preact,
-                        (x, wm["w1"][0], wm["w1"][1], b1), B * mid * c * 9 * HW),
+                        (x, *(w for w in wm["w1_lin"] if w is not None), b1),
+                        B * mid * c * 9 * HW),
                     # in tf32 / tf32x on the tensor cores: W2's bf16 halves
                     "lin_conv1x1_mid": (
                         lambda o: fb.lin_conv1x1_mid(t1, wm["w2_mid"], b2, betas[2], m, *o, H,
@@ -1917,8 +1966,8 @@ def check_block_kernels(cap):
         def lin_in(f):
             def run(m, xx, w):
                 o = [torch.zeros(PB, mid, HW, device=dev) for _ in range(2)]
-                f(xx, fs.prep_weight(w, m), torch.zeros(mid, device=dev), [1.0] * 3, False, m,
-                  *o, None)
+                f(xx, fs.prep_conv1x1_mid(fs.prep_weight(w, m), m),
+                  torch.zeros(mid, device=dev), [1.0] * 3, False, m, *o, None)
                 return o
             return run
 
@@ -1979,6 +2028,59 @@ def check_block_kernels(cap):
     return rows
 
 
+NARROW_MIDS = (64, 192, 384)  # mid % 64 == 0, some not a multiple of a 128-row chunk
+
+
+def check_conv3x3_in_widths(dev, batch=4):
+    """Phase 14's tail: the c -> mid tensor-core kernel at mid NARROW_MIDS,
+    where the M chunks do not split evenly over the groups of blocks and
+    the last chunk at 8x8 is half full: nc_jt_in (bf16, two nets of
+    ``batch`` examples, s2 bfloat16; rel_norm against ROUNDED_TOL) and
+    lin_conv3x3_in (tf32, tf32x, preact; its three outputs, max error over
+    the largest entry against SPLIT_TOL) against their plain versions on
+    seeded random inputs at each scale's c and image. The kernels' outputs
+    start as NaN, so an output left unwritten reads NaN and fails. Every
+    reading is printed before the limits are checked."""
+    from implicit_normalizing_flows_torch.ops import fused_block as fb
+    from implicit_normalizing_flows_torch.ops import fused_chain as fc
+    from implicit_normalizing_flows_torch.ops import fused_solve as fs
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    r = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    nan = lambda *shape: torch.full(shape, float("nan"), device=dev)
+    fails = []
+    for c, H in ((3, 32), (12, 16), (48, 8)):
+        HW = H * H
+        for mid in NARROW_MIDS:
+            label = f"c{c} ({H}x{H}, mid {mid})"
+            u = r(2 * batch, c, H, H).to(torch.bfloat16).float()
+            w3t = (0.1 * r(2, mid, c, 3, 3)).to(torch.bfloat16)
+            s2 = (0.5 + torch.rand(2 * batch, mid, HW, generator=g, device=dev)).to(
+                torch.bfloat16)
+            ok_, op_ = nan(2 * batch, mid, HW), nan(2 * batch, mid, HW)
+            fc.nc_jt_in(u, w3t, s2, "bf16", ok_)
+            fc._nc_jt_in_plain(u, w3t, s2, "bf16", op_)
+            torch.cuda.synchronize()
+            err = rel_norm(ok_, op_)
+            log(f"kernel nc_jt_in {label}, bf16: rel_norm {err:.3e} (limit {ROUNDED_TOL:g})")
+            if not (math.isfinite(err) and err <= ROUNDED_TOL):
+                fails.append(("nc_jt_in", label, "bf16", err))
+            x, w1, b1 = r(batch, c, H, H), 0.1 * r(mid, c, 3, 3), 0.1 * r(mid)
+            for mode in fs.SPLIT_MODES:
+                wk = fs.prep_conv1x1_mid(fs.prep_weight(w1, mode), mode)
+                outs = [[nan(batch, mid, HW), nan(batch, mid, HW), nan(batch, c * HW)]
+                        for _ in range(2)]
+                for f, o in ((fb.lin_conv3x3_in, outs[0]), (fb._lin_conv3x3_in_plain, outs[1])):
+                    f(x, wk, b1, [1.1, 0.9, 1.0], True, mode, *o)
+                torch.cuda.synchronize()
+                err = max(rel_max(a, b) for a, b in zip(*outs))
+                log(f"kernel lin_conv3x3_in {label}, {mode}: max_rel_err {err:.3e} "
+                    f"(limit {SPLIT_TOL:g})")
+                if not (math.isfinite(err) and err <= SPLIT_TOL):
+                    fails.append(("lin_conv3x3_in", label, mode, err))
+    assert not fails, ("phase 14, narrow widths (name, block, mode, error)", fails)
+
+
 def check_block_functions(cap):
     """Phase 15: the whole merged forward vs its plain version per scale:
     in tf32 with the ladder at eps 1e-6 (the main path) and 1e-5, and in f32,
@@ -1987,9 +2089,9 @@ def check_block_functions(cap):
     and eps 1e-5: see phase 3), the accs by rel_norm over acc - eps at
     BLOCK_ACC_TOL with the control (the plain version in mode f32 against
     the tf32 one) above it. Each run also reads its sum-order floor, as
-    phase 3: the plain forward with lin_conv1x1_mid summed exactly
-    (ops/sum_order.py) against the plain forward, by the same measures (no
-    limit is held to it). Then the one-net chain (fused_neumann_chain, the
+    phase 3: the plain forward with lin_conv1x1_mid, lin_conv3x3_in or both
+    summed exactly (ops/sum_order.py) against the plain forward, by the same
+    measures (no limit is held to them). Then the one-net chain (fused_neumann_chain, the
     row-2 kernels on one net) on net x's captured operands vs its plain
     version, with its device time, plain time and bound. Every reading is
     printed before the limits are checked."""
@@ -1997,7 +2099,11 @@ def check_block_functions(cap):
     from implicit_normalizing_flows_torch.ops import fused_chain as fc
     from implicit_normalizing_flows_torch.ops import sum_order as so
 
-    exact_ops = dict(fb._PLAIN_OPS, lin_conv1x1_mid=so.lin_conv1x1_mid_exact)
+    exact = dict(lin_conv1x1_mid=so.lin_conv1x1_mid_exact,
+                 lin_conv3x3_in=so.lin_conv3x3_in_exact)
+    floor_ops = {"lin_conv1x1_mid": dict(fb._PLAIN_OPS, lin_conv1x1_mid=exact["lin_conv1x1_mid"]),
+                 "lin_conv3x3_in": dict(fb._PLAIN_OPS, lin_conv3x3_in=exact["lin_conv3x3_in"]),
+                 "both": dict(fb._PLAIN_OPS, **exact)}
     full = dict(stall_guard=None, newton_init=False, warm_start=False, tail_mode=None,
                 tail_start=None, line_search=False)
     fails = []
@@ -2018,13 +2124,23 @@ def check_block_functions(cap):
                 rp, *ap = fb.fused_block_forward_plain(*args, **kw)
                 torch.cuda.synchronize()
                 tp = time.perf_counter() - t0
-                rx, *ax = fb._block_forward(exact_ops, *args, **dict(full, **kw))
+                floors = []
+                for what, ops in floor_ops.items():
+                    rx, *ax = fb._block_forward(ops, *args, **dict(full, **kw))
+                    fdn = (rx.nstep - rp.nstep).abs().long()
+                    ferr = max(rel_norm(a, b, e) for a, b, e in zip(ax, ap, (eps_x, eps_z)))
+                    floors.append(
+                        f"{what} exact vs plain: max|dz| "
+                        f"{float((rx.result - rp.result).abs().max()):.3e} |d nstep| counts "
+                        f"{torch.bincount(fdn).tolist()} converged flags differing "
+                        f"{int((rx.converged != rp.converged).sum())} prot flags differing "
+                        f"{int((rx.prot_break != rp.prot_break).sum())} accs rel_norm "
+                        f"{ferr:.3e}")
+                    del rx, ax
             accs[mode, eps] = ap
             dz = float((rk.result - rp.result).abs().max())
             dn = (rk.nstep - rp.nstep).abs().long()
             err = max(rel_norm(a, b, e) for a, b, e in zip(ak, ap, (eps_x, eps_z)))
-            fdn = (rx.nstep - rp.nstep).abs().long()
-            ferr = max(rel_norm(a, b, e) for a, b, e in zip(ax, ap, (eps_x, eps_z)))
             tol = BLOCK_ACC_TOL[mode]
             label = f"c{c} {mode} eps {eps:g}"
             log(f"merged forward {label}: max|dz| {dz:.3e} |d nstep| counts "
@@ -2032,12 +2148,8 @@ def check_block_functions(cap):
                 f"{rp.nstep.float().mean():.2f} converged {rk.converged.float().mean():.3f}/"
                 f"{rp.converged.float().mean():.3f} prot {int(rk.prot_break.sum())}/"
                 f"{int(rp.prot_break.sum())} accs rel_norm {err:.3e} (limit {tol:g}) "
-                f"s {tk:.3f}/{tp:.3f} (kernels/plain); sum-order floor (lin_conv1x1_mid "
-                f"exact vs plain): max|dz| {float((rx.result - rp.result).abs().max()):.3e} "
-                f"|d nstep| counts {torch.bincount(fdn).tolist()} converged flags differing "
-                f"{int((rx.converged != rp.converged).sum())} prot flags differing "
-                f"{int((rx.prot_break != rp.prot_break).sum())} accs rel_norm {ferr:.3e} "
-                f"(limit {tol:g})")
+                f"s {tk:.3f}/{tp:.3f} (kernels/plain); sum-order floors (accs limit {tol:g}): "
+                + "; ".join(floors))
             ok = (bool(torch.isfinite(rk.result).all()) and dz <= 5e-4
                   and torch.equal(rk.prot_break, rp.prot_break)
                   and torch.equal(rk.converged, rp.converged) and err <= tol
@@ -2073,7 +2185,7 @@ def check_block_functions(cap):
             f"{CHAIN_TOL['bf16']:g}) ms {ms:.4f} plain_ms {pms:.4f} bound_ms {bms:.4f} ({by})")
         if not err <= CHAIN_TOL["bf16"]:
             fails.append(("one-net chain", c, err))
-        del lin, chain, accs, ax
+        del lin, chain, accs
     assert not fails, ("phase 15", fails)
 
 
@@ -2564,6 +2676,7 @@ def main():
                                    n_lipschitz_iters=None, imagesize=SIZE)
     bcap = capture_block_forward_inputs(step_m, x_u8, tdraws(97))
     rows.update(check_block_kernels(bcap))
+    check_conv3x3_in_widths(dev)
     check_block_functions(bcap)
     del bcap
 

@@ -29,23 +29,27 @@
 // float32 swish' of the float32 pre-activations of the solve's own
 // evaluation, as the TPU kernel takes them (:1790-1793).
 //
-// What bounds them on H100: lin_conv1x1_mid (~90% of the MACs) runs on the
-// tensor cores in the split modes tf32 / tf32x (mma_gemm.cuh's 1x1 kernel,
-// EPI_SWISH_LIN: the bf16 split's 3 / 4 wgmma passes, as the forward solve's
-// conv1x1_mid, with s2 written beside swish(h2)), where its products bound
-// it; modes f32 / bf16 and lin_conv3x3_in run on the CUDA cores, bound by
-// their FP32 products. The linearisation adds two float32 writes of 512 x
+// What bounds them on H100: in the split modes tf32 / tf32x both run on the
+// tensor cores. lin_conv1x1_mid (~90% of the MACs) on mma_gemm.cuh's 1x1
+// kernel (EPI_SWISH_LIN: the bf16 split's 3 / 4 wgmma passes, as the
+// forward solve's conv1x1_mid, with s2 written beside swish(h2)), where its
+// products bound it; lin_conv3x3_in on conv3x3_in_tc.cuh's mma.sync kernel
+// (EPI_SWISH_LIN: the split's 3 / 4 passes on an im2col tile built once per
+// band, swish(h1) and s1 written as 16-byte stores), bound by those bytes.
+// Modes f32 / bf16 run on the CUDA cores (conv_gemm.cuh), bound by their
+// FP32 products. The linearisation adds two float32 writes of 512 x
 // HW per example to an evaluation (s1 + s2 of both nets at 32x32, B = 64:
 // 512 MiB, held in HBM between stages B and C, and streamed once per chain
 // term). Keeping them on chip is later work.
 
 #include "mma_gemm.cuh"
+#include "conv3x3_in_tc.cuh"
 
 namespace {
 
 using namespace imnf;
 
-// the 3x3 c -> mid conv on the CUDA cores
+// the 3x3 c -> mid conv on the CUDA cores (modes f32, bf16)
 template <int MODE>
 cudaError_t lin_in(int preact, const float* w_hi, const float* w_lo,
                    const float* bias, int M, int K, const float* inp, int B, int C,
@@ -68,18 +72,25 @@ extern "C" {
 // cudaGetLastError() right after its launch (0 on success). Every example is
 // live (no active list): slot s is example s.
 
-// out, s1 (B, mid, HW); s0 (B, C, HW), written under preact only
-int imnf_lin_conv3x3_in(int mode, int preact, const float* w_hi,
-                        const float* w_lo, const float* bias, float beta0,
+// out, s1 (B, mid, HW); s0 (B, C, HW), written under preact only. w_hi /
+// w_lo: W1's split (mid, C, 3, 3), bfloat16 in modes tf32 / tf32x (the
+// tensor cores' operands, cast once per solve), float32 in modes f32 / bf16
+// (the CUDA cores)
+int imnf_lin_conv3x3_in(int mode, int preact, const void* w_hi,
+                        const void* w_lo, const float* bias, float beta0,
                         float beta1, const float* inp, int B, int C, int H,
                         int W, int mid, float* out, float* s1, float* s0,
                         void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const float* fh = static_cast<const float*>(w_hi);
+  const float* fl = static_cast<const float*>(w_lo);
+  const __nv_bfloat16* wh = static_cast<const __nv_bfloat16*>(w_hi);
+  const __nv_bfloat16* wl = static_cast<const __nv_bfloat16*>(w_lo);
   switch (mode) {
-    case MODE_F32: return (int)lin_in<MODE_F32>(preact, w_hi, w_lo, bias, mid, C * 9, inp, B, C, H, W, beta0, beta1, out, s1, s0, s);
-    case MODE_BF16: return (int)lin_in<MODE_BF16>(preact, w_hi, w_lo, bias, mid, C * 9, inp, B, C, H, W, beta0, beta1, out, s1, s0, s);
-    case MODE_TF32: return (int)lin_in<MODE_TF32>(preact, w_hi, w_lo, bias, mid, C * 9, inp, B, C, H, W, beta0, beta1, out, s1, s0, s);
-    case MODE_TF32X: return (int)lin_in<MODE_TF32X>(preact, w_hi, w_lo, bias, mid, C * 9, inp, B, C, H, W, beta0, beta1, out, s1, s0, s);
+    case MODE_F32: return (int)lin_in<MODE_F32>(preact, fh, fl, bias, mid, C * 9, inp, B, C, H, W, beta0, beta1, out, s1, s0, s);
+    case MODE_BF16: return (int)lin_in<MODE_BF16>(preact, fh, fl, bias, mid, C * 9, inp, B, C, H, W, beta0, beta1, out, s1, s0, s);
+    case MODE_TF32: return (int)conv3x3_in_tc_lin(3, wh, wl, bias, inp, B, C, H, W, mid, preact, beta0, beta1, out, s1, s0, s);
+    case MODE_TF32X: return (int)conv3x3_in_tc_lin(4, wh, wl, bias, inp, B, C, H, W, mid, preact, beta0, beta1, out, s1, s0, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,43 @@
+// The forms of conv3x3_in_tc.cuh's tensor-core 3x3 c -> mid product that the
+// port launches, as their own translation unit: ops/cuda_build.py links it
+// into the libraries of estimator.cu (nc_jt_in, mode bf16) and
+// block_forward.cu (lin_conv3x3_in, modes tf32 / tf32x). The header says why.
+
+#include "conv3x3_in_tc.cuh"
+
+namespace imnf {
+
+// out = bf16_round(C3^T u * s2) of `nets` nets stacked along the batch
+cudaError_t conv3x3_in_tc_chain(const __nv_bfloat16* w, const float* u, int B, int nets, int C,
+                                int H, int W, int M, const float* s2, float* out,
+                                cudaStream_t s) {
+  return launch_conv3x3_in_tc<EPI_SCALE_RND, 1>(w, nullptr, nullptr, u, B, nets, C, H, W, M,
+                                                0, 0.f, 0.f, s2, out, nullptr, nullptr, s);
+}
+
+cudaError_t conv3x3_in_tc_chain(const __nv_bfloat16* w, const float* u, int B, int nets, int C,
+                                int H, int W, int M, const __nv_bfloat16* s2, float* out,
+                                cudaStream_t s) {
+  return launch_conv3x3_in_tc<EPI_SCALE_RND, 1>(w, nullptr, nullptr, u, B, nets, C, H, W, M,
+                                                0, 0.f, 0.f, s2, out, nullptr, nullptr, s);
+}
+
+// out = swish(h1), s1 = swish'(h1) [, s0 = swish'(inp)] with h1 = W1
+// [swish](inp) + bias, the bf16 split's 3 or 4 passes
+cudaError_t conv3x3_in_tc_lin(int passes, const __nv_bfloat16* w_hi, const __nv_bfloat16* w_lo,
+                              const float* bias, const float* inp, int B, int C, int H, int W,
+                              int M, int preact, float beta_in, float beta_out, float* out,
+                              float* s1, float* s0, cudaStream_t s) {
+  const float* no_scale = nullptr;
+  if (passes == 3)
+    return launch_conv3x3_in_tc<EPI_SWISH_LIN, 3>(w_hi, w_lo, bias, inp, B, 1, C, H, W, M,
+                                                  preact, beta_in, beta_out, no_scale, out, s1,
+                                                  s0, s);
+  if (passes == 4)
+    return launch_conv3x3_in_tc<EPI_SWISH_LIN, 4>(w_hi, w_lo, bias, inp, B, 1, C, H, W, M,
+                                                  preact, beta_in, beta_out, no_scale, out, s1,
+                                                  s0, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace imnf

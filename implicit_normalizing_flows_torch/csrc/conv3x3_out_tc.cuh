@@ -71,24 +71,6 @@ constexpr int c3_smem_bytes(int tw, int nt) {
   return (C3_TH + 2) * (tw + 2) * 128 + 9 * 8 * nt * 128 + 128;
 }
 
-// the four 8x8 bf16 matrices at the lanes' row addresses
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// d(16 x 8) += a(16 x 16) b(16 x 8), bf16 operands, f32 sums
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // The epilogues: out = acc, or the backward solve's residual
 enum { C3_STORE = 0, C3_RESID = 1 };
 

@@ -17,7 +17,8 @@
 // grid):
 //
 // chain, per term k (every example runs all n_power terms):
-//   nc_jt_in       t2 = rnd(C3^T u * s2)          c -> mid, flipped w3
+//   nc_jt_in       t2 = rnd(C3^T u * s2)          c -> mid, flipped w3 (bf16:
+//                  tensor cores, conv3x3_in_tc.cuh)
 //   nc_jt_mid      t1 = rnd(C2^T t2 * s1)         mid -> mid, w2^T (bf16:
 //                  tensor cores, mma_gemm.cuh)
 //   nc_jt_out_acc  u = rnd(s0 * C1^T t1); acc += c_k u   mid -> c, flipped w1
@@ -49,8 +50,10 @@
 // example and net at 32x32) and the final pair's fp_conv_mid, run on the
 // tensor cores (mma_gemm.cuh, whose note gives their bytes bounds and
 // design; fp_conv_mid applies its input transform once per element as the
-// panel is staged); every other product, and mode f32, runs as FP32 FMAs on
-// the CUDA cores (conv_gemm.cuh), as the implicit-gradient kernels do. The
+// panel is staged), and so does the chain's 3x3 c -> mid product nc_jt_in
+// (conv3x3_in_tc.cuh: an im2col tile built once per band in shared memory,
+// bound by its float32 output's bytes); every other product, and mode f32,
+// runs as FP32 FMAs on the CUDA cores (conv_gemm.cuh), as the implicit-gradient kernels do. The
 // tensor cores sum fp_conv_mid's products in another order than the plain
 // version (cuDNN's), which moves the final pair's d_h and weight gradients,
 // small differences of large terms, by up to 1.3e-5 whatever the order:
@@ -63,6 +66,7 @@
 
 #include "conv_gemm.cuh"
 #include "mma_gemm.cuh"
+#include "conv3x3_in_tc.cuh"
 
 namespace {
 
@@ -150,15 +154,17 @@ __global__ void __launch_bounds__(RED_THREADS) second_kernel(
 }
 
 // the chain's J^T stages: rounded in mode bf16, plain f32 otherwise.
-// nc_jt_in: the 3x3 c -> mid on the SIMT template.
+// nc_jt_in: the 3x3 c -> mid, w bf16 on the tensor cores in mode bf16
+// (conv3x3_in_tc.cuh, linked from conv3x3_in_tc.cu), w float32 on the SIMT
+// template in mode f32.
 template <typename ST>
-cudaError_t nc_in_mode(int mode, const float* w, int mid, const float* inp,
+cudaError_t nc_in_mode(int mode, const void* w, int mid, const float* inp,
                        int B, int nets, int C, int H, int W, const void* scale,
                        float* out, cudaStream_t s) {
   const ST* sc = static_cast<const ST*>(scale);
   switch (mode) {
-    case MODE_F32: return launch_conv_gemm<MODE_F32, 0, IN_ID, EPI_SCALE, ST>(w, nullptr, nullptr, mid, C * 9, inp, nullptr, nullptr, nullptr, B, C, H, W, 0.f, 0.f, 1.f, sc, out, s, nets);
-    case MODE_BF16: return launch_conv_gemm<MODE_BF16, 0, IN_ID, EPI_SCALE_RND, ST>(w, nullptr, nullptr, mid, C * 9, inp, nullptr, nullptr, nullptr, B, C, H, W, 0.f, 0.f, 1.f, sc, out, s, nets);
+    case MODE_F32: return launch_conv_gemm<MODE_F32, 0, IN_ID, EPI_SCALE, ST>(static_cast<const float*>(w), nullptr, nullptr, mid, C * 9, inp, nullptr, nullptr, nullptr, B, C, H, W, 0.f, 0.f, 1.f, sc, out, s, nets);
+    case MODE_BF16: return conv3x3_in_tc_chain(static_cast<const __nv_bfloat16*>(w), inp, B, nets, C, H, W, mid, sc, out, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -237,12 +243,13 @@ extern "C" {
 // cudaGetLastError() right after its launch (0 on success). B counts the
 // examples of all `nets` nets together; every example is live (the conv
 // kernels get no active list). Weights are stacked per net, f32 (bf16
-// values in mode bf16), but nc_jt_mid's and fp_conv_mid's, which are
-// bfloat16 in mode bf16 (the tensor-core operand) and float32 in mode f32.
+// values in mode bf16), but nc_jt_in's, nc_jt_mid's and fp_conv_mid's, which
+// are bfloat16 in mode bf16 (the tensor-core operand) and float32 in mode
+// f32.
 
 // chain: the derivative factors s2 / s1 / s0 as float32 or, with s_bf16,
 // bfloat16
-int imnf_nc_jt_in(int mode, const float* w, const float* u, const void* s2,
+int imnf_nc_jt_in(int mode, const void* w, const float* u, const void* s2,
                   int s_bf16, int B, int nets, int C, int H, int W, int mid,
                   float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;

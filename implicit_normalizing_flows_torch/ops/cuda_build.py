@@ -1,8 +1,9 @@
 """Build and load the port's CUDA sources.
 
-Each ``csrc/*.cu`` file has a plain C interface. It is compiled with
-``nvcc`` for ``sm_90a`` into a shared library at first use and loaded with
-ctypes. The library's name carries a hash of its source and of the shared
+Each library's ``csrc/<name>.cu`` file has a plain C interface. It is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library at first use,
+with the translation units of :data:`LINKED` beside it, and loaded with
+ctypes. The library's name carries a hash of its sources and of the shared
 headers (``csrc/*.cuh``), so an edited source is rebuilt and a stale library
 is never loaded. :func:`build_all` compiles several sources at once, one
 ``nvcc`` process each. The build directory is
@@ -27,6 +28,10 @@ BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
+# sources compiled as translation units of their own and linked into a
+# library beside csrc/<name>.cu (conv3x3_in_tc.cuh says why)
+LINKED = {"estimator": ["conv3x3_in_tc"], "block_forward": ["conv3x3_in_tc"]}
+
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -40,8 +45,15 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def sources(name: str) -> list:
+    """The ``.cu`` files of library ``name``."""
+    return [CSRC_DIR / f"{n}.cu" for n in [name, *LINKED.get(name, [])]]
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    h = hashlib.sha256()
+    for src in sources(name):
+        h.update(src.read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -49,8 +61,9 @@ def library_path(name: str) -> Path:
 
 
 def build_all(names, report: bool = False) -> dict:
-    """Compile ``csrc/<name>.cu`` for each name whose library is not built
-    yet, all ``nvcc`` processes started together; returns ``{name: path}``.
+    """Compile the sources of each name whose library is not built yet
+    (:func:`sources`), all ``nvcc`` processes started together; returns
+    ``{name: path}``.
     ``report`` compiles anew with ``-Xptxas -v`` and prints the compiler's
     report (registers, shared memory, spills)."""
     outs = {name: library_path(name) for name in names}
@@ -61,7 +74,7 @@ def build_all(names, report: bool = False) -> dict:
     for name in todo:
         tmp = outs[name].with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if report else []),
-               "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+               "-o", str(tmp), *(str(s) for s in sources(name))]
         procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.PIPE, text=True))
     failed = []
@@ -79,7 +92,7 @@ def build_all(names, report: bool = False) -> dict:
 
 
 def build(name: str, report: bool = False) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built;
+    """Compile library ``name`` unless it is already built;
     returns the library's path (see :func:`build_all`)."""
     return build_all([name], report)[name]
 

@@ -10,9 +10,10 @@ says what bounds its kernels on an H100 and what the design does about it):
 
 A. the forward solve of ``ops.fused_solve`` with the phase-1 evaluation of
    net x at x through ``lin_conv3x3_in`` / ``lin_conv1x1_mid``, which also
-   write the float32 swish derivatives s0 (under preact), s1 and s2
-   (``lin_conv1x1_mid`` in modes tf32 / tf32x on the tensor cores,
-   ``csrc/mma_gemm.cuh``, as the solve's ``conv1x1_mid``);
+   write the float32 swish derivatives s0 (under preact), s1 and s2 (in
+   modes tf32 / tf32x both on the tensor cores: ``lin_conv3x3_in`` on
+   ``csrc/conv3x3_in_tc.cuh``, ``lin_conv1x1_mid`` on
+   ``csrc/mma_gemm.cuh`` as the solve's ``conv1x1_mid``);
 B. net z once more at the best iterate ``z_hat``, in the phase-1 mode,
    through the same kernels (``fused_solve.py:1780``);
 C. both nets' chains, ``acc = eps + sum_k c_k (J^T)^k eps``, on
@@ -73,35 +74,57 @@ def _run(fn, *args):
 # live, slot s is example s; out, s1, s2 (B, mid, H*W), s0 (B, c*H*W), all
 # float32
 
-def _lin_conv3x3_in_plain(inp, wp, b1, betas, preact, mode, out, s1, s0):
+def _lin_conv3x3_in_by(product, inp, wp, b1, betas, preact, mode, out, s1, s0):
+    """``lin_conv3x3_in``'s function with ``product(h, wp, mode)`` for its
+    3x3 product (b1, swish and swish' after it, rounded as the kernels
+    round them)."""
     B, c, H, W = inp.shape
     h = inp
     if preact:
         s0.copy_(dswish(inp, betas[0]).reshape(B, -1))
         h = swish(h, betas[0])
-    h1 = _mconv(h, wp, mode, 1) + b1[None, :, None, None]
+    h1 = product(h, wp, mode) + b1[None, :, None, None]
     out.copy_(swish(h1, betas[1]).reshape(out.shape))
     s1.copy_(dswish(h1, betas[1]).reshape(s1.shape))
+
+
+def _lin_conv3x3_in_plain(inp, wp, b1, betas, preact, mode, out, s1, s0):
+    _lin_conv3x3_in_by(lambda h, w, m: _mconv(h, _widened(w), m, 1), inp, wp, b1, betas,
+                       preact, mode, out, s1, s0)
 
 
 def lin_conv3x3_in(inp, wp, b1, betas, preact, mode, out, s1, s0):
     """out = swish(h1, beta1) and s1 = swish'(h1, beta1) with h1 =
     conv3x3([swish](inp)) + b1; under preact also s0 = swish'(inp, beta0).
-    inp (B, c, H, W); wp = (w_hi, w_lo) of the (mid, c, 3, 3) kernel;
+    inp (B, c, H, W); wp = (w_hi, w_lo) of the (mid, c, 3, 3) kernel from
+    :func:`~.fused_solve.prep_conv1x1_mid`: in the split modes, which run
+    on the tensor cores (``csrc/conv3x3_in_tc.cuh``; ``tc_launches`` counts
+    those launches), bfloat16 halves, with what
+    :func:`~.fused_solve.check_conv3x3_tc` asks of the shapes and
+    16-byte aligned outputs; float32 in modes f32 / bf16 (the CUDA cores).
     betas (3,) host floats or a tensor."""
     if not inp.is_cuda:
         return _lin_conv3x3_in_plain(inp, wp, b1, betas, preact, mode, out, s1, s0)
     B, c, H, W = inp.shape
     mid = wp[0].shape[0]
-    _check_cuda(inp=inp, w_hi=wp[0], w_lo=wp[1], b1=b1, out=out, s1=s1,
-                s0=s0 if preact else None)
-    _shapes(out=(out, (B, mid, H * W)), s1=(s1, (B, mid, H * W)),
+    split = mode in fs.SPLIT_MODES
+    _check_cuda(inp=inp, b1=b1, out=out, s1=s1, s0=s0 if preact else None)
+    _check_cuda(_dtypes=(torch.bfloat16 if split else torch.float32,), w_hi=wp[0],
+                w_lo=wp[1])
+    _shapes(w=(wp[0], (mid, c, 3, 3)), out=(out, (B, mid, H * W)), s1=(s1, (B, mid, H * W)),
             s0=(s0 if preact else None, (B, c * H * W)))
+    if split:
+        if wp[1] is None:
+            raise ValueError(f"lin_conv3x3_in in {mode} takes both halves of the split")
+        fs.check_conv3x3_tc("lin_conv3x3_in", c, mid, H, W, fs.conv3x3_in_rows(W), out=out,
+                            s1=s1)
     b = [float(v) for v in betas]
     _run("imnf_lin_conv3x3_in", MODES[mode], int(preact), _ptr(wp[0]), _ptr(wp[1]),
          _ptr(b1), b[0], b[1], _ptr(inp), B, c, H, W, mid, _ptr(out), _ptr(s1),
          _ptr(s0) if preact else None)
     lin_conv3x3_in.launches += 1
+    if split:
+        lin_conv3x3_in.tc_launches += 1
 
 
 def _lin_conv1x1_mid_plain(t1, wp, b2, beta2, mode, out, s2, H, W):
@@ -134,7 +157,8 @@ _PLAIN = {"lin_conv3x3_in": _lin_conv3x3_in_plain,
           "lin_conv1x1_mid": _lin_conv1x1_mid_plain}
 for _fn in KERNELS.values():
     _fn.launches = 0
-lin_conv1x1_mid.tc_launches = 0  # its launches on the tensor cores (split modes)
+lin_conv3x3_in.tc_launches = 0  # their launches on the tensor cores (split modes)
+lin_conv1x1_mid.tc_launches = 0
 
 
 def launch_counts() -> dict:
@@ -144,7 +168,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-    lin_conv1x1_mid.tc_launches = 0
+    lin_conv3x3_in.tc_launches = lin_conv1x1_mid.tc_launches = 0
 
 
 # ---------------------------------------------------------------------------

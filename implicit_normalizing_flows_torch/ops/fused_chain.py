@@ -14,7 +14,8 @@ resident in VMEM; on Hopper each term is three batched kernels of
 and what the design does about it), each launched once for both nets, whose
 examples are stacked along the batch:
 
-* ``nc_jt_in``       ``t2 = rnd(C3^T u * s2)``
+* ``nc_jt_in``       ``t2 = rnd(C3^T u * s2)`` (mode bf16: on the tensor
+  cores, ``csrc/conv3x3_in_tc.cuh``, with the kernel ``w3t`` in bfloat16)
 * ``nc_jt_mid``      ``t1 = rnd(C2^T t2 * s1)`` (mode bf16: on the tensor
   cores, ``csrc/mma_gemm.cuh``, with the kernel ``w2t`` in bfloat16)
 * ``nc_jt_out_acc``  ``u = rnd(s0 * C1^T t1)``, ``acc += c_k * u``
@@ -43,7 +44,8 @@ import ctypes
 
 import torch
 
-from .fused_solve import MODES, _check_cuda, _launch, _mconv, _ptr, _wide
+from .fused_solve import (MODES, _check_cuda, _launch, _mconv, _ptr, _wide,
+                         check_conv3x3_tc, conv3x3_in_rows)
 from .implicit_grad import _check_mid, _shapes, mid_weight_dtype, transpose_weights
 
 __all__ = ["fused_neumann_chain2", "fused_neumann_chain2_plain",
@@ -108,24 +110,39 @@ def _check(s, mode, **others):
 # ---------------------------------------------------------------------------
 # the three stages. u, acc: (N*nb, c, H, W) / (N*nb, c*H*W) float32; t1, t2:
 # (N*nb, mid, H*W); s0/s1/s2 in the chain dtype; weights stacked per net:
-# w3t (N, mid, c, 3, 3), w2t (N, mid, mid, 1, 1), w1t (N, c, mid, 3, 3).
+# w3t (N, mid, c, 3, 3), w2t (N, mid, mid, 1, 1), w1t (N, c, mid, 3, 3);
+# w3t and w2t in mode bf16 as bfloat16 (:func:`chain_operands`).
 
-def _nc_jt_in_plain(u, w3t, s2, mode, out):
+def _nc_jt_in_by(product, u, w3t, s2, mode, out):
+    """``nc_jt_in``'s function with ``product(u, w, mode)`` for each net's
+    3x3 product (w that net's kernel in u's dtype); the scale and the
+    rounding after it, as the kernels take them."""
     N, nb = _nets(w3t, u.shape[0])
     for n in range(N):
         e = slice(n * nb, (n + 1) * nb)
-        y = _mconv(u[e], (w3t[n], None), mode, 1)
+        y = product(u[e], w3t[n].to(u.dtype), mode)
         out[e] = _rnd(y * s2[e].reshape(y.shape).to(y.dtype), mode).reshape(out[e].shape)
 
 
+def _nc_jt_in_plain(u, w3t, s2, mode, out):
+    _nc_jt_in_by(lambda x, w, m: _mconv(x, (w, None), m, 1), u, w3t, s2, mode, out)
+
+
 def nc_jt_in(u, w3t, s2, mode, out):
-    """out = rnd(C3^T u * s2) for every example of every net."""
+    """out = rnd(C3^T u * s2) for every example of every net; w3t in
+    :func:`mid_weight_dtype`. Mode bf16 runs on the tensor cores
+    (``csrc/conv3x3_in_tc.cuh``): w3t bfloat16, and what
+    :func:`~.fused_solve.check_conv3x3_tc` asks of the shapes, with
+    16-byte aligned s2 and out."""
     if not u.is_cuda:
         return _nc_jt_in_plain(u, w3t, s2, mode, out)
     Bt, c, H, W = u.shape
     N, _ = _nets(w3t, Bt)
     mid = w3t.shape[1]
-    sbf16 = _check(s2, mode, u=u, w=w3t, out=out)
+    sbf16 = _check(s2, mode, u=u, out=out)
+    _check_cuda(_dtypes=(mid_weight_dtype(mode),), w=w3t)
+    if mode == "bf16":
+        check_conv3x3_tc("nc_jt_in", c, mid, H, W, conv3x3_in_rows(W), s2=s2, out=out)
     _shapes(w=(w3t, (N, mid, c, 3, 3)), s2=(s2, (Bt, mid, H * W)),
             out=(out, (Bt, mid, H * W)))
     _run("imnf_nc_jt_in", MODES[mode], _ptr(w3t), _ptr(u), _ptr(s2), sbf16, Bt, N,
@@ -213,10 +230,10 @@ def chain_operands(chains, signed_coeffs):
     """The stage kernels' operands for the nets' ``chains`` (eps, s0, s1,
     s2, w1, w2, w3): the probes U and the accumulation ACC (a copy of the
     probes) in float32, the derivative factors S0/S1/S2 as stored, the
-    transposed kernels W3T/W2T/W1T stacked per net (W2T, the 1x1 product's,
-    in :func:`mid_weight_dtype`: cast once here, exactly, since it holds
-    bfloat16 values in mode bf16), the coefficients on the device, and the
-    mode."""
+    transposed kernels W3T/W2T/W1T stacked per net (W3T and W2T, the
+    tensor-core products' in mode bf16, in :func:`mid_weight_dtype`: cast
+    once here, exactly, since they hold bfloat16 values in mode bf16), the
+    coefficients on the device, and the mode."""
     eps0 = chains[0][0]
     B, c, H, W = eps0.shape
     HW, dev, N = H * W, eps0.device, len(chains)
@@ -229,12 +246,11 @@ def chain_operands(chains, signed_coeffs):
     wts = [transpose_weights(*(w.detach().to(wide) for w in ch[4:7])) for ch in chains]
     U = torch.cat([ch[0].detach().to(wide) for ch in chains]).contiguous()
     mode = chain_mode(eps0.dtype)
-    w2t = torch.stack([w[1] for w in wts])
+    tc = lambda i: torch.stack([w[i] for w in wts]).to(
+        torch.bfloat16 if mode == "bf16" else wide).contiguous()
     return dict(
         U=U, ACC=U.reshape(N * B, c * HW).clone(), S0=cat(1, (c * HW,)),
-        S1=cat(2, (-1, HW)), S2=cat(3, (-1, HW)),
-        W3T=torch.stack([w[0] for w in wts]).contiguous(),
-        W2T=(w2t.to(torch.bfloat16) if mode == "bf16" else w2t).contiguous(),
+        S1=cat(2, (-1, HW)), S2=cat(3, (-1, HW)), W3T=tc(0), W2T=tc(1),
         W1T=torch.stack([w[2] for w in wts]).contiguous(),
         coeffs=signed_coeffs.detach().to(device=dev, dtype=wide).contiguous(),
         mode=mode)

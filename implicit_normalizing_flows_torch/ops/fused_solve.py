@@ -46,6 +46,7 @@ __all__ = ["fused_broyden_solve", "fused_broyden_solve_plain",
            "FusedSolveResult", "conv3x3_in", "conv1x1_mid", "conv3x3_out",
            "broyden_step", "KERNELS", "launch_counts", "reset_launch_counts",
            "prep_weight", "prep_weights", "prep_conv1x1_mid", "check_mid_product",
+           "check_conv3x3_tc", "conv3x3_in_rows", "C3_OUT_ROWS",
            "norm_ladder",
            "swish", "dswish", "dswish_dbeta", "d2swish", "ddswish_dbeta"]
 
@@ -154,10 +155,38 @@ def prep_conv1x1_mid(wp, mode):
     """``conv1x1_mid``'s kernel from :func:`prep_weight`'s ``(hi, lo)``: in
     the split modes both halves cast once to bfloat16 (exactly: their
     values are bfloat16), the tensor cores' operands; modes f32 and bf16
-    keep ``wp`` (float32, the CUDA cores)."""
+    keep ``wp`` (float32, the CUDA cores). The merged forward's
+    ``lin_conv3x3_in`` takes w1's pair so prepared, in its (mid, c, 3, 3)
+    layout."""
     if mode not in SPLIT_MODES:
         return wp
     return tuple(w.to(torch.bfloat16).contiguous() for w in wp)
+
+
+C3_CMAX = 48  # the largest c the tensor-core 3x3 kernels take
+C3_MID = 64  # their mid channels come in multiples of this
+C3_OUT_ROWS = 8  # the image rows of a band of the mid -> c kernel (csrc/conv3x3_out_tc.cuh)
+
+
+def conv3x3_in_rows(W):
+    """The image rows of a band of the c -> mid kernel
+    (``csrc/conv3x3_in_tc.cuh``): 128 pixels, 64 at W 8."""
+    return (64 if W == 8 else 128) // W
+
+
+def check_conv3x3_tc(name, c, mid, H, W, rows, **aligned):
+    """Raise on what a tensor-core 3x3 kernel between c and mid channels
+    (``csrc/conv3x3_in_tc.cuh``, c -> mid; ``csrc/conv3x3_out_tc.cuh``, mid
+    -> c) does not take: c over C3_CMAX, mid not a multiple of C3_MID, W
+    other than 8, 16 or 32, H not a multiple of the kernel's band of
+    ``rows`` image rows, or a tensor of ``aligned`` not 16-byte aligned. A
+    c whose tiles outgrow the shared memory an SM grants (the c -> mid
+    kernel's split modes at c 48 and W over 8) makes the launch fail."""
+    if c > C3_CMAX or mid % C3_MID or W not in (8, 16, 32) or H % rows:
+        raise ValueError(f"{name} on the tensor cores takes c <= {C3_CMAX}, mid % {C3_MID} "
+                         f"== 0, W 8 | 16 | 32 and H % {rows} == 0, not c {c}, mid {mid}, "
+                         f"H {H}, W {W}")
+    _check_aligned(**aligned)
 
 
 def prep_weights(data, mode):
@@ -568,7 +597,9 @@ def _solve(x, data_x, data_z, ops, *, threshold, eps, stall_patience,
                               nd["betas"], nd["preact"], m, T1)
             ops["conv1x1_mid"](T1, cnt, wp["w2_mid"], nd["b2"], nd["betas"][2], m, T2, H, W)
         else:
-            ops["lin_conv3x3_in"](inp.view(B, c, H, W), wp["w1"], nd["b1"], nd["betas"],
+            if "w1_lin" not in wp:  # once per solve and mode, on the merged forward only
+                wp["w1_lin"] = prep_conv1x1_mid(wp["w1"], m)
+            ops["lin_conv3x3_in"](inp.view(B, c, H, W), wp["w1_lin"], nd["b1"], nd["betas"],
                                   nd["preact"], m, T1, s[1], s[0])
             ops["lin_conv1x1_mid"](T1, wp["w2_mid"], nd["b2"], nd["betas"][2], m, T2, s[2],
                                    H, W)

@@ -46,10 +46,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .fused_solve import (MODES, PHASE_INIT, PHASE_STEP, TC_KMAX, _broyden_step_plain,
-                          _check_aligned, _check_cuda, _launch, _mconv, _ptr, _split,
-                          _wide, _widened, broyden_step, dswish, dswish_dbeta,
-                          prep_weight, swish)
+from .fused_solve import (C3_OUT_ROWS, MODES, PHASE_INIT, PHASE_STEP, TC_KMAX,
+                          _broyden_step_plain, _check_aligned, _check_cuda, _launch, _mconv,
+                          _ptr, _split, _wide, _widened, broyden_step, check_conv3x3_tc,
+                          dswish, dswish_dbeta, prep_weight, swish)
 
 __all__ = ["fused_backward_solve", "fused_backward_solve_plain",
            "fused_reattach_vjp", "fused_reattach_vjp_plain",
@@ -254,17 +254,6 @@ def _jt_conv3x3_out_plain(t, idx, count, wp, s0, mode, base, sub, out, H, W):
     out[e] = base.index_select(0, e) + y * s0.index_select(0, e) - sub.index_select(0, e)
 
 
-def _check_conv3x3_out_tc(name, c, mid, H, W, **aligned):
-    """Raise on what the tensor-core 3x3 mid -> c kernel
-    (``csrc/conv3x3_out_tc.cuh``) does not take: c over 48, mid not a
-    multiple of 64, W other than 8, 16 or 32, H not a multiple of 8, or an
-    input of ``aligned`` not 16-byte aligned."""
-    if c > 48 or mid % 64 or W not in (8, 16, 32) or H % 8:
-        raise ValueError(f"{name} in bf16 takes c <= 48, mid % 64 == 0, W 8 | 16 | 32 and "
-                         f"H % 8 == 0, not c {c}, mid {mid}, H {H}, W {W}")
-    _check_aligned(**aligned)
-
-
 def jt_conv3x3_out(t, idx, count, wp, s0, mode, base, sub, out, H, W):
     """out[e] = base[e] + s0[e] * C1^T t[s] - sub[e], e = idx[s], for live
     slots s: the residual ``u + J^T u - grad``; the dead examples of out are
@@ -279,7 +268,7 @@ def jt_conv3x3_out(t, idx, count, wp, s0, mode, base, sub, out, H, W):
     sbf16 = _check_scale(s0, t=t, idx=idx, count=count, w_hi=wp[0], w_lo=wp[1],
                          base=base, sub=sub, out=out)
     if mode == "bf16":
-        _check_conv3x3_out_tc("jt_conv3x3_out", c, mid, H, W, t=t)
+        check_conv3x3_tc("jt_conv3x3_out", c, mid, H, W, C3_OUT_ROWS, t=t)
     D = (B, c * H * W)
     _shapes(t=(t, (B, mid, H * W)), idx=(idx, (B,)), count=(count, (1,)),
             w=(wp[0], (c, mid, 3, 3)), s0=(s0, D), base=(base, D), sub=(sub, D),
@@ -392,7 +381,7 @@ def rv_conv3x3_out(t, th, beta_in, idx, count, wp, mode, out, H, W):
     c = wp[0].shape[0]
     _check_cuda(t=t, th=th, idx=idx, count=count, w_hi=wp[0], w_lo=wp[1], out=out)
     if mode == "bf16":
-        _check_conv3x3_out_tc("rv_conv3x3_out", c, mid, H, W, t=t, th=th)
+        check_conv3x3_tc("rv_conv3x3_out", c, mid, H, W, C3_OUT_ROWS, t=t, th=th)
     _shapes(t=(t, (B, mid, H * W)), th=(th, t.shape), idx=(idx, (B,)),
             count=(count, (1,)), w=(wp[0], (c, mid, 3, 3)), out=(out, (B, c * H * W)))
     _run("imnf_rv_conv3x3_out", _mode(mode, REATTACH_MODES), _ptr(wp[0]),

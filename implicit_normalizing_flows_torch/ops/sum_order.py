@@ -1,5 +1,5 @@
-"""Plain versions of eight kernels with their products summed exactly, and
-five with their products summed in the tensor cores' order.
+"""Plain versions of ten kernels with their products summed exactly, and
+seven with their products summed in the tensor cores' order.
 
 Each ``*_exact`` function here is a kernel's plain version with its rounded
 (bf16, or split) product summed in float64 and rounded once to float32: the
@@ -21,6 +21,10 @@ a floor fails every kernel that does not sum in the plain version's order.
   there).
 * :func:`lin_conv1x1_mid_exact`: ``ops.fused_block._lin_conv1x1_mid_plain``
   (as :func:`conv1x1_mid_exact`, with s2 = swish'(h2) written too).
+* :func:`nc_jt_in_exact`: ``ops.fused_chain._nc_jt_in_plain`` (``C3^T u``
+  over c x 9 terms; ``rnd(y * s2)`` as there).
+* :func:`lin_conv3x3_in_exact`: ``ops.fused_block._lin_conv3x3_in_plain``
+  (every pass of the split; ``+ b1``, swish and swish' as there).
 
 The ``*_tiled`` functions are plain versions with their products summed as
 the tensor-core kernels sum them. They stand in for those kernels on the
@@ -40,6 +44,15 @@ tap) K tile into a fresh float32 partial added to the sum:
 
 * :func:`jt_conv3x3_out_tiled` (mode bf16).
 
+The 3x3 c -> mid kernel (``csrc/conv3x3_in_tc.cuh``) sums over the im2col's
+k = ci * 9 + ky * 3 + kx in K tiles of ``C3I_BK``, each tile's products into
+a fresh float32 partial added to the sum (in the split modes, as the 1x1
+kernel, one partial and sum of hi*hi and one of the small passes, the two
+sums added before the bias):
+
+* :func:`nc_jt_in_tiled` (mode bf16) and :func:`lin_conv3x3_in_tiled`
+  (tf32 / tf32x).
+
 They run on whatever device their tensors lie on.
 """
 from __future__ import annotations
@@ -53,10 +66,12 @@ __all__ = ["jt_conv1x1_mid_exact", "rv_wgrad_exact", "rv_conv3x3_out_exact",
            "fp_conv_mid_exact", "fp_conv_mid_tiled", "conv1x1_mid_exact",
            "conv1x1_mid_tiled", "rv_conv1x1_mid_exact", "rv_conv1x1_mid_tiled",
            "jt_conv3x3_out_exact", "jt_conv3x3_out_tiled", "lin_conv1x1_mid_exact",
-           "lin_conv1x1_mid_tiled", "TC_BK", "C3_MC"]
+           "lin_conv1x1_mid_tiled", "nc_jt_in_exact", "nc_jt_in_tiled",
+           "lin_conv3x3_in_exact", "lin_conv3x3_in_tiled", "TC_BK", "C3_MC", "C3I_BK"]
 
 TC_BK = 64  # the K tile of the tensor-core 1x1 product (csrc/mma_gemm.cuh)
 C3_MC = 64  # the mid channels of a chunk of the tensor-core 3x3 product (csrc/conv3x3_out_tc.cuh)
+C3I_BK = 16  # the K tile of the tensor-core 3x3 c -> mid product (csrc/conv3x3_in_tc.cuh)
 
 
 def _exact(x, w, mode, mm):
@@ -287,3 +302,80 @@ def rv_conv1x1_mid_tiled(inp, inh, count, wp, bias, alpha, beta_in, act, mode, o
     tensor-core kernel's order (K tiles of ``TC_BK``)."""
     _rv_conv1x1_mid_by(lambda a, w, m: _tiled(a, w[0].float(), m), inp, inh, count, wp,
                        bias, alpha, beta_in, act, mode, out, H, W)
+
+
+def _conv3x3_in_exact(x, w, mode):
+    """The 3x3 conv (padding 1) of x by w (one kernel, or a (hi, lo) pair
+    used as it is), every pass of the mode summed exactly."""
+    return _exact(x, tuple(w) if isinstance(w, (tuple, list)) else w.float(), mode,
+                  lambda a, k: F.conv2d(a, k, padding=1))
+
+
+def _conv3x3_in_tiled(x, w, mode):
+    """The 3x3 c -> mid conv (padding 1) of x by w (one kernel, split here,
+    or a (hi, lo) pair) summed as the tensor-core kernel sums it: over the
+    im2col's k = ci * 9 + ky * 3 + kx, each K tile of C3I_BK into a fresh
+    float32 partial added to its sum (in the split modes one of hi*hi and
+    one of hi*lo + lo*hi [+ lo*lo]; the two sums added last)."""
+    if mode not in ("bf16",) + SPLIT_MODES:
+        raise ValueError(f"the tensor cores' order is modes bf16, tf32 and tf32x's, not {mode!r}")
+    B, c, H, W = x.shape
+    xh, xl = _split(x.float(), mode)
+    wh, wl = _widened(w) if isinstance(w, (tuple, list)) else _split(w.float(), mode)
+    M = wh.shape[0]
+    cols = lambda t: F.unfold(t, 3, padding=1)  # (B, 9 c, H W), k = ci * 9 + tap
+    xh, wh = cols(xh), wh.reshape(M, -1)
+    if mode in SPLIT_MODES:
+        xl, wl = cols(xl), wl.reshape(M, -1)
+    big = small = None
+    add = lambda a, b: b if a is None else a + b
+    for k0 in range(0, 9 * c, C3I_BK):
+        k = slice(k0, k0 + C3I_BK)
+        big = add(big, wh[:, k] @ xh[:, k])
+        if mode in SPLIT_MODES:
+            part = wh[:, k] @ xl[:, k] + wl[:, k] @ xh[:, k]
+            if mode == "tf32x":
+                part = part + wl[:, k] @ xl[:, k]
+            small = add(small, part)
+    y = big if small is None else big + small
+    return y.reshape(B, M, H, W)
+
+
+def nc_jt_in_exact(u, w3t, s2, mode, out):
+    """``_nc_jt_in_plain`` with ``C3^T u`` summed exactly (all c x 9 terms
+    in float64, rounded once)."""
+    from .fused_chain import _nc_jt_in_by
+
+    _nc_jt_in_by(_conv3x3_in_exact, u, w3t, s2, mode, out)
+
+
+def nc_jt_in_tiled(u, w3t, s2, mode, out):
+    """``nc_jt_in`` as its wrapper routes it: in mode bf16
+    ``_nc_jt_in_plain`` with ``C3^T u`` summed in the tensor-core kernel's
+    order (K tiles of ``C3I_BK``); in mode f32, which stays on the CUDA
+    cores, the plain version."""
+    from .fused_chain import _nc_jt_in_by, _nc_jt_in_plain
+
+    if mode != "bf16":
+        return _nc_jt_in_plain(u, w3t, s2, mode, out)
+    _nc_jt_in_by(_conv3x3_in_tiled, u, w3t, s2, mode, out)
+
+
+def lin_conv3x3_in_exact(inp, wp, b1, betas, preact, mode, out, s1, s0):
+    """``_lin_conv3x3_in_plain`` with its product summed exactly (every pass
+    of the split in float64, rounded once); wp the kernel's (hi, lo)."""
+    from .fused_block import _lin_conv3x3_in_by
+
+    _lin_conv3x3_in_by(_conv3x3_in_exact, inp, wp, b1, betas, preact, mode, out, s1, s0)
+
+
+def lin_conv3x3_in_tiled(inp, wp, b1, betas, preact, mode, out, s1, s0):
+    """``lin_conv3x3_in`` as its wrapper routes it: in mode tf32 / tf32x
+    ``_lin_conv3x3_in_plain`` with its product summed as the tensor-core
+    kernel sums it (K tiles of ``C3I_BK``); in modes f32 / bf16, which stay
+    on the CUDA cores, the plain version."""
+    from .fused_block import _lin_conv3x3_in_by, _lin_conv3x3_in_plain
+
+    if mode not in SPLIT_MODES:
+        return _lin_conv3x3_in_plain(inp, wp, b1, betas, preact, mode, out, s1, s0)
+    _lin_conv3x3_in_by(_conv3x3_in_tiled, inp, wp, b1, betas, preact, mode, out, s1, s0)
