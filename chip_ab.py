@@ -1,6 +1,6 @@
 """Readings for comparing two trees of the port on one NVIDIA GPU (H100).
 
-    python3 chip_ab.py checks    # chip_smoke.py phases 6 and 9
+    python3 chip_ab.py checks    # chip_smoke.py phases 3, 6, 9 and 15
     python3 chip_ab.py kernels   # device times of the tensor-core products
     python3 chip_ab.py step      # the main path's step and the eval batch
     python3 chip_ab.py sass DIR  # each kernel's SASS against the tree in DIR
@@ -11,12 +11,15 @@ unpack it (``git archive``) and copy this file, chip_smoke.py and
 implicit_normalizing_flows_torch/ops/sum_order.py over it; to compare
 kernel times, run ``kernels`` in both trees in one call, in turns.
 
-* ``checks``: the whole backward solve and re-attachment VJP (phase 6, with
-  the sum-order floors) and the whole Neumann chain and final pair (phase
-  9, in mode bf16 against the plain path with fp_conv_mid summed exactly)
-  on the real inputs of one training step from the committed checkpoint.
-  Every reading is printed; a failed phase is reported and the other still
-  runs; the exit code is 1 if any failed.
+* ``checks``: the whole forward solves (phase 3, on the inputs of an eval
+  batch), the whole backward solve and re-attachment VJP (phase 6), the
+  whole Neumann chain and final pair (phase 9, in mode bf16 against the
+  plain path with fp_conv_mid summed exactly) on the real inputs of one
+  training step, and the whole merged forward (phase 15, on one merged
+  step's), each with its sum-order floors, from the committed checkpoint,
+  the inputs captured as chip_smoke.py captures them (every plain version
+  forced). Every reading is printed; a failed phase is reported and the
+  others still run; the exit code is 1 if any failed.
 * ``step``: the main path, chip_smoke.py's flagship at --mem-eff False
   from the committed checkpoint: 5 settle and 5 timed training steps (host
   clock; their median) and one profiled step (device busy time, the union
@@ -37,9 +40,14 @@ kernel times, run ``kernels`` in both trees in one call, in turns.
   s2 bfloat16 and float32 (both nets; error by rel_norm, its outputs being
   rounded to bfloat16) and lin_conv3x3_in in tf32 and tf32x under preact
   (its three outputs), each beside one cuDNN conv2d of the same product (bf16,
-  f32). A tree from before conv1x1_mid / rv_conv1x1_mid / lin_conv1x1_mid /
-  nc_jt_in / lin_conv3x3_in took their tensor-core weights gets its own
-  float32 ones (and rv_conv1x1_mid its slope as a float).
+  f32); and at each scale the forward solve's conv3x3_in in tf32 and tf32x
+  under preact on every slot (beside cuDNN conv2d f32) and the chain's
+  nc_jt_out_acc in mode bf16 with s0 bfloat16 and float32 (both nets,
+  beside cuDNN conv2d bf16 on both nets' examples; error by rel_norm). A
+  tree from before conv1x1_mid / rv_conv1x1_mid / lin_conv1x1_mid /
+  nc_jt_in / lin_conv3x3_in / conv3x3_in / nc_jt_out_acc took their
+  tensor-core weights gets its own float32 ones (and rv_conv1x1_mid its
+  slope as a float).
 * ``sass DIR``: every ``csrc/*.cu`` of this tree and of the tree in DIR
   (a parent, unpacked) compiled for sm_90a with the flags of
   ``ops/cuda_build.py``, one nvcc each, all started together; for each
@@ -76,6 +84,7 @@ def checks():
     from implicit_normalizing_flows_torch.ops import cuda_build
     from implicit_normalizing_flows_torch.ops.logdet import Draws
     from implicit_normalizing_flows_torch.training import (adam, linear_warmup,
+                                                           make_image_eval_step,
                                                            make_image_train_step)
 
     dev = torch.device("cuda")
@@ -89,13 +98,24 @@ def checks():
                                      ema_decay=0.999, n_lipschitz_iters=None,
                                      imagesize=cs.SIZE)
 
+    def eval_blocks():
+        model = cs.build_model(dev)
+        draws = Draws(torch.Generator(device=dev).manual_seed(1000 + 99))
+        return cs.capture_block_inputs(model, make_image_eval_step(model, imagesize=cs.SIZE),
+                                       x_u8, draws)
+
     failed = 0
     # the same captures as chip_smoke.py's main
-    for phase, capture, check, gif, seed in (
-            (6, cs.capture_grad_inputs, cs.check_grad_functions, True, 99),
-            (9, cs.capture_estimator_inputs, cs.check_estimator_functions, False, 98)):
+    for phase, capture, check in (
+            (3, eval_blocks, cs.check_solves),
+            (6, lambda: cs.capture_grad_inputs(train_step(True), x_u8, tdraws(99)),
+             cs.check_grad_functions),
+            (9, lambda: cs.capture_estimator_inputs(train_step(False), x_u8, tdraws(98)),
+             cs.check_estimator_functions),
+            (15, lambda: cs.capture_block_forward_inputs(train_step(False), x_u8, tdraws(97)),
+             cs.check_block_functions)):
         try:
-            check(capture(train_step(gif), x_u8, tdraws(seed)))
+            check(capture())
         except AssertionError:
             traceback.print_exc()
             cs.log(f"phase {phase} failed")
@@ -260,6 +280,45 @@ def kernels():
         times[f"cuDNN conv2d f32 {tag} (lin_conv3x3_in's library call)"] = ms(
             lambda: F.conv2d(xx, w1, b1, padding=1))
         del outs, s0s
+        # the forward solve's conv3x3_in (tf32, tf32x; preact) on every slot:
+        # its weights' bf16 halves where it runs on the tensor cores
+        tc_solve = hasattr(fs.conv3x3_in, "tc_launches")
+        oa, ob = (torch.empty(B, mid, hws, device=dev) for _ in range(2))
+        for mode in ("tf32", "tf32x"):
+            wp = fs.prep_weight(w1, mode)
+            wk = fs.prep_conv1x1_mid(wp, mode) if tc_solve else wp
+            run = lambda f, w, o: f(xx, idx, cnt, w, b1, [1.1, 0.9, 1.0], True, mode, o)
+            name = f"conv3x3_in ({mode}) {tag}"
+            times[name] = ms(lambda: run(fs.conv3x3_in, wk, oa))
+            run(fs._conv3x3_in_plain, wp, ob)
+            torch.cuda.synchronize()
+            errs[name] = float((oa - ob).abs().max() / ob.abs().max())
+        del oa, ob
+        # the chain's nc_jt_out_acc (both nets, bf16, s0 bfloat16 or float32)
+        # beside one cuDNN conv2d bf16 of the same product on both nets'
+        # examples; W1T in its tile layout where the tree has it
+        tt = r(2 * B, mid, hws).to(torch.bfloat16).float()
+        w1o = (0.02 * r(2, cs, mid, 3, 3)).to(torch.bfloat16).float()
+        w1k = fc.tile_w1t(w1o) if hasattr(fc, "tile_w1t") else w1o
+        coef = torch.tensor([0.5, -0.25], device=dev)
+        acc0 = r(2 * B, cs * hws)
+        uo, ua, up, ap = (torch.empty(2 * B, cs * hws, device=dev) for _ in range(4))
+        for sd in (torch.bfloat16, torch.float32):
+            s0c = u(2 * B, cs * hws).to(sd)
+            run = lambda f, uo_, ao_: f(tt, w1k, s0c, "bf16", coef, 1, uo_.view(2 * B, cs, hs, hs),
+                                        ao_, hs, hs)
+            name = f"nc_jt_out_acc (s {'bf16' if sd == torch.bfloat16 else 'f32'}) {tag}"
+            times[name] = ms(lambda: run(fc.nc_jt_out_acc, uo, ua))
+            ua.copy_(acc0)
+            ap.copy_(acc0)
+            run(fc.nc_jt_out_acc, uo, ua)
+            run(fc._nc_jt_out_acc_plain, up, ap)
+            torch.cuda.synchronize()
+            errs[name] = max(float((a - b).norm() / b.norm()) for a, b in ((uo, up), (ua, ap)))
+        tb2, wb2 = tt.view(2 * B, mid, hs, hs).to(torch.bfloat16), w1o[0].to(torch.bfloat16)
+        times[f"cuDNN conv2d bf16 {tag} (nc_jt_out_acc's library call, both nets)"] = ms(
+            lambda: F.conv2d(tb2, wb2, padding=1))
+        del tt, tb2, uo, ua, up, ap
     for name, v in times.items():
         print(f"kernel {name}{'' if ', c ' in name else ' 32x32'}: {v:.4f} ms", flush=True)
     for name, v in errs.items():

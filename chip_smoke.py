@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; nothing is caught):
      compiler's register and spill report);
   2. each forward-solve kernel against its plain PyTorch version at the
      CIFAR-10 flagship's shapes (all three scales, batch 64, the committed
-     checkpoint's weights, the blocks' real inputs): max error and device
+     checkpoint's weights, the blocks' real inputs, captured from an eval
+     batch with the plain forward solve forced): max error and device
      time, with the plain version's time, the least time the card could take
      (bound) and one PyTorch library call's time for comparison; then the
      precision probe (ops/precision_probe.py) at each scale's shapes: each
@@ -17,13 +18,15 @@ Phases (any failure exits non-zero; nothing is caught):
      controls that must read above the limit, the plain version in f32 and
      native TF32 emulated (both operands rounded to 10 mantissa bits), and
      in tf32x against plain tf32x and the control plain tf32; conv1x1_mid
-     runs tf32 and tf32x on the tensor cores (csrc/mma_gemm.cuh, the bf16
-     split's 3 or 4 passes) and is also timed in tf32x;
+     and conv3x3_in run tf32 and tf32x on the tensor cores (csrc/mma_gemm.cuh
+     and csrc/conv3x3_in_tc.cuh, the bf16 split's 3 or 4 passes) and are
+     also timed in tf32x; conv3x3_in is also read on a partial permuted
+     active list, its dead slots untouched;
   3. the whole fused forward solve against its plain version, per scale and
-     mode, each run beside its sum-order floor (the plain solve with
-     conv1x1_mid summed exactly, ops/sum_order.py, against the plain solve:
-     max|dz|, |d nstep| counts, flags that differ), every reading printed
-     before any limit is checked;
+     mode, each run beside its sum-order floors (the plain solve with
+     conv1x1_mid, conv3x3_in or both summed exactly, ops/sum_order.py,
+     against the plain solve: max|dz|, |d nstep| counts, flags that differ),
+     every reading printed before any limit is checked;
   4. the flagship evaluation (bits/dim of 64 structured-synthetic images,
      seed 1) through the port's entry points, with the forward-solve
      kernels' launch counts over that run, a profiled batch (which must
@@ -71,15 +74,18 @@ Phases (any failure exits non-zero; nothing is caught):
      bound and the bytes/s achieved, a library call's time and the control
      (the plain version in mode f32 on the same inputs, which must read
      above the limit); the bf16 1x1 products nc_jt_mid and fp_conv_mid run
-     on the tensor cores (csrc/mma_gemm.cuh), and so does the chain's 3x3
-     c -> mid product nc_jt_in (csrc/conv3x3_in_tc.cuh, also read on
-     float32 s); fp_conv_mid is read with each act (id on the backward's
-     four "nets", swish, dswish);
+     on the tensor cores (csrc/mma_gemm.cuh), and so do the chain's 3x3
+     products nc_jt_in (c -> mid, csrc/conv3x3_in_tc.cuh) and
+     nc_jt_out_acc (mid -> c, csrc/conv3x3_out_tc.cuh), both also read on
+     float32 s; fp_conv_mid is read with each act (id on the backward's
+     four "nets", swish, dswish); the inputs of phases 8 and 9 come from a
+     step with every plain version forced;
   9. the whole Neumann chain (the step's n_power) and the whole final pair
      (T, d_h and every gradient) against their plain versions, per scale
      and mode, by rel_norm with controls; in bf16 the chain beside its
-     sum-order floor (the plain chain with nc_jt_in summed exactly against
-     the plain chain), printed before any limit is checked, and the final pair is held
+     sum-order floors (the plain chain with nc_jt_in, nc_jt_out_acc or both
+     summed exactly against the plain chain), printed before any limit is
+     checked, and the final pair is held
      against the plain path with fp_conv_mid summed exactly (FINAL_TOL's
      comment), beside its reading against the plain path and the sum-order
      floors of fp_conv_mid and rv_wgrad;
@@ -130,15 +136,18 @@ Phases (any failure exits non-zero; nothing is caught):
      csrc/conv3x3_in_tc.cuh, lin_conv1x1_mid on csrc/mma_gemm.cuh) and in
      bf16 and f32, with controls, device time, plain time, bound and a
      library call's time; and the linearisation kernels on phase 2's
-     precision probe; then the c -> mid 3x3 kernel (nc_jt_in in bf16,
-     lin_conv3x3_in in tf32 and tf32x) at mid 64, 192 and 384 on seeded
-     random inputs at each scale, its outputs started as NaN so that a
-     channel chunk it leaves unwritten fails;
+     precision probe; then the 3x3 tensor-core kernels (c -> mid: nc_jt_in
+     in bf16, lin_conv3x3_in and conv3x3_in in tf32 and tf32x; mid -> c:
+     nc_jt_out_acc in bf16) at mid 64, 192 and 384 on seeded random inputs
+     at each scale, their outputs started as NaN so that a channel chunk
+     left unwritten fails; the inputs of phases 14 and 15 come from a
+     merged step with every plain version forced, and phase 14's chain
+     inputs from the plain solve's linearisation;
  15. the whole merged forward against its plain version, per scale and
      mode (roots, flags, iteration counts, both accs, with a control), each
      run beside its sum-order floors (the plain forward with lin_conv1x1_mid,
-     lin_conv3x3_in or both summed exactly against the plain forward, as
-     phase 3), and the one-net
+     lin_conv3x3_in or both, or the solve's conv3x3_in, summed exactly
+     against the plain forward, as phase 3), and the one-net
      Neumann chain (fused_neumann_chain) against its plain version;
  16. the merged path: flagship training at --mem-eff False with
      IMNF_FUSED_BLOCK=1 from the checkpoint (the 32x32 and 16x16 blocks
@@ -218,7 +227,8 @@ NO_ROUNDING = ("rv_wgrad_reduce", "rv_chan_sums",  # sums only: no mode
 # entry. Phase 8 holds them by rel_norm over the whole output at
 # ROUNDED_TOL: such entries moved it by up to 7.0e-5 (16x16), a skipped
 # rounding (the control) by 1.3e-3 or more.
-ROUNDED_OUTPUT = ("nc_jt_in", "nc_jt_in (float32 s)", "nc_jt_mid", "nc_jt_out_acc")
+ROUNDED_OUTPUT = ("nc_jt_in", "nc_jt_in (float32 s)", "nc_jt_mid", "nc_jt_out_acc",
+                  "nc_jt_out_acc (float32 s)")
 ROUNDED_TOL = 2e-4
 # Phase 9 (rel_norm). The chain re-rounds every stage of every term, so
 # the ties' moves are carried on through the series (measured up to 9.7e-5
@@ -267,19 +277,24 @@ BLOCK_ACC_TOL = {"f32": 1e-4, "tf32": 5e-4}
 # conv3x3_out_tc_kernel<TW, NT, IN, EPI, ST> (IN_DSWISH 2 with C3_STORE 0,
 # IN_ID 0 with C3_RESID 1), and nc_jt_in and lin_conv3x3_in on
 # conv3x3_in_tc.cuh's conv3x3_in_tc_kernel<TW, EPI, PASSES, ST>
-# (EPI_SCALE_RND 3 with PASSES 1; EPI_SWISH_LIN 4 with PASSES 3 / 4). A
-# profiled training step (and the eval profile, for conv1x1_mid) must record
-# each as many times as its wrapper launched it there (conv1x1_mid,
-# lin_conv1x1_mid, lin_conv3x3_in: their launches in the split modes,
-# TC_COUNT), and none of the CUDA-core instantiations they replaced:
+# (EPI_SCALE_RND 3 with PASSES 1; EPI_SWISH_LIN 4 with PASSES 3 / 4), and
+# conv3x3_in on the same kernel (EPI_SWISH 0 with PASSES 3 / 4) and
+# nc_jt_out_acc on conv3x3_out_tc_kernel (IN_ID 0 with C3_CHAIN 2). A
+# profiled training step (and the eval profile, for conv1x1_mid and
+# conv3x3_in) must record each as many times as its wrapper launched it
+# there (conv1x1_mid, lin_conv1x1_mid, lin_conv3x3_in, conv3x3_in: their
+# launches in the split modes, TC_COUNT), and none of the CUDA-core
+# instantiations they replaced:
 # conv_gemm_kernel<MODE_BF16 1, SRC 1, IN_ID, EPI_AFFINE | EPI_SCALE |
 # EPI_SCALE_RND> and <1, 1, IN_SWISH | IN_DSWISH, EPI_AFFINE>,
 # conv_gemm_kernel<MODE_TF32 2 | MODE_TF32X 3, 1, IN_ID, EPI_SWISH |
 # EPI_SWISH_LIN>, conv3x3_out_kernel<1, IN_DSWISH, ...>, conv3x3_out_kernel<1,
 # IN_ID, __nv_bfloat16, false> (the float32 form stays: fp_conv_out runs it),
 # every wgrad_kernel<1, ...>, conv_gemm_kernel<1, SRC 0, IN_ID,
-# EPI_SCALE_RND> and conv_gemm_kernel<2 | 3, 0, IN_ID | IN_SWISH,
-# EPI_SWISH_LIN>, which only those stages made. fp_conv_mid
+# EPI_SCALE_RND>, conv_gemm_kernel<2 | 3, 0, IN_ID | IN_SWISH,
+# EPI_SWISH_LIN>, conv3x3_out_kernel<1, IN_ID, float | __nv_bfloat16, true>
+# (the chain's) and conv_gemm_kernel<2 | 3, 0, IN_ID | IN_SWISH, EPI_SWISH>
+# (the solve's conv3x3_in), which only those stages made. fp_conv_mid
 # and rv_conv1x1_mid share the swish and swish' instantiations (SHARED_TC):
 # the profiler records them under one name, so a step must record them as
 # often as the two wrappers launched them together.
@@ -313,22 +328,33 @@ TC_ROUTES = {
                        "implicit_normalizing_flows_torch/csrc/conv3x3_in_tc.cuh",
                        "mma.sync bf16, the 3- or 4-pass split of tf32 / tf32x; f32 and bf16 on "
                        "CUDA cores"),
+    "conv3x3_in": (re.compile(r"conv3x3_in_tc_kernel<\d+, ?0, ?[34],"),
+                   "implicit_normalizing_flows_torch/csrc/conv3x3_in_tc.cuh",
+                   "mma.sync bf16, the 3- or 4-pass split of tf32 / tf32x; f32 and bf16 on CUDA "
+                   "cores"),
+    "nc_jt_out_acc": (re.compile(r"conv3x3_out_tc_kernel<\d+, ?\d+, ?0, ?2,"),
+                      "implicit_normalizing_flows_torch/csrc/conv3x3_out_tc.cuh",
+                      "mma.sync bf16"),
 }
 TC_SPLIT = "conv1x1_mid (tensor cores)"  # launch_counts()'s key of those launches
 TC_LIN = "lin_conv1x1_mid (tensor cores)"
 TC_LIN3 = "lin_conv3x3_in (tensor cores)"
+TC_IN = "conv3x3_in (tensor cores)"
 # the count a route is held to, where not its wrapper's
-TC_COUNT = {"conv1x1_mid": TC_SPLIT, "lin_conv1x1_mid": TC_LIN, "lin_conv3x3_in": TC_LIN3}
+TC_COUNT = {"conv1x1_mid": TC_SPLIT, "lin_conv1x1_mid": TC_LIN, "lin_conv3x3_in": TC_LIN3,
+            "conv3x3_in": TC_IN}
 SHARED_TC = [("fp_conv_mid", "rv_conv1x1_mid")]
 # run only in --mem-eff False's estimator
-ESTIMATOR_ONLY = ("nc_jt_in", "nc_jt_mid", "fp_conv_mid")
+ESTIMATOR_ONLY = ("nc_jt_in", "nc_jt_mid", "nc_jt_out_acc", "fp_conv_mid")
 # run only in the merged forward (IMNF_FUSED_BLOCK=1)
 MERGED_ONLY = ("lin_conv3x3_in", "lin_conv1x1_mid")
 REPLACED_SIMT = re.compile(r"conv_gemm_kernel<1, ?1, ?0, ?[123],|conv_gemm_kernel<1, ?1, ?[12], ?1,"
                            r"|conv_gemm_kernel<[23], ?1, ?0, ?[04],|conv3x3_out_kernel<1, ?2,"
                            r"|conv3x3_out_kernel<1, ?0, ?__nv_bfloat16, ?false>"
                            r"|wgrad_kernel<1,|conv_gemm_kernel<1, ?0, ?0, ?3,"
-                           r"|conv_gemm_kernel<[23], ?0, ?[01], ?4,")
+                           r"|conv_gemm_kernel<[23], ?0, ?[01], ?4,"
+                           r"|conv3x3_out_kernel<1, ?0, ?(float|__nv_bfloat16), ?true>"
+                           r"|conv_gemm_kernel<[23], ?0, ?[01], ?0,")
 ROUTE_ATTEMPTS = 3  # profiled steps that may show the routes (train_path)
 TAB_DIM, TAB_BATCH, TAB_EVAL_BATCH = 6, 1000, 4000
 TAB_WARMUP, TAB_SETTLE, TAB_TIMED = 110, 5, 10
@@ -445,7 +471,10 @@ def build_model(dev, grad_in_forward=True):
 
 
 def capture_block_inputs(model, step, x_u8, draws):
-    """The input of each scale's last implicit block in one eval run."""
+    """The input of each scale's last implicit block in one eval run with the
+    plain forward solve forced (plain_versions), so that the inputs, and
+    the floors phase 3 reads on them, do not move with the port's kernels
+    (each scale's input comes out of the earlier blocks' solves)."""
     from implicit_normalizing_flows_torch.layers import ImplicitBlock
 
     seen, hooks = {}, []
@@ -454,7 +483,8 @@ def capture_block_inputs(model, step, x_u8, draws):
         hooks.append(block.register_forward_pre_hook(
             lambda mod, args, s=s: seen.__setitem__(s, (mod, args[0].detach().clone()))))
     try:
-        step(x_u8, draws)
+        with patched(plain_versions(False)):
+            step(x_u8, draws)
     finally:
         for h in hooks:
             h.remove()
@@ -471,7 +501,7 @@ def check_kernels(blocks, mode="tf32"):
         HW, D, dev = H * W, c * H * W, x.device
         data = block.nnet_z.conv_forward_data()
         data = {k: (v.detach() if torch.is_tensor(v) else v) for k, v in data.items()}
-        wp = fs.prep_weights(data, mode)
+        wp, wxp = fs.prep_weights(data, mode), fs.prep_weights(data, "tf32x")
         mid = data["w2"].shape[0]
         betas = [float(v) for v in data["betas"].cpu()]
         idx = torch.arange(B, dtype=torch.int32, device=dev)
@@ -484,12 +514,15 @@ def check_kernels(blocks, mode="tf32"):
         b1, b2, b3 = (data[k].float().contiguous() for k in ("b1", "b2", "b3"))
 
         calls = {
+            # modes tf32 / tf32x on the tensor cores: W1's bf16 halves
             "conv3x3_in": (
-                lambda: fs.conv3x3_in(x, idx, cnt, wp["w1"], b1, betas, data["preact"], mode, t1k),
-                lambda: fs._conv3x3_in_plain(x, idx, cnt, wp["w1"], b1, betas, data["preact"], mode, t1p),
+                lambda: fs.conv3x3_in(x, idx, cnt, wp["w1_in"], b1, betas, data["preact"], mode,
+                                      t1k),
+                lambda: fs._conv3x3_in_plain(x, idx, cnt, wp["w1_in"], b1, betas,
+                                             data["preact"], mode, t1p),
                 lambda: torch.nn.functional.conv2d(x, w1, b1, padding=1),
                 (t1k, t1p),
-                4 * (B * D + 2 * w1.numel() + mid + B * mid * HW),
+                4 * (B * D + mid + B * mid * HW) + 4 * w1.numel(),
                 B * mid * c * 9 * HW),
             # modes tf32 / tf32x on the tensor cores: W2's bf16 halves
             # (2 bytes an entry each)
@@ -509,11 +542,17 @@ def check_kernels(blocks, mode="tf32"):
                 4 * (B * mid * HW + 2 * w3.numel() + c + 3 * B * D),
                 B * c * mid * 9 * HW),
         }
-        wx = fs.prep_weights(data, "tf32x")["w2_mid"]
+        wx = wxp["w2_mid"]
         calls["conv1x1_mid (tf32x)"] = (
             lambda: fs.conv1x1_mid(t1p, cnt, wx, b2, betas[2], "tf32x", t2k, H, W),
             lambda: fs._conv1x1_mid_plain(t1p, cnt, wx, b2, betas[2], "tf32x", t2p, H, W),
             *calls["conv1x1_mid"][2:])
+        calls["conv3x3_in (tf32x)"] = (  # last: it overwrites t1p
+            lambda: fs.conv3x3_in(x, idx, cnt, wxp["w1_in"], b1, betas, data["preact"],
+                                  "tf32x", t1k),
+            lambda: fs._conv3x3_in_plain(x, idx, cnt, wxp["w1_in"], b1, betas, data["preact"],
+                                         "tf32x", t1p),
+            *calls["conv3x3_in"][2:])
         for name, (kern, plain, lib, (out_k, out_p), nbytes, macs) in calls.items():
             m = "tf32x" if name.endswith("(tf32x)") else mode
             plain()
@@ -531,6 +570,17 @@ def check_kernels(blocks, mode="tf32"):
             rows.setdefault(name, {})[s] = dict(
                 max_abs_err=float((out_k - out_p).abs().max()), ms=ms,
                 plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=by)
+        # conv3x3_in on half the slots under a permuted idx, as late solve
+        # iterations run it: the dead slots of out untouched
+        for m, wm in ((mode, wp), ("tf32x", wxp)):
+            probe_fails += check_partial_list(
+                "conv3x3_in",
+                lambda i, n, o, m=m, wm=wm: fs.conv3x3_in(x, i, n, wm["w1_in"], b1, betas,
+                                                          data["preact"], m, o),
+                lambda i, n, o, m=m, wm=wm: fs._conv3x3_in_plain(x, i, n, wm["w1_in"], b1, betas,
+                                                                 data["preact"], m, o),
+                None, (B, mid, HW), False, m, f"scale{s} ({c}x{H}x{W}, B={B})", dev,
+                tol=SPLIT_TOL)
 
         # broyden_step on a mid-solve state: nk planes written per example
         nk, K = 10, 30
@@ -580,7 +630,8 @@ def check_kernels(blocks, mode="tf32"):
         def conv_in(f):
             def run(m, x, w):
                 o = torch.zeros(PB, mid, HW, device=dev)
-                f(x, pidx, pcnt, fs.prep_weight(w, m), zm, [1.0] * 3, False, m, o)
+                f(x, pidx, pcnt, fs.prep_conv1x1_mid(fs.prep_weight(w, m), m), zm, [1.0] * 3,
+                  False, m, o)
                 return [o]
             return run
 
@@ -608,7 +659,8 @@ def check_kernels(blocks, mode="tf32"):
             "conv3x3_out": (conv_out(fs.conv3x3_out), conv_out(fs._conv3x3_out_plain),
                             t2p.reshape(PB, mid, HW), w3p),
         }, f"scale{s} ({c}x{H}x{W}, B={PB})", rel_err, SPLIT_TOL, probe_fails)
-    assert not probe_fails, ("phase 2 probe (name, scale, mode, error, controls)", probe_fails)
+    assert not probe_fails, ("phase 2 probe or partial list (name, scale, mode, error, "
+                             "controls)", probe_fails)
     return rows
 
 
@@ -656,10 +708,10 @@ def check_solves(blocks):
     protective-break flags and close roots. Per-example iteration counts
     must agree within one where the tolerance lies above the floor: in f32,
     and in the split modes at eps 1e-5. Each run also reads its sum-order
-    floor: the plain solve with conv1x1_mid summed exactly
-    (ops/sum_order.py) against the plain solve, by the same measures (no
-    limit is held to it). Every reading is printed before any limit is
-    checked."""
+    floors: the plain solve with conv1x1_mid, conv3x3_in or both summed
+    exactly (ops/sum_order.py) against the plain solve, by the same
+    measures (no limit is held to them). Every reading is printed before any
+    limit is checked."""
     from implicit_normalizing_flows_torch.ops import fused_solve as fs
     from implicit_normalizing_flows_torch.ops import sum_order as so
 
@@ -669,7 +721,10 @@ def check_solves(blocks):
     configs = [("f32", 1e-6, {}), ("tf32", 1e-6, {}), ("tf32x", 1e-6, {}),
                ("tf32", 1e-6, ladder(15)), ("tf32", 1e-5, {}),
                ("tf32x", 1e-5, {}), ("tf32", 1e-5, ladder(6))]
-    exact_ops = dict(fs._PLAIN, conv1x1_mid=so.conv1x1_mid_exact)
+    floor_ops = {"conv1x1_mid": dict(fs._PLAIN, conv1x1_mid=so.conv1x1_mid_exact),
+                 "conv3x3_in": dict(fs._PLAIN, conv3x3_in=so.conv3x3_in_exact),
+                 "both": dict(fs._PLAIN, conv1x1_mid=so.conv1x1_mid_exact,
+                              conv3x3_in=so.conv3x3_in_exact)}
     full = dict(stall_guard=None, newton_init=False, warm_start=False, tail_mode=None,
                 tail_start=None, line_search=False)
 
@@ -696,19 +751,24 @@ def check_solves(blocks):
                                                   **kw, **extra)
                 torch.cuda.synchronize()
                 tp = time.perf_counter() - t0
-                rx = fs._solve(x, dx, dz, exact_ops, **dict(full, **kw, **extra), mode=mode,
-                               eps=eps)[0]
+                floors = []
+                for what, ops in floor_ops.items():
+                    rx = fs._solve(x, dx, dz, ops, **dict(full, **kw, **extra), mode=mode,
+                                   eps=eps)[0]
+                    fz, fcounts, _, fconv, fprot = against(rx, rp)
+                    floors.append(f"{what} exact vs plain: max|dz| {fz:.3e} |d nstep| counts "
+                                  f"{fcounts} converged flags differing {fconv} prot flags "
+                                  f"differing {fprot}")
+                    del rx
                 dz_max, counts, dn_max, dconv, dprot = against(rk, rp)
-                fz, fcounts, fdn, fconv, fprot = against(rx, rp)
                 label = f"{mode}{'+ladder' if extra else ''} eps {eps:g}"
                 log(f"solve scale{s} {label}: max|dz| {dz_max:.3e} "
                     f"|d nstep| counts {counts} "
                     f"nstep mean {rk.nstep.float().mean():.2f}/{rp.nstep.float().mean():.2f} "
                     f"converged {rk.converged.float().mean():.3f}/{rp.converged.float().mean():.3f} "
                     f"prot {int(rk.prot_break.sum())}/{int(rp.prot_break.sum())} "
-                    f"s {tk:.3f}/{tp:.3f} (kernels/plain); sum-order floor (conv1x1_mid "
-                    f"exact vs plain): max|dz| {fz:.3e} |d nstep| counts {fcounts} "
-                    f"converged flags differing {fconv} prot flags differing {fprot}")
+                    f"s {tk:.3f}/{tp:.3f} (kernels/plain); sum-order floors: "
+                    + "; ".join(floors))
                 if not torch.isfinite(rk.result).all():
                     fails.append((s, label, "non-finite root"))
                 if dprot or dconv or not dz_max <= 5e-4:
@@ -1059,14 +1119,15 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
     return rows
 
 
-def check_partial_list(name, kern, plain, ctrl, shape, by_example, mode, label, dev):
+def check_partial_list(name, kern, plain, ctrl, shape, by_example, mode, label, dev,
+                       tol=None):
     """A kernel on half the slots live (count B/2) under a permuted idx, as
-    late backward-solve iterations run one: the live rows against the plain
-    version (and in bf16 the control ``ctrl``, the plain version in mode
-    f32), and the dead rows of out bitwise as they were (a sentinel). Rows
-    are slots, or the examples idx[slot] with ``by_example``. kern, plain
-    and ctrl are fn(idx, count, out) on outputs of ``shape``. Returns the
-    failures."""
+    late solve iterations run one: the live rows against the plain version
+    (and in bf16 the control ``ctrl``, the plain version in mode f32), and
+    the dead rows of out bitwise as they were (a sentinel), at ``tol``
+    (KERNEL_TOL of the mode by default). Rows are slots, or the examples
+    idx[slot] with ``by_example``. kern, plain and ctrl are fn(idx, count,
+    out) on outputs of ``shape``. Returns the failures."""
     B, n = shape[0], shape[0] // 2
     g = torch.Generator(device=dev).manual_seed(7)
     idx = torch.randperm(B, generator=g, device=dev).to(torch.int32)
@@ -1084,7 +1145,7 @@ def check_partial_list(name, kern, plain, ctrl, shape, by_example, mode, label, 
     if ctrl is not None:
         ctrl(idx, cnt, oc)
         control = rel_max(oc[live], op[live])
-    tol = KERNEL_TOL[mode]
+    tol = KERNEL_TOL[mode] if tol is None else tol
     log(f"kernel {name} {label}, {mode}, count {n} of {B}, permuted idx: max_rel_err "
         f"{err:.3e} (limit {tol:g}" + ("" if control is None else f", control {control:.3e}")
         + f"), dead {'examples' if by_example else 'slots'} untouched: {dead}")
@@ -1225,10 +1286,19 @@ def check_bf16_double_backward(dev):
 
 def capture_estimator_inputs(step, x_u8, draws):
     """The --mem-eff False estimator's real inputs from one training step's
-    gradient, per (channel count, preact) of the blocks, the last block of
-    each: the chains' operands, signed coefficients and n_power, the final
-    pair's data dicts, (x, z, eps_x, eps_z, acc_x, acc_z) and mode, and the
-    backward's acc times the cotangent (x's then z's rows)."""
+    gradient with every plain version forced (plain_versions: the forward
+    solves that make the chains' s factors and probes, the chains that make
+    the final pair's accs), so that the inputs, and the floors phase 9 reads
+    on them, do not move with the port's kernels; per (channel count,
+    preact) of the blocks, the last block of each: the chains' operands,
+    signed coefficients and n_power, the final pair's data dicts, (x, z,
+    eps_x, eps_z, acc_x, acc_z) and mode, and the backward's acc times the
+    cotangent (x's then z's rows)."""
+    with patched(plain_versions(True)):
+        return _capture_estimator_inputs(step, x_u8, draws)
+
+
+def _capture_estimator_inputs(step, x_u8, draws):
     from implicit_normalizing_flows_torch.layers import implicit_block
     from implicit_normalizing_flows_torch.ops import fused_chain as fc
     from implicit_normalizing_flows_torch.ops import fused_final as ff
@@ -1351,7 +1421,9 @@ def check_estimator_kernels(cap, modes=("bf16", "f32")):
             op, wt, Hs, E, ACC, ACCW = estimator_operands(d, mode)
             wt32 = ff._weights(d["datas"], "f32", torch.float32)
             S2f = op["S2"].float()  # nc_jt_in on float32 s (the merged path's)
+            S0f = op["S0"].float()  # nc_jt_out_acc on float32 s
             mid = op["S1"].shape[1]
+            W1o = fc.untile_w1t(op["W1T"], c, mid)  # OIHW, for the library call and bytes
             b0, b1, b2 = wt["beta"]
             beta1_x = wt["betas"][0, 1]  # net x's slope, on the card
             S, _ = ig.wgrad_splits(mid, mid, B, HW)
@@ -1410,10 +1482,18 @@ def check_estimator_kernels(cap, modes=("bf16", "f32")):
                                                    0, o[0], o[1], H, W),
                         lambda o: fc._nc_jt_out_acc_plain(P["T1"], op["W1T"], op["S0"], m,
                                                           op["coeffs"], 0, o[0], o[1], H, W),
-                        lambda: F.conv2d(lib(view(P["T1"], mid)), lib(op["W1T"][0]), padding=1),
+                        lambda: F.conv2d(lib(view(P["T1"], mid)), lib(W1o[0]), padding=1),
                         lambda: [new(Bt, c, H, W), op["ACC"].clone()],
-                        (hv(P["T1"]), op["S0"], hv(op["W1T"]), op["ACC"]),
+                        (hv(P["T1"]), op["S0"], hv(W1o), op["ACC"]),
                         Bt * c * mid * 9 * HW),
+                    **({"nc_jt_out_acc (float32 s)": (
+                        lambda o: fc.nc_jt_out_acc(P["T1"], op["W1T"], S0f, m, op["coeffs"], 0,
+                                                   o[0], o[1], H, W),
+                        lambda o: fc._nc_jt_out_acc_plain(P["T1"], op["W1T"], S0f, m,
+                                                          op["coeffs"], 0, o[0], o[1], H, W),
+                        None, lambda: [new(Bt, c, H, W), op["ACC"].clone()],
+                        (hv(P["T1"]), S0f, hv(W1o), op["ACC"]), Bt * c * mid * 9 * HW)}
+                       if mode == "bf16" else {}),
                     "fp_conv_in": (
                         lambda o: ff.fp_conv_in(Hs, None, w["w1"], w["b1"], b0, act0, m, o[0]),
                         lambda o: plain_in(Hs, None, w["w1"], w["b1"], b0, act0, m, o[0]),
@@ -1477,7 +1557,7 @@ def check_estimator_kernels(cap, modes=("bf16", "f32")):
                         mode, f"c{c}{'' if preact else ' (no preact)'} ({H}x{W}, B={B} x 2 nets)",
                         rows, fails, timed="bf16", rounded=ROUNDED_OUTPUT,
                         keep=(c, preact) == (3, True))
-            del S2f
+            del S2f, S0f
     assert not fails, ("phase 8 (name, block, mode, error, control)", fails)
     return rows
 
@@ -1521,13 +1601,20 @@ def check_estimator_functions(cap):
                 c32 = [tuple(a.float() for a in ch) for ch in chains]
                 ac = fc.fused_neumann_chain2_plain(*c32, d["signed"], d["n_power"])
                 control = min(rel_norm(a, b, e) for a, b, e in zip(ac, ap, eps))
-                ax = fc._chain(chains, d["signed"], d["n_power"],
-                               dict(fc._PLAIN, nc_jt_in=so.nc_jt_in_exact))
-                floor = max(rel_norm(a, b, e) for a, b, e in zip(ax, ap, eps))
+                floor = {}
+                for what, exact in (
+                        ("nc_jt_in", dict(nc_jt_in=so.nc_jt_in_exact)),
+                        ("nc_jt_out_acc", dict(nc_jt_out_acc=so.nc_jt_out_acc_exact)),
+                        ("nc_jt_in and nc_jt_out_acc", dict(
+                            nc_jt_in=so.nc_jt_in_exact, nc_jt_out_acc=so.nc_jt_out_acc_exact))):
+                    ax = fc._chain(chains, d["signed"], d["n_power"], dict(fc._PLAIN, **exact))
+                    floor[what] = max(rel_norm(a, b, e) for a, b, e in zip(ax, ap, eps))
+                    del ax
             log(f"neumann chain {label} {mode} n_power {d['n_power']}: rel_norm {err:.3e} "
                 f"(limit {CHAIN_TOL[mode]:g}"
-                + ("" if control is None else f", control {control:.3e}, sum-order floor "
-                   f"(the plain chain with nc_jt_in exact against the plain chain) {floor:.3e}")
+                + ("" if control is None else f", control {control:.3e}; sum-order floors (the "
+                   "plain chain with products summed exactly against the plain chain): "
+                   + ", ".join(f"{w} exact {v:.3e}" for w, v in floor.items()))
                 + f") s {tk:.3f}/{tp:.3f} (kernels/plain)")
             assert all(bool(torch.isfinite(a).all()) for a in ak)
             if not (err <= CHAIN_TOL[mode] and (control is None or control > CHAIN_TOL[mode])):
@@ -1602,6 +1689,7 @@ def launch_counts():
     counts[TC_SPLIT] = fs.conv1x1_mid.tc_launches
     counts[TC_LIN] = fb.lin_conv1x1_mid.tc_launches
     counts[TC_LIN3] = fb.lin_conv3x3_in.tc_launches
+    counts[TC_IN] = fs.conv3x3_in.tc_launches
     return counts
 
 
@@ -1857,28 +1945,33 @@ def environ(**values):
 def capture_block_forward_inputs(step, x_u8, draws):
     """The merged forward's real inputs at each scale's last block, from one
     training step's gradient with every block merged (min_hw 0, so the 8x8
-    blocks give theirs too): {c: dict(args=(x, data_x, data_z, eps_x, eps_z,
+    blocks give theirs too) and every plain version forced (plain_versions:
+    a block's input comes out of the earlier blocks' merged forwards), so
+    that the inputs, and the floors phases 14-15 read on them, do not move
+    with the port's kernels: {c: dict(args=(x, data_x, data_z, eps_x, eps_z,
     signed, n_power), kw=the solver's arguments)}."""
     from implicit_normalizing_flows_torch.layers import implicit_block
 
     seen = {}
-    fwd = implicit_block.fused_block_forward
     det = lambda v: ({k: det(a) for k, a in v.items()} if isinstance(v, dict)
                      else v.detach().clone() if torch.is_tensor(v) else v)
 
-    def rec(*args, **kw):
-        seen[args[0].shape[1]] = dict(args=tuple(det(a) for a in args), kw=kw)
-        return fwd(*args, **kw)
-
     with environ(IMNF_FUSED_BLOCK="1", IMNF_FUSED_SOLVE_MIN_HW="0"), \
-            patched([(implicit_block, "fused_block_forward", rec)]):
-        step.grads(x_u8, draws)
+            patched(plain_versions(True, merged=True)):
+        fwd = implicit_block.fused_block_forward  # the plain version
+
+        def rec(*args, **kw):
+            seen[args[0].shape[1]] = dict(args=tuple(det(a) for a in args), kw=kw)
+            return fwd(*args, **kw)
+
+        with patched([(implicit_block, "fused_block_forward", rec)]):
+            step.grads(x_u8, draws)
     return dict(sorted(seen.items()))
 
 
 def block_operands(d, mode):
-    """A captured block's linearisation (the kernels' solve in ``mode`` with
-    its ladder) and both nets' chain operands, stacked, in the chain dtype of
+    """A captured block's linearisation (the plain solve in ``mode`` with its
+    ladder) and both nets' chain operands, stacked, in the chain dtype of
     ``mode``."""
     from implicit_normalizing_flows_torch.ops import fused_block as fb
     from implicit_normalizing_flows_torch.ops import fused_chain as fc
@@ -1888,7 +1981,8 @@ def block_operands(d, mode):
     kw = dict(d["kw"], mode=mode)
     if mode == "f32":
         kw.update(tail_mode=None, tail_start=None)
-    _, lin = fs._solve(x, data_x, data_z, fb._OPS, linearise=True, **kw)
+    # the plain solve's linearisation: the port's kernels do not move it
+    _, lin = fs._solve(x, data_x, data_z, fb._PLAIN_OPS, linearise=True, **kw)
     return lin, fc.chain_operands(fb.chains(data_x, data_z, eps_x, eps_z, lin, mode), signed)
 
 
@@ -1931,17 +2025,16 @@ def check_block_kernels(cap):
 
             def cases(m):
                 wm = fs.prep_weights(data_x, m)
-                wm["w1_lin"] = fs.prep_conv1x1_mid(wm["w1"], m)
                 return {
                     # in tf32 / tf32x on the tensor cores: W1's bf16 halves
                     "lin_conv3x3_in": (
-                        lambda o: fb.lin_conv3x3_in(x, wm["w1_lin"], b1, betas, preact, m, o[0],
+                        lambda o: fb.lin_conv3x3_in(x, wm["w1_in"], b1, betas, preact, m, o[0],
                                                     o[1], s0(o)),
-                        lambda o: fb._lin_conv3x3_in_plain(x, wm["w1_lin"], b1, betas, preact,
+                        lambda o: fb._lin_conv3x3_in_plain(x, wm["w1_in"], b1, betas, preact,
                                                            m, o[0], o[1], s0(o)),
                         lambda: F.conv2d(x, w1, b1, padding=1),
                         lambda: [new(B, mid, HW), new(B, mid, HW)] + [new(B, D)] * preact,
-                        (x, *(w for w in wm["w1_lin"] if w is not None), b1),
+                        (x, *(w for w in wm["w1_in"] if w is not None), b1),
                         B * mid * c * 9 * HW),
                     # in tf32 / tf32x on the tensor cores: W2's bf16 halves
                     "lin_conv1x1_mid": (
@@ -1990,6 +2083,7 @@ def check_block_kernels(cap):
         for mode in ("bf16", "f32"):
             _, op = block_operands(d, "tf32" if mode == "bf16" else "f32")
             Bt, mid = op["U"].shape[0], op["S1"].shape[1]
+            W1o = fc.untile_w1t(op["W1T"], c, mid)
             T2, T1 = new(Bt, mid, HW), new(Bt, mid, HW)
             fc._nc_jt_in_plain(op["U"], op["W3T"], op["S2"], mode, T2)
             fc._nc_jt_mid_plain(T2, op["W2T"], op["S1"], mode, T1, H, W)
@@ -2015,9 +2109,9 @@ def check_block_kernels(cap):
                                                    o[0], o[1], H, W),
                         lambda o: fc._nc_jt_out_acc_plain(T1, op["W1T"], op["S0"], m,
                                                           op["coeffs"], 0, o[0], o[1], H, W),
-                        lambda: F.conv2d(lib(view(T1, mid)), lib(op["W1T"][0]), padding=1),
+                        lambda: F.conv2d(lib(view(T1, mid)), lib(W1o[0]), padding=1),
                         lambda: [new(Bt, c, H, W), op["ACC"].clone()],
-                        (hv(T1), op["S0"], hv(op["W1T"]), op["ACC"]), Bt * c * mid * 9 * HW),
+                        (hv(T1), op["S0"], hv(W1o), op["ACC"]), Bt * c * mid * 9 * HW),
                 }
 
             check_cases(cases(mode), cases("f32") if mode == "bf16" else {}, mode,
@@ -2035,12 +2129,16 @@ def check_conv3x3_in_widths(dev, batch=4):
     """Phase 14's tail: the c -> mid tensor-core kernel at mid NARROW_MIDS,
     where the M chunks do not split evenly over the groups of blocks and
     the last chunk at 8x8 is half full: nc_jt_in (bf16, two nets of
-    ``batch`` examples, s2 bfloat16; rel_norm against ROUNDED_TOL) and
+    ``batch`` examples, s2 bfloat16; rel_norm against ROUNDED_TOL),
     lin_conv3x3_in (tf32, tf32x, preact; its three outputs, max error over
-    the largest entry against SPLIT_TOL) against their plain versions on
-    seeded random inputs at each scale's c and image. The kernels' outputs
-    start as NaN, so an output left unwritten reads NaN and fails. Every
-    reading is printed before the limits are checked."""
+    the largest entry against SPLIT_TOL) and the solve's conv3x3_in (tf32,
+    tf32x, preact, every slot live; against SPLIT_TOL); and the mid -> c
+    kernel's nc_jt_out_acc (bf16, two nets, s0 bfloat16; u by rel_norm
+    against ROUNDED_TOL, acc += c_k u by rel_norm of its update over the
+    update), against their plain versions on seeded random inputs at each
+    scale's c and image. The kernels' outputs (u, not acc) start as NaN, so
+    an output left unwritten reads NaN and fails. Every reading is printed
+    before the limits are checked."""
     from implicit_normalizing_flows_torch.ops import fused_block as fb
     from implicit_normalizing_flows_torch.ops import fused_chain as fc
     from implicit_normalizing_flows_torch.ops import fused_solve as fs
@@ -2078,6 +2176,30 @@ def check_conv3x3_in_widths(dev, batch=4):
                     f"(limit {SPLIT_TOL:g})")
                 if not (math.isfinite(err) and err <= SPLIT_TOL):
                     fails.append(("lin_conv3x3_in", label, mode, err))
+                idx = torch.arange(batch, dtype=torch.int32, device=dev)
+                cnt = torch.full((1,), batch, dtype=torch.int32, device=dev)
+                outs = [nan(batch, mid, HW) for _ in range(2)]
+                for f, o in ((fs.conv3x3_in, outs[0]), (fs._conv3x3_in_plain, outs[1])):
+                    f(x, idx, cnt, wk, b1, [1.1, 0.9, 1.0], True, mode, o)
+                torch.cuda.synchronize()
+                err = rel_max(*outs)
+                log(f"kernel conv3x3_in {label}, {mode}: max_rel_err {err:.3e} "
+                    f"(limit {SPLIT_TOL:g})")
+                if not (math.isfinite(err) and err <= SPLIT_TOL):
+                    fails.append(("conv3x3_in", label, mode, err))
+            t = r(2 * batch, mid, HW).to(torch.bfloat16).float()
+            w1t = fc.tile_w1t((0.05 * r(2, c, mid, 3, 3)).to(torch.bfloat16))
+            s0 = (0.5 + torch.rand(2 * batch, c * HW, generator=g, device=dev)).to(torch.bfloat16)
+            coef, acc0 = torch.tensor([0.5, -0.25], device=dev), r(2 * batch, c * HW)
+            outs = [(nan(2 * batch, c, H, H), acc0.clone()) for _ in range(2)]
+            for f, (uo, ao) in ((fc.nc_jt_out_acc, outs[0]), (fc._nc_jt_out_acc_plain, outs[1])):
+                f(t, w1t, s0, "bf16", coef, 1, uo, ao, H, H)
+            torch.cuda.synchronize()
+            err = max(rel_norm(outs[0][0], outs[1][0]), rel_norm(outs[0][1], outs[1][1], acc0))
+            log(f"kernel nc_jt_out_acc {label}, bf16: rel_norm {err:.3e} (limit "
+                f"{ROUNDED_TOL:g})")
+            if not (math.isfinite(err) and err <= ROUNDED_TOL):
+                fails.append(("nc_jt_out_acc", label, "bf16", err))
     assert not fails, ("phase 14, narrow widths (name, block, mode, error)", fails)
 
 
@@ -2089,9 +2211,9 @@ def check_block_functions(cap):
     and eps 1e-5: see phase 3), the accs by rel_norm over acc - eps at
     BLOCK_ACC_TOL with the control (the plain version in mode f32 against
     the tf32 one) above it. Each run also reads its sum-order floor, as
-    phase 3: the plain forward with lin_conv1x1_mid, lin_conv3x3_in or both
-    summed exactly (ops/sum_order.py) against the plain forward, by the same
-    measures (no limit is held to them). Then the one-net chain (fused_neumann_chain, the
+    phase 3: the plain forward with lin_conv1x1_mid, lin_conv3x3_in or both,
+    or the solve's conv3x3_in, summed exactly (ops/sum_order.py) against the
+    plain forward, by the same measures (no limit is held to them). Then the one-net chain (fused_neumann_chain, the
     row-2 kernels on one net) on net x's captured operands vs its plain
     version, with its device time, plain time and bound. Every reading is
     printed before the limits are checked."""
@@ -2103,7 +2225,8 @@ def check_block_functions(cap):
                  lin_conv3x3_in=so.lin_conv3x3_in_exact)
     floor_ops = {"lin_conv1x1_mid": dict(fb._PLAIN_OPS, lin_conv1x1_mid=exact["lin_conv1x1_mid"]),
                  "lin_conv3x3_in": dict(fb._PLAIN_OPS, lin_conv3x3_in=exact["lin_conv3x3_in"]),
-                 "both": dict(fb._PLAIN_OPS, **exact)}
+                 "both": dict(fb._PLAIN_OPS, **exact),
+                 "conv3x3_in": dict(fb._PLAIN_OPS, conv3x3_in=so.conv3x3_in_exact)}
     full = dict(stall_guard=None, newton_init=False, warm_start=False, tail_mode=None,
                 tail_start=None, line_search=False)
     fails = []
@@ -2594,7 +2717,7 @@ def main():
 
     # the eval profile, with conv1x1_mid's route
     profiled_routes(lambda: profile_batch(model, eval_step, x_u8, draws(0)),
-                    ["conv1x1_mid"], "eval batch")
+                    ["conv1x1_mid", "conv3x3_in"], "eval batch")
 
     # the plain path on batch 0's draws
     implicit_block.fused_broyden_solve = fs.fused_broyden_solve_plain

@@ -1,7 +1,8 @@
 // The forms of conv3x3_in_tc.cuh's tensor-core 3x3 c -> mid product that the
 // port launches, as their own translation unit: ops/cuda_build.py links it
-// into the libraries of estimator.cu (nc_jt_in, mode bf16) and
-// block_forward.cu (lin_conv3x3_in, modes tf32 / tf32x). The header says why.
+// into the libraries of estimator.cu (nc_jt_in, mode bf16), block_forward.cu
+// (lin_conv3x3_in, modes tf32 / tf32x) and fused_solve.cu (conv3x3_in, modes
+// tf32 / tf32x). The header says why.
 
 #include "conv3x3_in_tc.cuh"
 
@@ -37,6 +38,24 @@ cudaError_t conv3x3_in_tc_lin(int passes, const __nv_bfloat16* w_hi, const __nv_
     return launch_conv3x3_in_tc<EPI_SWISH_LIN, 4>(w_hi, w_lo, bias, inp, B, 1, C, H, W, M,
                                                   preact, beta_in, beta_out, no_scale, out, s1,
                                                   s0, s);
+  return cudaErrorInvalidValue;
+}
+
+// out[s] = swish(W1 [swish](inp[idx[s]]) + bias) for the slots s < *count,
+// the bf16 split's 3 or 4 passes
+cudaError_t conv3x3_in_tc_solve(int passes, const __nv_bfloat16* w_hi, const __nv_bfloat16* w_lo,
+                                const float* bias, const float* inp, const int* idx,
+                                const int* count, int B, int C, int H, int W, int M, int preact,
+                                float beta_in, float beta_out, float* out, cudaStream_t s) {
+  const float* no_scale = nullptr;
+  if (passes == 3)
+    return launch_conv3x3_in_tc<EPI_SWISH, 3>(w_hi, w_lo, bias, inp, B, 1, C, H, W, M, preact,
+                                              beta_in, beta_out, no_scale, out, nullptr,
+                                              nullptr, s, idx, count);
+  if (passes == 4)
+    return launch_conv3x3_in_tc<EPI_SWISH, 4>(w_hi, w_lo, bias, inp, B, 1, C, H, W, M, preact,
+                                              beta_in, beta_out, no_scale, out, nullptr,
+                                              nullptr, s, idx, count);
   return cudaErrorInvalidValue;
 }
 

@@ -1,4 +1,4 @@
-// Tensor-core (mma.sync) 3x3 conv c -> mid for Hopper (sm_90a), in two
+// Tensor-core (mma.sync) 3x3 conv c -> mid for Hopper (sm_90a), in three
 // forms that share the product:
 //
 //   acc[s][m][p] = sum_k W[net][m][k] * X(IN(inp[s]))[k][p],  net = s / nb,
@@ -18,6 +18,13 @@
 //   /ops/fused_solve.py:245-266) with s1x = _dswish(h1x) (and s0x) of
 //   _block_fwd_kernel (:1706, in fused_block_forward :1814);
 //   block_forward.cu's lin_conv3x3_in.
+// * EPI_SWISH, modes tf32 / tf32x, on an active list: for the live slots s
+//   < *count, out[s] = swish(acc + bias[m]; beta_out) with the input of
+//   example idx[s] (IN = swish(.; beta_in) under preact); the slots past
+//   *count are not written: the forward solve's first conv, [swish(h;
+//   b0)], d1(xsh) + b1 and _swish(h1, b1) of _make_eval
+//   (implicit_normalizing_flows_tpu/ops/fused_solve.py:245-266, in
+//   fused_broyden_solve :1921); fused_solve.cu's conv3x3_in.
 // PASSES 1 (mode bf16): both operands bf16, the sums float32. PASSES 3 / 4
 // (tf32 / tf32x): the bf16 split of both operands, hi = rn(v), lo = rn(v -
 // hi), and the products hi*hi + hi*lo + lo*hi (+ lo*lo), exactly
@@ -28,8 +35,9 @@
 // writes t2 as float32 (the next stage reads float32) and reads s2: 402 MB
 // at B 64 x 2 nets with bf16 s2, 0.12 ms at 3.35 TB/s (0.16 ms with float32
 // s2); the linearisation writes swish(h1) and s1 as float32, 256 MiB at B
-// 64, 0.08 ms. The products are few: K is 27, 108 or 432. The CUDA-core
-// kernel (conv_gemm.cuh, SRC 0) rebuilt the im2col for each of the 8
+// 64, 0.08 ms; the solve's form swish(h1) of the live slots, 128 MiB with
+// all 64 live, 0.04 ms. The products are few: K is 27, 108 or 432. The
+// CUDA-core kernel (conv_gemm.cuh, SRC 0) rebuilt the im2col for each of the 8
 // 64-row M tiles with an integer divide and modulo per element, ran the
 // products (3 or 4 FMA passes in the split modes) on the CUDA cores, read
 // its scale with scalar loads and stored scalars whose lanes lay 16 bytes
@@ -66,10 +74,12 @@
 //   thread; the split forms spill a few bytes). Where slots x bands fill
 //   less than twice the card (16x16, 8x8), the M chunks are split into
 //   groups of blocks (a power of two), each rebuilding the band's small
-//   im2col, so that 8x8's 128 slots become 512 blocks. The groups divide
-//   the chunks evenly (a mid of 384 at 8x8, 3 chunks, keeps one group). M
-//   need only be a multiple of 64: the last chunk at NP 64 may hold 64
-//   rows, for 4 of the 8 warps.
+//   im2col, so that 8x8's 128 slots become 512 blocks. The solve's form
+//   keeps the grid of its whole batch: the blocks of slots at or past
+//   *count return at once (the host does not read the count). The groups
+//   divide the chunks evenly (a mid of 384 at 8x8, 3 chunks, keeps one
+//   group). M need only be a multiple of 64: the last chunk at NP 64 may
+//   hold 64 rows, for 4 of the 8 warps.
 #pragma once
 
 #include <stdint.h>
@@ -123,17 +133,18 @@ __device__ __forceinline__ void c3i_load_a(uint32_t (&a)[4], const unsigned shor
 // Grid (bands x groups, B slots); block x = band * groups + group. TW is
 // the image width (8, 16 or 32); the band is NP / TW rows. w_hi [w_lo]:
 // (nets, M, C, 3, 3) bf16; inp (B, C, H, TW); scale, out, aux (B, M, H TW);
-// aux0 (B, C, H TW) or nullptr; bias (M) (EPI_SWISH_LIN: one net).
+// aux0 (B, C, H TW) or nullptr; bias (M) (EPI_SWISH_LIN, EPI_SWISH: one
+// net). EPI_SWISH: slot s < *count reads example idx[s] of inp.
 template <int TW, int EPI, int PASSES, typename ST>
 __global__ void __launch_bounds__(C3I_THREADS, 2) conv3x3_in_tc_kernel(
     const __nv_bfloat16* __restrict__ w_hi, const __nv_bfloat16* __restrict__ w_lo,
     const float* __restrict__ bias, const float* __restrict__ inp, int C, int H, int M,
     int groups, int nb, int preact, float beta_in, float beta_out,
     const ST* __restrict__ scale, float* __restrict__ out, float* __restrict__ aux,
-    float* __restrict__ aux0) {
+    float* __restrict__ aux0, const int* __restrict__ idx, const int* __restrict__ count) {
   static_assert((EPI == EPI_SCALE_RND && PASSES == 1) ||
-                    (EPI == EPI_SWISH_LIN && (PASSES == 3 || PASSES == 4)),
-                "the chain's form (bf16) or the linearisation's (tf32 / tf32x)");
+                    ((EPI == EPI_SWISH_LIN || EPI == EPI_SWISH) && (PASSES == 3 || PASSES == 4)),
+                "the chain's form (bf16), the linearisation's or the solve's (tf32 / tf32x)");
   constexpr bool SPLIT = PASSES > 1;
   constexpr int NP = c3i_np(TW), R = NP / TW, HPW = TW + 2, HR = R + 2;
   constexpr int WN = NP / 64, WM = 8 / WN, CH = 16 * WM;  // warps along N, M; chunk rows
@@ -146,8 +157,11 @@ __global__ void __launch_bounds__(C3I_THREADS, 2) conv3x3_in_tc_kernel(
   const int K = 9 * C, KP = c3i_kpad(C), S = c3i_stride(C);
   const int HW = H * TW, tid = threadIdx.x;
   const int slot = blockIdx.y, band = blockIdx.x / groups, g = blockIdx.x % groups;
+  if constexpr (EPI == EPI_SWISH) {
+    if (slot >= *count) return;  // a dead slot: its blocks return at once
+  }
   const int net = slot / nb, y0 = band * R, p0 = y0 * TW;
-  const float* const x = inp + (size_t)slot * C * HW;
+  const float* const x = inp + (size_t)(EPI == EPI_SWISH ? idx[slot] : slot) * C * HW;
 
   // the band's input with its halo, transformed once per element; under
   // preact the blocks of group 0 write swish'(x) of the band's pixels
@@ -159,7 +173,7 @@ __global__ void __launch_bounds__(C3I_THREADS, 2) conv3x3_in_tc_kernel(
     if (y >= 0 && y < H && xx >= 0 && xx < TW) {
       const size_t off = (size_t)ci * HW + y * TW + xx;
       v = __ldg(x + off);
-      if (EPI == EPI_SWISH_LIN && preact) {
+      if ((EPI == EPI_SWISH_LIN || EPI == EPI_SWISH) && preact) {
         if (s0 != nullptr && hr >= 1 && hr <= R) s0[off] = dswish(v, beta_in);
         v = swish(v, beta_in);
       }
@@ -300,9 +314,10 @@ __global__ void __launch_bounds__(C3I_THREADS, 2) conv3x3_in_tc_kernel(
                                      __fadd_rn(o.w, bv));
         o = make_float4(swish(h.x, beta_out), swish(h.y, beta_out), swish(h.z, beta_out),
                         swish(h.w, beta_out));
-        *reinterpret_cast<float4*>(aux + off) =
-            make_float4(dswish(h.x, beta_out), dswish(h.y, beta_out), dswish(h.z, beta_out),
-                        dswish(h.w, beta_out));
+        if constexpr (EPI == EPI_SWISH_LIN)
+          *reinterpret_cast<float4*>(aux + off) =
+              make_float4(dswish(h.x, beta_out), dswish(h.y, beta_out), dswish(h.z, beta_out),
+                          dswish(h.w, beta_out));
       }
       *reinterpret_cast<float4*>(out + off) = o;
     }
@@ -316,7 +331,7 @@ static cudaError_t launch_c3i_tc(const __nv_bfloat16* w_hi, const __nv_bfloat16*
                                  const float* bias, const float* inp, int B, int nets, int C,
                                  int H, int M, int preact, float beta_in, float beta_out,
                                  const ST* scale, float* out, float* aux, float* aux0,
-                                 cudaStream_t s) {
+                                 cudaStream_t s, const int* idx, const int* count) {
   auto kernel = conv3x3_in_tc_kernel<TW, EPI, PASSES, ST>;
   constexpr int NP = c3i_np(TW);
   const int bytes = c3i_smem_bytes(TW, C, PASSES > 1 ? 2 : 1);
@@ -342,7 +357,7 @@ static cudaError_t launch_c3i_tc(const __nv_bfloat16* w_hi, const __nv_bfloat16*
   while (nch % (2 * groups) == 0 && (long long)B * bands * groups < 2LL * nsm) groups *= 2;
   kernel<<<dim3(bands * groups, B), C3I_THREADS, bytes, s>>>(
       w_hi, w_lo, bias, inp, C, H, M, groups, B / nets, preact, beta_in, beta_out, scale, out,
-      aux, aux0);
+      aux, aux0, idx, count);
   return cudaGetLastError();
 }
 
@@ -350,27 +365,32 @@ static cudaError_t launch_c3i_tc(const __nv_bfloat16* w_hi, const __nv_bfloat16*
 // / nets examples each), w_hi [w_lo] (nets, M, C, 3, 3) bfloat16, out [aux]
 // (B, M, H W) by slot. EPI_SCALE_RND (PASSES 1): scale (B, M, H W), float32
 // or bfloat16. EPI_SWISH_LIN (PASSES 3 / 4, one net): bias (M), aux, and
-// with preact aux0 (B, C, H W). Takes C <= 48 (within the shared memory an
-// SM grants), M a multiple of 64, W 8, 16 or 32, H a multiple of the band's
-// rows (NP / W) and 16-byte aligned scale, out and aux;
-// cudaErrorInvalidValue otherwise.
+// with preact aux0 (B, C, H W). EPI_SWISH (PASSES 3 / 4, one net): bias, the
+// active list idx (B) and count (1), out by slot. Takes C <= 48 (within the
+// shared memory an SM grants), M a multiple of 64, W 8, 16 or 32, H a
+// multiple of the band's rows (NP / W) and 16-byte aligned scale, out and
+// aux; cudaErrorInvalidValue otherwise.
 template <int EPI, int PASSES, typename ST>
 cudaError_t launch_conv3x3_in_tc(const __nv_bfloat16* w_hi, const __nv_bfloat16* w_lo,
                                  const float* bias, const float* inp, int B, int nets, int C,
                                  int H, int W, int M, int preact, float beta_in,
                                  float beta_out, const ST* scale, float* out, float* aux,
-                                 float* aux0, cudaStream_t s) {
+                                 float* aux0, cudaStream_t s, const int* idx = nullptr,
+                                 const int* count = nullptr) {
   if (C < 1 || C > C3I_CMAX || M < C3I_MQ || M % C3I_MQ || nets < 1 || B % nets ||
       (W != 8 && W != 16 && W != 32) || H < 1 || (H * W) % c3i_np(W) ||
       (EPI == EPI_SCALE_RND && scale == nullptr) ||
       (EPI == EPI_SWISH_LIN && (bias == nullptr || aux == nullptr || nets != 1 ||
                                 (preact && aux0 == nullptr))) ||
+      (EPI == EPI_SWISH && (bias == nullptr || nets != 1 || idx == nullptr ||
+                            count == nullptr)) ||
       (PASSES > 1 && w_lo == nullptr))
     return cudaErrorInvalidValue;
 #define C3I_W(TW)                                                                             \
   if (W == TW)                                                                                \
     return launch_c3i_tc<TW, EPI, PASSES, ST>(w_hi, w_lo, bias, inp, B, nets, C, H, M, preact, \
-                                              beta_in, beta_out, scale, out, aux, aux0, s);
+                                              beta_in, beta_out, scale, out, aux, aux0, s, idx, \
+                                              count);
   C3I_W(8)
   C3I_W(16)
   C3I_W(32)
@@ -380,8 +400,8 @@ cudaError_t launch_conv3x3_in_tc(const __nv_bfloat16* w_hi, const __nv_bfloat16*
 
 // The forms the libraries launch, defined in conv3x3_in_tc.cu: a translation
 // unit of their own, linked into the libraries of estimator.cu (the chain's,
-// EPI_SCALE_RND) and block_forward.cu (the linearisation's, EPI_SWISH_LIN,
-// passes 3 or 4). Instantiated beside estimator.cu's kernels, this kernel
+// EPI_SCALE_RND), block_forward.cu (the linearisation's, EPI_SWISH_LIN,
+// passes 3 or 4) and fused_solve.cu (the solve's, EPI_SWISH, passes 3 or 4). Instantiated beside estimator.cu's kernels, this kernel
 // moved the SASS of two of them (mma_gemm.cuh's tc_conv1x1_kernel<NP,
 // float, EPI_AFFINE, IN_DSWISH, 1>), though they share no code. Hidden, so
 // that each library calls its own copy.
@@ -397,5 +417,11 @@ C3I_API cudaError_t conv3x3_in_tc_lin(int passes, const __nv_bfloat16* w_hi,
                                       const float* inp, int B, int C, int H, int W, int M,
                                       int preact, float beta_in, float beta_out, float* out,
                                       float* s1, float* s0, cudaStream_t s);
+C3I_API cudaError_t conv3x3_in_tc_solve(int passes, const __nv_bfloat16* w_hi,
+                                        const __nv_bfloat16* w_lo, const float* bias,
+                                        const float* inp, const int* idx, const int* count,
+                                        int B, int C, int H, int W, int M, int preact,
+                                        float beta_in, float beta_out, float* out,
+                                        cudaStream_t s);
 
 }  // namespace imnf

@@ -1,5 +1,5 @@
 // Tensor-core (mma.sync) 3x3 conv mid -> c of mode bf16 for Hopper
-// (sm_90a), in two forms that share the product:
+// (sm_90a), in three forms that share the product:
 //
 //   acc[e][co][p] = sum_{m, d} W[co][m][d] * bf16(IN(t[s][m][p + off(d)])),
 //                   e = idx[s],
@@ -16,16 +16,25 @@
 //   shifted sum and v * s0 of _make_apply_jt (fused_solve.py:867-888, in
 //   resid :909 of fused_backward_solve :930); implicit_grad.cu's
 //   jt_conv3x3_out.
+// * IN_ID, C3_CHAIN: the Neumann chain's last J^T stage and its sum, u[s] =
+//   bf16_round(acc * s0[s]) and chain_acc[s] += coef[k] * u[s] (each op
+//   rounded, as conv_gemm.cuh's CHAIN), s0 float32 or bfloat16 (ST), two
+//   nets stacked along the batch (net = s / nb, every slot live): R =
+//   dot(m1, t), the taps' shifted sum and (v * s0).astype(cdtype) of
+//   _make_apply_jt (implicit_normalizing_flows_tpu/ops/fused_chain.py
+//   :206-211) and acc + c_k u of _chain2_kernel (:239-272, in
+//   fused_neumann_chain2 :333); estimator.cu's nc_jt_out_acc, linked from
+//   conv3x3_out_tc.cu. Its weights come pre-cast (below).
 // Mode bf16 only; modes f32 and tf32, and every other 3x3 mid -> c conv,
 // stay on conv_gemm.cuh's conv3x3_out_kernel.
 //
 // What bounds it on an H100 (32x32, B 64, mid 512, c 3): bytes. The
 // re-attachment's form reads t1 and h1 as float32 once, 256 MiB: 0.080 ms at
 // 3.35 TB/s; the backward solve's reads t once, 128 MiB: 0.041 ms; the
-// product is 1.8 GFLOP. The CUDA-core kernel ran one thread per pixel and
-// group of 4 output channels and re-read each input (and recomputed t1
-// swish'(h1) from two float32 loads) for each of the 9 taps and each
-// channel group.
+// product is 1.8 GFLOP; the chain's reads t1 of both nets, 256 MiB: 0.080
+// ms. The CUDA-core kernel ran one thread per pixel and group of 4 output
+// channels and re-read each input (and recomputed t1 swish'(h1) from two
+// float32 loads) for each of the 9 taps and each channel group.
 //
 // The design against that bound:
 // * A block owns one slot's band of C3_TH image rows (all W columns) and
@@ -48,7 +57,15 @@
 //   at N 8. The products are few: the tensor cores' rate does not bound it.
 // * The chunk's weights (float32 holding bf16 values, OIHW) are rounded to
 //   bf16 and stored the same way, one 128-byte row per (tap, output
-//   channel).
+//   channel). The chain's form takes them cast once per chain call into
+//   that tile layout (bf16 rows tap * NPAD + co of each net's 64-channel
+//   chunks, NPAD c padded to 8 NT: ops/fused_chain.py's tile_w1t) and copies a
+//   chunk's rows with 16-byte cp.async into one of two buffers, issued
+//   before the previous chunk's products: at 8x8 (c 48) the float32 OIHW
+//   staging took 27,648 scalar loads a chunk and block. One block takes
+//   every output-channel tile of its band: splitting the tiles over 2 or 3
+//   blocks of a band, each forming the band's halo tile again, made 16x16
+//   and 8x8 slower on an H100 (PERF.md, section 6).
 // * Sums: each (tap, chunk) K tile of 64 products goes into a fresh float32
 //   partial, added to the sum with round-to-nearest adds: the tensor cores
 //   truncate as they add (mma_gemm.cuh).
@@ -66,29 +83,37 @@ constexpr int C3_TH = 8;        // image rows a block owns
 constexpr int C3_MC = 64;       // mid channels a chunk: one 128-byte row a pixel
 constexpr int C3_THREADS = 256;
 
-constexpr int c3_smem_bytes(int tw, int nt) {
-  // the halo tile, the chunk's weights, slack to align the base to 128 bytes
-  return (C3_TH + 2) * (tw + 2) * 128 + 9 * 8 * nt * 128 + 128;
+constexpr int c3_smem_bytes(int tw, int nt, int wbufs = 1) {
+  // the halo tile, the chunk's weights (the chain's form: two buffers),
+  // slack to align the base to 128 bytes
+  return (C3_TH + 2) * (tw + 2) * 128 + wbufs * 9 * 8 * nt * 128 + 128;
 }
 
-// The epilogues: out = acc, or the backward solve's residual
-enum { C3_STORE = 0, C3_RESID = 1 };
+// The epilogues: out = acc, the backward solve's residual, or the Neumann
+// chain's term and its sum
+enum { C3_STORE = 0, C3_RESID = 1, C3_CHAIN = 2 };
 
 // Grid (H / C3_TH bands, B slots); a slot at or past *count returns. TW is
 // the image width (8, 16 or 32), NT the 8-channel output tiles (c <= 8 NT),
 // IN the input form (IN_DSWISH with th and beta, or IN_ID), EPI the
 // epilogue (C3_RESID reads base, scale and sub, indexed as out). The 8 warps
 // split the band's 16-pixel M tiles (and, when there are fewer than 8 of
-// them, the N tiles).
+// them, the N tiles). C3_CHAIN: slots of nets stacked nb each, wt the
+// pre-cast tile layout (nets, MID / 64, 9 * 8 NT, 64) bf16, out u (B, C,
+// H*W), scale s0, chain_acc += coef[kterm] * u.
 template <int TW, int NT, int IN, int EPI, typename ST>
 __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
     const float* __restrict__ w, const float* __restrict__ t,
     const float* __restrict__ th, float beta, const int* __restrict__ idx,
     const int* __restrict__ count, int C, int MID, int H,
     float* __restrict__ out, const float* __restrict__ base,
-    const ST* __restrict__ scale, const float* __restrict__ sub) {
-  static_assert((IN == IN_DSWISH && EPI == C3_STORE) || (IN == IN_ID && EPI == C3_RESID),
-                "the re-attachment's form or the backward solve's");
+    const ST* __restrict__ scale, const float* __restrict__ sub,
+    const __nv_bfloat16* __restrict__ wt, int nb, const float* __restrict__ coef, int kterm,
+    float* __restrict__ chain_acc) {
+  static_assert((IN == IN_DSWISH && EPI == C3_STORE) || (IN == IN_ID && EPI == C3_RESID) ||
+                    (IN == IN_ID && EPI == C3_CHAIN),
+                "the re-attachment's form, the backward solve's or the chain's");
+  constexpr bool CHAIN = EPI == C3_CHAIN;
   constexpr int HPW = TW + 2, HP = (C3_TH + 2) * HPW;  // halo row, halo pixels
   constexpr int NPAD = 8 * NT;
   constexpr int MT = C3_TH * TW / 16;                  // M tiles of the band
@@ -100,6 +125,7 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
   const uint32_t act = (raw + 127u) & ~127u;  // [HP][128 bytes], swizzled
   uint8_t* const act_g = c3_smem + (act - raw);
   uint8_t* const ws_g = act_g + HP * 128;     // [9 * NPAD][128 bytes], swizzled
+  constexpr int WS_BYTES = 9 * NPAD * 128;    // the chain's: two such, a chunk in turn
 
   const int slot = blockIdx.y;
   if (count != nullptr && slot >= *count) return;
@@ -131,17 +157,35 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
 #pragma unroll
       for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
 
+  // the chain's weights: chunk ci's 9 NPAD rows of this net's tile layout
+  // into buffer b, 16 bytes a copy
+  const __nv_bfloat16* const wnet =
+      CHAIN ? wt + (size_t)(slot / nb) * (MID / C3_MC) * WS_BYTES / 2 : nullptr;
+  auto stage_w = [&](int ci, int b) {
+    const uint32_t dst = act + HP * 128 + b * WS_BYTES;
+    const __nv_bfloat16* const src = wnet + (size_t)ci * WS_BYTES / 2;
+    for (int i = tid; i < 9 * NPAD * 8; i += C3_THREADS)
+      cp_async16(dst + sw128(i / 8, i % 8), src + i * 8, true);
+    cp_async_commit();
+  };
+  if constexpr (CHAIN) stage_w(0, 0);
+
   for (int m0 = 0; m0 < MID; m0 += C3_MC) {
     __syncthreads();  // the zeroing, or the previous chunk's products, done
-    // the chunk's weights: row d * NPAD + co holds W[co][m0 .. m0 + 63][d]
-    for (int i = tid; i < NPAD * C3_MC; i += C3_THREADS) {
-      const int co = i / C3_MC, ch = i % C3_MC;
-      const float* src = w + ((size_t)co * MID + m0 + ch) * 9;
+    if constexpr (CHAIN) {
+      // the next chunk's weights, under this chunk's loads and products
+      if (m0 + C3_MC < MID) stage_w(m0 / C3_MC + 1, (m0 / C3_MC + 1) & 1);
+    } else {
+      // the chunk's weights: row d * NPAD + co holds W[co][m0 .. m0 + 63][d]
+      for (int i = tid; i < NPAD * C3_MC; i += C3_THREADS) {
+        const int co = i / C3_MC, ch = i % C3_MC;
+        const float* src = w + ((size_t)co * MID + m0 + ch) * 9;
 #pragma unroll
-      for (int d = 0; d < 9; ++d) {
-        const float v = co < C ? __ldg(src + d) : 0.f;
-        *reinterpret_cast<__nv_bfloat16*>(ws_g + sw128(d * NPAD + co, ch / 8) + (ch % 8) * 2) =
-            __float2bfloat16_rn(v);
+        for (int d = 0; d < 9; ++d) {
+          const float v = co < C ? __ldg(src + d) : 0.f;
+          *reinterpret_cast<__nv_bfloat16*>(ws_g + sw128(d * NPAD + co, ch / 8) +
+                                            (ch % 8) * 2) = __float2bfloat16_rn(v);
+        }
       }
     }
     // the activations: unit u covers channels m0 + 2 cp, + 1 at 4 pixels of
@@ -174,7 +218,14 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
       for (int j = 0; j < 4; ++j)
         *reinterpret_cast<uint32_t*>(act_g + sw128(hp0 + j, cp >> 2) + (cp & 3) * 4) = px[j];
     }
+    if constexpr (CHAIN) {  // this chunk's weights landed (the next chunk's may still fly)
+      if (m0 + C3_MC < MID)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+    }
     __syncthreads();  // the tile and the weights are whole
+    const uint8_t* const wbuf = CHAIN ? ws_g + ((m0 / C3_MC) & 1) * WS_BYTES : ws_g;
 
     // the products: per tap, 4 K steps of 16 channels into fresh partials
 #pragma unroll 1
@@ -193,7 +244,7 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
 #pragma unroll
         for (int j = 0; j < NPW; ++j) {
           const int r = d * NPAD + (wn * NPW + j) * 8 + lane / 4;
-          const uint8_t* row = ws_g + (lane % 4) * 4;
+          const uint8_t* row = wbuf + (lane % 4) * 4;
           b[j][0] = wn * NPW + j < NT ? *reinterpret_cast<const uint32_t*>(row + sw128(r, 2 * ks)) : 0u;
           b[j][1] = wn * NPW + j < NT ? *reinterpret_cast<const uint32_t*>(row + sw128(r, 2 * ks + 1)) : 0u;
         }
@@ -216,6 +267,7 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
   }
 
   // the fragment's rows lane / 4 and + 8, columns 2 (lane % 4) and + 1
+  const float ck = CHAIN ? coef[kterm] : 0.f;
 #pragma unroll
   for (int i = 0; i < MPW; ++i)
 #pragma unroll
@@ -230,6 +282,13 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
           const size_t o = ((size_t)e * C + co) * HW + p;
           if (co < C)
             out[o] = __fsub_rn(__fadd_rn(base[o], __fmul_rn(acc[i][j][k], ld(scale, o))), sub[o]);
+        } else if constexpr (EPI == C3_CHAIN) {
+          const size_t o = ((size_t)e * C + co) * HW + p;
+          if (co < C) {
+            const float r = bf16_round(__fmul_rn(acc[i][j][k], ld(scale, o)));
+            out[o] = r;
+            chain_acc[o] = __fadd_rn(chain_acc[o], __fmul_rn(ck, r));
+          }
         } else {
           if (co < C) out[((size_t)e * C + co) * HW + p] = acc[i][j][k];
         }
@@ -258,7 +317,8 @@ static cudaError_t launch_c3_tc(const float* w, const float* t, const float* th,
     ready = true;
   }
   kernel<<<dim3(H / C3_TH, B), C3_THREADS, bytes, s>>>(w, t, th, beta, idx, count, C, MID, H,
-                                                        out, base, scale, sub);
+                                                        out, base, scale, sub, nullptr, 1,
+                                                        nullptr, 0, nullptr);
   return cudaGetLastError();
 }
 
@@ -284,6 +344,55 @@ cudaError_t launch_c3_tc_any(const float* w, const float* t, const float* th, fl
   C3_W(16)
   C3_W(32)
 #undef C3_W
+  return cudaErrorInvalidValue;
+}
+
+// The chain's form. static, as launch_c3_tc.
+template <int TW, int NT, typename ST>
+static cudaError_t launch_c3_chain(const __nv_bfloat16* wt, const float* t, int B, int nets,
+                                   int C, int MID, int H, const ST* s0, const float* coef,
+                                   int k, float* u_out, float* acc, cudaStream_t s) {
+  auto kernel = conv3x3_out_tc_kernel<TW, NT, IN_ID, C3_CHAIN, ST>;
+  constexpr int bytes = c3_smem_bytes(TW, NT, 2);
+  static bool ready = false;  // once per instantiation
+  if (!ready) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  kernel<<<dim3(H / C3_TH, B), C3_THREADS, bytes, s>>>(nullptr, t, nullptr, 0.f, nullptr,
+                                                        nullptr, C, MID, H, u_out, nullptr, s0,
+                                                        nullptr, wt, B / nets, coef, k, acc);
+  return cudaGetLastError();
+}
+
+// u = bf16_round(s0 * C1^T t) and acc += coef[k] * u for every slot of
+// `nets` nets stacked along the batch, on the tensor cores: wt the tile
+// layout (nets, MID / 64, 9 * 8 NT, 64) bf16 (8 NT: C padded to 8, 16 or
+// 48), t (B, MID, H*W), s0 (float32 or bfloat16), u_out and acc (B, C,
+// H*W). Takes what launch_conv3x3_out_tc takes, with a 16-byte aligned wt;
+// cudaErrorInvalidValue otherwise.
+template <typename ST>
+cudaError_t launch_nc_conv3x3_out_tc(const __nv_bfloat16* wt, const float* t, int B, int nets,
+                                     int C, int MID, int H, int W, const ST* s0,
+                                     const float* coef, int k, float* u_out, float* acc,
+                                     cudaStream_t s) {
+  if (C < 1 || C > 48 || MID < C3_MC || MID % C3_MC || H < C3_TH || H % C3_TH || nets < 1 ||
+      B % nets || wt == nullptr || s0 == nullptr || coef == nullptr || acc == nullptr)
+    return cudaErrorInvalidValue;
+#define C3_CHAIN_W(TW)                                                                       \
+  if (W == TW) {                                                                             \
+    if (C <= 8)                                                                              \
+      return launch_c3_chain<TW, 1>(wt, t, B, nets, C, MID, H, s0, coef, k, u_out, acc, s);  \
+    if (C <= 16)                                                                             \
+      return launch_c3_chain<TW, 2>(wt, t, B, nets, C, MID, H, s0, coef, k, u_out, acc, s);  \
+    return launch_c3_chain<TW, 6>(wt, t, B, nets, C, MID, H, s0, coef, k, u_out, acc, s);    \
+  }
+  C3_CHAIN_W(8)
+  C3_CHAIN_W(16)
+  C3_CHAIN_W(32)
+#undef C3_CHAIN_W
   return cudaErrorInvalidValue;
 }
 

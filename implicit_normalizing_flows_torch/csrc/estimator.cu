@@ -22,6 +22,8 @@
 //   nc_jt_mid      t1 = rnd(C2^T t2 * s1)         mid -> mid, w2^T (bf16:
 //                  tensor cores, mma_gemm.cuh)
 //   nc_jt_out_acc  u = rnd(s0 * C1^T t1); acc += c_k u   mid -> c, flipped w1
+//                  (bf16: tensor cores, conv3x3_out_tc.cuh, w1 cast once per
+//                  chain call into its tile layout)
 //   rnd rounds to bf16 in mode bf16 (the chain dtype), as _make_apply_jt
 //   rounds; c_k is read from a device array of signed coefficients.
 // final pair, primal:
@@ -52,7 +54,10 @@
 // design; fp_conv_mid applies its input transform once per element as the
 // panel is staged), and so does the chain's 3x3 c -> mid product nc_jt_in
 // (conv3x3_in_tc.cuh: an im2col tile built once per band in shared memory,
-// bound by its float32 output's bytes); every other product, and mode f32,
+// bound by its float32 output's bytes) and its 3x3 mid -> c product
+// nc_jt_out_acc (conv3x3_out_tc.cuh: a bf16 halo tile per band and 64-channel
+// chunk, the pre-cast weights copied by cp.async, bound by reading t1 as
+// float32); every other product, and mode f32,
 // runs as FP32 FMAs on the CUDA cores (conv_gemm.cuh), as the implicit-gradient kernels do. The
 // tensor cores sum fp_conv_mid's products in another order than the plain
 // version (cuDNN's), which moves the final pair's d_h and weight gradients,
@@ -67,6 +72,7 @@
 #include "conv_gemm.cuh"
 #include "mma_gemm.cuh"
 #include "conv3x3_in_tc.cuh"
+#include "conv3x3_out_chain.cuh"
 
 namespace {
 
@@ -183,15 +189,18 @@ cudaError_t nc_mid_mode(int mode, const void* w, int mid, const float* inp,
   return cudaErrorInvalidValue;
 }
 
+// nc_jt_out_acc: the 3x3 mid -> c, w bf16 in the tile layout on the tensor
+// cores in mode bf16 (conv3x3_out_tc.cuh, linked from conv3x3_out_tc.cu), w
+// float32 OIHW on the SIMT template in mode f32.
 template <typename ST>
-cudaError_t nc_out_mode(int mode, const float* w, const float* t, int B,
+cudaError_t nc_out_mode(int mode, const void* w, const float* t, int B,
                         int nets, int C, int mid, int H, int W, const void* scale,
                         const float* coef, int k, float* u_out, float* acc,
                         cudaStream_t s) {
   const ST* sc = static_cast<const ST*>(scale);
   switch (mode) {
-    case MODE_F32: return launch_conv3x3_out<MODE_F32, IN_ID, ST, true>(w, nullptr, nullptr, t, nullptr, 0.f, nullptr, nullptr, B, C, mid, H, W, nullptr, 1.f, sc, nullptr, u_out, s, nets, coef, k, acc);
-    case MODE_BF16: return launch_conv3x3_out<MODE_BF16, IN_ID, ST, true>(w, nullptr, nullptr, t, nullptr, 0.f, nullptr, nullptr, B, C, mid, H, W, nullptr, 1.f, sc, nullptr, u_out, s, nets, coef, k, acc);
+    case MODE_F32: return launch_conv3x3_out<MODE_F32, IN_ID, ST, true>(static_cast<const float*>(w), nullptr, nullptr, t, nullptr, 0.f, nullptr, nullptr, B, C, mid, H, W, nullptr, 1.f, sc, nullptr, u_out, s, nets, coef, k, acc);
+    case MODE_BF16: return conv3x3_out_tc_chain(static_cast<const __nv_bfloat16*>(w), t, B, nets, C, mid, H, W, sc, coef, k, u_out, acc, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -243,9 +252,9 @@ extern "C" {
 // cudaGetLastError() right after its launch (0 on success). B counts the
 // examples of all `nets` nets together; every example is live (the conv
 // kernels get no active list). Weights are stacked per net, f32 (bf16
-// values in mode bf16), but nc_jt_in's, nc_jt_mid's and fp_conv_mid's, which
-// are bfloat16 in mode bf16 (the tensor-core operand) and float32 in mode
-// f32.
+// values in mode bf16), but nc_jt_in's, nc_jt_mid's, nc_jt_out_acc's (in its
+// tile layout) and fp_conv_mid's, which are bfloat16 in mode bf16 (the
+// tensor-core operand) and float32 in mode f32.
 
 // chain: the derivative factors s2 / s1 / s0 as float32 or, with s_bf16,
 // bfloat16
@@ -267,7 +276,7 @@ int imnf_nc_jt_mid(int mode, const void* w, const float* t, const void* s1,
   return (int)nc_mid_mode<float>(mode, w, mid, t, B, nets, H, W, s1, out, s);
 }
 
-int imnf_nc_jt_out_acc(int mode, const float* w, const float* t,
+int imnf_nc_jt_out_acc(int mode, const void* w, const float* t,
                        const void* s0, int s_bf16, const float* coef, int k,
                        int B, int nets, int C, int mid, int H, int W,
                        float* u_out, float* acc, void* stream) {

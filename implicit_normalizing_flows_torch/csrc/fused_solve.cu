@@ -22,20 +22,24 @@
 //
 // The conv kernels and the precision model (modes f32 / bf16 / tf32 /
 // tf32x) are shared with the implicit-gradient kernels: conv_gemm.cuh, and
-// mma_gemm.cuh for conv1x1_mid in the split modes.
+// in the split modes mma_gemm.cuh for conv1x1_mid and conv3x3_in_tc.cuh
+// (linked from conv3x3_in_tc.cu) for conv3x3_in.
 //
 // What bounds them on H100: conv1x1_mid is ~90% of the MACs (268M of 296M
 // per example per net eval at 32x32). In modes tf32 / tf32x it runs on the
 // tensor cores (mma_gemm.cuh's tc_conv1x1_kernel with PASSES 3 / 4: the
 // bf16 split's 3 or 4 passes of wgmma on a hi and a lo panel, each
-// activation read and split once; that header gives its bound and design).
-// conv3x3_in, conv3x3_out and modes f32 / bf16 of conv1x1_mid are bound by
-// FP32 CUDA-core operations (3-4 FMAs per MAC in the split modes); they keep
-// 64x64 shared-memory tiles with a 4x4 register micro-tile so each loaded
-// element feeds 16 FMAs. broyden_step is bound by the bytes of the U/V
+// activation read and split once; that header gives its bound and design),
+// and so does conv3x3_in (conv3x3_in_tc.cuh's mma.sync kernel on an im2col
+// tile of the band, the split's 3 or 4 passes, its output's bytes bounding
+// it; the blocks of dead slots return at once). conv3x3_out and modes f32 /
+// bf16 of conv1x1_mid and conv3x3_in are bound by FP32 CUDA-core operations
+// (3-4 FMAs per MAC in the split modes); they keep 64x64 shared-memory tiles
+// with a 4x4 register micro-tile so each loaded element feeds 16 FMAs. broyden_step is bound by the bytes of the U/V
 // planes it streams (2 x nstep x D floats per example).
 
 #include "mma_gemm.cuh"
+#include "conv3x3_in_tc.cuh"
 
 namespace {
 
@@ -270,17 +274,24 @@ extern "C" {
 // Every entry point launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() right after its launch (0 on success).
 
-int imnf_conv3x3_in(int mode, int preact, const float* w_hi,
-                    const float* w_lo, const float* bias, float beta0,
+// w_hi / w_lo: W1's split, bfloat16 in modes tf32 / tf32x (the tensor
+// cores' operands, cast once per solve), float32 in modes f32 / bf16 (the
+// CUDA cores; w_lo unused there)
+int imnf_conv3x3_in(int mode, int preact, const void* w_hi,
+                    const void* w_lo, const float* bias, float beta0,
                     float beta1, const float* inp, const int* idx,
                     const int* count, int B, int C, int H, int W, int mid,
                     float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const float* fh = static_cast<const float*>(w_hi);
+  const float* fl = static_cast<const float*>(w_lo);
+  const __nv_bfloat16* wh = static_cast<const __nv_bfloat16*>(w_hi);
+  const __nv_bfloat16* wl = static_cast<const __nv_bfloat16*>(w_lo);
   switch (mode) {
-    case MODE_F32: return (int)launch_in<MODE_F32>(preact, w_hi, w_lo, bias, mid, C * 9, inp, idx, count, B, C, H, W, beta0, beta1, out, s);
-    case MODE_BF16: return (int)launch_in<MODE_BF16>(preact, w_hi, w_lo, bias, mid, C * 9, inp, idx, count, B, C, H, W, beta0, beta1, out, s);
-    case MODE_TF32: return (int)launch_in<MODE_TF32>(preact, w_hi, w_lo, bias, mid, C * 9, inp, idx, count, B, C, H, W, beta0, beta1, out, s);
-    case MODE_TF32X: return (int)launch_in<MODE_TF32X>(preact, w_hi, w_lo, bias, mid, C * 9, inp, idx, count, B, C, H, W, beta0, beta1, out, s);
+    case MODE_F32: return (int)launch_in<MODE_F32>(preact, fh, fl, bias, mid, C * 9, inp, idx, count, B, C, H, W, beta0, beta1, out, s);
+    case MODE_BF16: return (int)launch_in<MODE_BF16>(preact, fh, fl, bias, mid, C * 9, inp, idx, count, B, C, H, W, beta0, beta1, out, s);
+    case MODE_TF32: return (int)conv3x3_in_tc_solve(3, wh, wl, bias, inp, idx, count, B, C, H, W, mid, preact, beta0, beta1, out, s);
+    case MODE_TF32X: return (int)conv3x3_in_tc_solve(4, wh, wl, bias, inp, idx, count, B, C, H, W, mid, preact, beta0, beta1, out, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -100,8 +100,9 @@ def lin_conv3x3_in(inp, wp, b1, betas, preact, mode, out, s1, s0):
     :func:`~.fused_solve.prep_conv1x1_mid`: in the split modes, which run
     on the tensor cores (``csrc/conv3x3_in_tc.cuh``; ``tc_launches`` counts
     those launches), bfloat16 halves, with what
-    :func:`~.fused_solve.check_conv3x3_tc` asks of the shapes and
-    16-byte aligned outputs; float32 in modes f32 / bf16 (the CUDA cores).
+    :func:`~.fused_solve.check_conv3x3_tc` asks of the shapes (two im2col
+    tiles within an SM's shared memory) and 16-byte aligned outputs;
+    float32 in modes f32 / bf16 (the CUDA cores).
     betas (3,) host floats or a tensor."""
     if not inp.is_cuda:
         return _lin_conv3x3_in_plain(inp, wp, b1, betas, preact, mode, out, s1, s0)
@@ -116,8 +117,8 @@ def lin_conv3x3_in(inp, wp, b1, betas, preact, mode, out, s1, s0):
     if split:
         if wp[1] is None:
             raise ValueError(f"lin_conv3x3_in in {mode} takes both halves of the split")
-        fs.check_conv3x3_tc("lin_conv3x3_in", c, mid, H, W, fs.conv3x3_in_rows(W), out=out,
-                            s1=s1)
+        fs.check_conv3x3_tc("lin_conv3x3_in", c, mid, H, W, fs.conv3x3_in_rows(W), panels=2,
+                            out=out, s1=s1)
     b = [float(v) for v in betas]
     _run("imnf_lin_conv3x3_in", MODES[mode], int(preact), _ptr(wp[0]), _ptr(wp[1]),
          _ptr(b1), b[0], b[1], _ptr(inp), B, c, H, W, mid, _ptr(out), _ptr(s1),

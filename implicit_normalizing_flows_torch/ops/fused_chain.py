@@ -18,7 +18,10 @@ examples are stacked along the batch:
   cores, ``csrc/conv3x3_in_tc.cuh``, with the kernel ``w3t`` in bfloat16)
 * ``nc_jt_mid``      ``t1 = rnd(C2^T t2 * s1)`` (mode bf16: on the tensor
   cores, ``csrc/mma_gemm.cuh``, with the kernel ``w2t`` in bfloat16)
-* ``nc_jt_out_acc``  ``u = rnd(s0 * C1^T t1)``, ``acc += c_k * u``
+* ``nc_jt_out_acc``  ``u = rnd(s0 * C1^T t1)``, ``acc += c_k * u`` (mode bf16:
+  on the tensor cores, ``csrc/conv3x3_out_tc.cuh``, with the kernel ``w1t``
+  cast once per chain call into that kernel's tile layout,
+  :func:`tile_w1t`)
 
 ``rnd`` rounds to the chain dtype (the probe's: bfloat16 under
 ``IMNF_BF16_EST``, float32 otherwise) exactly where ``_make_apply_jt``
@@ -44,14 +47,14 @@ import ctypes
 
 import torch
 
-from .fused_solve import (MODES, _check_cuda, _launch, _mconv, _ptr, _wide,
-                         check_conv3x3_tc, conv3x3_in_rows)
+from .fused_solve import (C3_MID, C3_OUT_ROWS, MODES, _check_cuda, _launch, _mconv, _ptr,
+                          _wide, check_conv3x3_tc, conv3x3_in_rows)
 from .implicit_grad import _check_mid, _shapes, mid_weight_dtype, transpose_weights
 
 __all__ = ["fused_neumann_chain2", "fused_neumann_chain2_plain",
            "fused_neumann_chain", "fused_neumann_chain_plain", "KERNELS",
            "launch_counts", "reset_launch_counts", "chain_mode", "chain_operands",
-           "mid_weight_dtype"]
+           "mid_weight_dtype", "tile_w1t", "untile_w1t", "c3_out_npad"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
@@ -108,10 +111,48 @@ def _check(s, mode, **others):
 
 
 # ---------------------------------------------------------------------------
+# W1T in the mid -> c tensor-core kernel's tile layout (csrc/conv3x3_out_tc.cuh)
+
+def c3_out_npad(c):
+    """The output-channel rows of a tap in the mid -> c kernel's weight tile:
+    c padded to 8, 16 or 48 (its 1, 2 or 6 tiles of 8 channels), or past 48
+    (which the kernel refuses) to a multiple of 8."""
+    return next((n for n in (8, 16, 48) if c <= n), -(-c // 8) * 8)
+
+
+def tile_w1t(w1t):
+    """W1T (N, c, mid, 3, 3) in the mid -> c kernel's tile layout, cast to
+    bfloat16 (exactly, for bfloat16 values): (N, mid / 64, 9 npad, 64), for
+    each net and chunk of 64 mid channels m0 .. m0 + 63 the rows tap * npad
+    + co (tap = ky * 3 + kx, npad :func:`c3_out_npad`) of 128 bytes, zero
+    past c; mid is padded with zero channels to a multiple of 64. A block
+    copies a chunk's rows into shared memory with 16-byte copies, no
+    conversion."""
+    N, c, mid = w1t.shape[:3]
+    mc = C3_MID
+    nch = -(-mid // mc)
+    w = torch.nn.functional.pad(w1t.reshape(N, c, mid, 9), (0, 0, 0, nch * mc - mid))
+    w = w.reshape(N, c, nch, mc, 9).permute(0, 2, 4, 1, 3)  # (N, chunk, tap, co, ch)
+    w = torch.nn.functional.pad(w, (0, 0, 0, c3_out_npad(c) - c))
+    return w.reshape(N, nch, -1, mc).to(torch.bfloat16).contiguous()
+
+
+def untile_w1t(w, c, mid):
+    """:func:`tile_w1t`'s W1T back in OIHW (N, c, mid, 3, 3), float32; a
+    W1T already in OIHW is returned as it is."""
+    if w.dim() != 4:
+        return w
+    N, nch, rows, mc = w.shape
+    w = w.float().reshape(N, nch, 9, rows // 9, mc)[:, :, :, :c]  # (N, chunk, tap, co, ch)
+    return w.permute(0, 3, 1, 4, 2).reshape(N, c, nch * mc, 3, 3)[:, :, :mid].contiguous()
+
+
+# ---------------------------------------------------------------------------
 # the three stages. u, acc: (N*nb, c, H, W) / (N*nb, c*H*W) float32; t1, t2:
 # (N*nb, mid, H*W); s0/s1/s2 in the chain dtype; weights stacked per net:
 # w3t (N, mid, c, 3, 3), w2t (N, mid, mid, 1, 1), w1t (N, c, mid, 3, 3);
-# w3t and w2t in mode bf16 as bfloat16 (:func:`chain_operands`).
+# w3t and w2t in mode bf16 as bfloat16, w1t in mode bf16 in the tile layout
+# (:func:`chain_operands`).
 
 def _nc_jt_in_by(product, u, w3t, s2, mode, out):
     """``nc_jt_in``'s function with ``product(u, w, mode)`` for each net's
@@ -175,31 +216,51 @@ def nc_jt_mid(t, w2t, s1, mode, out, H, W):
     nc_jt_mid.launches += 1
 
 
-def _nc_jt_out_acc_plain(t, w1t, s0, mode, coeffs, k, u_out, acc, H, W):
-    N, nb = _nets(w1t, t.shape[0])
+def _nc_jt_out_acc_by(product, t, w1t, s0, mode, coeffs, k, u_out, acc, H, W):
+    """``nc_jt_out_acc``'s function with ``product(t, wp, mode)`` for each
+    net's 3x3 product (wp that net's OIHW kernel, unpacked from the tile
+    layout where it comes so); the scale, the rounding and the
+    accumulation after it, as the kernels take them."""
     mid = t.shape[1]
+    w1t = untile_w1t(w1t, u_out.shape[1], mid)
+    N, nb = _nets(w1t, t.shape[0])
     for n in range(N):
         e = slice(n * nb, (n + 1) * nb)
-        y = _mconv(t[e].reshape(nb, mid, H, W), (w1t[n], None), mode, 1).reshape(nb, -1)
+        y = product(t[e].reshape(nb, mid, H, W), (w1t[n].to(t.dtype), None), mode).reshape(nb, -1)
         v = _rnd(y * s0[e].to(y.dtype), mode)
         u_out[e] = v.reshape(u_out[e].shape)
         acc[e] += coeffs[k] * v
 
 
+def _nc_jt_out_acc_plain(t, w1t, s0, mode, coeffs, k, u_out, acc, H, W):
+    _nc_jt_out_acc_by(lambda x, wp, m: _mconv(x, wp, m, 1), t, w1t, s0, mode, coeffs, k, u_out,
+                      acc, H, W)
+
+
 def nc_jt_out_acc(t, w1t, s0, mode, coeffs, k, u_out, acc, H, W):
     """u_out = rnd(s0 * C1^T t); acc += coeffs[k] * u_out. t (N*nb, mid,
     H*W); s0, acc (N*nb, c*H*W); u_out (N*nb, c, H, W); coeffs a device
-    vector of signed coefficients."""
+    vector of signed coefficients. Mode bf16 runs on the tensor cores
+    (``csrc/conv3x3_out_tc.cuh``): w1t in :func:`tile_w1t`'s layout, and
+    what :func:`~.fused_solve.check_conv3x3_tc` asks of the shapes, with
+    16-byte aligned t and w1t; mode f32 takes w1t (N, c, mid, 3, 3)
+    float32."""
     if not t.is_cuda:
         return _nc_jt_out_acc_plain(t, w1t, s0, mode, coeffs, k, u_out, acc, H, W)
     Bt, mid, _ = t.shape
+    c = u_out.shape[1]
     N, _ = _nets(w1t, Bt)
-    c = w1t.shape[1]
     if not 0 <= k < coeffs.shape[0]:
         raise ValueError(f"term {k} outside the {coeffs.shape[0]} coefficients")
-    sbf16 = _check(s0, mode, t=t, w=w1t, coeffs=coeffs, u_out=u_out, acc=acc)
+    sbf16 = _check(s0, mode, t=t, coeffs=coeffs, u_out=u_out, acc=acc)
+    _check_cuda(_dtypes=(torch.bfloat16 if mode == "bf16" else torch.float32,), w=w1t)
+    if mode == "bf16":
+        check_conv3x3_tc("nc_jt_out_acc", c, mid, H, W, C3_OUT_ROWS, t=t, w=w1t)
+        wshape = (N, mid // C3_MID, 9 * c3_out_npad(c), C3_MID)
+    else:
+        wshape = (N, c, mid, 3, 3)
     D = (Bt, c * H * W)
-    _shapes(t=(t, (Bt, mid, H * W)), w=(w1t, (N, c, mid, 3, 3)), s0=(s0, D),
+    _shapes(t=(t, (Bt, mid, H * W)), w=(w1t, wshape), s0=(s0, D),
             u_out=(u_out.reshape(Bt, -1), D), acc=(acc, D))
     _run("imnf_nc_jt_out_acc", MODES[mode], _ptr(w1t), _ptr(t), _ptr(s0), sbf16,
          _ptr(coeffs), int(k), Bt, N, c, mid, H, W, _ptr(u_out), _ptr(acc))
@@ -230,10 +291,11 @@ def chain_operands(chains, signed_coeffs):
     """The stage kernels' operands for the nets' ``chains`` (eps, s0, s1,
     s2, w1, w2, w3): the probes U and the accumulation ACC (a copy of the
     probes) in float32, the derivative factors S0/S1/S2 as stored, the
-    transposed kernels W3T/W2T/W1T stacked per net (W3T and W2T, the
-    tensor-core products' in mode bf16, in :func:`mid_weight_dtype`: cast
-    once here, exactly, since they hold bfloat16 values in mode bf16), the
-    coefficients on the device, and the mode."""
+    transposed kernels W3T/W2T/W1T stacked per net (in mode bf16, the
+    tensor-core products', cast once here, exactly, since they hold
+    bfloat16 values: W3T and W2T to :func:`mid_weight_dtype`, W1T into the
+    mid -> c kernel's tile layout, :func:`tile_w1t`), the coefficients on
+    the device, and the mode."""
     eps0 = chains[0][0]
     B, c, H, W = eps0.shape
     HW, dev, N = H * W, eps0.device, len(chains)
@@ -248,10 +310,11 @@ def chain_operands(chains, signed_coeffs):
     mode = chain_mode(eps0.dtype)
     tc = lambda i: torch.stack([w[i] for w in wts]).to(
         torch.bfloat16 if mode == "bf16" else wide).contiguous()
+    w1t = torch.stack([w[2] for w in wts]).contiguous()
     return dict(
         U=U, ACC=U.reshape(N * B, c * HW).clone(), S0=cat(1, (c * HW,)),
         S1=cat(2, (-1, HW)), S2=cat(3, (-1, HW)), W3T=tc(0), W2T=tc(1),
-        W1T=torch.stack([w[2] for w in wts]).contiguous(),
+        W1T=w1t if mode != "bf16" else tile_w1t(w1t),
         coeffs=signed_coeffs.detach().to(device=dev, dtype=wide).contiguous(),
         mode=mode)
 

@@ -6,7 +6,8 @@ one example's whole solve in VMEM; on Hopper the solve is a host-driven loop
 over four batched kernels of ``csrc/fused_solve.cu`` (that file's header
 says what bounds each on an H100 and what its design does about it):
 
-* ``conv3x3_in``  ``[swish(b0)] -> conv3x3 c->mid + b1 -> swish(b1)``
+* ``conv3x3_in``  ``[swish(b0)] -> conv3x3 c->mid + b1 -> swish(b1)`` (modes
+  ``tf32`` / ``tf32x`` on the tensor cores, ``csrc/conv3x3_in_tc.cuh``)
 * ``conv1x1_mid`` ``mid->mid + b2 -> swish(b2)`` (modes ``tf32`` / ``tf32x``
   on the tensor cores, ``csrc/mma_gemm.cuh``)
 * ``conv3x3_out`` ``conv3x3 mid->c + b3`` fused with the residual
@@ -46,7 +47,7 @@ __all__ = ["fused_broyden_solve", "fused_broyden_solve_plain",
            "FusedSolveResult", "conv3x3_in", "conv1x1_mid", "conv3x3_out",
            "broyden_step", "KERNELS", "launch_counts", "reset_launch_counts",
            "prep_weight", "prep_weights", "prep_conv1x1_mid", "check_mid_product",
-           "check_conv3x3_tc", "conv3x3_in_rows", "C3_OUT_ROWS",
+           "check_conv3x3_tc", "conv3x3_in_rows", "conv3x3_in_smem", "C3_OUT_ROWS",
            "norm_ladder",
            "swish", "dswish", "dswish_dbeta", "d2swish", "ddswish_dbeta"]
 
@@ -55,7 +56,8 @@ MODES = {"f32": 0, "bf16": 1, "tf32": 2, "tf32x": 3}
 PHASE_INIT, PHASE_STEP, PHASE_REARM = 0, 1, 2
 KMAX = 64  # largest threshold broyden_step takes (its shared-memory rows)
 TC_KMAX = 512  # the largest K the tensor-core 1x1 product takes (csrc/mma_gemm.cuh)
-SPLIT_MODES = ("tf32", "tf32x")  # conv1x1_mid's modes on the tensor cores
+SPLIT_MODES = ("tf32", "tf32x")  # conv1x1_mid's and conv3x3_in's modes on the tensor cores
+TC_SMEM_MAX = 232448  # the dynamic shared memory an SM grants a block (csrc/mma_gemm.cuh)
 
 
 class FusedSolveResult(NamedTuple):
@@ -157,7 +159,8 @@ def prep_conv1x1_mid(wp, mode):
     values are bfloat16), the tensor cores' operands; modes f32 and bf16
     keep ``wp`` (float32, the CUDA cores). The merged forward's
     ``lin_conv3x3_in`` takes w1's pair so prepared, in its (mid, c, 3, 3)
-    layout."""
+    layout, and so does the solve's ``conv3x3_in`` (:func:`prep_weights`'
+    ``w1_in``)."""
     if mode not in SPLIT_MODES:
         return wp
     return tuple(w.to(torch.bfloat16).contiguous() for w in wp)
@@ -174,26 +177,44 @@ def conv3x3_in_rows(W):
     return (64 if W == 8 else 128) // W
 
 
-def check_conv3x3_tc(name, c, mid, H, W, rows, **aligned):
+def conv3x3_in_smem(c, W, panels):
+    """The shared memory of a block of the c -> mid kernel with ``panels``
+    im2col tiles (1 in mode bf16, 2 in the split modes): its halo tile, k
+    offsets and tiles (``c3i_smem_bytes``, ``csrc/conv3x3_in_tc.cuh``)."""
+    up = lambda v, m: -(-v // m) * m
+    npx, kpad = (64 if W == 8 else 128), up(9 * c, 16)
+    halo = up(c * (npx // W + 2) * (W + 2) * 4, 128)
+    return halo + up(kpad * 4, 128) + panels * npx * ((kpad // 8) | 1) * 16 + 128
+
+
+def check_conv3x3_tc(name, c, mid, H, W, rows, panels=None, **aligned):
     """Raise on what a tensor-core 3x3 kernel between c and mid channels
     (``csrc/conv3x3_in_tc.cuh``, c -> mid; ``csrc/conv3x3_out_tc.cuh``, mid
     -> c) does not take: c over C3_CMAX, mid not a multiple of C3_MID, W
     other than 8, 16 or 32, H not a multiple of the kernel's band of
-    ``rows`` image rows, or a tensor of ``aligned`` not 16-byte aligned. A
-    c whose tiles outgrow the shared memory an SM grants (the c -> mid
-    kernel's split modes at c 48 and W over 8) makes the launch fail."""
+    ``rows`` image rows, or a tensor of ``aligned`` not 16-byte aligned;
+    with ``panels`` (the c -> mid kernel's im2col tiles) also tiles that
+    outgrow the shared memory an SM grants (the split modes' two at c 48
+    and W over 8)."""
     if c > C3_CMAX or mid % C3_MID or W not in (8, 16, 32) or H % rows:
         raise ValueError(f"{name} on the tensor cores takes c <= {C3_CMAX}, mid % {C3_MID} "
                          f"== 0, W 8 | 16 | 32 and H % {rows} == 0, not c {c}, mid {mid}, "
                          f"H {H}, W {W}")
+    if panels is not None and conv3x3_in_smem(c, W, panels) > TC_SMEM_MAX:
+        raise ValueError(f"{name} on the tensor cores takes no c {c} at W {W} with {panels} "
+                         f"im2col tiles: {conv3x3_in_smem(c, W, panels)} bytes of shared "
+                         f"memory a block, over {TC_SMEM_MAX}")
     _check_aligned(**aligned)
 
 
 def prep_weights(data, mode):
     """:func:`prep_weight` of ``data``'s w1/w2/w3, once per solve and mode:
-    ``{'w1'|'w2'|'w3': (hi, lo)}``, and ``'w2_mid'``, w2's as
-    ``conv1x1_mid`` takes it (:func:`prep_conv1x1_mid`)."""
+    ``{'w1'|'w2'|'w3': (hi, lo)}``, and as the tensor-core kernels take them
+    in the split modes (:func:`prep_conv1x1_mid`): ``'w1_in'``, w1's for
+    ``conv3x3_in`` and the merged forward's ``lin_conv3x3_in``, and
+    ``'w2_mid'``, w2's for ``conv1x1_mid`` and ``lin_conv1x1_mid``."""
     out = {k: prep_weight(data[k], mode) for k in ("w1", "w2", "w3")}
+    out["w1_in"] = prep_conv1x1_mid(out["w1"], mode)
     out["w2_mid"] = prep_conv1x1_mid(out["w2"], mode)
     return out
 
@@ -288,31 +309,56 @@ def _ptr_stream():
 # example indices, count (1,) int32 how many of them are live; the nets'
 # intermediates t1/t2 (B, mid, HW) are indexed by slot (position in idx).
 
-def _conv3x3_in_plain(inp, idx, count, wp, b1, betas, preact, mode, out):
+def _conv3x3_in_by(product, inp, idx, count, wp, b1, betas, preact, mode, out):
+    """``conv3x3_in``'s function with ``product(h, wp, mode)`` for its 3x3
+    product (the gather, swish before it and b1 and swish after it, as the
+    kernels take them)."""
     n = int(count.item())
     B, c, H, W = inp.shape
     h = inp.index_select(0, idx[:n].long())
     if preact:
         h = swish(h, betas[0])
-    y = swish(_mconv(h, wp, mode, 1) + b1[None, :, None, None], betas[1])
+    y = swish(product(h, wp, mode) + b1[None, :, None, None], betas[1])
     out[:n] = y.reshape(n, -1, H * W)
+
+
+def _conv3x3_in_plain(inp, idx, count, wp, b1, betas, preact, mode, out):
+    _conv3x3_in_by(lambda h, w, m: _mconv(h, _widened(w), m, 1), inp, idx, count, wp, b1,
+                   betas, preact, mode, out)
 
 
 def conv3x3_in(inp, idx, count, wp, b1, betas, preact, mode, out):
     """out[s] = swish(conv3x3([swish](inp[idx[s]])) + b1, beta1) for live
-    slots s. inp (B, c, H, W); out (B, mid, H*W); wp = (w_hi, w_lo) of the
-    (mid, c, 3, 3) kernel; betas (3,) host floats or a tensor."""
+    slots s; the dead slots of out are not written. inp (B, c, H, W); out
+    (B, mid, H*W); betas (3,) host floats or a tensor. wp = (w_hi, w_lo) of
+    the (mid, c, 3, 3) kernel from :func:`prep_conv1x1_mid`: in the split
+    modes, which run on the tensor cores (``csrc/conv3x3_in_tc.cuh``;
+    ``tc_launches`` counts those launches), bfloat16 halves, with what
+    :func:`check_conv3x3_tc` asks of the shapes and two im2col tiles within
+    an SM's shared memory, and a 16-byte aligned out; float32 in modes f32
+    / bf16 (the CUDA cores)."""
     if not inp.is_cuda:
         return _conv3x3_in_plain(inp, idx, count, wp, b1, betas, preact, mode, out)
     B, c, H, W = inp.shape
     mid = wp[0].shape[0]
-    _check_cuda(inp=inp, idx=idx, count=count, w_hi=wp[0], w_lo=wp[1], b1=b1,
-                out=out)
+    split = mode in SPLIT_MODES
+    _check_cuda(inp=inp, idx=idx, count=count, b1=b1, out=out)
+    _check_cuda(_dtypes=(torch.bfloat16 if split else torch.float32,), w_hi=wp[0],
+                w_lo=wp[1])
+    if tuple(wp[0].shape) != (mid, c, 3, 3) or tuple(out.shape) != (B, mid, H * W):
+        raise ValueError(f"conv3x3_in: inp {tuple(inp.shape)}, w {tuple(wp[0].shape)}, "
+                         f"out {tuple(out.shape)}")
+    if split:
+        if wp[1] is None:
+            raise ValueError(f"conv3x3_in in {mode} takes both halves of the split")
+        check_conv3x3_tc("conv3x3_in", c, mid, H, W, conv3x3_in_rows(W), panels=2, out=out)
     b = [float(v) for v in betas]
     _launch("imnf_conv3x3_in", MODES[mode], int(preact), _ptr(wp[0]),
             _ptr(wp[1]), _ptr(b1), b[0], b[1], _ptr(inp), _ptr(idx),
             _ptr(count), B, c, H, W, mid, _ptr(out))
     conv3x3_in.launches += 1
+    if split:
+        conv3x3_in.tc_launches += 1
 
 
 def _conv1x1_mid_plain(t1, count, wp, b2, beta2, mode, out, H, W):
@@ -510,7 +556,8 @@ _PLAIN = {"conv3x3_in": _conv3x3_in_plain, "conv1x1_mid": _conv1x1_mid_plain,
           "conv3x3_out": _conv3x3_out_plain, "broyden_step": _broyden_step_plain}
 for _fn in KERNELS.values():
     _fn.launches = 0
-conv1x1_mid.tc_launches = 0  # its launches on the tensor cores (split modes)
+conv1x1_mid.tc_launches = 0  # their launches on the tensor cores (split modes)
+conv3x3_in.tc_launches = 0
 
 
 def launch_counts() -> dict:
@@ -520,7 +567,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-    conv1x1_mid.tc_launches = 0
+    conv1x1_mid.tc_launches = conv3x3_in.tc_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -593,13 +640,11 @@ def _solve(x, data_x, data_z, ops, *, threshold, eps, stall_patience,
             nd["prepped"][m] = prep_weights(nd["data"], m)
         wp = nd["prepped"][m]
         if s is None:
-            ops["conv3x3_in"](inp.view(B, c, H, W), idx, cnt, wp["w1"], nd["b1"],
+            ops["conv3x3_in"](inp.view(B, c, H, W), idx, cnt, wp["w1_in"], nd["b1"],
                               nd["betas"], nd["preact"], m, T1)
             ops["conv1x1_mid"](T1, cnt, wp["w2_mid"], nd["b2"], nd["betas"][2], m, T2, H, W)
         else:
-            if "w1_lin" not in wp:  # once per solve and mode, on the merged forward only
-                wp["w1_lin"] = prep_conv1x1_mid(wp["w1"], m)
-            ops["lin_conv3x3_in"](inp.view(B, c, H, W), wp["w1_lin"], nd["b1"], nd["betas"],
+            ops["lin_conv3x3_in"](inp.view(B, c, H, W), wp["w1_in"], nd["b1"], nd["betas"],
                                   nd["preact"], m, T1, s[1], s[0])
             ops["lin_conv1x1_mid"](T1, wp["w2_mid"], nd["b2"], nd["betas"][2], m, T2, s[2],
                                    H, W)

@@ -1,5 +1,5 @@
-"""Plain versions of ten kernels with their products summed exactly, and
-seven with their products summed in the tensor cores' order.
+"""Plain versions of twelve kernels with their products summed exactly, and
+nine with their products summed in the tensor cores' order.
 
 Each ``*_exact`` function here is a kernel's plain version with its rounded
 (bf16, or split) product summed in float64 and rounded once to float32: the
@@ -25,6 +25,12 @@ a floor fails every kernel that does not sum in the plain version's order.
   over c x 9 terms; ``rnd(y * s2)`` as there).
 * :func:`lin_conv3x3_in_exact`: ``ops.fused_block._lin_conv3x3_in_plain``
   (every pass of the split; ``+ b1``, swish and swish' as there).
+* :func:`conv3x3_in_exact`: ``ops.fused_solve._conv3x3_in_plain`` (the
+  forward solve's, on its active list; every pass of the split; ``+ b1``
+  and swish as there).
+* :func:`nc_jt_out_acc_exact`: ``ops.fused_chain._nc_jt_out_acc_plain``
+  (``C1^T t`` over mid x 9 terms; ``rnd(y * s0)`` and ``acc += c_k u`` as
+  there).
 
 The ``*_tiled`` functions are plain versions with their products summed as
 the tensor-core kernels sum them. They stand in for those kernels on the
@@ -42,7 +48,7 @@ The 3x3 kernel (``csrc/conv3x3_out_tc.cuh``) takes the mid channels in
 chunks of ``C3_MC`` and, within a chunk, the 9 taps in order, each (chunk,
 tap) K tile into a fresh float32 partial added to the sum:
 
-* :func:`jt_conv3x3_out_tiled` (mode bf16).
+* :func:`jt_conv3x3_out_tiled` and :func:`nc_jt_out_acc_tiled` (mode bf16).
 
 The 3x3 c -> mid kernel (``csrc/conv3x3_in_tc.cuh``) sums over the im2col's
 k = ci * 9 + ky * 3 + kx in K tiles of ``C3I_BK``, each tile's products into
@@ -50,8 +56,8 @@ a fresh float32 partial added to the sum (in the split modes, as the 1x1
 kernel, one partial and sum of hi*hi and one of the small passes, the two
 sums added before the bias):
 
-* :func:`nc_jt_in_tiled` (mode bf16) and :func:`lin_conv3x3_in_tiled`
-  (tf32 / tf32x).
+* :func:`nc_jt_in_tiled` (mode bf16), :func:`lin_conv3x3_in_tiled` and
+  :func:`conv3x3_in_tiled` (tf32 / tf32x).
 
 They run on whatever device their tensors lie on.
 """
@@ -60,14 +66,17 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .fused_solve import SPLIT_MODES, _conv1x1_mid_plain, _split, _widened, dswish, swish
+from .fused_solve import (SPLIT_MODES, _conv1x1_mid_plain, _conv3x3_in_by, _conv3x3_in_plain,
+                          _split, _widened, dswish, swish)
 
 __all__ = ["jt_conv1x1_mid_exact", "rv_wgrad_exact", "rv_conv3x3_out_exact",
            "fp_conv_mid_exact", "fp_conv_mid_tiled", "conv1x1_mid_exact",
            "conv1x1_mid_tiled", "rv_conv1x1_mid_exact", "rv_conv1x1_mid_tiled",
            "jt_conv3x3_out_exact", "jt_conv3x3_out_tiled", "lin_conv1x1_mid_exact",
            "lin_conv1x1_mid_tiled", "nc_jt_in_exact", "nc_jt_in_tiled",
-           "lin_conv3x3_in_exact", "lin_conv3x3_in_tiled", "TC_BK", "C3_MC", "C3I_BK"]
+           "lin_conv3x3_in_exact", "lin_conv3x3_in_tiled", "conv3x3_in_exact",
+           "conv3x3_in_tiled", "nc_jt_out_acc_exact", "nc_jt_out_acc_tiled", "TC_BK", "C3_MC",
+           "C3I_BK"]
 
 TC_BK = 64  # the K tile of the tensor-core 1x1 product (csrc/mma_gemm.cuh)
 C3_MC = 64  # the mid channels of a chunk of the tensor-core 3x3 product (csrc/conv3x3_out_tc.cuh)
@@ -379,3 +388,40 @@ def lin_conv3x3_in_tiled(inp, wp, b1, betas, preact, mode, out, s1, s0):
     if mode not in SPLIT_MODES:
         return _lin_conv3x3_in_plain(inp, wp, b1, betas, preact, mode, out, s1, s0)
     _lin_conv3x3_in_by(_conv3x3_in_tiled, inp, wp, b1, betas, preact, mode, out, s1, s0)
+
+
+def conv3x3_in_exact(inp, idx, count, wp, b1, betas, preact, mode, out):
+    """``_conv3x3_in_plain`` with its product summed exactly (every pass of
+    the split in float64, rounded once); wp the kernel's (hi, lo)."""
+    _conv3x3_in_by(_conv3x3_in_exact, inp, idx, count, wp, b1, betas, preact, mode, out)
+
+
+def conv3x3_in_tiled(inp, idx, count, wp, b1, betas, preact, mode, out):
+    """``conv3x3_in`` as its wrapper routes it: in mode tf32 / tf32x
+    ``_conv3x3_in_plain`` with its product summed as the tensor-core kernel
+    sums it (K tiles of ``C3I_BK``, hi*hi apart from the small passes); in
+    modes f32 / bf16, which stay on the CUDA cores, the plain version."""
+    if mode not in SPLIT_MODES:
+        return _conv3x3_in_plain(inp, idx, count, wp, b1, betas, preact, mode, out)
+    _conv3x3_in_by(_conv3x3_in_tiled, inp, idx, count, wp, b1, betas, preact, mode, out)
+
+
+def nc_jt_out_acc_exact(t, w1t, s0, mode, coeffs, k, u_out, acc, H, W):
+    """``_nc_jt_out_acc_plain`` with ``C1^T t`` summed exactly (all mid x 9
+    terms in float64, rounded once)."""
+    from .fused_chain import _nc_jt_out_acc_by
+
+    _nc_jt_out_acc_by(_conv3x3_exact, t, w1t, s0, mode, coeffs, k, u_out, acc, H, W)
+
+
+def nc_jt_out_acc_tiled(t, w1t, s0, mode, coeffs, k, u_out, acc, H, W):
+    """``nc_jt_out_acc`` as its wrapper routes it: in mode bf16
+    ``_nc_jt_out_acc_plain`` with ``C1^T t`` summed in the tensor-core
+    kernel's order (chunks of ``C3_MC`` channels, then taps, each into a
+    fresh float32 partial); in mode f32, which stays on the CUDA cores, the
+    plain version."""
+    from .fused_chain import _nc_jt_out_acc_by, _nc_jt_out_acc_plain
+
+    if mode != "bf16":
+        return _nc_jt_out_acc_plain(t, w1t, s0, mode, coeffs, k, u_out, acc, H, W)
+    _nc_jt_out_acc_by(_conv3x3_tiled, t, w1t, s0, mode, coeffs, k, u_out, acc, H, W)
