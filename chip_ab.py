@@ -43,11 +43,15 @@ kernel times, run ``kernels`` in both trees in one call, in turns.
   f32); and at each scale the forward solve's conv3x3_in in tf32 and tf32x
   under preact on every slot (beside cuDNN conv2d f32) and the chain's
   nc_jt_out_acc in mode bf16 with s0 bfloat16 and float32 (both nets,
-  beside cuDNN conv2d bf16 on both nets' examples; error by rel_norm). A
-  tree from before conv1x1_mid / rv_conv1x1_mid / lin_conv1x1_mid /
-  nc_jt_in / lin_conv3x3_in / conv3x3_in / nc_jt_out_acc took their
-  tensor-core weights gets its own float32 ones (and rv_conv1x1_mid its
-  slope as a float).
+  beside cuDNN conv2d bf16 on both nets' examples; error by rel_norm), the
+  final pair's fp_conv_out in mode bf16 on both nets and on the backward's
+  four "nets" (beside cuDNN conv2d bf16 on the four nets' examples) and the
+  backward solve's jt_conv3x3_in in mode bf16 with s2 bfloat16 on every
+  slot (beside cuDNN conv2d bf16). A tree from before conv1x1_mid /
+  rv_conv1x1_mid / lin_conv1x1_mid / nc_jt_in / lin_conv3x3_in / conv3x3_in
+  / nc_jt_out_acc / fp_conv_out / jt_conv3x3_in took their tensor-core
+  weights gets its own float32 ones (and rv_conv1x1_mid its slope as a
+  float; fp_conv_out both nets' kernels twice for its four nets).
 * ``sass DIR``: every ``csrc/*.cu`` of this tree and of the tree in DIR
   (a parent, unpacked) compiled for sm_90a with the flags of
   ``ops/cuda_build.py``, one nvcc each, all started together; for each
@@ -58,6 +62,7 @@ kernel times, run ``kernels`` in both trees in one call, in turns.
 Each run prints the card's name and power limit first. Without a CUDA
 device it exits non-zero.
 """
+import inspect
 import os
 import re
 import subprocess
@@ -319,6 +324,47 @@ def kernels():
         times[f"cuDNN conv2d bf16 {tag} (nc_jt_out_acc's library call, both nets)"] = ms(
             lambda: F.conv2d(tb2, wb2, padding=1))
         del tt, tb2, uo, ua, up, ap
+        # the final pair's fp_conv_out (bf16) on both nets and on the
+        # backward's four "nets" (rh1, p_h1 of both nets: float32 inputs)
+        # on the two nets' kernels, W1T in its tile layout where the tree
+        # has it (a tree before takes both nets' float32 kernels twice)
+        tile_fp = "nets" in inspect.signature(ff.fp_conv_out).parameters
+        t4 = r(4 * B, mid, hws)
+        fo, fp = (torch.empty(4 * B, cs * hws, device=dev) for _ in range(2))
+        for nets in (2, 4):
+            tn, on_, pn = t4[:nets * B], fo[:nets * B], fp[:nets * B]
+            if tile_fp:
+                run = lambda f, o, w: f(tn, w, "bf16", o, hs, hs, nets=nets)
+                wk = fc.tile_w1t(w1o)
+            else:
+                run = lambda f, o, w: f(tn, w, "bf16", o, hs, hs)
+                wk = torch.cat([w1o] * (nets // 2))
+            name = f"fp_conv_out ({nets} nets) {tag}"
+            times[name] = ms(lambda: run(ff.fp_conv_out, on_, wk))
+            run(ff._fp_conv_out_plain, pn, wk)
+            torch.cuda.synchronize()
+            errs[name] = float((on_ - pn).abs().max() / pn.abs().max())
+        t4b = t4.view(4 * B, mid, hs, hs).to(torch.bfloat16)
+        times[f"cuDNN conv2d bf16 {tag} (fp_conv_out's library call, four nets)"] = ms(
+            lambda: F.conv2d(t4b, wb2, padding=1))
+        del t4, t4b, fo, fp
+        # the backward solve's jt_conv3x3_in (bf16, s2 bfloat16) on every
+        # slot, W3T in bfloat16 where the tree runs it on the tensor cores
+        tc_jt = "implicit_grad" in cuda_build.LINKED
+        uj = r(B, cs, hs, hs)
+        w3j = (0.1 * r(mid, cs, 3, 3)).to(torch.bfloat16)
+        s2j = u(B, mid, hws).to(torch.bfloat16)
+        oa, ob = (torch.empty(B, mid, hws, device=dev) for _ in range(2))
+        run = lambda f, w, o: f(uj, idx, cnt, (w, None), s2j, "bf16", o)
+        name = f"jt_conv3x3_in (s bf16) {tag}"
+        times[name] = ms(lambda: run(ig.jt_conv3x3_in, w3j if tc_jt else w3j.float(), oa))
+        run(ig._jt_conv3x3_in_plain, w3j.float(), ob)
+        torch.cuda.synchronize()
+        errs[name] = float((oa - ob).abs().max() / ob.abs().max())
+        ujb = uj.to(torch.bfloat16)
+        times[f"cuDNN conv2d bf16 {tag} (jt_conv3x3_in's library call)"] = ms(
+            lambda: F.conv2d(ujb, w3j, padding=1))
+        del uj, ujb, s2j, oa, ob
     for name, v in times.items():
         print(f"kernel {name}{'' if ', c ' in name else ' 32x32'}: {v:.4f} ms", flush=True)
     for name, v in errs.items():

@@ -42,18 +42,20 @@ Phases (any failure exits non-zero; nothing is caught):
      above the limit. rv_wgrad is read at every weight gradient the
      re-attachment launches (dW2, dW3, dW1 with and without preact),
      rv_conv1x1_mid in both its forms (h2, swish; t1, swish'), and
-     jt_conv1x1_mid, jt_conv3x3_out, rv_conv3x3_out and rv_conv1x1_mid also
-     on a partial active list (count B/2, a permuted idx; rv_conv1x1_mid
-     takes the count alone), whose dead slots (examples) must stay bitwise
-     untouched. In mode bf16 these five run on the tensor cores
-     (jt_conv1x1_mid and rv_conv1x1_mid on csrc/mma_gemm.cuh, rv_wgrad on
-     csrc/wgrad_tc.cuh, rv_conv3x3_out and jt_conv3x3_out on
-     csrc/conv3x3_out_tc.cuh);
+     jt_conv3x3_in, jt_conv1x1_mid, jt_conv3x3_out, rv_conv3x3_out and
+     rv_conv1x1_mid also on a partial active list (count B/2, a permuted
+     idx; rv_conv1x1_mid takes the count alone), whose dead slots
+     (examples) must stay bitwise untouched. In mode bf16 these six run on
+     the tensor cores (jt_conv1x1_mid and rv_conv1x1_mid on
+     csrc/mma_gemm.cuh, rv_wgrad on csrc/wgrad_tc.cuh, rv_conv3x3_out and
+     jt_conv3x3_out on csrc/conv3x3_out_tc.cuh, jt_conv3x3_in on
+     csrc/conv3x3_in_tc.cuh);
   6. the whole backward solve and the whole re-attachment VJP against their
      plain versions, per scale and mode, each rounding mode with its
-     control and its sum-order floors (the plain path with jt_conv1x1_mid,
-     jt_conv3x3_out or both; or with rv_wgrad, rv_conv3x3_out or
-     rv_conv1x1_mid summed exactly: ops/sum_order.py), every reading
+     control and its sum-order floors (the plain path with jt_conv3x3_in,
+     jt_conv1x1_mid, jt_conv3x3_out, the last two or all three; or with
+     rv_wgrad, rv_conv3x3_out or rv_conv1x1_mid summed exactly:
+     ops/sum_order.py), every reading
      printed before any limit is checked; phases 5 and 6 read inputs
      captured from a training step with every plain version forced, so that
      a floor measures its product and not how the port's kernels moved its
@@ -77,9 +79,11 @@ Phases (any failure exits non-zero; nothing is caught):
      on the tensor cores (csrc/mma_gemm.cuh), and so do the chain's 3x3
      products nc_jt_in (c -> mid, csrc/conv3x3_in_tc.cuh) and
      nc_jt_out_acc (mid -> c, csrc/conv3x3_out_tc.cuh), both also read on
-     float32 s; fp_conv_mid is read with each act (id on the backward's
-     four "nets", swish, dswish); the inputs of phases 8 and 9 come from a
-     step with every plain version forced;
+     float32 s, and the final pair's fp_conv_out (mid -> c, the same
+     kernel); fp_conv_mid is read with each act (id on the backward's four
+     "nets", swish, dswish) and fp_conv_out on both nets and on the
+     backward's four; the inputs of phases 8 and 9 come from a step with
+     every plain version forced;
   9. the whole Neumann chain (the step's n_power) and the whole final pair
      (T, d_h and every gradient) against their plain versions, per scale
      and mode, by rel_norm with controls; in bf16 the chain beside its
@@ -88,7 +92,7 @@ Phases (any failure exits non-zero; nothing is caught):
      checked, and the final pair is held
      against the plain path with fp_conv_mid summed exactly (FINAL_TOL's
      comment), beside its reading against the plain path and the sum-order
-     floors of fp_conv_mid and rv_wgrad;
+     floors of fp_conv_mid, rv_wgrad and fp_conv_out;
  10. the main path: flagship training steps at the users' default
      --mem-eff False (grad_in_forward=False) from the checkpoint, as phase
      7: 5 settle and 5 timed steps with every kernel's launch count over
@@ -137,8 +141,9 @@ Phases (any failure exits non-zero; nothing is caught):
      bf16 and f32, with controls, device time, plain time, bound and a
      library call's time; and the linearisation kernels on phase 2's
      precision probe; then the 3x3 tensor-core kernels (c -> mid: nc_jt_in
-     in bf16, lin_conv3x3_in and conv3x3_in in tf32 and tf32x; mid -> c:
-     nc_jt_out_acc in bf16) at mid 64, 192 and 384 on seeded random inputs
+     and jt_conv3x3_in in bf16, lin_conv3x3_in and conv3x3_in in tf32 and
+     tf32x; mid -> c: nc_jt_out_acc and fp_conv_out in bf16) at mid 64, 192
+     and 384 on seeded random inputs
      at each scale, their outputs started as NaN so that a channel chunk
      left unwritten fails; the inputs of phases 14 and 15 come from a
      merged step with every plain version forced, and phase 14's chain
@@ -279,7 +284,9 @@ BLOCK_ACC_TOL = {"f32": 1e-4, "tf32": 5e-4}
 # conv3x3_in_tc.cuh's conv3x3_in_tc_kernel<TW, EPI, PASSES, ST>
 # (EPI_SCALE_RND 3 with PASSES 1; EPI_SWISH_LIN 4 with PASSES 3 / 4), and
 # conv3x3_in on the same kernel (EPI_SWISH 0 with PASSES 3 / 4) and
-# nc_jt_out_acc on conv3x3_out_tc_kernel (IN_ID 0 with C3_CHAIN 2). A
+# nc_jt_out_acc on conv3x3_out_tc_kernel (IN_ID 0 with C3_CHAIN 2), and
+# fp_conv_out on conv3x3_out_tc_kernel (IN_ID 0 with C3_FINAL 3) and
+# jt_conv3x3_in on conv3x3_in_tc_kernel (EPI_SCALE 2 with PASSES 1). A
 # profiled training step (and the eval profile, for conv1x1_mid and
 # conv3x3_in) must record each as many times as its wrapper launched it
 # there (conv1x1_mid, lin_conv1x1_mid, lin_conv3x3_in, conv3x3_in: their
@@ -289,12 +296,14 @@ BLOCK_ACC_TOL = {"f32": 1e-4, "tf32": 5e-4}
 # EPI_SCALE_RND> and <1, 1, IN_SWISH | IN_DSWISH, EPI_AFFINE>,
 # conv_gemm_kernel<MODE_TF32 2 | MODE_TF32X 3, 1, IN_ID, EPI_SWISH |
 # EPI_SWISH_LIN>, conv3x3_out_kernel<1, IN_DSWISH, ...>, conv3x3_out_kernel<1,
-# IN_ID, __nv_bfloat16, false> (the float32 form stays: fp_conv_out runs it),
-# every wgrad_kernel<1, ...>, conv_gemm_kernel<1, SRC 0, IN_ID,
+# IN_ID, float | __nv_bfloat16, false> (the float32 form was fp_conv_out's;
+# the forward solve's conv3x3_out makes it only in mode bf16, which no
+# default path runs), every wgrad_kernel<1, ...>, conv_gemm_kernel<1, SRC 0, IN_ID,
 # EPI_SCALE_RND>, conv_gemm_kernel<2 | 3, 0, IN_ID | IN_SWISH,
 # EPI_SWISH_LIN>, conv3x3_out_kernel<1, IN_ID, float | __nv_bfloat16, true>
-# (the chain's) and conv_gemm_kernel<2 | 3, 0, IN_ID | IN_SWISH, EPI_SWISH>
-# (the solve's conv3x3_in), which only those stages made. fp_conv_mid
+# (the chain's), conv_gemm_kernel<2 | 3, 0, IN_ID | IN_SWISH, EPI_SWISH>
+# (the solve's conv3x3_in) and conv_gemm_kernel<1, 0, IN_ID, EPI_SCALE>
+# (jt_conv3x3_in's), which only those stages made. fp_conv_mid
 # and rv_conv1x1_mid share the swish and swish' instantiations (SHARED_TC):
 # the profiler records them under one name, so a step must record them as
 # often as the two wrappers launched them together.
@@ -335,6 +344,10 @@ TC_ROUTES = {
     "nc_jt_out_acc": (re.compile(r"conv3x3_out_tc_kernel<\d+, ?\d+, ?0, ?2,"),
                       "implicit_normalizing_flows_torch/csrc/conv3x3_out_tc.cuh",
                       "mma.sync bf16"),
+    "fp_conv_out": (re.compile(r"conv3x3_out_tc_kernel<\d+, ?\d+, ?0, ?3,"),
+                    "implicit_normalizing_flows_torch/csrc/conv3x3_out_tc.cuh", "mma.sync bf16"),
+    "jt_conv3x3_in": (re.compile(r"conv3x3_in_tc_kernel<\d+, ?2, ?1,"),
+                      "implicit_normalizing_flows_torch/csrc/conv3x3_in_tc.cuh", "mma.sync bf16"),
 }
 TC_SPLIT = "conv1x1_mid (tensor cores)"  # launch_counts()'s key of those launches
 TC_LIN = "lin_conv1x1_mid (tensor cores)"
@@ -345,16 +358,17 @@ TC_COUNT = {"conv1x1_mid": TC_SPLIT, "lin_conv1x1_mid": TC_LIN, "lin_conv3x3_in"
             "conv3x3_in": TC_IN}
 SHARED_TC = [("fp_conv_mid", "rv_conv1x1_mid")]
 # run only in --mem-eff False's estimator
-ESTIMATOR_ONLY = ("nc_jt_in", "nc_jt_mid", "nc_jt_out_acc", "fp_conv_mid")
+ESTIMATOR_ONLY = ("nc_jt_in", "nc_jt_mid", "nc_jt_out_acc", "fp_conv_mid", "fp_conv_out")
 # run only in the merged forward (IMNF_FUSED_BLOCK=1)
 MERGED_ONLY = ("lin_conv3x3_in", "lin_conv1x1_mid")
 REPLACED_SIMT = re.compile(r"conv_gemm_kernel<1, ?1, ?0, ?[123],|conv_gemm_kernel<1, ?1, ?[12], ?1,"
                            r"|conv_gemm_kernel<[23], ?1, ?0, ?[04],|conv3x3_out_kernel<1, ?2,"
-                           r"|conv3x3_out_kernel<1, ?0, ?__nv_bfloat16, ?false>"
+                           r"|conv3x3_out_kernel<1, ?0, ?(float|__nv_bfloat16), ?false>"
                            r"|wgrad_kernel<1,|conv_gemm_kernel<1, ?0, ?0, ?3,"
                            r"|conv_gemm_kernel<[23], ?0, ?[01], ?4,"
                            r"|conv3x3_out_kernel<1, ?0, ?(float|__nv_bfloat16), ?true>"
-                           r"|conv_gemm_kernel<[23], ?0, ?[01], ?0,")
+                           r"|conv_gemm_kernel<[23], ?0, ?[01], ?0,"
+                           r"|conv_gemm_kernel<1, ?0, ?0, ?2,")
 ROUTE_ATTEMPTS = 3  # profiled steps that may show the routes (train_path)
 TAB_DIM, TAB_BATCH, TAB_EVAL_BATCH = 6, 1000, 4000
 TAB_WARMUP, TAB_SETTLE, TAB_TIMED = 110, 5, 10
@@ -925,10 +939,10 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
             S1, S2 = (t.reshape(B, mid, HW).contiguous() for t in (s1, s2))
             src = (ig.transpose_weights(w1c.float(), w2c.float(), w3c.float())
                    + (w1, w2) + ig.transpose_weights(w1, w2, w3))
-            # (jt3, jt2, jt1, f1, f2, t3, t2, t1) prepared for mode m, jt2 as
-            # the backward solve prepares it and f2, t2 as the re-attachment
-            # does (bfloat16 in mode bf16)
-            prep = lambda m: [ig.prep_mid_weight(w, m) if i == 1
+            # (jt3, jt2, jt1, f1, f2, t3, t2, t1) prepared for mode m, jt3 and
+            # jt2 as the backward solve prepares them and f2, t2 as the
+            # re-attachment does (bfloat16 in mode bf16)
+            prep = lambda m: [ig.prep_mid_weight(w, m) if i in (0, 1)
                               else ig.prep_rv_mid_weight(w, m) if i in (4, 6)
                               else prep_weight(w, m) for i, w in enumerate(src)]
             jt3, jt2, jt1, f1, f2, t3, t2, t1 = prep(mode)
@@ -1092,6 +1106,12 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
                 "rv_conv1x1_mid", rm(f2, mode), rmp(f2, mode),
                 rmp(ctrl_w[4], "f32") if mode != "f32" else None, (B, mid, HW), False, mode,
                 label, dev)
+            ji = lambda wp, m: lambda i, n, o: ig.jt_conv3x3_in(u, i, n, wp, S2, m, o)
+            jip = lambda wp, m: lambda i, n, o: ig._jt_conv3x3_in_plain(u, i, n, wp, S2, m, o)
+            fails += check_partial_list(
+                "jt_conv3x3_in", ji(jt3, mode), jip(jt3, mode),
+                jip(ctrl_w[0], "f32") if mode != "f32" else None, (B, mid, HW), False, mode,
+                label, dev)
             jt = lambda wp, m: lambda i, n, o: ig.jt_conv1x1_mid(P["T2"], i, n, wp, S1, m, o, H, W)
             jtp = lambda wp, m: lambda i, n, o: ig._jt_conv1x1_mid_plain(P["T2"], i, n, wp, S1,
                                                                          m, o, H, W)
@@ -1163,9 +1183,10 @@ def check_grad_functions(cap):
     every tensor that a product reaches. Every reading is printed before the
     limits are checked. In bf16 and tf32 each function also prints its
     sum-order floors: the plain path with one product summed exactly
-    (ops/sum_order.py; in the backward solve jt_conv1x1_mid, jt_conv3x3_out,
-    and both; in the re-attachment rv_wgrad, rv_conv3x3_out and
-    rv_conv1x1_mid) against the plain path. No limit is held to them."""
+    (ops/sum_order.py; in the backward solve jt_conv3x3_in, jt_conv1x1_mid,
+    jt_conv3x3_out, the last two together, and all three; in the
+    re-attachment rv_wgrad, rv_conv3x3_out and rv_conv1x1_mid) against the
+    plain path. No limit is held to them."""
     from implicit_normalizing_flows_torch.ops import implicit_grad as ig
     from implicit_normalizing_flows_torch.ops import sum_order as so
 
@@ -1192,11 +1213,17 @@ def check_grad_functions(cap):
             if mode != "f32":
                 control = rel_norm(ig.fused_backward_solve_plain(
                     grad, cd, mode="f32", **kw).u, rp.u, grad)
+                exact3 = dict(jt_conv3x3_in=so.jt_conv3x3_in_exact,
+                              jt_conv1x1_mid=so.jt_conv1x1_mid_exact,
+                              jt_conv3x3_out=so.jt_conv3x3_out_exact)
                 for what, exact in (
+                        ("jt_conv3x3_in", dict(jt_conv3x3_in=so.jt_conv3x3_in_exact)),
                         ("jt_conv1x1_mid", dict(jt_conv1x1_mid=so.jt_conv1x1_mid_exact)),
                         ("jt_conv3x3_out", dict(jt_conv3x3_out=so.jt_conv3x3_out_exact)),
-                        ("both", dict(jt_conv1x1_mid=so.jt_conv1x1_mid_exact,
-                                      jt_conv3x3_out=so.jt_conv3x3_out_exact))):
+                        ("jt_conv1x1_mid and jt_conv3x3_out",
+                         dict(jt_conv1x1_mid=so.jt_conv1x1_mid_exact,
+                              jt_conv3x3_out=so.jt_conv3x3_out_exact)),
+                        ("all three", exact3)):
                     ue = ig._backward_solve(grad, cd, dict(ig._PLAIN, **exact), mode=mode,
                                             **kw).u
                     floors.append(f"{rel_norm(ue, rp.u, grad):.3e} ({what} exact)")
@@ -1424,6 +1451,7 @@ def check_estimator_kernels(cap, modes=("bf16", "f32")):
             S0f = op["S0"].float()  # nc_jt_out_acc on float32 s
             mid = op["S1"].shape[1]
             W1o = fc.untile_w1t(op["W1T"], c, mid)  # OIHW, for the library call and bytes
+            F1o = fc.untile_w1t(wt["w1t"], c, mid)  # the final pair's W1T, OIHW
             b0, b1, b2 = wt["beta"]
             beta1_x = wt["betas"][0, 1]  # net x's slope, on the card
             S, _ = ig.wgrad_splits(mid, mid, B, HW)
@@ -1528,9 +1556,19 @@ def check_estimator_kernels(cap, modes=("bf16", "f32")):
                     "fp_conv_out": (
                         lambda o: ff.fp_conv_out(P["RP1"][1], w["w1t"], m, o[0], H, W),
                         lambda o: ff._fp_conv_out_plain(P["RP1"][1], w["w1t"], m, o[0], H, W),
-                        lambda: F.conv2d(lib(view(P["RP1"][1], mid)), lib(w["w1t"][0]), padding=1),
-                        lambda: [new(Bt, c * HW)], (P["RP1"][1], w["w1t"]),
+                        lambda: F.conv2d(lib(view(P["RP1"][1], mid)), lib(F1o[0]), padding=1),
+                        lambda: [new(Bt, c * HW)], (P["RP1"][1], hv(F1o)),
                         Bt * c * mid * 9 * HW),
+                    # as the backward runs it under preact: rh1 and p_h1 of
+                    # both nets, four "nets" on the two nets' kernels
+                    "fp_conv_out (4 nets)": (
+                        lambda o: ff.fp_conv_out(P["RP1"].view(2 * Bt, mid, HW), w["w1t"], m,
+                                                 o[0], H, W, nets=4),
+                        lambda o: ff._fp_conv_out_plain(P["RP1"].view(2 * Bt, mid, HW),
+                                                        w["w1t"], m, o[0], H, W, nets=4),
+                        lambda: F.conv2d(lib(view(P["RP1"], mid)), lib(F1o[0]), padding=1),
+                        lambda: [new(2 * Bt, c * HW)], (P["RP1"], hv(F1o)),
+                        2 * Bt * c * mid * 9 * HW),
                     "fp_tdot": (
                         lambda o: ff.fp_tdot(P["R2"], P["H2"], P["TH2"], b2, o[0]),
                         lambda o: ff._fp_tdot_plain(P["R2"], P["H2"], P["TH2"], b2, o[0]),
@@ -1572,8 +1610,9 @@ def check_estimator_functions(cap):
     reaches. The final pair in mode bf16 is held against the plain path
     with fp_conv_mid summed exactly (ops/sum_order.py; FINAL_TOL's
     comment), beside its reading against the plain path and the sum-order
-    floors of fp_conv_mid and rv_wgrad (5f). Every reading is printed
-    before the limits are checked."""
+    floors of fp_conv_mid, rv_wgrad (5f) and fp_conv_out (5c: the plain
+    path with fp_conv_mid and fp_conv_out summed exactly against that
+    reference). Every reading is printed before the limits are checked."""
     from implicit_normalizing_flows_torch.ops import fused_chain as fc
     from implicit_normalizing_flows_torch.ops import fused_final as ff
     from implicit_normalizing_flows_torch.ops import sum_order as so
@@ -1650,11 +1689,15 @@ def check_estimator_functions(cap):
                            if not n.endswith(".b3"))
                 old, floor = vs(gk, gp), vs(gp, ref)
                 wg = vs(pair(dict(ff._PLAIN, rv_wgrad=so.rv_wgrad_exact), mode, wt), gp)
+                out = vs(pair(dict(ff._PLAIN, fp_conv_mid=so.fp_conv_mid_exact,
+                                   fp_conv_out=so.fp_conv_out_exact), mode, wt), ref)
                 line += (f" against the plain path with fp_conv_mid exact (limit "
                          f"{FINAL_TOL[mode]:g}, least control {ctrl[0]:.3e} ({ctrl[1]})); "
                          f"against the plain path {old[0]:.3e} ({old[1]}); sum-order floors: "
                          f"fp_conv_mid (plain against its exact sums) {floor[0]:.3e} "
-                         f"({floor[1]}), rv_wgrad exact {wg[0]:.3e} ({wg[1]})")
+                         f"({floor[1]}), rv_wgrad exact {wg[0]:.3e} ({wg[1]}), fp_conv_out "
+                         f"(fp_conv_mid and fp_conv_out exact against the reference) "
+                         f"{out[0]:.3e} ({out[1]})")
             log(line + f" s {tk:.3f}/{tp:.3f} (kernels/plain)")
             for n, a in gk:
                 assert torch.isfinite(a).all(), n
@@ -2131,17 +2174,22 @@ def check_conv3x3_in_widths(dev, batch=4):
     the last chunk at 8x8 is half full: nc_jt_in (bf16, two nets of
     ``batch`` examples, s2 bfloat16; rel_norm against ROUNDED_TOL),
     lin_conv3x3_in (tf32, tf32x, preact; its three outputs, max error over
-    the largest entry against SPLIT_TOL) and the solve's conv3x3_in (tf32,
-    tf32x, preact, every slot live; against SPLIT_TOL); and the mid -> c
-    kernel's nc_jt_out_acc (bf16, two nets, s0 bfloat16; u by rel_norm
-    against ROUNDED_TOL, acc += c_k u by rel_norm of its update over the
-    update), against their plain versions on seeded random inputs at each
-    scale's c and image. The kernels' outputs (u, not acc) start as NaN, so
-    an output left unwritten reads NaN and fails. Every reading is printed
-    before the limits are checked."""
+    the largest entry against SPLIT_TOL), the solve's conv3x3_in (tf32,
+    tf32x, preact, every slot live; against SPLIT_TOL) and the backward
+    solve's jt_conv3x3_in (bf16, s2 bfloat16, every slot live under a
+    permuted idx; against KERNEL_TOL); and the mid -> c kernel's
+    nc_jt_out_acc (bf16, two nets, s0 bfloat16; u by rel_norm against
+    ROUNDED_TOL, acc += c_k u by rel_norm of its update over the update)
+    and fp_conv_out (bf16, four nets on two nets' kernels; against
+    KERNEL_TOL), against their plain versions on seeded random inputs at
+    each scale's c and image. The kernels' outputs (u, not acc) start as
+    NaN, so an output left unwritten reads NaN and fails. Every reading is
+    printed before the limits are checked."""
     from implicit_normalizing_flows_torch.ops import fused_block as fb
     from implicit_normalizing_flows_torch.ops import fused_chain as fc
+    from implicit_normalizing_flows_torch.ops import fused_final as ff
     from implicit_normalizing_flows_torch.ops import fused_solve as fs
+    from implicit_normalizing_flows_torch.ops import implicit_grad as ig
 
     g = torch.Generator(device=dev).manual_seed(11)
     r = lambda *shape: torch.randn(*shape, generator=g, device=dev)
@@ -2200,6 +2248,30 @@ def check_conv3x3_in_widths(dev, batch=4):
                 f"{ROUNDED_TOL:g})")
             if not (math.isfinite(err) and err <= ROUNDED_TOL):
                 fails.append(("nc_jt_out_acc", label, "bf16", err))
+            tol = KERNEL_TOL["bf16"]
+            # jt_conv3x3_in: slot s reads example idx[s] (u and s2)
+            idx = torch.randperm(batch, generator=g, device=dev).to(torch.int32)
+            cnt = torch.full((1,), batch, dtype=torch.int32, device=dev)
+            w3t = (0.1 * r(mid, c, 3, 3)).to(torch.bfloat16)
+            outs = [nan(batch, mid, HW) for _ in range(2)]
+            for f, o in ((ig.jt_conv3x3_in, outs[0]), (ig._jt_conv3x3_in_plain, outs[1])):
+                f(u[:batch], idx, cnt, (w3t, None), s2[:batch], "bf16", o)
+            torch.cuda.synchronize()
+            err = rel_max(*outs)
+            log(f"kernel jt_conv3x3_in {label}, bf16: max_rel_err {err:.3e} (limit {tol:g})")
+            if not (math.isfinite(err) and err <= tol):
+                fails.append(("jt_conv3x3_in", label, "bf16", err))
+            # fp_conv_out: four "nets" of t on the two nets' kernels
+            t4 = r(4 * batch, mid, HW).to(torch.bfloat16).float()
+            outs = [nan(4 * batch, c * HW) for _ in range(2)]
+            for f, o in ((ff.fp_conv_out, outs[0]), (ff._fp_conv_out_plain, outs[1])):
+                f(t4, w1t, "bf16", o, H, H, nets=4)
+            torch.cuda.synchronize()
+            err = rel_max(*outs)
+            log(f"kernel fp_conv_out {label}, bf16, 4 nets: max_rel_err {err:.3e} "
+                f"(limit {tol:g})")
+            if not (math.isfinite(err) and err <= tol):
+                fails.append(("fp_conv_out", label, "bf16", err))
     assert not fails, ("phase 14, narrow widths (name, block, mode, error)", fails)
 
 

@@ -1,8 +1,9 @@
 // The forms of conv3x3_in_tc.cuh's tensor-core 3x3 c -> mid product that the
 // port launches, as their own translation unit: ops/cuda_build.py links it
-// into the libraries of estimator.cu (nc_jt_in, mode bf16), block_forward.cu
-// (lin_conv3x3_in, modes tf32 / tf32x) and fused_solve.cu (conv3x3_in, modes
-// tf32 / tf32x). The header says why.
+// into the libraries of estimator.cu (nc_jt_in, mode bf16), implicit_grad.cu
+// (jt_conv3x3_in, mode bf16), block_forward.cu (lin_conv3x3_in, modes tf32 /
+// tf32x) and fused_solve.cu (conv3x3_in, modes tf32 / tf32x). The header
+// says why.
 
 #include "conv3x3_in_tc.cuh"
 
@@ -21,6 +22,21 @@ cudaError_t conv3x3_in_tc_chain(const __nv_bfloat16* w, const float* u, int B, i
                                 cudaStream_t s) {
   return launch_conv3x3_in_tc<EPI_SCALE_RND, 1>(w, nullptr, nullptr, u, B, nets, C, H, W, M,
                                                 0, 0.f, 0.f, s2, out, nullptr, nullptr, s);
+}
+
+// out[s] = C3^T u[idx[s]] * s2[idx[s]] for the slots s < *count, one net
+cudaError_t conv3x3_in_tc_jt(const __nv_bfloat16* w, const float* u, const int* idx,
+                             const int* count, int B, int C, int H, int W, int M,
+                             const float* s2, float* out, cudaStream_t s) {
+  return launch_conv3x3_in_tc<EPI_SCALE, 1>(w, nullptr, nullptr, u, B, 1, C, H, W, M, 0, 0.f,
+                                            0.f, s2, out, nullptr, nullptr, s, idx, count);
+}
+
+cudaError_t conv3x3_in_tc_jt(const __nv_bfloat16* w, const float* u, const int* idx,
+                             const int* count, int B, int C, int H, int W, int M,
+                             const __nv_bfloat16* s2, float* out, cudaStream_t s) {
+  return launch_conv3x3_in_tc<EPI_SCALE, 1>(w, nullptr, nullptr, u, B, 1, C, H, W, M, 0, 0.f,
+                                            0.f, s2, out, nullptr, nullptr, s, idx, count);
 }
 
 // out = swish(h1), s1 = swish'(h1) [, s0 = swish'(inp)] with h1 = W1

@@ -1,4 +1,4 @@
-// Tensor-core (mma.sync) 3x3 conv c -> mid for Hopper (sm_90a), in three
+// Tensor-core (mma.sync) 3x3 conv c -> mid for Hopper (sm_90a), in four
 // forms that share the product:
 //
 //   acc[s][m][p] = sum_k W[net][m][k] * X(IN(inp[s]))[k][p],  net = s / nb,
@@ -10,6 +10,13 @@
 //   Neumann chain's first J^T stage t2 = rnd(C3^T u * s2), dot(m3, u9) *
 //   s2 of _make_apply_jt (implicit_normalizing_flows_tpu/ops/fused_chain.py
 //   :182, in fused_neumann_chain2 :333); estimator.cu's nc_jt_in.
+// * EPI_SCALE, mode bf16, on an active list: for the live slots s <
+//   *count, out[s] = acc * scale[idx[s]] (unrounded), the input and the
+//   scale (float32 or bfloat16, ST) of example idx[s], one net; the slots
+//   past *count are not written: the backward solve's first J^T stage t =
+//   d3(u9) * s2 of _make_apply_jt (implicit_normalizing_flows_tpu/ops
+//   /fused_solve.py:867-882, in fused_backward_solve :930); implicit_grad.cu's
+//   jt_conv3x3_in.
 // * EPI_SWISH_LIN, modes tf32 / tf32x: h1 = acc + bias[m], out[s] =
 //   swish(h1; beta_out) and aux[s] = swish'(h1; beta_out), with IN =
 //   swish(.; beta_in) under preact, whose blocks of M group 0 also write
@@ -28,20 +35,21 @@
 // PASSES 1 (mode bf16): both operands bf16, the sums float32. PASSES 3 / 4
 // (tf32 / tf32x): the bf16 split of both operands, hi = rn(v), lo = rn(v -
 // hi), and the products hi*hi + hi*lo + lo*hi (+ lo*lo), exactly
-// _make_dot's model (fused_solve.py:101-135); never native TF32. Modes f32
-// (both forms) and bf16 of the linearisation stay on conv_gemm.cuh.
+// _make_dot's model (fused_solve.py:101-135); never native TF32. Mode f32
+// (every form) and bf16 of the linearisation stay on conv_gemm.cuh.
 //
 // What bounds it on an H100 (32x32, mid 512, c 3): bytes. The chain's form
 // writes t2 as float32 (the next stage reads float32) and reads s2: 402 MB
 // at B 64 x 2 nets with bf16 s2, 0.12 ms at 3.35 TB/s (0.16 ms with float32
-// s2); the linearisation writes swish(h1) and s1 as float32, 256 MiB at B
-// 64, 0.08 ms; the solve's form swish(h1) of the live slots, 128 MiB with
-// all 64 live, 0.04 ms. The products are few: K is 27, 108 or 432. The
-// CUDA-core kernel (conv_gemm.cuh, SRC 0) rebuilt the im2col for each of the 8
-// 64-row M tiles with an integer divide and modulo per element, ran the
-// products (3 or 4 FMA passes in the split modes) on the CUDA cores, read
-// its scale with scalar loads and stored scalars whose lanes lay 16 bytes
-// apart.
+// s2); the backward solve's form reads s2 (bf16) and writes t as float32,
+// 192 MiB with all 64 slots live, 0.060 ms; the linearisation writes
+// swish(h1) and s1 as float32, 256 MiB at B 64, 0.08 ms; the solve's form
+// swish(h1) of the live slots, 128 MiB with all 64 live, 0.04 ms. The
+// products are few: K is 27, 108 or 432. The CUDA-core kernel
+// (conv_gemm.cuh, SRC 0) rebuilt the im2col for each of the 8 64-row M
+// tiles with an integer divide and modulo per element, ran the products (3
+// or 4 FMA passes in the split modes) on the CUDA cores, read its scale
+// with scalar loads and stored scalars whose lanes lay 16 bytes apart.
 //
 // The design against that bound:
 // * A block owns one slot's band of NP pixels (whole image rows: 128, or 64
@@ -74,9 +82,9 @@
 //   thread; the split forms spill a few bytes). Where slots x bands fill
 //   less than twice the card (16x16, 8x8), the M chunks are split into
 //   groups of blocks (a power of two), each rebuilding the band's small
-//   im2col, so that 8x8's 128 slots become 512 blocks. The solve's form
-//   keeps the grid of its whole batch: the blocks of slots at or past
-//   *count return at once (the host does not read the count). The groups
+//   im2col, so that 8x8's 128 slots become 512 blocks. The forms on an
+//   active list keep the grid of their whole batch: the blocks of slots at
+//   or past *count return at once (the host does not read the count). The groups
 //   divide the chunks evenly (a mid of 384 at 8x8, 3 chunks, keeps one
 //   group). M need only be a multiple of 64: the last chunk at NP 64 may
 //   hold 64 rows, for 4 of the 8 warps.
@@ -134,7 +142,8 @@ __device__ __forceinline__ void c3i_load_a(uint32_t (&a)[4], const unsigned shor
 // the image width (8, 16 or 32); the band is NP / TW rows. w_hi [w_lo]:
 // (nets, M, C, 3, 3) bf16; inp (B, C, H, TW); scale, out, aux (B, M, H TW);
 // aux0 (B, C, H TW) or nullptr; bias (M) (EPI_SWISH_LIN, EPI_SWISH: one
-// net). EPI_SWISH: slot s < *count reads example idx[s] of inp.
+// net). EPI_SWISH, EPI_SCALE (one net): slot s < *count reads example
+// idx[s] of inp (and of scale).
 template <int TW, int EPI, int PASSES, typename ST>
 __global__ void __launch_bounds__(C3I_THREADS, 2) conv3x3_in_tc_kernel(
     const __nv_bfloat16* __restrict__ w_hi, const __nv_bfloat16* __restrict__ w_lo,
@@ -142,10 +151,12 @@ __global__ void __launch_bounds__(C3I_THREADS, 2) conv3x3_in_tc_kernel(
     int groups, int nb, int preact, float beta_in, float beta_out,
     const ST* __restrict__ scale, float* __restrict__ out, float* __restrict__ aux,
     float* __restrict__ aux0, const int* __restrict__ idx, const int* __restrict__ count) {
-  static_assert((EPI == EPI_SCALE_RND && PASSES == 1) ||
+  static_assert(((EPI == EPI_SCALE_RND || EPI == EPI_SCALE) && PASSES == 1) ||
                     ((EPI == EPI_SWISH_LIN || EPI == EPI_SWISH) && (PASSES == 3 || PASSES == 4)),
-                "the chain's form (bf16), the linearisation's or the solve's (tf32 / tf32x)");
+                "the chain's or the backward solve's form (bf16), the linearisation's or the "
+                "solve's (tf32 / tf32x)");
   constexpr bool SPLIT = PASSES > 1;
+  constexpr bool LIST = EPI == EPI_SWISH || EPI == EPI_SCALE;  // on an active list
   constexpr int NP = c3i_np(TW), R = NP / TW, HPW = TW + 2, HR = R + 2;
   constexpr int WN = NP / 64, WM = 8 / WN, CH = 16 * WM;  // warps along N, M; chunk rows
   extern __shared__ uint8_t c3i_smem[];
@@ -157,11 +168,12 @@ __global__ void __launch_bounds__(C3I_THREADS, 2) conv3x3_in_tc_kernel(
   const int K = 9 * C, KP = c3i_kpad(C), S = c3i_stride(C);
   const int HW = H * TW, tid = threadIdx.x;
   const int slot = blockIdx.y, band = blockIdx.x / groups, g = blockIdx.x % groups;
-  if constexpr (EPI == EPI_SWISH) {
+  if constexpr (LIST) {
     if (slot >= *count) return;  // a dead slot: its blocks return at once
   }
   const int net = slot / nb, y0 = band * R, p0 = y0 * TW;
-  const float* const x = inp + (size_t)(EPI == EPI_SWISH ? idx[slot] : slot) * C * HW;
+  const int e = LIST ? idx[slot] : slot;  // the example the slot reads
+  const float* const x = inp + (size_t)e * C * HW;
 
   // the band's input with its halo, transformed once per element; under
   // preact the blocks of group 0 write swish'(x) of the band's pixels
@@ -236,9 +248,10 @@ __global__ void __launch_bounds__(C3I_THREADS, 2) conv3x3_in_tc_kernel(
     const size_t orow = ((size_t)slot * M + r) * HW;
     typename Vec4<ST>::type sv[8];
     float bv = 0.f;
-    if constexpr (EPI == EPI_SCALE_RND) {
+    if constexpr (EPI == EPI_SCALE_RND || EPI == EPI_SCALE) {
+      const size_t srow = EPI == EPI_SCALE ? ((size_t)e * M + r) * HW : orow;  // by example
 #pragma unroll
-      for (int j = 0; j < 8; ++j) sv[j] = ldv4(scale + orow + pl0 + 8 * j);
+      for (int j = 0; j < 8; ++j) sv[j] = ldv4(scale + srow + pl0 + 8 * j);
     } else {
       bv = __ldg(bias + r);
     }
@@ -309,6 +322,10 @@ __global__ void __launch_bounds__(C3I_THREADS, 2) conv3x3_in_tc_kernel(
         const float4 sc = widen4(sv[j]);
         o = make_float4(bf16_round(__fmul_rn(o.x, sc.x)), bf16_round(__fmul_rn(o.y, sc.y)),
                         bf16_round(__fmul_rn(o.z, sc.z)), bf16_round(__fmul_rn(o.w, sc.w)));
+      } else if constexpr (EPI == EPI_SCALE) {
+        const float4 sc = widen4(sv[j]);
+        o = make_float4(__fmul_rn(o.x, sc.x), __fmul_rn(o.y, sc.y), __fmul_rn(o.z, sc.z),
+                        __fmul_rn(o.w, sc.w));
       } else {
         const float4 h = make_float4(__fadd_rn(o.x, bv), __fadd_rn(o.y, bv), __fadd_rn(o.z, bv),
                                      __fadd_rn(o.w, bv));
@@ -364,8 +381,10 @@ static cudaError_t launch_c3i_tc(const __nv_bfloat16* w_hi, const __nv_bfloat16*
 // A 3x3 conv c -> M on the tensor cores: inp (B, C, H, W) of `nets` nets (B
 // / nets examples each), w_hi [w_lo] (nets, M, C, 3, 3) bfloat16, out [aux]
 // (B, M, H W) by slot. EPI_SCALE_RND (PASSES 1): scale (B, M, H W), float32
-// or bfloat16. EPI_SWISH_LIN (PASSES 3 / 4, one net): bias (M), aux, and
-// with preact aux0 (B, C, H W). EPI_SWISH (PASSES 3 / 4, one net): bias, the
+// or bfloat16. EPI_SCALE (PASSES 1, one net): scale as EPI_SCALE_RND's, by
+// example, the active list idx (B) and count (1), out by slot.
+// EPI_SWISH_LIN (PASSES 3 / 4, one net): bias (M), aux, and with preact
+// aux0 (B, C, H W). EPI_SWISH (PASSES 3 / 4, one net): bias, the
 // active list idx (B) and count (1), out by slot. Takes C <= 48 (within the
 // shared memory an SM grants), M a multiple of 64, W 8, 16 or 32, H a
 // multiple of the band's rows (NP / W) and 16-byte aligned scale, out and
@@ -380,6 +399,8 @@ cudaError_t launch_conv3x3_in_tc(const __nv_bfloat16* w_hi, const __nv_bfloat16*
   if (C < 1 || C > C3I_CMAX || M < C3I_MQ || M % C3I_MQ || nets < 1 || B % nets ||
       (W != 8 && W != 16 && W != 32) || H < 1 || (H * W) % c3i_np(W) ||
       (EPI == EPI_SCALE_RND && scale == nullptr) ||
+      (EPI == EPI_SCALE && (scale == nullptr || nets != 1 || idx == nullptr ||
+                            count == nullptr)) ||
       (EPI == EPI_SWISH_LIN && (bias == nullptr || aux == nullptr || nets != 1 ||
                                 (preact && aux0 == nullptr))) ||
       (EPI == EPI_SWISH && (bias == nullptr || nets != 1 || idx == nullptr ||
@@ -400,11 +421,13 @@ cudaError_t launch_conv3x3_in_tc(const __nv_bfloat16* w_hi, const __nv_bfloat16*
 
 // The forms the libraries launch, defined in conv3x3_in_tc.cu: a translation
 // unit of their own, linked into the libraries of estimator.cu (the chain's,
-// EPI_SCALE_RND), block_forward.cu (the linearisation's, EPI_SWISH_LIN,
-// passes 3 or 4) and fused_solve.cu (the solve's, EPI_SWISH, passes 3 or 4). Instantiated beside estimator.cu's kernels, this kernel
-// moved the SASS of two of them (mma_gemm.cuh's tc_conv1x1_kernel<NP,
-// float, EPI_AFFINE, IN_DSWISH, 1>), though they share no code. Hidden, so
-// that each library calls its own copy.
+// EPI_SCALE_RND), implicit_grad.cu (the backward solve's, EPI_SCALE),
+// block_forward.cu (the linearisation's, EPI_SWISH_LIN, passes 3 or 4) and
+// fused_solve.cu (the solve's, EPI_SWISH, passes 3 or 4). Instantiated
+// beside estimator.cu's kernels, this kernel moved the SASS of two of them
+// (mma_gemm.cuh's tc_conv1x1_kernel<NP, float, EPI_AFFINE, IN_DSWISH, 1>),
+// though they share no code. Hidden, so that each library calls its own
+// copy.
 #define C3I_API __attribute__((visibility("hidden")))
 C3I_API cudaError_t conv3x3_in_tc_chain(const __nv_bfloat16* w, const float* u, int B, int nets,
                                         int C, int H, int W, int M, const float* s2, float* out,
@@ -412,6 +435,12 @@ C3I_API cudaError_t conv3x3_in_tc_chain(const __nv_bfloat16* w, const float* u, 
 C3I_API cudaError_t conv3x3_in_tc_chain(const __nv_bfloat16* w, const float* u, int B, int nets,
                                         int C, int H, int W, int M, const __nv_bfloat16* s2,
                                         float* out, cudaStream_t s);
+C3I_API cudaError_t conv3x3_in_tc_jt(const __nv_bfloat16* w, const float* u, const int* idx,
+                                     const int* count, int B, int C, int H, int W, int M,
+                                     const float* s2, float* out, cudaStream_t s);
+C3I_API cudaError_t conv3x3_in_tc_jt(const __nv_bfloat16* w, const float* u, const int* idx,
+                                     const int* count, int B, int C, int H, int W, int M,
+                                     const __nv_bfloat16* s2, float* out, cudaStream_t s);
 C3I_API cudaError_t conv3x3_in_tc_lin(int passes, const __nv_bfloat16* w_hi,
                                       const __nv_bfloat16* w_lo, const float* bias,
                                       const float* inp, int B, int C, int H, int W, int M,

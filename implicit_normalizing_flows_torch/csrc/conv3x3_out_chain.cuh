@@ -1,10 +1,11 @@
-// The Neumann chain's forms of conv3x3_out_tc.cuh's tensor-core 3x3 mid -> c
-// product (C3_CHAIN), declared for estimator.cu: they are defined in
-// conv3x3_out_tc.cu, a translation unit of their own that ops/cuda_build.py
-// links into estimator.cu's library, as conv3x3_in_tc.cuh's forms are.
-// estimator.cu includes this declaration and not conv3x3_out_tc.cuh, whose
-// inline launchers would instantiate the re-attachment's and the backward
-// solve's forms there too. Hidden, so that each library calls its own copy.
+// The Neumann chain's and the final pair's forms of conv3x3_out_tc.cuh's
+// tensor-core 3x3 mid -> c product (C3_CHAIN, C3_FINAL), declared for
+// estimator.cu: they are defined in conv3x3_out_tc.cu, a translation unit
+// of their own that ops/cuda_build.py links into estimator.cu's library, as
+// conv3x3_in_tc.cuh's forms are. estimator.cu includes this declaration and
+// not conv3x3_out_tc.cuh, whose inline launchers would instantiate the
+// re-attachment's and the backward solve's forms there too. Hidden, so that
+// each library calls its own copy.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,5 +25,10 @@ C3O_API cudaError_t conv3x3_out_tc_chain(const __nv_bfloat16* wt, const float* t
                                          int nets, int C, int MID, int H, int W,
                                          const __nv_bfloat16* s0, const float* coef, int k,
                                          float* u_out, float* acc, cudaStream_t s);
+// out = C1^T t of `nets` nets stacked along the batch on the weights of
+// wnets nets, net n taking net n % wnets's (conv3x3_out_tc.cuh's C3_FINAL)
+C3O_API cudaError_t conv3x3_out_tc_final(const __nv_bfloat16* wt, const float* t, int B,
+                                         int nets, int wnets, int C, int MID, int H, int W,
+                                         float* out, cudaStream_t s);
 
 }  // namespace imnf

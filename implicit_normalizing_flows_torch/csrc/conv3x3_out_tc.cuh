@@ -1,5 +1,5 @@
 // Tensor-core (mma.sync) 3x3 conv mid -> c of mode bf16 for Hopper
-// (sm_90a), in three forms that share the product:
+// (sm_90a), in four forms that share the product:
 //
 //   acc[e][co][p] = sum_{m, d} W[co][m][d] * bf16(IN(t[s][m][p + off(d)])),
 //                   e = idx[s],
@@ -25,6 +25,13 @@
 //   :206-211) and acc + c_k u of _chain2_kernel (:239-272, in
 //   fused_neumann_chain2 :333); estimator.cu's nc_jt_out_acc, linked from
 //   conv3x3_out_tc.cu. Its weights come pre-cast (below).
+// * IN_ID, C3_FINAL: the final pair's backward C1^T products, out[s] = acc,
+//   every slot live, on the chain's pre-cast weights of `wnets` nets, net
+//   (s / nb) modulo wnets (under preact rh1 and p_h1 of both nets are four
+//   "nets" on two nets' weights): back_c1 of _final_grads_in_kernel
+//   (implicit_normalizing_flows_tpu/ops/fused_solve.py:1420-1433, in
+//   fused_final_pair :1689); estimator.cu's fp_conv_out, linked from
+//   conv3x3_out_tc.cu.
 // Mode bf16 only; modes f32 and tf32, and every other 3x3 mid -> c conv,
 // stay on conv_gemm.cuh's conv3x3_out_kernel.
 //
@@ -32,7 +39,8 @@
 // re-attachment's form reads t1 and h1 as float32 once, 256 MiB: 0.080 ms at
 // 3.35 TB/s; the backward solve's reads t once, 128 MiB: 0.041 ms; the
 // product is 1.8 GFLOP; the chain's reads t1 of both nets, 256 MiB: 0.080
-// ms. The CUDA-core kernel ran one thread per pixel and group of 4 output
+// ms, and so does the final pair's (0.161 ms for its four "nets"). The
+// CUDA-core kernel ran one thread per pixel and group of 4 output
 // channels and re-read each input (and recomputed t1 swish'(h1) from two
 // float32 loads) for each of the 9 taps and each channel group.
 //
@@ -57,11 +65,11 @@
 //   at N 8. The products are few: the tensor cores' rate does not bound it.
 // * The chunk's weights (float32 holding bf16 values, OIHW) are rounded to
 //   bf16 and stored the same way, one 128-byte row per (tap, output
-//   channel). The chain's form takes them cast once per chain call into
-//   that tile layout (bf16 rows tap * NPAD + co of each net's 64-channel
-//   chunks, NPAD c padded to 8 NT: ops/fused_chain.py's tile_w1t) and copies a
-//   chunk's rows with 16-byte cp.async into one of two buffers, issued
-//   before the previous chunk's products: at 8x8 (c 48) the float32 OIHW
+//   channel). The chain's and the final pair's forms take them cast once
+//   per call into that tile layout (bf16 rows tap * NPAD + co of each net's
+//   64-channel chunks, NPAD c padded to 8 NT: ops/fused_chain.py's
+//   tile_w1t) and copy a chunk's rows with 16-byte cp.async into one of two
+//   buffers, issued before the previous chunk's products: at 8x8 (c 48) the float32 OIHW
 //   staging took 27,648 scalar loads a chunk and block. One block takes
 //   every output-channel tile of its band: splitting the tiles over 2 or 3
 //   blocks of a band, each forming the band's halo tile again, made 16x16
@@ -89,9 +97,9 @@ constexpr int c3_smem_bytes(int tw, int nt, int wbufs = 1) {
   return (C3_TH + 2) * (tw + 2) * 128 + wbufs * 9 * 8 * nt * 128 + 128;
 }
 
-// The epilogues: out = acc, the backward solve's residual, or the Neumann
-// chain's term and its sum
-enum { C3_STORE = 0, C3_RESID = 1, C3_CHAIN = 2 };
+// The epilogues: out = acc, the backward solve's residual, the Neumann
+// chain's term and its sum, or out = acc on the pre-cast weights
+enum { C3_STORE = 0, C3_RESID = 1, C3_CHAIN = 2, C3_FINAL = 3 };
 
 // Grid (H / C3_TH bands, B slots); a slot at or past *count returns. TW is
 // the image width (8, 16 or 32), NT the 8-channel output tiles (c <= 8 NT),
@@ -100,7 +108,8 @@ enum { C3_STORE = 0, C3_RESID = 1, C3_CHAIN = 2 };
 // split the band's 16-pixel M tiles (and, when there are fewer than 8 of
 // them, the N tiles). C3_CHAIN: slots of nets stacked nb each, wt the
 // pre-cast tile layout (nets, MID / 64, 9 * 8 NT, 64) bf16, out u (B, C,
-// H*W), scale s0, chain_acc += coef[kterm] * u.
+// H*W), scale s0, chain_acc += coef[kterm] * u. C3_FINAL: wt as the chain's
+// for wnets nets, slot s taking net (s / nb) % wnets, out (B, C, H*W).
 template <int TW, int NT, int IN, int EPI, typename ST>
 __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
     const float* __restrict__ w, const float* __restrict__ t,
@@ -109,11 +118,13 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
     float* __restrict__ out, const float* __restrict__ base,
     const ST* __restrict__ scale, const float* __restrict__ sub,
     const __nv_bfloat16* __restrict__ wt, int nb, const float* __restrict__ coef, int kterm,
-    float* __restrict__ chain_acc) {
+    float* __restrict__ chain_acc, int wnets) {
   static_assert((IN == IN_DSWISH && EPI == C3_STORE) || (IN == IN_ID && EPI == C3_RESID) ||
-                    (IN == IN_ID && EPI == C3_CHAIN),
-                "the re-attachment's form, the backward solve's or the chain's");
+                    (IN == IN_ID && EPI == C3_CHAIN) || (IN == IN_ID && EPI == C3_FINAL),
+                "the re-attachment's form, the backward solve's, the chain's or the final "
+                "pair's");
   constexpr bool CHAIN = EPI == C3_CHAIN;
+  constexpr bool TILED = CHAIN || EPI == C3_FINAL;  // the pre-cast weights
   constexpr int HPW = TW + 2, HP = (C3_TH + 2) * HPW;  // halo row, halo pixels
   constexpr int NPAD = 8 * NT;
   constexpr int MT = C3_TH * TW / 16;                  // M tiles of the band
@@ -125,7 +136,7 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
   const uint32_t act = (raw + 127u) & ~127u;  // [HP][128 bytes], swizzled
   uint8_t* const act_g = c3_smem + (act - raw);
   uint8_t* const ws_g = act_g + HP * 128;     // [9 * NPAD][128 bytes], swizzled
-  constexpr int WS_BYTES = 9 * NPAD * 128;    // the chain's: two such, a chunk in turn
+  constexpr int WS_BYTES = 9 * NPAD * 128;    // the pre-cast ones: two such, a chunk in turn
 
   const int slot = blockIdx.y;
   if (count != nullptr && slot >= *count) return;
@@ -157,10 +168,11 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
 #pragma unroll
       for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
 
-  // the chain's weights: chunk ci's 9 NPAD rows of this net's tile layout
+  // the pre-cast weights: chunk ci's 9 NPAD rows of this net's tile layout
   // into buffer b, 16 bytes a copy
+  const int net = EPI == C3_FINAL ? slot / nb % wnets : slot / nb;
   const __nv_bfloat16* const wnet =
-      CHAIN ? wt + (size_t)(slot / nb) * (MID / C3_MC) * WS_BYTES / 2 : nullptr;
+      TILED ? wt + (size_t)net * (MID / C3_MC) * WS_BYTES / 2 : nullptr;
   auto stage_w = [&](int ci, int b) {
     const uint32_t dst = act + HP * 128 + b * WS_BYTES;
     const __nv_bfloat16* const src = wnet + (size_t)ci * WS_BYTES / 2;
@@ -168,11 +180,11 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
       cp_async16(dst + sw128(i / 8, i % 8), src + i * 8, true);
     cp_async_commit();
   };
-  if constexpr (CHAIN) stage_w(0, 0);
+  if constexpr (TILED) stage_w(0, 0);
 
   for (int m0 = 0; m0 < MID; m0 += C3_MC) {
     __syncthreads();  // the zeroing, or the previous chunk's products, done
-    if constexpr (CHAIN) {
+    if constexpr (TILED) {
       // the next chunk's weights, under this chunk's loads and products
       if (m0 + C3_MC < MID) stage_w(m0 / C3_MC + 1, (m0 / C3_MC + 1) & 1);
     } else {
@@ -218,14 +230,14 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
       for (int j = 0; j < 4; ++j)
         *reinterpret_cast<uint32_t*>(act_g + sw128(hp0 + j, cp >> 2) + (cp & 3) * 4) = px[j];
     }
-    if constexpr (CHAIN) {  // this chunk's weights landed (the next chunk's may still fly)
+    if constexpr (TILED) {  // this chunk's weights landed (the next chunk's may still fly)
       if (m0 + C3_MC < MID)
         cp_async_wait<1>();
       else
         cp_async_wait<0>();
     }
     __syncthreads();  // the tile and the weights are whole
-    const uint8_t* const wbuf = CHAIN ? ws_g + ((m0 / C3_MC) & 1) * WS_BYTES : ws_g;
+    const uint8_t* const wbuf = TILED ? ws_g + ((m0 / C3_MC) & 1) * WS_BYTES : ws_g;
 
     // the products: per tap, 4 K steps of 16 channels into fresh partials
 #pragma unroll 1
@@ -289,7 +301,7 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
             out[o] = r;
             chain_acc[o] = __fadd_rn(chain_acc[o], __fmul_rn(ck, r));
           }
-        } else {
+        } else {  // C3_STORE, C3_FINAL
           if (co < C) out[((size_t)e * C + co) * HW + p] = acc[i][j][k];
         }
       }
@@ -318,7 +330,7 @@ static cudaError_t launch_c3_tc(const float* w, const float* t, const float* th,
   }
   kernel<<<dim3(H / C3_TH, B), C3_THREADS, bytes, s>>>(w, t, th, beta, idx, count, C, MID, H,
                                                         out, base, scale, sub, nullptr, 1,
-                                                        nullptr, 0, nullptr);
+                                                        nullptr, 0, nullptr, 1);
   return cudaGetLastError();
 }
 
@@ -363,7 +375,8 @@ static cudaError_t launch_c3_chain(const __nv_bfloat16* wt, const float* t, int 
   }
   kernel<<<dim3(H / C3_TH, B), C3_THREADS, bytes, s>>>(nullptr, t, nullptr, 0.f, nullptr,
                                                         nullptr, C, MID, H, u_out, nullptr, s0,
-                                                        nullptr, wt, B / nets, coef, k, acc);
+                                                        nullptr, wt, B / nets, coef, k, acc,
+                                                        nets);
   return cudaGetLastError();
 }
 
@@ -395,6 +408,33 @@ cudaError_t launch_nc_conv3x3_out_tc(const __nv_bfloat16* wt, const float* t, in
 #undef C3_CHAIN_W
   return cudaErrorInvalidValue;
 }
+
+// The final pair's form. static, as launch_c3_tc.
+template <int TW, int NT>
+static cudaError_t launch_c3_final(const __nv_bfloat16* wt, const float* t, int B, int nets,
+                                   int wnets, int C, int MID, int H, float* out,
+                                   cudaStream_t s) {
+  auto kernel = conv3x3_out_tc_kernel<TW, NT, IN_ID, C3_FINAL, float>;
+  constexpr int bytes = c3_smem_bytes(TW, NT, 2);
+  static bool ready = false;  // once per instantiation
+  if (!ready) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  const float* no_scale = nullptr;
+  kernel<<<dim3(H / C3_TH, B), C3_THREADS, bytes, s>>>(nullptr, t, nullptr, 0.f, nullptr,
+                                                        nullptr, C, MID, H, out, nullptr,
+                                                        no_scale, nullptr, wt, B / nets,
+                                                        nullptr, 0, nullptr, wnets);
+  return cudaGetLastError();
+}
+
+// The final pair's public launcher is conv3x3_out_tc.cu's
+// conv3x3_out_tc_final (conv3x3_out_chain.cuh), defined there and not
+// inline here: an inline launcher would instantiate launch_c3_final's
+// kernels in every unit that includes this header (implicit_grad.cu).
 
 // out[idx[s]] = C1^T (t[s] swish'(th[s]; beta)) on the tensor cores, for
 // slots s < *count: w (C, MID, 3, 3) float32 holding bf16 values (the

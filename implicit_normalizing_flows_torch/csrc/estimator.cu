@@ -35,7 +35,10 @@
 // final pair, backward (the cotangent folded into acc by the caller):
 //   fp_second      rh = swish'(h) r, p = [swish'(h) q] + swish''(h) th r,
 //                  per-channel sums of p (db) and of the slope terms (dbeta)
-//   fp_conv_out    p_a0 = C1^T p_h1 [and ra0 = C1^T rh1 with preact]
+//   fp_conv_out    p_a0 = C1^T p_h1 [and ra0 = C1^T rh1 with preact: four
+//                  "nets" on two nets' weights] (bf16: tensor cores,
+//                  conv3x3_out_tc.cuh, w1 cast once per final-pair call into
+//                  the chain's tile layout)
 //   the weight gradients dW3 = acc x shift(ta2), dW2 = rh2 x ta1 + p_h2 x a1,
 //   dW1 = rh1 x shift(ta0) + p_h1 x shift(a0) are implicit_grad.cu's
 //   rv_wgrad split-K partials (each pair's two products into one partial
@@ -57,7 +60,8 @@
 // bound by its float32 output's bytes) and its 3x3 mid -> c product
 // nc_jt_out_acc (conv3x3_out_tc.cuh: a bf16 halo tile per band and 64-channel
 // chunk, the pre-cast weights copied by cp.async, bound by reading t1 as
-// float32); every other product, and mode f32,
+// float32), and so does the final pair's fp_conv_out (the same kernel and
+// weights, out = acc); every other product, and mode f32,
 // runs as FP32 FMAs on the CUDA cores (conv_gemm.cuh), as the implicit-gradient kernels do. The
 // tensor cores sum fp_conv_mid's products in another order than the plain
 // version (cuDNN's), which moves the final pair's d_h and weight gradients,
@@ -252,9 +256,9 @@ extern "C" {
 // cudaGetLastError() right after its launch (0 on success). B counts the
 // examples of all `nets` nets together; every example is live (the conv
 // kernels get no active list). Weights are stacked per net, f32 (bf16
-// values in mode bf16), but nc_jt_in's, nc_jt_mid's, nc_jt_out_acc's (in its
-// tile layout) and fp_conv_mid's, which are bfloat16 in mode bf16 (the
-// tensor-core operand) and float32 in mode f32.
+// values in mode bf16), but nc_jt_in's, nc_jt_mid's, nc_jt_out_acc's and
+// fp_conv_out's (both in the tile layout) and fp_conv_mid's, which are
+// bfloat16 in mode bf16 (the tensor-core operand) and float32 in mode f32.
 
 // chain: the derivative factors s2 / s1 / s0 as float32 or, with s_bf16,
 // bfloat16
@@ -307,12 +311,18 @@ int imnf_fp_conv_mid(int mode, int act, const void* w, const float* bias,
   return (int)fp_mid_mode(mode, act, w, bias, mid, inp, inh, B, nets, H, W, beta_net, out, (cudaStream_t)stream);
 }
 
-int imnf_fp_conv_out(int mode, const float* w, const float* t, int B, int nets,
-                     int C, int mid, int H, int W, float* out, void* stream) {
+// out = C1^T t of `nets` nets stacked along the batch, net n on the weights
+// of net n % wnets: w the tile layout (wnets, mid / 64, 9 npad, 64) bfloat16
+// on the tensor cores in mode bf16, (nets, C, mid, 3, 3) float32 on the SIMT
+// template in mode f32 (wnets == nets)
+int imnf_fp_conv_out(int mode, const void* w, const float* t, int B, int nets,
+                     int wnets, int C, int mid, int H, int W, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
-    case MODE_F32: return (int)launch_conv3x3_out<MODE_F32, IN_ID>(w, nullptr, nullptr, t, nullptr, 0.f, nullptr, nullptr, B, C, mid, H, W, nullptr, 1.f, nullptr, nullptr, out, s, nets);
-    case MODE_BF16: return (int)launch_conv3x3_out<MODE_BF16, IN_ID>(w, nullptr, nullptr, t, nullptr, 0.f, nullptr, nullptr, B, C, mid, H, W, nullptr, 1.f, nullptr, nullptr, out, s, nets);
+    case MODE_F32:
+      if (wnets != nets) return (int)cudaErrorInvalidValue;
+      return (int)launch_conv3x3_out<MODE_F32, IN_ID>(static_cast<const float*>(w), nullptr, nullptr, t, nullptr, 0.f, nullptr, nullptr, B, C, mid, H, W, nullptr, 1.f, nullptr, nullptr, out, s, nets);
+    case MODE_BF16: return (int)conv3x3_out_tc_final(static_cast<const __nv_bfloat16*>(w), t, B, nets, wnets, C, mid, H, W, out, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -13,7 +13,9 @@
 //
 // backward solve (host loop; broyden_step of fused_solve.cu does the
 // secant algebra, on the same active lists):
-//   jt_conv3x3_in   C3^T u * s2          c -> mid, flipped w3   (im2col GEMM)
+//   jt_conv3x3_in   C3^T u * s2          c -> mid, flipped w3
+//                   (bf16: tensor cores, conv3x3_in_tc.cuh, linked from
+//                   conv3x3_in_tc.cu; w3t cast to bfloat16 once per solve)
 //   jt_conv1x1_mid  C2^T t * s1          mid -> mid, w2^T        (tiled GEMM)
 //   jt_conv3x3_out  u + s0 * C1^T t - grad   mid -> c, flipped w1
 //                   (bf16: tensor cores)
@@ -46,7 +48,7 @@
 // with a 4x4 register micro-tile per thread (16 FMAs per loaded element);
 // the weight gradients, which reduce over batch x pixels (65,536 terms at
 // 32x32), split that reduction into whole examples over enough blocks to
-// fill the 132 SMs and sum the splits in a second pass. In mode bf16 five
+// fill the 132 SMs and sum the splits in a second pass. In mode bf16 six
 // stages run on the tensor cores, where bytes bound them:
 // jt_conv1x1_mid on mma_gemm.cuh's 1x1 kernel (EPI_SCALE, on the active
 // list), rv_conv1x1_mid on the same kernel (EPI_AFFINE, its swish / swish'
@@ -55,10 +57,13 @@
 // rv_conv3x3_out on conv3x3_out_tc.cuh (t1 swish'(h1) formed once per
 // element into a halo tile, the 9 taps as shifted reads of it) and
 // jt_conv3x3_out on the same kernel (t rounded once per element into the
-// tile, the residual in its epilogue, on the active list); those
-// headers' notes give their bounds and designs. The other 3x3 stages, the
-// rest of mode bf16 and modes f32 / tf32 stay on the CUDA cores.
+// tile, the residual in its epilogue, on the active list), and
+// jt_conv3x3_in on conv3x3_in_tc.cuh (an im2col tile per band, the scale by
+// example in the epilogue, on the active list); those headers' notes give
+// their bounds and designs. The other 3x3 stages, the rest of mode bf16 and
+// modes f32 / tf32 stay on the CUDA cores.
 
+#include "conv3x3_in_tc.cuh"
 #include "conv3x3_out_tc.cuh"
 #include "wgrad_tc.cuh"
 
@@ -244,15 +249,16 @@ __global__ void __launch_bounds__(CS_THREADS) chan_sums_kernel(
 
 // The J^T stages read their derivative factors s0/s1/s2 as stored: float32
 // (ST float) or bfloat16 (ST __nv_bfloat16, mode bf16's linearisation).
+// C3^T u * s2: mode bf16 on the tensor cores (w bf16, conv3x3_in_tc.cu),
+// mode f32 on the CUDA cores (w float32)
 template <typename ST>
-cudaError_t jt_in_mode(int mode, const float* w_hi, const float* w_lo, int M,
-                       int K, const float* inp, const int* idx, const int* count,
-                       int B, int C, int H, int W, const void* scale, float* out,
-                       cudaStream_t s) {
+cudaError_t jt_in_mode(int mode, const void* w, int M, const float* inp, const int* idx,
+                       const int* count, int B, int C, int H, int W, const void* scale,
+                       float* out, cudaStream_t s) {
   const ST* sc = static_cast<const ST*>(scale);
   switch (mode) {
-    case MODE_F32: return launch_conv_gemm<MODE_F32, 0, IN_ID, EPI_SCALE, ST>(w_hi, w_lo, nullptr, M, K, inp, nullptr, idx, count, B, C, H, W, 0.f, 0.f, 1.f, sc, out, s);
-    case MODE_BF16: return launch_conv_gemm<MODE_BF16, 0, IN_ID, EPI_SCALE, ST>(w_hi, w_lo, nullptr, M, K, inp, nullptr, idx, count, B, C, H, W, 0.f, 0.f, 1.f, sc, out, s);
+    case MODE_F32: return launch_conv_gemm<MODE_F32, 0, IN_ID, EPI_SCALE, ST>(static_cast<const float*>(w), nullptr, nullptr, M, C * 9, inp, nullptr, idx, count, B, C, H, W, 0.f, 0.f, 1.f, sc, out, s);
+    case MODE_BF16: return conv3x3_in_tc_jt(static_cast<const __nv_bfloat16*>(w), inp, idx, count, B, C, H, W, M, sc, out, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -382,14 +388,15 @@ extern "C" {
 
 // The J^T entry points take their scale (s2, s1, s0) as float32 or, with
 // scale_bf16, as bfloat16.
-int imnf_jt_conv3x3_in(int mode, const float* w_hi, const float* w_lo,
-                       const float* inp, const int* idx, const int* count,
-                       const void* scale, int scale_bf16, int B, int C, int H,
-                       int W, int mid, float* out, void* stream) {
+// w: W3^T (mid, C, 3, 3), bfloat16 in mode bf16 (the tensor cores'
+// operand), float32 in mode f32 (both modes are single-pass)
+int imnf_jt_conv3x3_in(int mode, const void* w, const float* inp, const int* idx,
+                       const int* count, const void* scale, int scale_bf16, int B, int C,
+                       int H, int W, int mid, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (scale_bf16)
-    return (int)jt_in_mode<__nv_bfloat16>(mode, w_hi, w_lo, mid, C * 9, inp, idx, count, B, C, H, W, scale, out, s);
-  return (int)jt_in_mode<float>(mode, w_hi, w_lo, mid, C * 9, inp, idx, count, B, C, H, W, scale, out, s);
+    return (int)jt_in_mode<__nv_bfloat16>(mode, w, mid, inp, idx, count, B, C, H, W, scale, out, s);
+  return (int)jt_in_mode<float>(mode, w, mid, inp, idx, count, B, C, H, W, scale, out, s);
 }
 
 // w: W2^T (mid, mid), bfloat16 in mode bf16 (the tensor cores' operand),

@@ -10,8 +10,9 @@ the weight gradients across the sequential grid; on Hopper both directions
 are sequences of batched kernels of ``csrc/estimator.cu`` on the conv
 templates of ``csrc/conv_gemm.cuh`` (in mode bf16 ``fp_conv_mid`` on the
 tensor cores, ``csrc/mma_gemm.cuh``, with W2 and W2^T cast to bfloat16 once
-by :func:`_weights`), the two nets' examples stacked along the batch so that
-one launch covers both:
+by :func:`_weights`, and ``fp_conv_out`` on the mid -> c tensor-core kernel,
+``csrc/conv3x3_out_tc.cuh``, with W1^T cast once into its tile layout), the
+two nets' examples stacked along the batch so that one launch covers both:
 
 * primal: ``fp_conv_in`` (``h1 = W1 a0 + b1``, ``th1 = W1 ta0``,
   ``r2 = C3^T acc``), ``fp_conv_mid`` (``h2 = W2 swish(h1) + b2``,
@@ -21,12 +22,12 @@ one launch covers both:
 * backward (recomputes the primal's intermediates, as the TPU kernel
   does): ``fp_second`` (``rh = swish' r``, ``p = [swish' q] + swish'' th r``
   and the channel sums that give db and dbeta), ``fp_conv_mid`` with W2^T
-  on ``rh2`` and ``p_h2`` together, ``fp_conv_out`` (``C1^T``), and the
-  weight gradients ``dW3 = acc x shift(ta2)``, ``dW2 = rh2 x ta1 + p_h2 x
-  a1``, ``dW1 = rh1 x shift(ta0) + p_h1 x shift(a0)`` as split-K partials
-  of the re-attachment's ``rv_wgrad`` (``ops/implicit_grad.py``; a pair's
-  two products into one partial buffer) summed in fixed order by its
-  ``rv_wgrad_reduce``.
+  on ``rh2`` and ``p_h2`` together, ``fp_conv_out`` (``C1^T``, on ``rh1``
+  and ``p_h1`` together under preact), and the weight gradients ``dW3 = acc
+  x shift(ta2)``, ``dW2 = rh2 x ta1 + p_h2 x a1``, ``dW1 = rh1 x shift(ta0) +
+  p_h1 x shift(a0)`` as split-K partials of the re-attachment's
+  ``rv_wgrad`` (``ops/implicit_grad.py``; a pair's two products into one
+  partial buffer) summed in fixed order by its ``rv_wgrad_reduce``.
 
 :func:`fused_final_pair` is a ``torch.autograd.Function``: its gradients go
 to both nets' effective tensors of ``conv_forward_data`` (``DATA_KEYS``; b3's
@@ -52,10 +53,10 @@ import ctypes
 import torch
 
 from . import implicit_grad as ig
-from .fused_chain import _nets
-from .fused_solve import (MODES, _check_cuda, _launch, _mconv, _ptr, d2swish,
-                          ddswish_dbeta, dswish, dswish_dbeta, prep_weight,
-                          swish)
+from .fused_chain import _nets, c3_out_npad, tile_w1t, untile_w1t
+from .fused_solve import (C3_MID, C3_OUT_ROWS, MODES, _check_cuda, _launch, _mconv, _ptr,
+                          check_conv3x3_tc, d2swish, ddswish_dbeta, dswish, dswish_dbeta,
+                          prep_weight, swish)
 from .implicit_grad import (ACTS, DATA_KEYS, _check_mid, _shapes, transpose_weights,
                             wgrad_splits)
 
@@ -68,7 +69,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "imnf_fp_conv_in": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "imnf_fp_conv_mid": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    "imnf_fp_conv_out": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "imnf_fp_conv_out": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "imnf_fp_tdot": [_P, _P, _P, _P, _I, _I, _L, _P, _P],
     "imnf_fp_second": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
 }
@@ -182,27 +183,60 @@ def fp_conv_mid(inp, inh, w, bias, beta_net, act, mode, out, H, W):
     fp_conv_mid.launches += 1
 
 
-def _fp_conv_out_plain(t, w, mode, out, H, W):
-    N, nb = _nets(w, t.shape[0])
-    mid = t.shape[1]
+def _fp_conv_out_by(product, t, w, mode, out, H, W, nets=None):
+    """``fp_conv_out``'s function with ``product(x, wp, mode)`` for each
+    net's 3x3 product (wp that net's OIHW kernel, unpacked from the tile
+    layout where it comes so): net n of the ``nets`` stacked along t's
+    batch takes the kernel of net n modulo the nets w holds."""
+    Bt, mid = t.shape[:2]
+    w = untile_w1t(w, out[0].numel() // (H * W), mid)
+    N = w.shape[0] if nets is None else nets
+    if N % w.shape[0]:
+        raise ValueError(f"{N} nets do not repeat the {w.shape[0]} nets of the kernels")
+    nb = Bt // N
+    if Bt % N:
+        raise ValueError(f"{Bt} examples do not split over {N} nets")
     for n in range(N):
         e = slice(n * nb, (n + 1) * nb)
-        y = _mconv(t[e].reshape(nb, mid, H, W), (w[n], None), mode, 1)
+        y = product(t[e].reshape(nb, mid, H, W), (w[n % w.shape[0]].to(t.dtype), None), mode)
         out[e] = y.reshape(out[e].shape)
 
 
-def fp_conv_out(t, w, mode, out, H, W):
-    """out = C[n] t, a 3x3 conv mid -> c per net (C1^T with the flipped
-    w1). t (N*nb, mid, H*W); w (N, c, mid, 3, 3); out (N*nb, c*H*W)."""
+def _fp_conv_out_plain(t, w, mode, out, H, W, nets=None):
+    _fp_conv_out_by(lambda x, wp, m: _mconv(x, wp, m, 1), t, w, mode, out, H, W, nets)
+
+
+def fp_conv_out(t, w, mode, out, H, W, nets=None):
+    """out = C[n] t, a 3x3 conv mid -> c per net n (C1^T with the flipped
+    w1). t (nets*nb, mid, H*W); out (nets*nb, c*H*W); net n takes the
+    kernel of net n modulo the N nets w holds (``nets`` a multiple of N, N
+    by default: under preact the backward's rh1 and p_h1 of both nets are
+    four "nets" on two nets' kernels). w as :func:`_weights` makes it: in
+    mode bf16 :func:`~.fused_chain.tile_w1t`'s layout (N, mid / 64, 9 npad,
+    64) bfloat16, which runs on the tensor cores
+    (``csrc/conv3x3_out_tc.cuh``) and takes what
+    :func:`~.fused_solve.check_conv3x3_tc` asks of the shapes, with 16-byte
+    aligned t and w; in mode f32 (N, c, mid, 3, 3) float32."""
     if not t.is_cuda:
-        return _fp_conv_out_plain(t, w, mode, out, H, W)
+        return _fp_conv_out_plain(t, w, mode, out, H, W, nets)
     Bt, mid, _ = t.shape
-    N, _ = _nets(w, Bt)
-    c = w.shape[1]
-    _check_cuda(t=t, w=w, out=out)
-    _shapes(t=(t, (Bt, mid, H * W)), w=(w, (N, c, mid, 3, 3)),
+    N = w.shape[0]
+    nets = N if nets is None else nets
+    if nets % N or Bt % nets:
+        raise ValueError(f"{Bt} examples of {nets} nets on the kernels of {N} nets")
+    c = out.reshape(Bt, -1).shape[1] // (H * W)
+    _check_cuda(t=t, out=out)
+    _check_cuda(_dtypes=(torch.bfloat16 if mode == "bf16" else torch.float32,), w=w)
+    if mode == "bf16":
+        check_conv3x3_tc("fp_conv_out", c, mid, H, W, C3_OUT_ROWS, t=t, w=w)
+        wshape = (N, mid // C3_MID, 9 * c3_out_npad(c), C3_MID)
+    else:
+        if nets != N:  # the CUDA cores take one kernel a net
+            w, N = w.repeat(nets // N, 1, 1, 1, 1), nets
+        wshape = (N, c, mid, 3, 3)
+    _shapes(t=(t, (Bt, mid, H * W)), w=(w, wshape),
             out=(out.reshape(Bt, -1), (Bt, c * H * W)))
-    _run("imnf_fp_conv_out", _mode(mode), _ptr(w), _ptr(t), Bt, N, c, mid, H, W,
+    _run("imnf_fp_conv_out", _mode(mode), _ptr(w), _ptr(t), Bt, nets, N, c, mid, H, W,
          _ptr(out))
     fp_conv_out.launches += 1
 
@@ -305,7 +339,9 @@ def _weights(datas, mode, dt):
     stacked per net, with their transposes, biases and slopes. The 1x1
     kernels that fp_conv_mid reads, w2 and w2t (both nets' W2^T twice: the
     backward's rh2 and p_h2 in one launch), are cast once here to
-    bfloat16 in mode bf16, exactly (the tensor cores' operand)."""
+    bfloat16 in mode bf16, exactly (the tensor cores' operand), and so is
+    w1t, the kernel of fp_conv_out, into the mid -> c kernel's tile layout
+    (:func:`~.fused_chain.tile_w1t`)."""
     prep = lambda w: prep_weight(w.detach().to(dt), mode)[0]
     st = lambda ws: torch.stack(ws).contiguous()
     mid = lambda w: (w.to(torch.bfloat16) if mode == "bf16" else w).contiguous()
@@ -314,6 +350,8 @@ def _weights(datas, mode, dt):
     wt = {k: st([prep(d[k]) for d in datas]) for k in ("w1", "w2")}
     wt["w3t"], w2t, wt["w1t"] = (st([prep(t[i]) for t in tr]) for i in range(3))
     wt["w2"], wt["w2t"] = mid(wt["w2"]), mid(torch.cat([w2t] * 2))
+    if mode == "bf16":
+        wt["w1t"] = tile_w1t(wt["w1t"])
     for k in ("b1", "b2"):
         wt[k] = st([d[k].detach().to(dt) for d in datas])
     wt["betas"] = st([d["betas"].detach().to(dt) for d in datas])  # (N, 3)
@@ -370,10 +408,11 @@ def _backward(ops, mode, wt, Hs, E, ACCW, preact, datas):
     ops["fp_second"](RA[0], RA[1], H1, TH1, b1, RP1[0], RP1[1], db1, dbt1)
     dbt0 = torch.zeros(N, c, device=dev, dtype=dt)
     if preact:
-        # ra0 = C1^T rh1, p_a0 = C1^T p_h1; d_h = swish'(h) p_a0 + swish''(h) e ra0
+        # ra0 = C1^T rh1, p_a0 = C1^T p_h1 (one launch: four "nets" on the
+        # two nets' kernels); d_h = swish'(h) p_a0 + swish''(h) e ra0
         A0 = new(2, Bt, c * HW)
-        ops["fp_conv_out"](RP1.view(2 * Bt, mid, HW), torch.cat([wt["w1t"]] * 2), mode,
-                           A0.view(2 * Bt, -1), H, W)
+        ops["fp_conv_out"](RP1.view(2 * Bt, mid, HW), wt["w1t"], mode, A0.view(2 * Bt, -1), H,
+                           W, nets=2 * N)
         D_H = new(Bt, c, HW)
         ops["fp_second"](A0[0].view(Bt, c, HW), A0[1].view(Bt, c, HW), Hs.view(Bt, c, HW),
                          E.view(Bt, c, HW), b0, None, D_H, None, dbt0)

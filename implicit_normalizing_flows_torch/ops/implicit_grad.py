@@ -9,9 +9,10 @@ package. The TPU kernels hold one example's operands in VMEM per grid step;
 on Hopper both are host-driven sequences of batched kernels from
 ``csrc/implicit_grad.cu`` (that file's header says what bounds each on an
 H100 and what its design does about it), with the conv kernels shared with
-the forward solve through ``csrc/conv_gemm.cuh``. In mode bf16 five of them
-run on the tensor cores: ``jt_conv1x1_mid`` (``csrc/mma_gemm.cuh``, with
-W2^T cast to bfloat16 once per solve by :func:`prep_mid_weight`),
+the forward solve through ``csrc/conv_gemm.cuh``. In mode bf16 six of them
+run on the tensor cores: ``jt_conv3x3_in`` (``csrc/conv3x3_in_tc.cuh``, with
+W3^T cast to bfloat16 once per solve by :func:`prep_mid_weight`),
+``jt_conv1x1_mid`` (``csrc/mma_gemm.cuh``, with W2^T cast the same way),
 ``rv_conv1x1_mid`` (the same kernel, W2 and W2^T cast to bfloat16 once per
 VJP by :func:`prep_rv_mid_weight`), ``rv_wgrad`` (``csrc/wgrad_tc.cuh``),
 ``rv_conv3x3_out`` and ``jt_conv3x3_out`` (``csrc/conv3x3_out_tc.cuh``):
@@ -49,7 +50,7 @@ import torch.nn.functional as F
 from .fused_solve import (C3_OUT_ROWS, MODES, PHASE_INIT, PHASE_STEP, TC_KMAX,
                           _broyden_step_plain, _check_aligned, _check_cuda, _launch, _mconv,
                           _ptr, _split, _wide, _widened, broyden_step, check_conv3x3_tc,
-                          dswish, dswish_dbeta, prep_weight, swish)
+                          conv3x3_in_rows, dswish, dswish_dbeta, prep_weight, swish)
 
 __all__ = ["fused_backward_solve", "fused_backward_solve_plain",
            "fused_reattach_vjp", "fused_reattach_vjp_plain",
@@ -89,8 +90,7 @@ def transpose_weights(w1, w2, w3):
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _ARGTYPES = {
-    "imnf_jt_conv3x3_in": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _P, _P],
+    "imnf_jt_conv3x3_in": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "imnf_jt_conv1x1_mid": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                             _P],
     "imnf_jt_conv3x3_out": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
@@ -138,16 +138,17 @@ def _shapes(**named):
 
 
 def mid_weight_dtype(mode):
-    """The dtype of a bf16-mode 1x1 J^T stage's kernel on the card
-    (``jt_conv1x1_mid`` here, ``nc_jt_mid`` of ``ops.fused_chain``):
-    bfloat16 in mode bf16 (the tensor cores' operand, prepared once per
-    solve or step), float32 in mode f32."""
+    """The dtype of a J^T stage's kernel on the card where a tensor-core
+    kernel takes it in OIHW (``jt_conv3x3_in`` and ``jt_conv1x1_mid`` here,
+    ``nc_jt_in`` and ``nc_jt_mid`` of ``ops.fused_chain``): bfloat16 in mode
+    bf16 (the tensor cores' operand, prepared once per solve or step),
+    float32 in mode f32."""
     return torch.bfloat16 if mode == "bf16" else torch.float32
 
 
 def prep_mid_weight(w, mode):
-    """``(w, None)``: the 1x1 J^T kernel in :func:`mid_weight_dtype`, cast
-    once, exactly (its values are bfloat16 in mode bf16)."""
+    """``(w, None)``: a J^T kernel (W3^T, W2^T) in :func:`mid_weight_dtype`,
+    cast once, exactly (its values are bfloat16 in mode bf16)."""
     return w.detach().to(mid_weight_dtype(mode)).contiguous(), None
 
 
@@ -197,28 +198,40 @@ def _check_scale(s, **others):
 # sub and out by example. s0/s1/s2 are float32, or bfloat16 as mode bf16's
 # linearisation makes them (read as stored).
 
-def _jt_conv3x3_in_plain(u, idx, count, wp, s2, mode, out):
+def _jt_conv3x3_in_by(product, u, idx, count, wp, s2, mode, out):
+    """``jt_conv3x3_in``'s function with ``product(x, wp, mode)`` for its 3x3
+    product (wp widened to float32): the gather of the live examples before
+    it and the scale by example after it, as the kernels take them."""
     n = int(count.item())
     e = idx[:n].long()
     mid = wp[0].shape[0]
-    y = _mconv(u.index_select(0, e), wp, mode, 1)
+    y = product(u.index_select(0, e), _widened(wp), mode)
     out[:n] = _scaled(y, s2.index_select(0, e)).reshape(n, mid, -1)
+
+
+def _jt_conv3x3_in_plain(u, idx, count, wp, s2, mode, out):
+    _jt_conv3x3_in_by(lambda x, w, m: _mconv(x, w, m, 1), u, idx, count, wp, s2, mode, out)
 
 
 def jt_conv3x3_in(u, idx, count, wp, s2, mode, out):
     """out[s] = C3^T u[idx[s]] * s2[idx[s]] for live slots s: u (B, c, H, W);
-    wp the split of w3t (mid, c, 3, 3); s2 and out (B, mid, H*W)."""
+    s2 and out (B, mid, H*W); the dead slots of out are not written. wp from
+    :func:`prep_mid_weight` of w3t (mid, c, 3, 3): bfloat16 in mode bf16,
+    which runs on the tensor cores (``csrc/conv3x3_in_tc.cuh``) and takes
+    what :func:`~.fused_solve.check_conv3x3_tc` asks of the shapes, with
+    16-byte aligned s2 and out; float32 in mode f32."""
     if not u.is_cuda:
         return _jt_conv3x3_in_plain(u, idx, count, wp, s2, mode, out)
     B, c, H, W = u.shape
     mid = wp[0].shape[0]
-    sbf16 = _check_scale(s2, u=u, idx=idx, count=count, w_hi=wp[0], w_lo=wp[1],
-                         out=out)
+    sbf16 = _check_scale(s2, u=u, idx=idx, count=count, out=out)
+    _check_cuda(_dtypes=(mid_weight_dtype(mode),), w=wp[0])
+    if mode == "bf16":
+        check_conv3x3_tc("jt_conv3x3_in", c, mid, H, W, conv3x3_in_rows(W), s2=s2, out=out)
     _shapes(idx=(idx, (B,)), count=(count, (1,)), w=(wp[0], (mid, c, 3, 3)),
             s2=(s2, (B, mid, H * W)), out=(out, (B, mid, H * W)))
-    _run("imnf_jt_conv3x3_in", _mode(mode, BWD_MODES), _ptr(wp[0]), _ptr(wp[1]),
-         _ptr(u), _ptr(idx), _ptr(count), _ptr(s2), sbf16, B, c, H, W,
-         wp[0].shape[0], _ptr(out))
+    _run("imnf_jt_conv3x3_in", _mode(mode, BWD_MODES), _ptr(wp[0]), _ptr(u), _ptr(idx),
+         _ptr(count), _ptr(s2), sbf16, B, c, H, W, mid, _ptr(out))
     jt_conv3x3_in.launches += 1
 
 
@@ -584,8 +597,9 @@ def _backward_solve(grad, chain_data, ops, *, threshold, eps, stall_patience,
     S1 = sdt(s1).reshape(B, mid, HW).contiguous()
     S2 = sdt(s2).reshape(B, mid, HW).contiguous()
     w3t, w2t, w1t = transpose_weights(w1.float(), w2.float(), w3.float())
-    wp3, wp1 = prep_weight(w3t, mode), prep_weight(w1t, mode)
-    wp2 = prep_mid_weight(w2t, mode)  # bfloat16 in mode bf16, once per solve
+    wp1 = prep_weight(w1t, mode)
+    # bfloat16 in mode bf16, once per solve
+    wp3, wp2 = prep_mid_weight(w3t, mode), prep_mid_weight(w2t, mode)
     eps_i = float(eps) * D ** 0.5
     eps_f = float(torch.tensor(eps_i, dtype=torch.float32))
     guard_eps = (float(torch.tensor(stall_guard * eps_i, dtype=torch.float32))

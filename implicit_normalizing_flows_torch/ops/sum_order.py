@@ -1,5 +1,5 @@
-"""Plain versions of twelve kernels with their products summed exactly, and
-nine with their products summed in the tensor cores' order.
+"""Plain versions of fourteen kernels with their products summed exactly,
+and eleven with their products summed in the tensor cores' order.
 
 Each ``*_exact`` function here is a kernel's plain version with its rounded
 (bf16, or split) product summed in float64 and rounded once to float32: the
@@ -31,6 +31,11 @@ a floor fails every kernel that does not sum in the plain version's order.
 * :func:`nc_jt_out_acc_exact`: ``ops.fused_chain._nc_jt_out_acc_plain``
   (``C1^T t`` over mid x 9 terms; ``rnd(y * s0)`` and ``acc += c_k u`` as
   there).
+* :func:`fp_conv_out_exact`: ``ops.fused_final._fp_conv_out_plain``
+  (``C1^T t`` over mid x 9 terms, stored as it is).
+* :func:`jt_conv3x3_in_exact`: ``ops.implicit_grad._jt_conv3x3_in_plain``
+  (``C3^T u`` over c x 9 terms, on the active list; ``y * s2`` by example,
+  unrounded, as there).
 
 The ``*_tiled`` functions are plain versions with their products summed as
 the tensor-core kernels sum them. They stand in for those kernels on the
@@ -48,7 +53,8 @@ The 3x3 kernel (``csrc/conv3x3_out_tc.cuh``) takes the mid channels in
 chunks of ``C3_MC`` and, within a chunk, the 9 taps in order, each (chunk,
 tap) K tile into a fresh float32 partial added to the sum:
 
-* :func:`jt_conv3x3_out_tiled` and :func:`nc_jt_out_acc_tiled` (mode bf16).
+* :func:`jt_conv3x3_out_tiled`, :func:`nc_jt_out_acc_tiled` and
+  :func:`fp_conv_out_tiled` (mode bf16).
 
 The 3x3 c -> mid kernel (``csrc/conv3x3_in_tc.cuh``) sums over the im2col's
 k = ci * 9 + ky * 3 + kx in K tiles of ``C3I_BK``, each tile's products into
@@ -56,8 +62,8 @@ a fresh float32 partial added to the sum (in the split modes, as the 1x1
 kernel, one partial and sum of hi*hi and one of the small passes, the two
 sums added before the bias):
 
-* :func:`nc_jt_in_tiled` (mode bf16), :func:`lin_conv3x3_in_tiled` and
-  :func:`conv3x3_in_tiled` (tf32 / tf32x).
+* :func:`nc_jt_in_tiled` and :func:`jt_conv3x3_in_tiled` (mode bf16),
+  :func:`lin_conv3x3_in_tiled` and :func:`conv3x3_in_tiled` (tf32 / tf32x).
 
 They run on whatever device their tensors lie on.
 """
@@ -75,8 +81,9 @@ __all__ = ["jt_conv1x1_mid_exact", "rv_wgrad_exact", "rv_conv3x3_out_exact",
            "jt_conv3x3_out_exact", "jt_conv3x3_out_tiled", "lin_conv1x1_mid_exact",
            "lin_conv1x1_mid_tiled", "nc_jt_in_exact", "nc_jt_in_tiled",
            "lin_conv3x3_in_exact", "lin_conv3x3_in_tiled", "conv3x3_in_exact",
-           "conv3x3_in_tiled", "nc_jt_out_acc_exact", "nc_jt_out_acc_tiled", "TC_BK", "C3_MC",
-           "C3I_BK"]
+           "conv3x3_in_tiled", "nc_jt_out_acc_exact", "nc_jt_out_acc_tiled",
+           "fp_conv_out_exact", "fp_conv_out_tiled", "jt_conv3x3_in_exact",
+           "jt_conv3x3_in_tiled", "TC_BK", "C3_MC", "C3I_BK"]
 
 TC_BK = 64  # the K tile of the tensor-core 1x1 product (csrc/mma_gemm.cuh)
 C3_MC = 64  # the mid channels of a chunk of the tensor-core 3x3 product (csrc/conv3x3_out_tc.cuh)
@@ -425,3 +432,46 @@ def nc_jt_out_acc_tiled(t, w1t, s0, mode, coeffs, k, u_out, acc, H, W):
     if mode != "bf16":
         return _nc_jt_out_acc_plain(t, w1t, s0, mode, coeffs, k, u_out, acc, H, W)
     _nc_jt_out_acc_by(_conv3x3_tiled, t, w1t, s0, mode, coeffs, k, u_out, acc, H, W)
+
+
+def fp_conv_out_exact(t, w, mode, out, H, W, nets=None):
+    """``_fp_conv_out_plain`` with ``C1^T t`` summed exactly (all mid x 9
+    terms in float64, rounded once)."""
+    from .fused_final import _fp_conv_out_by
+
+    _fp_conv_out_by(_conv3x3_exact, t, w, mode, out, H, W, nets)
+
+
+def fp_conv_out_tiled(t, w, mode, out, H, W, nets=None):
+    """``fp_conv_out`` as its wrapper routes it: in mode bf16
+    ``_fp_conv_out_plain`` with ``C1^T t`` summed in the tensor-core
+    kernel's order (chunks of ``C3_MC`` channels, then taps, each into a
+    fresh float32 partial); in mode f32, which stays on the CUDA cores, the
+    plain version."""
+    from .fused_final import _fp_conv_out_by, _fp_conv_out_plain
+
+    if mode != "bf16":
+        return _fp_conv_out_plain(t, w, mode, out, H, W, nets)
+    _fp_conv_out_by(_conv3x3_tiled, t, w, mode, out, H, W, nets)
+
+
+def jt_conv3x3_in_exact(u, idx, count, wp, s2, mode, out):
+    """``_jt_conv3x3_in_plain`` with ``C3^T u`` summed exactly (all c x 9
+    terms in float64, rounded once)."""
+    from .implicit_grad import _jt_conv3x3_in_by
+
+    _jt_conv3x3_in_by(lambda x, w, m: _conv3x3_in_exact(x, w[0], m), u, idx, count, wp, s2,
+                      mode, out)
+
+
+def jt_conv3x3_in_tiled(u, idx, count, wp, s2, mode, out):
+    """``jt_conv3x3_in`` as its wrapper routes it: in mode bf16
+    ``_jt_conv3x3_in_plain`` with ``C3^T u`` summed in the tensor-core
+    kernel's order (K tiles of ``C3I_BK``); in mode f32, which stays on the
+    CUDA cores, the plain version."""
+    from .implicit_grad import _jt_conv3x3_in_by, _jt_conv3x3_in_plain
+
+    if mode != "bf16":
+        return _jt_conv3x3_in_plain(u, idx, count, wp, s2, mode, out)
+    _jt_conv3x3_in_by(lambda x, w, m: _conv3x3_in_tiled(x, w[0], m), u, idx, count, wp, s2,
+                      mode, out)
