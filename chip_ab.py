@@ -14,9 +14,9 @@ kernel times, run ``kernels`` in both trees in one call, in turns.
 * ``checks``: the whole forward solves (phase 3, on the inputs of an eval
   batch), the whole backward solve and re-attachment VJP (phase 6), the
   whole Neumann chain and final pair (phase 9, in mode bf16 against the
-  plain path with fp_conv_mid summed exactly) on the real inputs of one
-  training step, and the whole merged forward (phase 15, on one merged
-  step's), each with its sum-order floors, from the committed checkpoint,
+  plain path with fp_conv_mid and fp_conv_in summed exactly) on the real
+  inputs of one training step, and the whole merged forward (phase 15, on
+  one merged step's), each with its sum-order floors, from the committed checkpoint,
   the inputs captured as chip_smoke.py captures them (every plain version
   forced). Every reading is printed; a failed phase is reported and the
   others still run; the exit code is 1 if any failed.
@@ -47,11 +47,16 @@ kernel times, run ``kernels`` in both trees in one call, in turns.
   final pair's fp_conv_out in mode bf16 on both nets and on the backward's
   four "nets" (beside cuDNN conv2d bf16 on the four nets' examples) and the
   backward solve's jt_conv3x3_in in mode bf16 with s2 bfloat16 on every
-  slot (beside cuDNN conv2d bf16). A tree from before conv1x1_mid /
+  slot (beside cuDNN conv2d bf16), the final pair's fp_conv_in in mode bf16
+  on both nets (h1's swish and bias, th1's swish', r2's id; beside cuDNN
+  conv2d bf16 on both nets' examples) and the re-attachment's
+  rv_conv3x3_in in mode bf16 on every slot (h1's swish and bias, t2's
+  alpha -1; beside cuDNN conv2d bf16). A tree from before conv1x1_mid /
   rv_conv1x1_mid / lin_conv1x1_mid / nc_jt_in / lin_conv3x3_in / conv3x3_in
-  / nc_jt_out_acc / fp_conv_out / jt_conv3x3_in took their tensor-core
-  weights gets its own float32 ones (and rv_conv1x1_mid its slope as a
-  float; fp_conv_out both nets' kernels twice for its four nets).
+  / nc_jt_out_acc / fp_conv_out / jt_conv3x3_in / fp_conv_in /
+  rv_conv3x3_in took their tensor-core weights gets its own float32 ones
+  (and rv_conv1x1_mid and rv_conv3x3_in their slopes as floats;
+  fp_conv_out both nets' kernels twice for its four nets).
 * ``sass DIR``: every ``csrc/*.cu`` of this tree and of the tree in DIR
   (a parent, unpacked) compiled for sm_90a with the flags of
   ``ops/cuda_build.py``, one nvcc each, all started together; for each
@@ -365,6 +370,47 @@ def kernels():
         times[f"cuDNN conv2d bf16 {tag} (jt_conv3x3_in's library call)"] = ms(
             lambda: F.conv2d(ujb, w3j, padding=1))
         del uj, ujb, s2j, oa, ob
+        # the final pair's fp_conv_in (bf16, both nets, each with its own
+        # slope and bias) in its three forms and the re-attachment's
+        # rv_conv3x3_in (bf16, every slot) in its two, beside one cuDNN
+        # conv2d bf16 each; the kernels in bfloat16 where the tree runs them
+        # on the tensor cores (a tree before takes float32 kernels, and
+        # rv_conv3x3_in its slope as a float)
+        tc_aff = "conv3x3_in_tc_affine" in (cuda_build.CSRC_DIR / "conv3x3_in_tc.cu").read_text()
+        hf, ef = r(2 * B, cs, hs, hs), r(2 * B, cs, hs, hs)
+        w1f = (0.1 * r(2, mid, cs, 3, 3)).to(torch.bfloat16)
+        b1f, bnf = 0.1 * r(2, mid), torch.tensor([1.1, 0.9], device=dev)
+        xr, w1r, b1r = r(B, cs, hs, hs), (0.1 * r(mid, cs, 3, 3)).to(torch.bfloat16), 0.1 * r(mid)
+        oa, ob = (torch.empty(2 * B, mid, hws, device=dev) for _ in range(2))
+        w1k = w1f if tc_aff else w1f.float()
+        for what, args in (("h1, swish", (hf, None, w1k, b1f, bnf, "swish")),
+                           ("th1, dswish", (ef, hf, w1k, None, bnf, "dswish")),
+                           ("r2, id", (ef, None, w1k, None, None, "id"))):
+            run = lambda f, o: f(*args, "bf16", o)
+            name = f"fp_conv_in ({what}) {tag}"
+            times[name] = ms(lambda: run(ff.fp_conv_in, oa))
+            run(ff._fp_conv_in_plain, ob)
+            torch.cuda.synchronize()
+            errs[name] = float((oa - ob).abs().max() / ob.abs().max())
+        hfb = hf.to(torch.bfloat16)
+        times[f"cuDNN conv2d bf16 {tag} (fp_conv_in's library call, both nets)"] = ms(
+            lambda: F.conv2d(hfb, w1f[0], padding=1))
+        oa, ob = oa[:B], ob[:B]
+        wr = (w1r if tc_aff else w1r.float(), None)
+        beta_r = bnf[:1] if tc_aff else float(bnf[0])
+        for what, args in (("h1, swish", (xr, idx, cnt, wr, b1r, 1.0, beta_r, "swish")),
+                           ("t2, alpha -1", (xr, idx, cnt, wr, None, -1.0,
+                                             None if tc_aff else 0.0, "id"))):
+            run = lambda f, o: f(*args, "bf16", o)
+            name = f"rv_conv3x3_in ({what}) {tag}"
+            times[name] = ms(lambda: run(ig.rv_conv3x3_in, oa))
+            run(ig._rv_conv3x3_in_plain, ob)
+            torch.cuda.synchronize()
+            errs[name] = float((oa - ob).abs().max() / ob.abs().max())
+        xrb = xr.to(torch.bfloat16)
+        times[f"cuDNN conv2d bf16 {tag} (rv_conv3x3_in's library call)"] = ms(
+            lambda: F.conv2d(xrb, w1r, padding=1))
+        del hf, ef, hfb, xr, xrb, oa, ob
     for name, v in times.items():
         print(f"kernel {name}{'' if ', c ' in name else ' 32x32'}: {v:.4f} ms", flush=True)
     for name, v in errs.items():

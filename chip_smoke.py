@@ -41,20 +41,22 @@ Phases (any failure exits non-zero; nothing is caught):
      in mode f32 on the same inputs against the bf16 one, which must lie
      above the limit. rv_wgrad is read at every weight gradient the
      re-attachment launches (dW2, dW3, dW1 with and without preact),
-     rv_conv1x1_mid in both its forms (h2, swish; t1, swish'), and
-     jt_conv3x3_in, jt_conv1x1_mid, jt_conv3x3_out, rv_conv3x3_out and
-     rv_conv1x1_mid also on a partial active list (count B/2, a permuted
-     idx; rv_conv1x1_mid takes the count alone), whose dead slots
-     (examples) must stay bitwise untouched. In mode bf16 these six run on
-     the tensor cores (jt_conv1x1_mid and rv_conv1x1_mid on
+     rv_conv1x1_mid in both its forms (h2, swish; t1, swish'),
+     rv_conv3x3_in in both (h1, [swish] and bias; net z's t2, alpha -1),
+     and jt_conv3x3_in, jt_conv1x1_mid, jt_conv3x3_out, rv_conv3x3_out,
+     rv_conv1x1_mid and rv_conv3x3_in also on a partial active list (count
+     B/2, a permuted idx; rv_conv1x1_mid takes the count alone), whose dead
+     slots (examples) must stay bitwise untouched. In mode bf16 all seven
+     run on the tensor cores (jt_conv1x1_mid and rv_conv1x1_mid on
      csrc/mma_gemm.cuh, rv_wgrad on csrc/wgrad_tc.cuh, rv_conv3x3_out and
-     jt_conv3x3_out on csrc/conv3x3_out_tc.cuh, jt_conv3x3_in on
-     csrc/conv3x3_in_tc.cuh);
+     jt_conv3x3_out on csrc/conv3x3_out_tc.cuh, jt_conv3x3_in and
+     rv_conv3x3_in on csrc/conv3x3_in_tc.cuh);
   6. the whole backward solve and the whole re-attachment VJP against their
      plain versions, per scale and mode, each rounding mode with its
      control and its sum-order floors (the plain path with jt_conv3x3_in,
      jt_conv1x1_mid, jt_conv3x3_out, the last two or all three; or with
-     rv_wgrad, rv_conv3x3_out or rv_conv1x1_mid summed exactly:
+     rv_wgrad, rv_conv3x3_out, rv_conv1x1_mid or rv_conv3x3_in summed
+     exactly:
      ops/sum_order.py), every reading
      printed before any limit is checked; phases 5 and 6 read inputs
      captured from a training step with every plain version forced, so that
@@ -80,9 +82,12 @@ Phases (any failure exits non-zero; nothing is caught):
      products nc_jt_in (c -> mid, csrc/conv3x3_in_tc.cuh) and
      nc_jt_out_acc (mid -> c, csrc/conv3x3_out_tc.cuh), both also read on
      float32 s, and the final pair's fp_conv_out (mid -> c, the same
-     kernel); fp_conv_mid is read with each act (id on the backward's four
-     "nets", swish, dswish) and fp_conv_out on both nets and on the
-     backward's four; the inputs of phases 8 and 9 come from a step with
+     kernel) and fp_conv_in (c -> mid, the float64 form in the header of
+     nc_jt_in's kernel);
+     fp_conv_mid is read with each act (id on the backward's four "nets",
+     swish, dswish), fp_conv_in in each form (h1, th1, r2) and fp_conv_out
+     on both nets and on the backward's four; the inputs of phases 8 and 9
+     come from a step with
      every plain version forced;
   9. the whole Neumann chain (the step's n_power) and the whole final pair
      (T, d_h and every gradient) against their plain versions, per scale
@@ -90,9 +95,10 @@ Phases (any failure exits non-zero; nothing is caught):
      sum-order floors (the plain chain with nc_jt_in, nc_jt_out_acc or both
      summed exactly against the plain chain), printed before any limit is
      checked, and the final pair is held
-     against the plain path with fp_conv_mid summed exactly (FINAL_TOL's
-     comment), beside its reading against the plain path and the sum-order
-     floors of fp_conv_mid, rv_wgrad and fp_conv_out;
+     against the plain path with fp_conv_mid and fp_conv_in summed exactly
+     (FINAL_TOL's comment), beside its reading against the plain path and
+     the sum-order floors of fp_conv_mid, fp_conv_in, rv_wgrad and
+     fp_conv_out;
  10. the main path: flagship training steps at the users' default
      --mem-eff False (grad_in_forward=False) from the checkpoint, as phase
      7: 5 settle and 5 timed steps with every kernel's launch count over
@@ -140,8 +146,9 @@ Phases (any failure exits non-zero; nothing is caught):
      csrc/conv3x3_in_tc.cuh, lin_conv1x1_mid on csrc/mma_gemm.cuh) and in
      bf16 and f32, with controls, device time, plain time, bound and a
      library call's time; and the linearisation kernels on phase 2's
-     precision probe; then the 3x3 tensor-core kernels (c -> mid: nc_jt_in
-     and jt_conv3x3_in in bf16, lin_conv3x3_in and conv3x3_in in tf32 and
+     precision probe; then the 3x3 tensor-core kernels (c -> mid: nc_jt_in,
+     jt_conv3x3_in, fp_conv_in and rv_conv3x3_in in bf16, lin_conv3x3_in
+     and conv3x3_in in tf32 and
      tf32x; mid -> c: nc_jt_out_acc and fp_conv_out in bf16) at mid 64, 192
      and 384 on seeded random inputs
      at each scale, their outputs started as NaN so that a channel chunk
@@ -244,17 +251,21 @@ CHAIN_TOL = {"f32": 1e-5, "bf16": 5e-4}
 FINAL_TOL = {"f32": 1e-5, "bf16": 1e-5}
 # The final pair's d_h and weight gradients are small differences of large
 # terms, so the order of fp_conv_mid's float32 sums moves them by up to
-# 1.3e-5: the plain path (cuDNN's order) lies that far from the same path
-# with fp_conv_mid's bf16 product summed exactly (in float64, rounded once;
-# ops/sum_order.py). Against the plain path, FINAL_TOL would pass only a
-# kernel that sums in cuDNN's order. So in mode bf16 phase 9 holds the
-# kernel path against the plain path with fp_conv_mid summed exactly, which
-# no order favours, and prints beside it the reading against the plain path
-# and the floors: the plain path against that reference, and the plain path
-# with rv_wgrad's products (5f) summed exactly against the plain path (far
-# below FINAL_TOL: the weight gradients' sums do not cancel that way). The
-# control, the plain path in mode f32, is read against the same reference.
-# Mode f32 is held against the plain path.
+# 1.4e-5, and the order of fp_conv_in's (5a: h1, th1 and r2, which feed
+# every term) by up to 1.8e-5 (c48, x.w1): the plain path (cuDNN's order)
+# lies that far from the same path with those bf16 products summed exactly
+# (in float64, rounded once; ops/sum_order.py). Against the plain path,
+# FINAL_TOL would pass only a kernel that sums in cuDNN's order. So in mode
+# bf16 phase 9 holds the kernel path against the plain path with fp_conv_mid
+# and fp_conv_in summed exactly, which no order favours, and prints beside
+# it the readings against the plain path and against the plain path with
+# fp_conv_mid alone exact (the reference until fp_conv_in's floor was read
+# above FINAL_TOL), and the floors: the plain path against the reference
+# with fp_conv_mid alone exact, that against the reference (fp_conv_in's),
+# and the plain path with rv_wgrad's products (5f) summed exactly against
+# the plain path (far below FINAL_TOL: the weight gradients' sums do not
+# cancel that way). The control, the plain path in mode f32, is read
+# against the same reference. Mode f32 is held against the plain path.
 # Phases 11-13: the tabular POWER recipe. The update kernel and its plain
 # version compute the same float32 formulas with sums in another order
 # (over D <= 63 and K <= 30 terms): UPDATE_TOL is max error over the
@@ -286,7 +297,10 @@ BLOCK_ACC_TOL = {"f32": 1e-4, "tf32": 5e-4}
 # conv3x3_in on the same kernel (EPI_SWISH 0 with PASSES 3 / 4) and
 # nc_jt_out_acc on conv3x3_out_tc_kernel (IN_ID 0 with C3_CHAIN 2), and
 # fp_conv_out on conv3x3_out_tc_kernel (IN_ID 0 with C3_FINAL 3) and
-# jt_conv3x3_in on conv3x3_in_tc_kernel (EPI_SCALE 2 with PASSES 1). A
+# jt_conv3x3_in on conv3x3_in_tc_kernel (EPI_SCALE 2 with PASSES 1), and
+# rv_conv3x3_in on conv3x3_in_tc_kernel (EPI_AFFINE 1 with PASSES 1), and
+# fp_conv_in on the same header's float64 form, conv3x3_in_dmma_kernel<TW>
+# (mma.sync f64 on the bf16 operands). A
 # profiled training step (and the eval profile, for conv1x1_mid and
 # conv3x3_in) must record each as many times as its wrapper launched it
 # there (conv1x1_mid, lin_conv1x1_mid, lin_conv3x3_in, conv3x3_in: their
@@ -302,8 +316,10 @@ BLOCK_ACC_TOL = {"f32": 1e-4, "tf32": 5e-4}
 # EPI_SCALE_RND>, conv_gemm_kernel<2 | 3, 0, IN_ID | IN_SWISH,
 # EPI_SWISH_LIN>, conv3x3_out_kernel<1, IN_ID, float | __nv_bfloat16, true>
 # (the chain's), conv_gemm_kernel<2 | 3, 0, IN_ID | IN_SWISH, EPI_SWISH>
-# (the solve's conv3x3_in) and conv_gemm_kernel<1, 0, IN_ID, EPI_SCALE>
-# (jt_conv3x3_in's), which only those stages made. fp_conv_mid
+# (the solve's conv3x3_in), conv_gemm_kernel<1, 0, IN_ID, EPI_SCALE>
+# (jt_conv3x3_in's) and conv_gemm_kernel<1, 0, IN_ID | IN_SWISH | IN_DSWISH,
+# EPI_AFFINE> (fp_conv_in's and rv_conv3x3_in's), which only those stages
+# made. fp_conv_mid
 # and rv_conv1x1_mid share the swish and swish' instantiations (SHARED_TC):
 # the profiler records them under one name, so a step must record them as
 # often as the two wrappers launched them together.
@@ -348,6 +364,12 @@ TC_ROUTES = {
                     "implicit_normalizing_flows_torch/csrc/conv3x3_out_tc.cuh", "mma.sync bf16"),
     "jt_conv3x3_in": (re.compile(r"conv3x3_in_tc_kernel<\d+, ?2, ?1,"),
                       "implicit_normalizing_flows_torch/csrc/conv3x3_in_tc.cuh", "mma.sync bf16"),
+    "fp_conv_in": (re.compile(r"conv3x3_in_dmma_kernel<"),
+                   "implicit_normalizing_flows_torch/csrc/conv3x3_in_tc.cuh",
+                   "mma.sync f64 on bf16 operands, float64 sums"),
+    "rv_conv3x3_in": (re.compile(r"conv3x3_in_tc_kernel<\d+, ?1, ?1,"),
+                      "implicit_normalizing_flows_torch/csrc/conv3x3_in_tc.cuh",
+                      "mma.sync bf16; f32 and tf32 on CUDA cores"),
 }
 TC_SPLIT = "conv1x1_mid (tensor cores)"  # launch_counts()'s key of those launches
 TC_LIN = "lin_conv1x1_mid (tensor cores)"
@@ -358,7 +380,8 @@ TC_COUNT = {"conv1x1_mid": TC_SPLIT, "lin_conv1x1_mid": TC_LIN, "lin_conv3x3_in"
             "conv3x3_in": TC_IN}
 SHARED_TC = [("fp_conv_mid", "rv_conv1x1_mid")]
 # run only in --mem-eff False's estimator
-ESTIMATOR_ONLY = ("nc_jt_in", "nc_jt_mid", "nc_jt_out_acc", "fp_conv_mid", "fp_conv_out")
+ESTIMATOR_ONLY = ("nc_jt_in", "nc_jt_mid", "nc_jt_out_acc", "fp_conv_mid", "fp_conv_out",
+                  "fp_conv_in")
 # run only in the merged forward (IMNF_FUSED_BLOCK=1)
 MERGED_ONLY = ("lin_conv3x3_in", "lin_conv1x1_mid")
 REPLACED_SIMT = re.compile(r"conv_gemm_kernel<1, ?1, ?0, ?[123],|conv_gemm_kernel<1, ?1, ?[12], ?1,"
@@ -368,7 +391,8 @@ REPLACED_SIMT = re.compile(r"conv_gemm_kernel<1, ?1, ?0, ?[123],|conv_gemm_kerne
                            r"|conv_gemm_kernel<[23], ?0, ?[01], ?4,"
                            r"|conv3x3_out_kernel<1, ?0, ?(float|__nv_bfloat16), ?true>"
                            r"|conv_gemm_kernel<[23], ?0, ?[01], ?0,"
-                           r"|conv_gemm_kernel<1, ?0, ?0, ?2,")
+                           r"|conv_gemm_kernel<1, ?0, ?0, ?2,"
+                           r"|conv_gemm_kernel<1, ?0, ?[012], ?1,")
 ROUTE_ATTEMPTS = 3  # profiled steps that may show the routes (train_path)
 TAB_DIM, TAB_BATCH, TAB_EVAL_BATCH = 6, 1000, 4000
 TAB_WARMUP, TAB_SETTLE, TAB_TIMED = 110, 5, 10
@@ -940,10 +964,10 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
             src = (ig.transpose_weights(w1c.float(), w2c.float(), w3c.float())
                    + (w1, w2) + ig.transpose_weights(w1, w2, w3))
             # (jt3, jt2, jt1, f1, f2, t3, t2, t1) prepared for mode m, jt3 and
-            # jt2 as the backward solve prepares them and f2, t2 as the
+            # jt2 as the backward solve prepares them and f1, f2, t3, t2 as the
             # re-attachment does (bfloat16 in mode bf16)
             prep = lambda m: [ig.prep_mid_weight(w, m) if i in (0, 1)
-                              else ig.prep_rv_mid_weight(w, m) if i in (4, 6)
+                              else ig.prep_rv_mid_weight(w, m) if i in (3, 4, 5, 6)
                               else prep_weight(w, m) for i, w in enumerate(src)]
             jt3, jt2, jt1, f1, f2, t3, t2, t1 = prep(mode)
             # plain outputs first: each later kernel takes the plain result
@@ -955,10 +979,10 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
             ig._jt_conv3x3_in_plain(u, idx, cnt, jt3, S2, mode, P["T2"])
             ig._jt_conv1x1_mid_plain(P["T2"], idx, cnt, jt2, S1, mode, P["T1"], H, W)
             ig._jt_conv3x3_out_plain(P["T1"], idx, cnt, jt1, S0, mode, U, Gf, P["R"], H, W)
-            ig._rv_conv3x3_in_plain(x, idx, cnt, f1, bb1, 1.0, b0, act0, mode, P["H1"])
+            ig._rv_conv3x3_in_plain(x, idx, cnt, f1, bb1, 1.0, bd[0:1], act0, mode, P["H1"])
             ig._rv_conv1x1_mid_plain(P["H1"], P["H1"], cnt, f2, bb2, 1.0, b1, "swish",
                                      mode, P["H2"], H, W)
-            ig._rv_conv3x3_in_plain(u, idx, cnt, t3, None, 1.0, 0.0, "id", mode, P["C2"])
+            ig._rv_conv3x3_in_plain(u, idx, cnt, t3, None, 1.0, None, "id", mode, P["C2"])
             ig._rv_conv1x1_mid_plain(P["C2"], P["H2"], cnt, t2, None, 1.0, b2, "dswish",
                                      mode, P["C1"], H, W)
             ig._rv_conv3x3_out_plain(P["C1"], P["H1"], b1, idx, cnt, t1, mode, P["C0"], H, W)
@@ -999,10 +1023,16 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
                         lambda: F.conv_transpose2d(lib(P["T1"]).view(B, mid, H, W), lib(w1c), padding=1),
                         (B, D), (P["T1"], jt1[0], S0, U, Gf), B * c * mid * 9 * HW),
                     "rv_conv3x3_in": (
-                        lambda o: ig.rv_conv3x3_in(x, idx, cnt, f1, bb1, 1.0, b0, act0, m, o),
-                        lambda o: ig._rv_conv3x3_in_plain(x, idx, cnt, f1, bb1, 1.0, b0, act0, m, o),
+                        lambda o: ig.rv_conv3x3_in(x, idx, cnt, f1, bb1, 1.0, bd[0:1], act0, m, o),
+                        lambda o: ig._rv_conv3x3_in_plain(x, idx, cnt, f1, bb1, 1.0, bd[0:1], act0, m, o),
                         lambda: F.conv2d(lib(x), lib(w1), lib(bb1), padding=1),
                         (B, mid, HW), (x, f1[0], bb1), B * mid * c * 9 * HW),
+                    # net z's raw cotangent t2 = -C3^T u
+                    "rv_conv3x3_in (t2, alpha -1)": (
+                        lambda o: ig.rv_conv3x3_in(u, idx, cnt, t3, None, -1.0, None, "id", m, o),
+                        lambda o: ig._rv_conv3x3_in_plain(u, idx, cnt, t3, None, -1.0, None, "id", m, o),
+                        lambda: F.conv_transpose2d(lib(u), lib(w3), padding=1),
+                        (B, mid, HW), (u, t3[0]), B * mid * c * 9 * HW),
                     "rv_conv1x1_mid": (
                         lambda o: ig.rv_conv1x1_mid(P["H1"], P["H1"], cnt, f2, bb2, 1.0, bd[1:2], "swish", m, o, H, W),
                         lambda o: ig._rv_conv1x1_mid_plain(P["H1"], P["H1"], cnt, f2, bb2, 1.0, bd[1:2], "swish", m, o, H, W),
@@ -1098,6 +1128,14 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
             # slots under a permuted idx (rv_conv1x1_mid: a count, no idx)
             ctrl_w = prep("f32")
             label = f"scale{s} ({c}x{H}x{W}, B={B})"
+            ri = lambda wp, m: lambda i, n, o: ig.rv_conv3x3_in(x, i, n, wp, bb1, 1.0, bd[0:1],
+                                                                act0, m, o)
+            rip = lambda wp, m: lambda i, n, o: ig._rv_conv3x3_in_plain(x, i, n, wp, bb1, 1.0,
+                                                                        bd[0:1], act0, m, o)
+            fails += check_partial_list(
+                "rv_conv3x3_in", ri(f1, mode), rip(f1, mode),
+                rip(ctrl_w[3], "f32") if mode != "f32" else None, (B, mid, HW), False, mode,
+                label, dev)
             rm = lambda wp, m: lambda i, n, o: ig.rv_conv1x1_mid(P["H1"], P["H1"], n, wp, bb2, 1.0,
                                                                  bd[1:2], "swish", m, o, H, W)
             rmp = lambda wp, m: lambda i, n, o: ig._rv_conv1x1_mid_plain(
@@ -1185,8 +1223,8 @@ def check_grad_functions(cap):
     sum-order floors: the plain path with one product summed exactly
     (ops/sum_order.py; in the backward solve jt_conv3x3_in, jt_conv1x1_mid,
     jt_conv3x3_out, the last two together, and all three; in the
-    re-attachment rv_wgrad, rv_conv3x3_out and rv_conv1x1_mid) against the
-    plain path. No limit is held to them."""
+    re-attachment rv_wgrad, rv_conv3x3_out, rv_conv1x1_mid and
+    rv_conv3x3_in) against the plain path. No limit is held to them."""
     from implicit_normalizing_flows_torch.ops import implicit_grad as ig
     from implicit_normalizing_flows_torch.ops import sum_order as so
 
@@ -1269,7 +1307,8 @@ def check_grad_functions(cap):
                 line += f" (limit {REATTACH_TOL[mode]:g}, least control {ctrl[0]:.3e} ({ctrl[1]})"
                 for k, fn in (("rv_wgrad", so.rv_wgrad_exact),
                               ("rv_conv3x3_out", so.rv_conv3x3_out_exact),
-                              ("rv_conv1x1_mid", so.rv_conv1x1_mid_exact)):
+                              ("rv_conv1x1_mid", so.rv_conv1x1_mid_exact),
+                              ("rv_conv3x3_in", so.rv_conv3x3_in_exact)):
                     ge = flat(ig._reattach_vjp(*args, dict(ig._PLAIN, **{k: fn}), mode))
                     floor = max((rel_norm(a, b, base(n)), n)
                                 for (n, a), (_, b) in zip(ge, flat(gp)))
@@ -1444,6 +1483,7 @@ def check_estimator_kernels(cap, modes=("bf16", "f32")):
         HW, Bt, dev = H * W, 2 * B, d["args"][0].device
         new = lambda *shape: torch.zeros(*shape, device=dev)
         act0 = "swish" if preact else "id"
+        act1 = "dswish" if preact else "id"  # th1's transform
         for mode in modes:
             op, wt, Hs, E, ACC, ACCW = estimator_operands(d, mode)
             wt32 = ff._weights(d["datas"], "f32", torch.float32)
@@ -1463,7 +1503,7 @@ def check_estimator_kernels(cap, modes=("bf16", "f32")):
             plain_in = ff._fp_conv_in_plain
             plain_mid = lambda *a: ff._fp_conv_mid_plain(*a, H, W)
             plain_in(Hs, None, wt["w1"], wt["b1"], b0, act0, mode, P["H1"])
-            plain_in(E, Hs, wt["w1"], None, b0, "dswish" if preact else "id", mode, P["TH1"])
+            plain_in(E, Hs, wt["w1"], None, b0, act1, mode, P["TH1"])
             plain_mid(P["H1"], None, wt["w2"], wt["b2"], b1, "swish", mode, P["H2"])
             plain_mid(P["TH1"], P["H1"], wt["w2"], None, b1, "dswish", mode, P["TH2"])
             plain_in(ACCW, None, wt["w3t"], None, None, "id", mode, P["R2"])
@@ -1528,6 +1568,19 @@ def check_estimator_kernels(cap, modes=("bf16", "f32")):
                         lambda: F.conv2d(lib(Hs), lib(w["w1"][0]), lib(w["b1"][0]), padding=1),
                         lambda: [new(Bt, mid, HW)], (Hs, w["w1"], w["b1"]),
                         Bt * mid * c * 9 * HW),
+                    # the tangent th1 = W1 (eps swish'(h)) and the cotangent
+                    # r2 = C3^T acc (times the loss cotangent, as the backward)
+                    "fp_conv_in (th1)": (
+                        lambda o: ff.fp_conv_in(E, Hs, w["w1"], None, b0, act1, m, o[0]),
+                        lambda o: plain_in(E, Hs, w["w1"], None, b0, act1, m, o[0]),
+                        lambda: F.conv2d(lib(E), lib(w["w1"][0]), padding=1),
+                        lambda: [new(Bt, mid, HW)], (E, Hs if preact else None, w["w1"]),
+                        Bt * mid * c * 9 * HW),
+                    "fp_conv_in (r2)": (
+                        lambda o: ff.fp_conv_in(ACCW, None, w["w3t"], None, None, "id", m, o[0]),
+                        lambda o: plain_in(ACCW, None, w["w3t"], None, None, "id", m, o[0]),
+                        lambda: F.conv2d(lib(ACCW), lib(w["w3t"][0]), padding=1),
+                        lambda: [new(Bt, mid, HW)], (ACCW, w["w3t"]), Bt * mid * c * 9 * HW),
                     "fp_conv_mid": (
                         lambda o: ff.fp_conv_mid(P["TH1"], P["H1"], w["w2"], None, b1, "dswish",
                                                  m, o[0], H, W),
@@ -1608,11 +1661,16 @@ def check_estimator_functions(cap):
     bf16 beside the control (the plain version in mode f32 on the same
     inputs), which must lie above the limit for every output a product
     reaches. The final pair in mode bf16 is held against the plain path
-    with fp_conv_mid summed exactly (ops/sum_order.py; FINAL_TOL's
-    comment), beside its reading against the plain path and the sum-order
-    floors of fp_conv_mid, rv_wgrad (5f) and fp_conv_out (5c: the plain
-    path with fp_conv_mid and fp_conv_out summed exactly against that
-    reference). Every reading is printed before the limits are checked."""
+    with fp_conv_mid and fp_conv_in summed exactly (ops/sum_order.py;
+    FINAL_TOL's comment), beside its readings against the plain path and
+    against the plain path with fp_conv_mid alone exact, and the sum-order
+    floors of fp_conv_mid, fp_conv_in, rv_wgrad (5f) and fp_conv_out (5c:
+    the reference with it summed exactly as well, against the reference),
+    and the plain path with the kernels' orders of fp_conv_mid (K tiles of
+    64) and fp_conv_in (float64 sums) against the reference, and the same
+    with fp_conv_in in K tiles of 16 (the float32 order of EPI_AFFINE,
+    which fp_conv_in does not take). Every reading is printed before the
+    limits are checked."""
     from implicit_normalizing_flows_torch.ops import fused_chain as fc
     from implicit_normalizing_flows_torch.ops import fused_final as ff
     from implicit_normalizing_flows_torch.ops import sum_order as so
@@ -1675,10 +1733,12 @@ def check_estimator_functions(cap):
             gp = pair(ff._PLAIN, mode, wt)
             torch.cuda.synchronize()
             tp = time.perf_counter() - t0
-            # mode bf16's reference: the plain path with fp_conv_mid summed
-            # exactly (FINAL_TOL's comment); mode f32's: the plain path
-            ref = pair(dict(ff._PLAIN, fp_conv_mid=so.fp_conv_mid_exact), mode, wt) \
-                if mode == "bf16" else gp
+            # mode bf16's reference: the plain path with fp_conv_mid and
+            # fp_conv_in summed exactly (FINAL_TOL's comment); mode f32's: the
+            # plain path
+            exact = lambda **k: pair(dict(ff._PLAIN, fp_conv_mid=so.fp_conv_mid_exact, **k),
+                                     mode, wt)
+            ref = exact(fp_conv_in=so.fp_conv_in_exact) if mode == "bf16" else gp
             vs = lambda g, r: max((rel_norm(a, b), n) for (n, a), (_, b) in zip(g, r))
             worst = vs(gk, ref)
             line = f"final pair {label} {mode}: worst rel_norm {worst[0]:.3e} ({worst[1]})"
@@ -1687,17 +1747,30 @@ def check_estimator_functions(cap):
                 gc = pair(ff._PLAIN, "f32", ff._weights(d["datas"], "f32", torch.float32))
                 ctrl = min((rel_norm(a, b), n) for (n, a), (_, b) in zip(gc, ref)
                            if not n.endswith(".b3"))
-                old, floor = vs(gk, gp), vs(gp, ref)
+                mid_ref = exact()  # PRs 8-13's reference: fp_conv_mid alone exact
+                old, old_ref = vs(gk, gp), vs(gk, mid_ref)
+                floor, fin = vs(gp, mid_ref), vs(mid_ref, ref)
                 wg = vs(pair(dict(ff._PLAIN, rv_wgrad=so.rv_wgrad_exact), mode, wt), gp)
-                out = vs(pair(dict(ff._PLAIN, fp_conv_mid=so.fp_conv_mid_exact,
-                                   fp_conv_out=so.fp_conv_out_exact), mode, wt), ref)
-                line += (f" against the plain path with fp_conv_mid exact (limit "
+                out = vs(exact(fp_conv_in=so.fp_conv_in_exact, fp_conv_out=so.fp_conv_out_exact),
+                         ref)
+                # the kernels' orders: 5b by K tiles of 64, 5a in float64;
+                # and 5a by K tiles of 16, the float32 order it does not take
+                order = vs(pair(dict(ff._PLAIN, fp_conv_mid=so.fp_conv_mid_tiled,
+                                     fp_conv_in=so.fp_conv_in_exact), mode, wt), ref)
+                f32_in = vs(pair(dict(ff._PLAIN, fp_conv_mid=so.fp_conv_mid_tiled,
+                                      fp_conv_in=so.fp_conv_in_tiled), mode, wt), ref)
+                line += (f" against the plain path with fp_conv_mid and fp_conv_in exact (limit "
                          f"{FINAL_TOL[mode]:g}, least control {ctrl[0]:.3e} ({ctrl[1]})); "
-                         f"against the plain path {old[0]:.3e} ({old[1]}); sum-order floors: "
-                         f"fp_conv_mid (plain against its exact sums) {floor[0]:.3e} "
-                         f"({floor[1]}), rv_wgrad exact {wg[0]:.3e} ({wg[1]}), fp_conv_out "
-                         f"(fp_conv_mid and fp_conv_out exact against the reference) "
-                         f"{out[0]:.3e} ({out[1]})")
+                         f"against the plain path {old[0]:.3e} ({old[1]}); against the plain "
+                         f"path with fp_conv_mid exact {old_ref[0]:.3e} ({old_ref[1]}); "
+                         f"sum-order floors: fp_conv_mid (plain against its exact sums) "
+                         f"{floor[0]:.3e} ({floor[1]}), fp_conv_in (fp_conv_mid exact against "
+                         f"the reference) {fin[0]:.3e} ({fin[1]}), rv_wgrad exact {wg[0]:.3e} "
+                         f"({wg[1]}), against the reference with fp_conv_out exact as well "
+                         f"{out[0]:.3e} ({out[1]}), the plain path with fp_conv_mid in its "
+                         f"kernel's order and fp_conv_in exact (the kernels' orders) against the "
+                         f"reference {order[0]:.3e} ({order[1]}), with fp_conv_in in K tiles of "
+                         f"16 (float32 sums) instead {f32_in[0]:.3e} ({f32_in[1]})")
             log(line + f" s {tk:.3f}/{tp:.3f} (kernels/plain)")
             for n, a in gk:
                 assert torch.isfinite(a).all(), n
@@ -2177,7 +2250,11 @@ def check_conv3x3_in_widths(dev, batch=4):
     the largest entry against SPLIT_TOL), the solve's conv3x3_in (tf32,
     tf32x, preact, every slot live; against SPLIT_TOL) and the backward
     solve's jt_conv3x3_in (bf16, s2 bfloat16, every slot live under a
-    permuted idx; against KERNEL_TOL); and the mid -> c kernel's
+    permuted idx; against KERNEL_TOL), the final pair's fp_conv_in (bf16,
+    two nets with their own slopes and biases: h1's swish and th1's swish';
+    against KERNEL_TOL) and the re-attachment's rv_conv3x3_in (bf16, every
+    slot live under a permuted idx: h1's swish and bias, t2's alpha -1;
+    against KERNEL_TOL); and the mid -> c kernel's
     nc_jt_out_acc (bf16, two nets, s0 bfloat16; u by rel_norm against
     ROUNDED_TOL, acc += c_k u by rel_norm of its update over the update)
     and fp_conv_out (bf16, four nets on two nets' kernels; against
@@ -2261,6 +2338,35 @@ def check_conv3x3_in_widths(dev, batch=4):
             log(f"kernel jt_conv3x3_in {label}, bf16: max_rel_err {err:.3e} (limit {tol:g})")
             if not (math.isfinite(err) and err <= tol):
                 fails.append(("jt_conv3x3_in", label, "bf16", err))
+            # fp_conv_in: two nets, each on its own kernel, slope and bias
+            hs, es = r(2 * batch, c, H, H), r(2 * batch, c, H, H)
+            w1s = (0.1 * r(2, mid, c, 3, 3)).to(torch.bfloat16)
+            b1s, bn = 0.1 * r(2, mid), torch.tensor([1.1, 0.9], device=dev)
+            for what, args in (("h1, swish", (hs, None, w1s, b1s, bn, "swish")),
+                               ("th1, dswish", (es, hs, w1s, None, bn, "dswish"))):
+                outs = [nan(2 * batch, mid, HW) for _ in range(2)]
+                for f, o in ((ff.fp_conv_in, outs[0]), (ff._fp_conv_in_plain, outs[1])):
+                    f(*args, "bf16", o)
+                torch.cuda.synchronize()
+                err = rel_max(*outs)
+                log(f"kernel fp_conv_in {label}, bf16, 2 nets, {what}: max_rel_err {err:.3e} "
+                    f"(limit {tol:g})")
+                if not (math.isfinite(err) and err <= tol):
+                    fails.append(("fp_conv_in", label, what, err))
+            # rv_conv3x3_in: slot s reads example idx[s]
+            w1b, bt = w1.to(torch.bfloat16), bn[:1]
+            for what, args in (("h1, swish", (x, idx, cnt, (w1b, None), b1, 1.0, bt, "swish")),
+                               ("t2, alpha -1", (u[:batch], idx, cnt, (w3t, None), None, -1.0,
+                                                 None, "id"))):
+                outs = [nan(batch, mid, HW) for _ in range(2)]
+                for f, o in ((ig.rv_conv3x3_in, outs[0]), (ig._rv_conv3x3_in_plain, outs[1])):
+                    f(*args, "bf16", o)
+                torch.cuda.synchronize()
+                err = rel_max(*outs)
+                log(f"kernel rv_conv3x3_in {label}, bf16, {what}: max_rel_err {err:.3e} "
+                    f"(limit {tol:g})")
+                if not (math.isfinite(err) and err <= tol):
+                    fails.append(("rv_conv3x3_in", label, what, err))
             # fp_conv_out: four "nets" of t on the two nets' kernels
             t4 = r(4 * batch, mid, HW).to(torch.bfloat16).float()
             outs = [nan(4 * batch, c * HW) for _ in range(2)]

@@ -27,7 +27,11 @@
 //   rnd rounds to bf16 in mode bf16 (the chain dtype), as _make_apply_jt
 //   rounds; c_k is read from a device array of signed coefficients.
 // final pair, primal:
-//   fp_conv_in     h1 = W1 a0 + b1; th1 = W1 ta0; r2 = C3^T acc
+//   fp_conv_in     h1 = W1 a0 + b1; th1 = W1 ta0; r2 = C3^T acc (bf16:
+//                  FP64 tensor cores, conv3x3_in_tc.cuh's
+//                  conv3x3_in_dmma_kernel, the transform once per loaded
+//                  element, float64 sums; w1 / w3t cast once per
+//                  final-pair call)
 //   fp_conv_mid    h2 = W2 swish(h1) + b2; th2 = W2 (swish'(h1) th1);
 //                  ra1 = W2^T rh2 and p_a1 = W2^T p_h2 (four "nets") (bf16:
 //                  tensor cores, mma_gemm.cuh)
@@ -57,11 +61,16 @@
 // design; fp_conv_mid applies its input transform once per element as the
 // panel is staged), and so does the chain's 3x3 c -> mid product nc_jt_in
 // (conv3x3_in_tc.cuh: an im2col tile built once per band in shared memory,
-// bound by its float32 output's bytes) and its 3x3 mid -> c product
+// bound by its float32 output's bytes), and the final pair's fp_conv_in
+// runs that header's float64 form (the same bf16 operands and im2col tile,
+// the transform applied once per loaded element, the slope per net read on
+// the device, the bias per net, but the products summed in float64 on the
+// FP64 tensor cores: the pair's weight gradients at 8x8 move past their
+// limit under any float32 order of h1 and th1), and the chain's 3x3 mid -> c product
 // nc_jt_out_acc (conv3x3_out_tc.cuh: a bf16 halo tile per band and 64-channel
 // chunk, the pre-cast weights copied by cp.async, bound by reading t1 as
 // float32), and so does the final pair's fp_conv_out (the same kernel and
-// weights, out = acc); every other product, and mode f32,
+// weights, out = acc); every product of mode f32
 // runs as FP32 FMAs on the CUDA cores (conv_gemm.cuh), as the implicit-gradient kernels do. The
 // tensor cores sum fp_conv_mid's products in another order than the plain
 // version (cuDNN's), which moves the final pair's d_h and weight gradients,
@@ -209,8 +218,9 @@ cudaError_t nc_out_mode(int mode, const void* w, const float* t, int B,
   return cudaErrorInvalidValue;
 }
 
-// the final pair's convs: EPI_AFFINE with alpha 1, the input transform act
-// (IN_ID | IN_SWISH | IN_DSWISH with inh) at each net's slope beta_net[net]
+// the final pair's convs in mode f32: EPI_AFFINE with alpha 1, the input
+// transform act (IN_ID | IN_SWISH | IN_DSWISH with inh) at each net's slope
+// beta_net[net]
 template <int MODE, int SRC>
 cudaError_t fp_gemm(int act, const float* w, const float* bias, int M, int K,
                     const float* inp, const float* inh, int B, int nets, int C,
@@ -255,10 +265,9 @@ extern "C" {
 // Every entry point launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() right after its launch (0 on success). B counts the
 // examples of all `nets` nets together; every example is live (the conv
-// kernels get no active list). Weights are stacked per net, f32 (bf16
-// values in mode bf16), but nc_jt_in's, nc_jt_mid's, nc_jt_out_acc's and
-// fp_conv_out's (both in the tile layout) and fp_conv_mid's, which are
-// bfloat16 in mode bf16 (the tensor-core operand) and float32 in mode f32.
+// kernels get no active list). Weights are stacked per net, bfloat16 in
+// mode bf16 (the tensor-core operand; nc_jt_out_acc's and fp_conv_out's in
+// the tile layout) and float32 in mode f32.
 
 // chain: the derivative factors s2 / s1 / s0 as float32 or, with s_bf16,
 // bfloat16
@@ -290,15 +299,18 @@ int imnf_nc_jt_out_acc(int mode, const void* w, const float* t,
   return (int)nc_out_mode<float>(mode, w, t, B, nets, C, mid, H, W, s0, coef, k, u_out, acc, s);
 }
 
-// final pair: act 0 IN_ID, 1 IN_SWISH, 2 IN_DSWISH (inh the pre-activation)
-int imnf_fp_conv_in(int mode, int act, const float* w, const float* bias,
+// final pair: act 0 IN_ID, 1 IN_SWISH, 2 IN_DSWISH (inh the pre-activation);
+// w (nets, mid, C, 3, 3): bfloat16 on the tensor cores in mode bf16
+// (conv3x3_in_tc.cuh's float64 form, linked from
+// conv3x3_in_tc.cu), float32 on the SIMT template in mode f32
+int imnf_fp_conv_in(int mode, int act, const void* w, const float* bias,
                     const float* beta_net, const float* inp, const float* inh,
                     int B, int nets, int C, int H, int W, int mid, float* out,
                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
-    case MODE_F32: return (int)fp_gemm<MODE_F32, 0>(act, w, bias, mid, C * 9, inp, inh, B, nets, C, H, W, beta_net, out, s);
-    case MODE_BF16: return (int)fp_gemm<MODE_BF16, 0>(act, w, bias, mid, C * 9, inp, inh, B, nets, C, H, W, beta_net, out, s);
+    case MODE_F32: return (int)fp_gemm<MODE_F32, 0>(act, static_cast<const float*>(w), bias, mid, C * 9, inp, inh, B, nets, C, H, W, beta_net, out, s);
+    case MODE_BF16: return (int)conv3x3_in_dmma_affine(static_cast<const __nv_bfloat16*>(w), bias, act, beta_net, inp, inh, B, nets, C, H, W, mid, out, s);
   }
   return (int)cudaErrorInvalidValue;
 }

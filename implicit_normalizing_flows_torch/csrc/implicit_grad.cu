@@ -21,6 +21,8 @@
 //                   (bf16: tensor cores)
 // re-attachment VJP, per net (x at x with cotangent u; z at z_hat with -u):
 //   rv_conv3x3_in   h1 = W1 [swish](h) + b1, and t2 = sign * C3^T u
+//                   (bf16: tensor cores, conv3x3_in_tc.cuh's EPI_AFFINE;
+//                   w1 and w3t cast to bfloat16 once per VJP)
 //   rv_conv1x1_mid  h2 = W2 swish(h1) + b2, and t1 = C2^T (t2 swish'(h2))
 //                   (bf16: tensor cores)
 //   rv_conv3x3_out  t0 = C1^T (t1 swish'(h1))   (bf16: tensor cores)
@@ -48,8 +50,8 @@
 // with a 4x4 register micro-tile per thread (16 FMAs per loaded element);
 // the weight gradients, which reduce over batch x pixels (65,536 terms at
 // 32x32), split that reduction into whole examples over enough blocks to
-// fill the 132 SMs and sum the splits in a second pass. In mode bf16 six
-// stages run on the tensor cores, where bytes bound them:
+// fill the 132 SMs and sum the splits in a second pass. In mode bf16 every
+// product runs on the tensor cores, where bytes bound them:
 // jt_conv1x1_mid on mma_gemm.cuh's 1x1 kernel (EPI_SCALE, on the active
 // list), rv_conv1x1_mid on the same kernel (EPI_AFFINE, its swish / swish'
 // applied once per element as the panel is staged, W2 / W2^T bfloat16, the
@@ -59,9 +61,12 @@
 // jt_conv3x3_out on the same kernel (t rounded once per element into the
 // tile, the residual in its epilogue, on the active list), and
 // jt_conv3x3_in on conv3x3_in_tc.cuh (an im2col tile per band, the scale by
-// example in the epilogue, on the active list); those headers' notes give
-// their bounds and designs. The other 3x3 stages, the rest of mode bf16 and
-// modes f32 / tf32 stay on the CUDA cores.
+// example in the epilogue, on the active list) and rv_conv3x3_in on that
+// kernel's EPI_AFFINE (its swish applied once per loaded halo element, the
+// slope read on the device, alpha and the bias in the epilogue, on the
+// active list); those headers'
+// notes give their bounds and designs. Modes f32 / tf32 stay on the CUDA
+// cores.
 
 #include "conv3x3_in_tc.cuh"
 #include "conv3x3_out_tc.cuh"
@@ -293,17 +298,17 @@ cudaError_t jt_out_mode(int mode, const float* w_hi, const float* w_lo,
   return cudaErrorInvalidValue;
 }
 
-// act: 0 IN_ID, 1 IN_SWISH, 2 IN_DSWISH; SRC 0 the 3x3 convs (slope
-// beta_in), SRC 1 the 1x1 (slope *beta_net, on the device)
+// act: 0 IN_ID, 1 IN_SWISH, 2 IN_DSWISH; SRC 0 the 3x3 convs, SRC 1 the
+// 1x1; the slope *beta_net, on the device
 template <int MODE, int SRC>
 cudaError_t rv_gemm(int act, const float* w_hi, const float* w_lo,
                     const float* bias, int M, int K, const float* inp,
                     const float* inh, const int* idx, const int* count, int B,
-                    int C, int H, int W, float beta_in, const float* beta_net,
+                    int C, int H, int W, const float* beta_net,
                     float alpha, float* out, cudaStream_t s) {
 #define RV_GEMM(IN)                                                          \
   return launch_conv_gemm<MODE, SRC, IN, EPI_AFFINE>(                        \
-      w_hi, w_lo, bias, M, K, inp, inh, idx, count, B, C, H, W, beta_in,     \
+      w_hi, w_lo, bias, M, K, inp, inh, idx, count, B, C, H, W, 0.f,         \
       0.f, alpha, nullptr, out, s, 1, beta_net)
   if constexpr (SRC == 0) {
     if (act == IN_ID) RV_GEMM(IN_ID);
@@ -423,16 +428,21 @@ int imnf_jt_conv3x3_out(int mode, const float* w_hi, const float* w_lo,
   return (int)jt_out_mode<float>(mode, w_hi, w_lo, t, idx, count, B, C, mid, H, W, base, scale, sub, out, s);
 }
 
-int imnf_rv_conv3x3_in(int mode, int act, const float* w_hi,
+// w_hi: W1 or W3^T (mid, C, 3, 3), bfloat16 in mode bf16 (the tensor cores'
+// operand, conv3x3_in_tc.cuh's EPI_AFFINE, linked from conv3x3_in_tc.cu),
+// float32 in modes f32 / tf32 (w_lo its lo half in tf32); beta: a device
+// pointer to the input transform's slope (nullptr for act IN_ID)
+int imnf_rv_conv3x3_in(int mode, int act, const void* w_hi,
                        const float* w_lo, const float* bias, float alpha,
-                       float beta_in, const float* inp, const int* idx,
+                       const float* beta, const float* inp, const int* idx,
                        const int* count, int B, int C, int H, int W, int mid,
                        float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const float* wf = static_cast<const float*>(w_hi);
   switch (mode) {
-    case MODE_F32: return (int)rv_gemm<MODE_F32, 0>(act, w_hi, w_lo, bias, mid, C * 9, inp, nullptr, idx, count, B, C, H, W, beta_in, nullptr, alpha, out, s);
-    case MODE_BF16: return (int)rv_gemm<MODE_BF16, 0>(act, w_hi, w_lo, bias, mid, C * 9, inp, nullptr, idx, count, B, C, H, W, beta_in, nullptr, alpha, out, s);
-    case MODE_TF32: return (int)rv_gemm<MODE_TF32, 0>(act, w_hi, w_lo, bias, mid, C * 9, inp, nullptr, idx, count, B, C, H, W, beta_in, nullptr, alpha, out, s);
+    case MODE_F32: return (int)rv_gemm<MODE_F32, 0>(act, wf, w_lo, bias, mid, C * 9, inp, nullptr, idx, count, B, C, H, W, beta, alpha, out, s);
+    case MODE_BF16: return (int)conv3x3_in_tc_affine(static_cast<const __nv_bfloat16*>(w_hi), bias, alpha, act, beta, inp, idx, count, B, C, H, W, mid, out, s);
+    case MODE_TF32: return (int)rv_gemm<MODE_TF32, 0>(act, wf, w_lo, bias, mid, C * 9, inp, nullptr, idx, count, B, C, H, W, beta, alpha, out, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -448,9 +458,9 @@ int imnf_rv_conv1x1_mid(int mode, int act, const void* w_hi,
   cudaStream_t s = (cudaStream_t)stream;
   const float* wf = static_cast<const float*>(w_hi);
   switch (mode) {
-    case MODE_F32: return (int)rv_gemm<MODE_F32, 1>(act, wf, w_lo, bias, mid, mid, inp, inh, nullptr, count, B, mid, H, W, 0.f, beta, alpha, out, s);
+    case MODE_F32: return (int)rv_gemm<MODE_F32, 1>(act, wf, w_lo, bias, mid, mid, inp, inh, nullptr, count, B, mid, H, W, beta, alpha, out, s);
     case MODE_BF16: return (int)rv_mid_tc(act, static_cast<const __nv_bfloat16*>(w_hi), bias, alpha, beta, inp, inh, count, B, mid, H * W, out, s);
-    case MODE_TF32: return (int)rv_gemm<MODE_TF32, 1>(act, wf, w_lo, bias, mid, mid, inp, inh, nullptr, count, B, mid, H, W, 0.f, beta, alpha, out, s);
+    case MODE_TF32: return (int)rv_gemm<MODE_TF32, 1>(act, wf, w_lo, bias, mid, mid, inp, inh, nullptr, count, B, mid, H, W, beta, alpha, out, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -8,9 +8,12 @@ kernel at ``fused_solve.py:1689``; ``_final_primal_kernel`` :1440 and
 kernels hold one example's forward and tangent intermediates in VMEM and sum
 the weight gradients across the sequential grid; on Hopper both directions
 are sequences of batched kernels of ``csrc/estimator.cu`` on the conv
-templates of ``csrc/conv_gemm.cuh`` (in mode bf16 ``fp_conv_mid`` on the
-tensor cores, ``csrc/mma_gemm.cuh``, with W2 and W2^T cast to bfloat16 once
-by :func:`_weights`, and ``fp_conv_out`` on the mid -> c tensor-core kernel,
+templates of ``csrc/conv_gemm.cuh`` (in mode bf16 every product on the
+tensor cores: ``fp_conv_in`` on the c -> mid kernel's float64 form
+(``csrc/conv3x3_in_tc.cuh``'s ``conv3x3_in_dmma_kernel``, the FP64 tensor
+cores summing the exact bf16 products in float64), with W1 and W3^T cast to bfloat16 once by
+:func:`_weights`; ``fp_conv_mid`` on ``csrc/mma_gemm.cuh``,
+with W2 and W2^T cast the same way; ``fp_conv_out`` on the mid -> c kernel,
 ``csrc/conv3x3_out_tc.cuh``, with W1^T cast once into its tile layout), the
 two nets' examples stacked along the batch so that one launch covers both:
 
@@ -55,8 +58,8 @@ import torch
 from . import implicit_grad as ig
 from .fused_chain import _nets, c3_out_npad, tile_w1t, untile_w1t
 from .fused_solve import (C3_MID, C3_OUT_ROWS, MODES, _check_cuda, _launch, _mconv, _ptr,
-                          check_conv3x3_tc, d2swish, ddswish_dbeta, dswish, dswish_dbeta,
-                          prep_weight, swish)
+                          check_conv3x3_tc, conv3x3_in_rows, d2swish, ddswish_dbeta, dswish,
+                          dswish_dbeta, prep_weight, swish)
 from .implicit_grad import (ACTS, DATA_KEYS, _check_mid, _shapes, transpose_weights,
                             wgrad_splits)
 
@@ -111,17 +114,25 @@ def _act(x, h, beta, act):
 # weights stacked per net (N, O, I, k, k), biases (N, O), slopes beta_net a
 # device vector (N,) of float32.
 
-def _fp_conv_plain(inp, inh, w, bias, beta_net, act, mode, out, H, W, padding):
+def _fp_conv_by(product, inp, inh, w, bias, beta_net, act, mode, out, H, W):
+    """fp_conv_in's and fp_conv_mid's function with ``product(a, w[n],
+    mode)`` for each net's product (w[n] widened to float32; the bias added
+    after it)."""
     N, nb = _nets(w, inp.shape[0])
     for n in range(N):
         e = slice(n * nb, (n + 1) * nb)
         x = inp[e].reshape(nb, -1, H, W)
         hh = None if inh is None else inh[e].reshape(x.shape)
-        y = _mconv(_act(x, hh, None if beta_net is None else beta_net[n], act),
-                   (w[n].to(x.dtype), None), mode, padding)
+        y = product(_act(x, hh, None if beta_net is None else beta_net[n], act),
+                    w[n].to(x.dtype), mode)
         if bias is not None:
             y = y + bias[n][None, :, None, None]
         out[e] = y.reshape(out[e].shape)
+
+
+def _fp_conv_plain(inp, inh, w, bias, beta_net, act, mode, out, H, W, padding):
+    _fp_conv_by(lambda a, k, m: _mconv(a, (k, None), m, padding), inp, inh, w, bias, beta_net,
+                act, mode, out, H, W)
 
 
 def _fp_conv(name, inp, inh, w, bias, beta_net, act, mode, out, H, W, mid):
@@ -153,11 +164,18 @@ def _fp_conv_in_plain(inp, inh, w, bias, beta_net, act, mode, out):
 def fp_conv_in(inp, inh, w, bias, beta_net, act, mode, out):
     """out = W[n] act(inp) [+ bias[n]], a 3x3 conv c -> mid per net n:
     act 'id', 'swish' (slope beta_net[n]) or 'dswish' (inp * swish'(inh)).
-    inp, inh (N*nb, c, H, W); w (N, mid, c, 3, 3); out (N*nb, mid, H*W)."""
+    inp, inh (N*nb, c, H, W); w (N, mid, c, 3, 3) as :func:`_weights` casts
+    it: bfloat16 in mode bf16, which runs on the tensor cores
+    (``csrc/conv3x3_in_tc.cuh``'s float64 form: the exact products summed in
+    float64 on the FP64 tensor cores) and takes what
+    :func:`~.fused_solve.check_conv3x3_tc` asks of the shapes, with a
+    16-byte aligned out; float32 in mode f32. out (N*nb, mid, H*W)."""
     _, c, H, W = inp.shape
     if not inp.is_cuda:
         return _fp_conv_in_plain(inp, inh, w, bias, beta_net, act, mode, out)
-    _check_cuda(w=w)
+    _check_cuda(_dtypes=(torch.bfloat16 if mode == "bf16" else torch.float32,), w=w)
+    if mode == "bf16":
+        check_conv3x3_tc("fp_conv_in", c, w.shape[1], H, W, conv3x3_in_rows(W), out=out)
     _shapes(w=(w, (w.shape[0], w.shape[1], c, 3, 3)))
     _fp_conv("imnf_fp_conv_in", inp, inh, w, bias, beta_net, act, mode, out, H, W,
              w.shape[1])
@@ -336,20 +354,21 @@ def reset_launch_counts() -> None:
 
 def _weights(datas, mode, dt):
     """Both nets' kernels prepared for mode (bf16-rounded in mode bf16),
-    stacked per net, with their transposes, biases and slopes. The 1x1
-    kernels that fp_conv_mid reads, w2 and w2t (both nets' W2^T twice: the
-    backward's rh2 and p_h2 in one launch), are cast once here to
-    bfloat16 in mode bf16, exactly (the tensor cores' operand), and so is
-    w1t, the kernel of fp_conv_out, into the mid -> c kernel's tile layout
-    (:func:`~.fused_chain.tile_w1t`)."""
+    stacked per net, with their transposes, biases and slopes. Every kernel
+    is cast once here to bfloat16 in mode bf16, exactly (the tensor cores'
+    operand): w1 and w3t, which fp_conv_in reads, w2 and w2t (both nets'
+    W2^T twice: the backward's rh2 and p_h2 in one launch), which
+    fp_conv_mid reads, and w1t, the kernel of fp_conv_out, into the mid ->
+    c kernel's tile layout (:func:`~.fused_chain.tile_w1t`)."""
     prep = lambda w: prep_weight(w.detach().to(dt), mode)[0]
     st = lambda ws: torch.stack(ws).contiguous()
-    mid = lambda w: (w.to(torch.bfloat16) if mode == "bf16" else w).contiguous()
+    tc = lambda w: (w.to(torch.bfloat16) if mode == "bf16" else w).contiguous()
     tr = [transpose_weights(*(d[k].detach().to(dt) for k in ("w1", "w2", "w3")))
           for d in datas]
     wt = {k: st([prep(d[k]) for d in datas]) for k in ("w1", "w2")}
     wt["w3t"], w2t, wt["w1t"] = (st([prep(t[i]) for t in tr]) for i in range(3))
-    wt["w2"], wt["w2t"] = mid(wt["w2"]), mid(torch.cat([w2t] * 2))
+    wt["w2"], wt["w2t"] = tc(wt["w2"]), tc(torch.cat([w2t] * 2))
+    wt["w1"], wt["w3t"] = tc(wt["w1"]), tc(wt["w3t"])
     if mode == "bf16":
         wt["w1t"] = tile_w1t(wt["w1t"])
     for k in ("b1", "b2"):

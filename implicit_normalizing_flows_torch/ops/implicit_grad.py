@@ -9,13 +9,15 @@ package. The TPU kernels hold one example's operands in VMEM per grid step;
 on Hopper both are host-driven sequences of batched kernels from
 ``csrc/implicit_grad.cu`` (that file's header says what bounds each on an
 H100 and what its design does about it), with the conv kernels shared with
-the forward solve through ``csrc/conv_gemm.cuh``. In mode bf16 six of them
-run on the tensor cores: ``jt_conv3x3_in`` (``csrc/conv3x3_in_tc.cuh``, with
+the forward solve through ``csrc/conv_gemm.cuh``. In mode bf16 every product
+runs on the tensor cores: ``jt_conv3x3_in`` (``csrc/conv3x3_in_tc.cuh``, with
 W3^T cast to bfloat16 once per solve by :func:`prep_mid_weight`),
 ``jt_conv1x1_mid`` (``csrc/mma_gemm.cuh``, with W2^T cast the same way),
 ``rv_conv1x1_mid`` (the same kernel, W2 and W2^T cast to bfloat16 once per
-VJP by :func:`prep_rv_mid_weight`), ``rv_wgrad`` (``csrc/wgrad_tc.cuh``),
-``rv_conv3x3_out`` and ``jt_conv3x3_out`` (``csrc/conv3x3_out_tc.cuh``):
+VJP by :func:`prep_rv_mid_weight`), ``rv_conv3x3_in`` (the c -> mid
+kernel's ``EPI_AFFINE``, W1 and W3^T cast the same way), ``rv_wgrad``
+(``csrc/wgrad_tc.cuh``), ``rv_conv3x3_out`` and ``jt_conv3x3_out``
+(``csrc/conv3x3_out_tc.cuh``):
 
 * backward solve ``u (I + J_gz) = grad``: per iteration ``jt_conv3x3_in`` ->
   ``jt_conv1x1_mid`` -> ``jt_conv3x3_out`` evaluate the residual
@@ -95,7 +97,7 @@ _ARGTYPES = {
                             _P],
     "imnf_jt_conv3x3_out": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                             _I, _P, _P, _P],
-    "imnf_rv_conv3x3_in": [_I, _I, _P, _P, _P, _F, _F, _P, _P, _P, _I, _I, _I,
+    "imnf_rv_conv3x3_in": [_I, _I, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _P, _P],
     "imnf_rv_conv1x1_mid": [_I, _I, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I,
                             _I, _P, _P],
@@ -153,8 +155,9 @@ def prep_mid_weight(w, mode):
 
 
 def prep_rv_mid_weight(w, mode):
-    """``rv_conv1x1_mid``'s kernel (W2 or W2^T): in mode bf16 ``(w, None)``
-    cast once to bfloat16 (the tensor cores' operand; the cast is exact, as
+    """A re-attachment kernel as ``rv_conv1x1_mid`` (W2 or W2^T) and
+    ``rv_conv3x3_in`` (W1 or W3^T) take it: in mode bf16 ``(w, None)`` cast
+    once to bfloat16 (the tensor cores' operand; the cast is exact, as
     :func:`prep_weight` rounds it to the same values), else
     :func:`prep_weight`'s split for the CUDA cores."""
     return prep_mid_weight(w, mode) if mode == "bf16" else prep_weight(w, mode)
@@ -309,31 +312,53 @@ def _affine(y, alpha, bias):
     return y if bias is None else y + bias[None, :, None, None]
 
 
-def _rv_conv3x3_in_plain(inp, idx, count, wp, bias, alpha, beta_in, act, mode, out):
+def _rv_conv3x3_in_by(product, inp, idx, count, wp, bias, alpha, beta_in, act, mode, out):
+    """``rv_conv3x3_in``'s function with ``product(h, wp, mode)`` for its 3x3
+    product: the gather and transform of the live examples before it,
+    alpha and the bias after it, as the kernels take them."""
     n = int(count.item())
     h = _act(inp.index_select(0, idx[:n].long()), None, beta_in, act)
-    y = _affine(_mconv(h, wp, mode, 1), alpha, bias)
+    y = _affine(product(h, wp, mode), alpha, bias)
     out[:n] = y.reshape(n, y.shape[1], -1)
 
 
+def _rv_conv3x3_in_plain(inp, idx, count, wp, bias, alpha, beta_in, act, mode, out):
+    _rv_conv3x3_in_by(lambda h, w, m: _mconv(h, _widened(w), m, 1), inp, idx, count, wp, bias,
+                      alpha, beta_in, act, mode, out)
+
+
 def rv_conv3x3_in(inp, idx, count, wp, bias, alpha, beta_in, act, mode, out):
-    """out[s] = alpha * W1 act(inp[idx[s]]) [+ bias], act 'id' | 'swish'
-    (slope beta_in), a 3x3 conv c -> mid: the pre-activation h1, and with
-    the flipped w3 the raw cotangent t2 = sign * C3^T u."""
+    """out[s] = alpha * W1 act(inp[idx[s]]) [+ bias] for live slots s, act
+    'id' | 'swish' (slope beta_in: a one-element tensor on the device, read
+    there; None for 'id'), a 3x3 conv c -> mid: the pre-activation h1, and
+    with the flipped w3 the raw cotangent t2 = sign * C3^T u; the dead
+    slots of out are not written. wp from :func:`prep_rv_mid_weight`: in
+    mode bf16 bfloat16, which runs on the tensor cores
+    (``csrc/conv3x3_in_tc.cuh``'s ``EPI_AFFINE``: K tiles of 16, each a
+    fresh float32 partial) and takes what
+    :func:`~.fused_solve.check_conv3x3_tc` asks of the shapes, with a
+    16-byte aligned out."""
     if not inp.is_cuda:
         return _rv_conv3x3_in_plain(inp, idx, count, wp, bias, alpha, beta_in,
                                     act, mode, out)
     if act not in ("id", "swish"):
         raise ValueError(f"rv_conv3x3_in takes act 'id' | 'swish', not {act!r}")
+    if act == "swish" and not (torch.is_tensor(beta_in) and beta_in.numel() == 1):
+        raise ValueError("rv_conv3x3_in: beta_in must be a one-element tensor on the device")
     B, c, H, W = inp.shape
     mid = wp[0].shape[0]
-    _check_cuda(inp=inp, idx=idx, count=count, w_hi=wp[0], w_lo=wp[1], bias=bias,
-                out=out)
+    _check_cuda(inp=inp, idx=idx, count=count, bias=bias, out=out,
+                beta_in=beta_in if act == "swish" else None)
+    _check_cuda(_dtypes=(mid_weight_dtype(mode),), w_hi=wp[0])
+    _check_cuda(w_lo=wp[1])
+    if mode == "bf16":
+        check_conv3x3_tc("rv_conv3x3_in", c, mid, H, W, conv3x3_in_rows(W), out=out)
     _shapes(idx=(idx, (B,)), count=(count, (1,)), w=(wp[0], (mid, c, 3, 3)),
             bias=(bias, (mid,)), out=(out, (B, mid, H * W)))
     _run("imnf_rv_conv3x3_in", _mode(mode, REATTACH_MODES), ACTS[act],
-         _ptr(wp[0]), _ptr(wp[1]), _ptr(bias), float(alpha), float(beta_in),
-         _ptr(inp), _ptr(idx), _ptr(count), B, c, H, W, wp[0].shape[0], _ptr(out))
+         _ptr(wp[0]), _ptr(wp[1]), _ptr(bias), float(alpha),
+         _ptr(beta_in) if act == "swish" else None, _ptr(inp), _ptr(idx), _ptr(count),
+         B, c, H, W, mid, _ptr(out))
     rv_conv3x3_in.launches += 1
 
 
@@ -676,20 +701,20 @@ def _net_vjp(ops, mode, data, h, u, csign, idx, cnt, dx_out):
     preact = bool(data["preact"])
     mid = w2.shape[0]
     hin = h.detach().to(dt).contiguous()
-    wp1, wp2 = prep_weight(w1, mode), prep_rv_mid_weight(w2, mode)
     w3t, w2t, w1t = transpose_weights(w1, w2, w3)
-    wt3, wt1 = prep_weight(w3t, mode), prep_weight(w1t, mode)
-    wt2 = prep_rv_mid_weight(w2t, mode)  # bfloat16 in mode bf16, once per VJP
+    # bfloat16 in mode bf16, once per VJP
+    wp1, wp2, wt3, wt2 = (prep_rv_mid_weight(w, mode) for w in (w1, w2, w3t, w2t))
+    wt1 = prep_weight(w1t, mode)
     bd = data["betas"].detach().to(dt).contiguous()  # the slopes on the device
     new = lambda *s: torch.empty(*s, device=dev, dtype=dt)
     H1, H2, T2, T1 = (new(B, mid, HW) for _ in range(4))
 
     # forward: the pre-activations h1, h2
-    ops["rv_conv3x3_in"](hin, idx, cnt, wp1, b1, 1.0, beta0,
+    ops["rv_conv3x3_in"](hin, idx, cnt, wp1, b1, 1.0, bd[0:1] if preact else None,
                          "swish" if preact else "id", mode, H1)
     ops["rv_conv1x1_mid"](H1, H1, cnt, wp2, b2, 1.0, bd[1:2], "swish", mode, H2, H, W)
     # cotangents: t2 = C3^T cot, t1 = C2^T (t2 swish'(h2)), t0 = C1^T (...)
-    ops["rv_conv3x3_in"](u, idx, cnt, wt3, None, csign, 0.0, "id", mode, T2)
+    ops["rv_conv3x3_in"](u, idx, cnt, wt3, None, csign, None, "id", mode, T2)
     ops["rv_conv1x1_mid"](T2, H2, cnt, wt2, None, 1.0, bd[2:3], "dswish", mode, T1, H, W)
     T0 = None
     if dx_out is not None or preact:

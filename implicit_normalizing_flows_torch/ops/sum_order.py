@@ -1,5 +1,5 @@
-"""Plain versions of fourteen kernels with their products summed exactly,
-and eleven with their products summed in the tensor cores' order.
+"""Plain versions of sixteen kernels with their products summed exactly,
+and thirteen with their products summed in the tensor cores' order.
 
 Each ``*_exact`` function here is a kernel's plain version with its rounded
 (bf16, or split) product summed in float64 and rounded once to float32: the
@@ -36,6 +36,18 @@ a floor fails every kernel that does not sum in the plain version's order.
 * :func:`jt_conv3x3_in_exact`: ``ops.implicit_grad._jt_conv3x3_in_plain``
   (``C3^T u`` over c x 9 terms, on the active list; ``y * s2`` by example,
   unrounded, as there).
+* :func:`fp_conv_in_exact`: ``ops.fused_final._fp_conv_in_plain`` (each
+  net's ``W1 act(a)`` or ``C3^T acc`` over c x 9 terms; the transform and
+  ``+ b1`` as there).
+* :func:`rv_conv3x3_in_exact`: ``ops.implicit_grad._rv_conv3x3_in_plain``
+  (``W1 [swish](h)`` or ``C3^T u`` over c x 9 terms, on the active list;
+  alpha and ``+ b1`` as there).
+
+:func:`fp_conv_in_exact` also stands in for its kernel on the CPU: the
+final pair's c -> mid kernel (``csrc/conv3x3_in_tc.cuh``,
+``conv3x3_in_dmma_kernel``) sums the exact bf16 products in float64 on the
+FP64 tensor cores and rounds once, as it does (up to the float64 sums'
+order).
 
 The ``*_tiled`` functions are plain versions with their products summed as
 the tensor-core kernels sum them. They stand in for those kernels on the
@@ -62,8 +74,12 @@ a fresh float32 partial added to the sum (in the split modes, as the 1x1
 kernel, one partial and sum of hi*hi and one of the small passes, the two
 sums added before the bias):
 
-* :func:`nc_jt_in_tiled` and :func:`jt_conv3x3_in_tiled` (mode bf16),
-  :func:`lin_conv3x3_in_tiled` and :func:`conv3x3_in_tiled` (tf32 / tf32x).
+* :func:`nc_jt_in_tiled`, :func:`jt_conv3x3_in_tiled` and
+  :func:`rv_conv3x3_in_tiled` (mode bf16), :func:`lin_conv3x3_in_tiled` and
+  :func:`conv3x3_in_tiled` (tf32 / tf32x);
+* :func:`fp_conv_in_tiled` (mode bf16): the order of that kernel's
+  ``EPI_AFFINE``, which the final pair does not take (its float64 form
+  does); phase 9 of ``chip_smoke.py`` reads the pair with it.
 
 They run on whatever device their tensors lie on.
 """
@@ -83,7 +99,8 @@ __all__ = ["jt_conv1x1_mid_exact", "rv_wgrad_exact", "rv_conv3x3_out_exact",
            "lin_conv3x3_in_exact", "lin_conv3x3_in_tiled", "conv3x3_in_exact",
            "conv3x3_in_tiled", "nc_jt_out_acc_exact", "nc_jt_out_acc_tiled",
            "fp_conv_out_exact", "fp_conv_out_tiled", "jt_conv3x3_in_exact",
-           "jt_conv3x3_in_tiled", "TC_BK", "C3_MC", "C3I_BK"]
+           "jt_conv3x3_in_tiled", "fp_conv_in_exact", "fp_conv_in_tiled",
+           "rv_conv3x3_in_exact", "rv_conv3x3_in_tiled", "TC_BK", "C3_MC", "C3I_BK"]
 
 TC_BK = 64  # the K tile of the tensor-core 1x1 product (csrc/mma_gemm.cuh)
 C3_MC = 64  # the mid channels of a chunk of the tensor-core 3x3 product (csrc/conv3x3_out_tc.cuh)
@@ -184,27 +201,12 @@ def jt_conv3x3_out_tiled(t, idx, count, wp, s0, mode, base, sub, out, H, W):
     _jt_conv3x3_out_by(_conv3x3_tiled, t, idx, count, wp, s0, mode, base, sub, out, H, W)
 
 
-def _fp_conv_mid_by(product, inp, inh, w, bias, beta_net, act, mode, out, H, W):
-    """``_fp_conv_mid_plain`` with ``product(a, w[n], mode)`` for its 1x1
-    product (bias added after it, as the plain version adds it)."""
-    from . import fused_final as ff
-
-    N, nb = ff._nets(w, inp.shape[0])
-    for n in range(N):
-        e = slice(n * nb, (n + 1) * nb)
-        x = inp[e].reshape(nb, -1, H, W)
-        h = None if inh is None else inh[e].reshape(x.shape)
-        a = ff._act(x, h, None if beta_net is None else beta_net[n], act)
-        y = product(a, w[n], mode)
-        if bias is not None:
-            y = y + bias[n][None, :, None, None]
-        out[e] = y.reshape(out[e].shape)
-
-
 def fp_conv_mid_exact(inp, inh, w, bias, beta_net, act, mode, out, H, W):
     """``_fp_conv_mid_plain`` with its product summed exactly."""
-    _fp_conv_mid_by(lambda a, k, m: _exact(a, k, m, F.conv2d), inp, inh, w, bias,
-                    beta_net, act, mode, out, H, W)
+    from .fused_final import _fp_conv_by
+
+    _fp_conv_by(lambda a, k, m: _exact(a, k, m, F.conv2d), inp, inh, w, bias, beta_net, act,
+                mode, out, H, W)
 
 
 def _tiled(a, k, mode):
@@ -223,7 +225,9 @@ def _tiled(a, k, mode):
 def fp_conv_mid_tiled(inp, inh, w, bias, beta_net, act, mode, out, H, W):
     """``_fp_conv_mid_plain`` in mode bf16 with its product summed in the
     tensor-core kernel's order (K tiles of ``TC_BK``)."""
-    _fp_conv_mid_by(_tiled, inp, inh, w, bias, beta_net, act, mode, out, H, W)
+    from .fused_final import _fp_conv_by
+
+    _fp_conv_by(_tiled, inp, inh, w, bias, beta_net, act, mode, out, H, W)
 
 
 def conv1x1_mid_exact(t1, count, wp, b2, beta2, mode, out, H, W):
@@ -475,3 +479,46 @@ def jt_conv3x3_in_tiled(u, idx, count, wp, s2, mode, out):
         return _jt_conv3x3_in_plain(u, idx, count, wp, s2, mode, out)
     _jt_conv3x3_in_by(lambda x, w, m: _conv3x3_in_tiled(x, w[0], m), u, idx, count, wp, s2,
                       mode, out)
+
+
+def fp_conv_in_exact(inp, inh, w, bias, beta_net, act, mode, out):
+    """``_fp_conv_in_plain`` with each net's product summed exactly (all c x
+    9 terms in float64, rounded once); the transform and the bias as
+    there."""
+    from .fused_final import _fp_conv_by
+
+    _fp_conv_by(_conv3x3_in_exact, inp, inh, w, bias, beta_net, act, mode, out,
+                *inp.shape[2:])
+
+
+def rv_conv3x3_in_exact(inp, idx, count, wp, bias, alpha, beta_in, act, mode, out):
+    """``_rv_conv3x3_in_plain`` with its product summed exactly (every pass
+    of the split in float64, rounded once); wp the kernel's (hi, lo)."""
+    from .implicit_grad import _rv_conv3x3_in_by
+
+    _rv_conv3x3_in_by(lambda h, w, m: _conv3x3_in_exact(h, tuple(w), m), inp, idx, count, wp,
+                      bias, alpha, beta_in, act, mode, out)
+
+
+def fp_conv_in_tiled(inp, inh, w, bias, beta_net, act, mode, out):
+    """``_fp_conv_in_plain`` in mode bf16 with each net's product summed in
+    the order of the c -> mid kernel's ``EPI_AFFINE`` (K tiles of
+    ``C3I_BK``), which the final pair's float64 form does not take; the
+    transform and the bias as there."""
+    from .fused_final import _fp_conv_by
+
+    _fp_conv_by(_conv3x3_in_tiled, inp, inh, w, bias, beta_net, act, mode, out,
+                *inp.shape[2:])
+
+
+def rv_conv3x3_in_tiled(inp, idx, count, wp, bias, alpha, beta_in, act, mode, out):
+    """``rv_conv3x3_in`` as its wrapper routes it: in mode bf16
+    ``_rv_conv3x3_in_plain`` with its product summed in the tensor-core
+    kernel's order (K tiles of ``C3I_BK``); in modes f32 / tf32, which stay
+    on the CUDA cores, the plain version."""
+    from .implicit_grad import _rv_conv3x3_in_by, _rv_conv3x3_in_plain
+
+    if mode != "bf16":
+        return _rv_conv3x3_in_plain(inp, idx, count, wp, bias, alpha, beta_in, act, mode, out)
+    _rv_conv3x3_in_by(lambda h, w, m: _conv3x3_in_tiled(h, w[0], m), inp, idx, count, wp,
+                      bias, alpha, beta_in, act, mode, out)
