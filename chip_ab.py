@@ -41,7 +41,9 @@ kernel times, run ``kernels`` in both trees in one call, in turns.
   rounded to bfloat16) and lin_conv3x3_in in tf32 and tf32x under preact
   (its three outputs), each beside one cuDNN conv2d of the same product (bf16,
   f32); and at each scale the forward solve's conv3x3_in in tf32 and tf32x
-  under preact on every slot (beside cuDNN conv2d f32) and the chain's
+  under preact on every slot (beside cuDNN conv2d f32), its conv3x3_out in
+  tf32 and tf32x on every slot (net z's residual; beside cuDNN conv2d f32
+  with the bias) and the chain's
   nc_jt_out_acc in mode bf16 with s0 bfloat16 and float32 (both nets,
   beside cuDNN conv2d bf16 on both nets' examples; error by rel_norm), the
   final pair's fp_conv_out in mode bf16 on both nets and on the backward's
@@ -54,7 +56,8 @@ kernel times, run ``kernels`` in both trees in one call, in turns.
   alpha -1; beside cuDNN conv2d bf16). A tree from before conv1x1_mid /
   rv_conv1x1_mid / lin_conv1x1_mid / nc_jt_in / lin_conv3x3_in / conv3x3_in
   / nc_jt_out_acc / fp_conv_out / jt_conv3x3_in / fp_conv_in /
-  rv_conv3x3_in took their tensor-core weights gets its own float32 ones
+  rv_conv3x3_in / conv3x3_out took their tensor-core weights gets its own
+  float32 ones
   (and rv_conv1x1_mid and rv_conv3x3_in their slopes as floats;
   fp_conv_out both nets' kernels twice for its four nets).
 * ``sass DIR``: every ``csrc/*.cu`` of this tree and of the tree in DIR
@@ -62,7 +65,8 @@ kernel times, run ``kernels`` in both trees in one call, in turns.
   ``ops/cuda_build.py``, one nvcc each, all started together; for each
   kernel instantiation (demangled), its registers and spilled bytes in
   both trees and whether its SASS is identical, and the instantiations
-  found in one tree only.
+  found in one tree only (an instantiation renamed by a template parameter
+  appended at its default, ``, 1>``, is read as its older name).
 
 Each run prints the card's name and power limit first. Without a CUDA
 device it exits non-zero.
@@ -304,6 +308,25 @@ def kernels():
             torch.cuda.synchronize()
             errs[name] = float((oa - ob).abs().max() / ob.abs().max())
         del oa, ob
+        # the forward solve's conv3x3_out (tf32, tf32x) on every slot, net
+        # z's residual base - (W3 t + b3) - sub, beside cuDNN conv2d f32 of
+        # the product: W3's bf16 halves in the tile layout where the tree
+        # runs it on the tensor cores (a tree before takes the float32 pair)
+        prep_out = getattr(fs, "prep_conv3x3_out", lambda wp, m: wp)
+        t2o, w3o, b3o = r(B, mid, hws), 0.02 * r(cs, mid, 3, 3), 0.1 * r(cs)
+        bo, so_ = r(B, cs * hws), r(B, cs * hws)
+        oa, ob = (torch.empty(B, cs * hws, device=dev) for _ in range(2))
+        for mode in ("tf32", "tf32x"):
+            wk = prep_out(fs.prep_weight(w3o, mode), mode)
+            run = lambda f, o: f(t2o, idx, cnt, wk, b3o, mode, bo, -1.0, so_, o, hs, hs)
+            name = f"conv3x3_out ({mode}) {tag}"
+            times[name] = ms(lambda: run(fs.conv3x3_out, oa))
+            run(fs._conv3x3_out_plain, ob)
+            torch.cuda.synchronize()
+            errs[name] = float((oa - ob).abs().max() / ob.abs().max())
+        times[f"cuDNN conv2d f32 {tag} (conv3x3_out's library call)"] = ms(
+            lambda: F.conv2d(t2o.view(B, mid, hs, hs), w3o, b3o, padding=1))
+        del t2o, bo, so_, oa, ob
         # the chain's nc_jt_out_acc (both nets, bf16, s0 bfloat16 or float32)
         # beside one cuDNN conv2d bf16 of the same product on both nets'
         # examples; W1T in its tile layout where the tree has it
@@ -499,6 +522,8 @@ def sass():
     same = differ = 0
     for src in srcs:
         old, new = got.get((other, src), {}), got.get((".", src), {})
+        new = {n[:-4] + ">" if n.endswith(", 1>") and n not in old and n[:-4] + ">" in old
+               else n: v for n, v in new.items()}
         for name in sorted(set(old) | set(new)):
             a, b = old.get(name), new.get(name)
             if a is None or b is None:

@@ -17,22 +17,24 @@ Phases (any failure exits non-zero; nothing is caught):
      conv kernel in tf32 against its plain version in tf32 and against two
      controls that must read above the limit, the plain version in f32 and
      native TF32 emulated (both operands rounded to 10 mantissa bits), and
-     in tf32x against plain tf32x and the control plain tf32; conv1x1_mid
-     and conv3x3_in run tf32 and tf32x on the tensor cores (csrc/mma_gemm.cuh
-     and csrc/conv3x3_in_tc.cuh, the bf16 split's 3 or 4 passes) and are
-     also timed in tf32x; conv3x3_in is also read on a partial permuted
-     active list, its dead slots untouched;
+     in tf32x against plain tf32x and the control plain tf32; conv1x1_mid,
+     conv3x3_in and conv3x3_out run tf32 and tf32x on the tensor cores
+     (csrc/mma_gemm.cuh, csrc/conv3x3_in_tc.cuh and csrc/conv3x3_out_tc.cuh,
+     the bf16 split's 3 or 4 passes) and are also timed in tf32x;
+     conv3x3_in and conv3x3_out are also read on a partial permuted active
+     list, their dead slots (examples) untouched;
   3. the whole fused forward solve against its plain version, per scale and
      mode, each run beside its sum-order floors (the plain solve with
-     conv1x1_mid, conv3x3_in or both summed exactly, ops/sum_order.py,
-     against the plain solve: max|dz|, |d nstep| counts, flags that differ),
-     every reading printed before any limit is checked;
+     conv1x1_mid, conv3x3_in, both, conv3x3_out, or all three summed
+     exactly, ops/sum_order.py, against the plain solve: max|dz|, |d nstep|
+     counts, flags that differ), every reading printed before any limit is
+     checked;
   4. the flagship evaluation (bits/dim of 64 structured-synthetic images,
      seed 1) through the port's entry points, with the forward-solve
      kernels' launch counts over that run, a profiled batch (which must
-     record conv1x1_mid's tensor-core kernel as often as the wrapper
-     launched it in the split modes), and the plain path's bpd on the same
-     draws;
+     record the tensor-core kernels of conv1x1_mid, conv3x3_in and
+     conv3x3_out as often as their wrappers launched them in the split
+     modes), and the plain path's bpd on the same draws;
   5. each implicit-gradient kernel (backward solve, re-attachment VJP)
      against its plain version at the flagship's shapes, on the blocks' real
      inputs and cotangents captured from one training step, in bf16 and f32:
@@ -295,6 +297,8 @@ BLOCK_ACC_TOL = {"f32": 1e-4, "tf32": 5e-4}
 # conv3x3_in_tc.cuh's conv3x3_in_tc_kernel<TW, EPI, PASSES, ST>
 # (EPI_SCALE_RND 3 with PASSES 1; EPI_SWISH_LIN 4 with PASSES 3 / 4), and
 # conv3x3_in on the same kernel (EPI_SWISH 0 with PASSES 3 / 4) and
+# conv3x3_out on conv3x3_out_tc_kernel (IN_ID 0 with C3_SOLVE 4, float,
+# PASSES 3 / 4) and
 # nc_jt_out_acc on conv3x3_out_tc_kernel (IN_ID 0 with C3_CHAIN 2), and
 # fp_conv_out on conv3x3_out_tc_kernel (IN_ID 0 with C3_FINAL 3) and
 # jt_conv3x3_in on conv3x3_in_tc_kernel (EPI_SCALE 2 with PASSES 1), and
@@ -303,8 +307,9 @@ BLOCK_ACC_TOL = {"f32": 1e-4, "tf32": 5e-4}
 # (mma.sync f64 on the bf16 operands). A
 # profiled training step (and the eval profile, for conv1x1_mid and
 # conv3x3_in) must record each as many times as its wrapper launched it
-# there (conv1x1_mid, lin_conv1x1_mid, lin_conv3x3_in, conv3x3_in: their
-# launches in the split modes, TC_COUNT), and none of the CUDA-core
+# there (conv1x1_mid, lin_conv1x1_mid, lin_conv3x3_in, conv3x3_in,
+# conv3x3_out: their launches in the split modes, TC_COUNT), and none of the
+# CUDA-core
 # instantiations they replaced:
 # conv_gemm_kernel<MODE_BF16 1, SRC 1, IN_ID, EPI_AFFINE | EPI_SCALE |
 # EPI_SCALE_RND> and <1, 1, IN_SWISH | IN_DSWISH, EPI_AFFINE>,
@@ -318,8 +323,9 @@ BLOCK_ACC_TOL = {"f32": 1e-4, "tf32": 5e-4}
 # (the chain's), conv_gemm_kernel<2 | 3, 0, IN_ID | IN_SWISH, EPI_SWISH>
 # (the solve's conv3x3_in), conv_gemm_kernel<1, 0, IN_ID, EPI_SCALE>
 # (jt_conv3x3_in's) and conv_gemm_kernel<1, 0, IN_ID | IN_SWISH | IN_DSWISH,
-# EPI_AFFINE> (fp_conv_in's and rv_conv3x3_in's), which only those stages
-# made. fp_conv_mid
+# EPI_AFFINE> (fp_conv_in's and rv_conv3x3_in's) and conv3x3_out_kernel<2 |
+# 3, IN_ID, float, false> (the solve's conv3x3_out in tf32 / tf32x), which
+# only those stages made. fp_conv_mid
 # and rv_conv1x1_mid share the swish and swish' instantiations (SHARED_TC):
 # the profiler records them under one name, so a step must record them as
 # often as the two wrappers launched them together.
@@ -370,14 +376,19 @@ TC_ROUTES = {
     "rv_conv3x3_in": (re.compile(r"conv3x3_in_tc_kernel<\d+, ?1, ?1,"),
                       "implicit_normalizing_flows_torch/csrc/conv3x3_in_tc.cuh",
                       "mma.sync bf16; f32 and tf32 on CUDA cores"),
+    "conv3x3_out": (re.compile(r"conv3x3_out_tc_kernel<\d+, ?\d+, ?0, ?4, ?float, ?[34]>"),
+                    "implicit_normalizing_flows_torch/csrc/conv3x3_out_tc.cuh",
+                    "mma.sync bf16, the 3- or 4-pass split of tf32 / tf32x; f32 and bf16 on CUDA "
+                    "cores"),
 }
 TC_SPLIT = "conv1x1_mid (tensor cores)"  # launch_counts()'s key of those launches
 TC_LIN = "lin_conv1x1_mid (tensor cores)"
 TC_LIN3 = "lin_conv3x3_in (tensor cores)"
 TC_IN = "conv3x3_in (tensor cores)"
+TC_OUT = "conv3x3_out (tensor cores)"
 # the count a route is held to, where not its wrapper's
 TC_COUNT = {"conv1x1_mid": TC_SPLIT, "lin_conv1x1_mid": TC_LIN, "lin_conv3x3_in": TC_LIN3,
-            "conv3x3_in": TC_IN}
+            "conv3x3_in": TC_IN, "conv3x3_out": TC_OUT}
 SHARED_TC = [("fp_conv_mid", "rv_conv1x1_mid")]
 # run only in --mem-eff False's estimator
 ESTIMATOR_ONLY = ("nc_jt_in", "nc_jt_mid", "nc_jt_out_acc", "fp_conv_mid", "fp_conv_out",
@@ -392,7 +403,8 @@ REPLACED_SIMT = re.compile(r"conv_gemm_kernel<1, ?1, ?0, ?[123],|conv_gemm_kerne
                            r"|conv3x3_out_kernel<1, ?0, ?(float|__nv_bfloat16), ?true>"
                            r"|conv_gemm_kernel<[23], ?0, ?[01], ?0,"
                            r"|conv_gemm_kernel<1, ?0, ?0, ?2,"
-                           r"|conv_gemm_kernel<1, ?0, ?[012], ?1,")
+                           r"|conv_gemm_kernel<1, ?0, ?[012], ?1,"
+                           r"|conv3x3_out_kernel<[23], ?0, ?float, ?false>")
 ROUTE_ATTEMPTS = 3  # profiled steps that may show the routes (train_path)
 TAB_DIM, TAB_BATCH, TAB_EVAL_BATCH = 6, 1000, 4000
 TAB_WARMUP, TAB_SETTLE, TAB_TIMED = 110, 5, 10
@@ -572,12 +584,16 @@ def check_kernels(blocks, mode="tf32"):
                 (t2k, t2p),
                 4 * (2 * B * mid * HW + mid) + 4 * w2.numel(),
                 B * mid * mid * HW),
+            # modes tf32 / tf32x on the tensor cores: W3's bf16 halves in
+            # the tile layout
             "conv3x3_out": (
-                lambda: fs.conv3x3_out(t2p, idx, cnt, wp["w3"], b3, mode, xf, -1.0, xf, gk, H, W),
-                lambda: fs._conv3x3_out_plain(t2p, idx, cnt, wp["w3"], b3, mode, xf, -1.0, xf, gp, H, W),
+                lambda: fs.conv3x3_out(t2p, idx, cnt, wp["w3_tc"], b3, mode, xf, -1.0, xf, gk,
+                                       H, W),
+                lambda: fs._conv3x3_out_plain(t2p, idx, cnt, wp["w3_tc"], b3, mode, xf, -1.0, xf,
+                                              gp, H, W),
                 lambda: torch.nn.functional.conv2d(t2p.view(B, mid, H, W), w3, b3, padding=1),
                 (gk, gp),
-                4 * (B * mid * HW + 2 * w3.numel() + c + 3 * B * D),
+                4 * (B * mid * HW + c + 3 * B * D) + 4 * w3.numel(),
                 B * c * mid * 9 * HW),
         }
         wx = wxp["w2_mid"]
@@ -585,6 +601,12 @@ def check_kernels(blocks, mode="tf32"):
             lambda: fs.conv1x1_mid(t1p, cnt, wx, b2, betas[2], "tf32x", t2k, H, W),
             lambda: fs._conv1x1_mid_plain(t1p, cnt, wx, b2, betas[2], "tf32x", t2p, H, W),
             *calls["conv1x1_mid"][2:])
+        calls["conv3x3_out (tf32x)"] = (
+            lambda: fs.conv3x3_out(t2p, idx, cnt, wxp["w3_tc"], b3, "tf32x", xf, -1.0, xf, gk,
+                                   H, W),
+            lambda: fs._conv3x3_out_plain(t2p, idx, cnt, wxp["w3_tc"], b3, "tf32x", xf, -1.0, xf,
+                                          gp, H, W),
+            *calls["conv3x3_out"][2:])
         calls["conv3x3_in (tf32x)"] = (  # last: it overwrites t1p
             lambda: fs.conv3x3_in(x, idx, cnt, wxp["w1_in"], b1, betas, data["preact"],
                                   "tf32x", t1k),
@@ -619,6 +641,15 @@ def check_kernels(blocks, mode="tf32"):
                                                                  data["preact"], m, o),
                 None, (B, mid, HW), False, m, f"scale{s} ({c}x{H}x{W}, B={B})", dev,
                 tol=SPLIT_TOL)
+            # conv3x3_out's slots read t2[s] and write example idx[s]: the
+            # other examples' rows untouched
+            probe_fails += check_partial_list(
+                "conv3x3_out",
+                lambda i, n, o, wm=wm, m=m: fs.conv3x3_out(t2p, i, n, wm["w3_tc"], b3, m, xf, -1.0,
+                                                           xf, o, H, W),
+                lambda i, n, o, wm=wm, m=m: fs._conv3x3_out_plain(t2p, i, n, wm["w3_tc"], b3, m,
+                                                                  xf, -1.0, xf, o, H, W),
+                None, (B, D), True, m, f"scale{s} ({c}x{H}x{W}, B={B})", dev, tol=SPLIT_TOL)
 
         # broyden_step on a mid-solve state: nk planes written per example
         nk, K = 10, 30
@@ -683,7 +714,8 @@ def check_kernels(blocks, mode="tf32"):
         def conv_out(f):
             def run(m, x, w):
                 o = torch.zeros(PB, D, device=dev)
-                f(x, pidx, pcnt, fs.prep_weight(w, m), zc, m, zb, 1.0, None, o, H, W)
+                f(x, pidx, pcnt, fs.prep_conv3x3_out(fs.prep_weight(w, m), m), zc, m, zb, 1.0,
+                  None, o, H, W)
                 return [o]
             return run
 
@@ -746,9 +778,9 @@ def check_solves(blocks):
     protective-break flags and close roots. Per-example iteration counts
     must agree within one where the tolerance lies above the floor: in f32,
     and in the split modes at eps 1e-5. Each run also reads its sum-order
-    floors: the plain solve with conv1x1_mid, conv3x3_in or both summed
-    exactly (ops/sum_order.py) against the plain solve, by the same
-    measures (no limit is held to them). Every reading is printed before any
+    floors: the plain solve with conv1x1_mid, conv3x3_in, both,
+    conv3x3_out, or all three summed exactly (ops/sum_order.py) against the
+    plain solve, by the same measures (no limit is held to them). Every reading is printed before any
     limit is checked."""
     from implicit_normalizing_flows_torch.ops import fused_solve as fs
     from implicit_normalizing_flows_torch.ops import sum_order as so
@@ -762,7 +794,11 @@ def check_solves(blocks):
     floor_ops = {"conv1x1_mid": dict(fs._PLAIN, conv1x1_mid=so.conv1x1_mid_exact),
                  "conv3x3_in": dict(fs._PLAIN, conv3x3_in=so.conv3x3_in_exact),
                  "both": dict(fs._PLAIN, conv1x1_mid=so.conv1x1_mid_exact,
-                              conv3x3_in=so.conv3x3_in_exact)}
+                              conv3x3_in=so.conv3x3_in_exact),
+                 "conv3x3_out": dict(fs._PLAIN, conv3x3_out=so.conv3x3_out_exact),
+                 "all three": dict(fs._PLAIN, conv1x1_mid=so.conv1x1_mid_exact,
+                                   conv3x3_in=so.conv3x3_in_exact,
+                                   conv3x3_out=so.conv3x3_out_exact)}
     full = dict(stall_guard=None, newton_init=False, warm_start=False, tail_mode=None,
                 tail_start=None, line_search=False)
 
@@ -1806,6 +1842,7 @@ def launch_counts():
     counts[TC_LIN] = fb.lin_conv1x1_mid.tc_launches
     counts[TC_LIN3] = fb.lin_conv3x3_in.tc_launches
     counts[TC_IN] = fs.conv3x3_in.tc_launches
+    counts[TC_OUT] = fs.conv3x3_out.tc_launches
     return counts
 
 
@@ -2893,9 +2930,9 @@ def main():
     log("eval path kernels " + json.dumps(eval_launches))
     assert all(eval_launches[n] > 0 for n in fs.KERNELS), eval_launches
 
-    # the eval profile, with conv1x1_mid's route
+    # the eval profile, with the split-mode routes of the solve's conv kernels
     profiled_routes(lambda: profile_batch(model, eval_step, x_u8, draws(0)),
-                    ["conv1x1_mid", "conv3x3_in"], "eval batch")
+                    ["conv1x1_mid", "conv3x3_in", "conv3x3_out"], "eval batch")
 
     # the plain path on batch 0's draws
     implicit_block.fused_broyden_solve = fs.fused_broyden_solve_plain

@@ -1,9 +1,10 @@
-// Tensor-core (mma.sync) 3x3 conv mid -> c of mode bf16 for Hopper
-// (sm_90a), in four forms that share the product:
+// Tensor-core (mma.sync) 3x3 conv mid -> c for Hopper (sm_90a), in five
+// forms that share the product:
 //
 //   acc[e][co][p] = sum_{m, d} W[co][m][d] * bf16(IN(t[s][m][p + off(d)])),
 //                   e = idx[s],
 //
+// (in the forward solve's form the bf16 split's 3 or 4 passes of t and W)
 // for the live slots s < *count, zero outside the image.
 // * IN_DSWISH, C3_STORE: the re-attachment's last cotangent product t0 =
 //   C1^T (t1 swish'(h1)), out[e] = acc with IN(t) = t1 swish'(h1): R =
@@ -32,15 +33,27 @@
 //   (implicit_normalizing_flows_tpu/ops/fused_solve.py:1420-1433, in
 //   fused_final_pair :1689); estimator.cu's fp_conv_out, linked from
 //   conv3x3_out_tc.cu.
-// Mode bf16 only; modes f32 and tf32, and every other 3x3 mid -> c conv,
-// stay on conv_gemm.cuh's conv3x3_out_kernel.
+// * IN_ID, C3_SOLVE, PASSES 3 / 4 (modes tf32 / tf32x): the forward solve's
+//   residual, out[e] = base[e] + sgn * (acc + bias[co]) [- sub[e]] (each op
+//   rounded, in conv_gemm.cuh's conv3x3_out_kernel's order), acc the bf16
+//   split's hi*hi + hi*lo + lo*hi (+ lo*lo), exactly _make_dot's model
+//   (implicit_normalizing_flows_tpu/ops/fused_solve.py:101-135; never native
+//   TF32), on the active list: R = d3(t), the taps' shifted sum and + b3 of
+//   _make_eval (:245-280) inside resid = x_embed - eval_z(z) - z (:797-798,
+//   in fused_broyden_solve :1921); fused_solve.cu's conv3x3_out, linked from
+//   conv3x3_out_tc.cu. Its weights come pre-cast (below), W3's hi and lo
+//   halves each in the chain's tile layout.
+// Modes bf16 of the mid -> c forms above; modes f32 (the solve's ladder's
+// last stage, and every form's) and the solve's bf16 stay on conv_gemm.cuh's
+// conv3x3_out_kernel.
 //
 // What bounds it on an H100 (32x32, B 64, mid 512, c 3): bytes. The
 // re-attachment's form reads t1 and h1 as float32 once, 256 MiB: 0.080 ms at
 // 3.35 TB/s; the backward solve's reads t once, 128 MiB: 0.041 ms; the
 // product is 1.8 GFLOP; the chain's reads t1 of both nets, 256 MiB: 0.080
-// ms, and so does the final pair's (0.161 ms for its four "nets"). The
-// CUDA-core kernel ran one thread per pixel and group of 4 output
+// ms, and so does the final pair's (0.161 ms for its four "nets"); the
+// forward solve's reads t once, 128 MiB: 0.041 ms (its 3 or 4 passes, 5.4 or
+// 7.2 GFLOP of bf16 products, 0.005-0.007 ms). The CUDA-core kernel ran one thread per pixel and group of 4 output
 // channels and re-read each input (and recomputed t1 swish'(h1) from two
 // float32 loads) for each of the 9 taps and each channel group.
 //
@@ -67,7 +80,7 @@
 //   bf16 and stored the same way, one 128-byte row per (tap, output
 //   channel). The chain's and the final pair's forms take them cast once
 //   per call into that tile layout (bf16 rows tap * NPAD + co of each net's
-//   64-channel chunks, NPAD c padded to 8 NT: ops/fused_chain.py's
+//   64-channel chunks, NPAD c padded to 8 NT: ops/fused_solve.py's
 //   tile_w1t) and copy a chunk's rows with 16-byte cp.async into one of two
 //   buffers, issued before the previous chunk's products: at 8x8 (c 48) the float32 OIHW
 //   staging took 27,648 scalar loads a chunk and block. One block takes
@@ -79,6 +92,20 @@
 //   truncate as they add (mma_gemm.cuh).
 // * 256 threads a block and 42-67 KB of shared memory, 3-5 blocks per SM:
 //   one block's loads overlap another's products.
+// * The forward solve's split form (PASSES 3 / 4): each loaded element is
+//   split once, hi = rn(v) and lo = rn(v - hi), into two halo tiles; W3's
+//   halves come pre-cast in the tile layout, one buffer of both halves
+//   copied with cp.async at the chunk's start, under the halo's loads (two
+//   buffers would take 247 KB a block at c 48). Per (chunk, tap) hi*hi goes
+//   into one fresh float32 partial and hi*lo + lo*hi (+ lo*lo) into a
+//   second, each added round-to-nearest to its own sum; the epilogue adds
+//   the two sums, then the bias. The band's output-channel tiles are split
+//   over `groups` blocks of 1 or 2 tiles (ops/fused_solve.py's
+//   C3_SOLVE_GROUPS: c 3 and c 12 one block, c 48 three), each forming the
+//   band's halo tiles again: so 8x8 (c 48, one band, 64 slots) fills 192
+//   blocks of 62.6 KB, all resident at once, where one block for all 6
+//   tiles (136 KB) would leave half the SMs idle. 105.6 KB a block at
+//   32x32, 83.1 KB at 16x16; 85-128 registers: 2 blocks an SM.
 #pragma once
 
 #include <stdint.h>
@@ -91,15 +118,16 @@ constexpr int C3_TH = 8;        // image rows a block owns
 constexpr int C3_MC = 64;       // mid channels a chunk: one 128-byte row a pixel
 constexpr int C3_THREADS = 256;
 
-constexpr int c3_smem_bytes(int tw, int nt, int wbufs = 1) {
-  // the halo tile, the chunk's weights (the chain's form: two buffers),
-  // slack to align the base to 128 bytes
-  return (C3_TH + 2) * (tw + 2) * 128 + wbufs * 9 * 8 * nt * 128 + 128;
+constexpr int c3_smem_bytes(int tw, int nt, int wbufs = 1, int halos = 1) {
+  // the halo tile(s), the chunk's weights (the chain's form: two buffers;
+  // the solve's: hi and lo), slack to align the base to 128 bytes
+  return halos * (C3_TH + 2) * (tw + 2) * 128 + wbufs * 9 * 8 * nt * 128 + 128;
 }
 
 // The epilogues: out = acc, the backward solve's residual, the Neumann
-// chain's term and its sum, or out = acc on the pre-cast weights
-enum { C3_STORE = 0, C3_RESID = 1, C3_CHAIN = 2, C3_FINAL = 3 };
+// chain's term and its sum, out = acc on the pre-cast weights, or the
+// forward solve's residual
+enum { C3_STORE = 0, C3_RESID = 1, C3_CHAIN = 2, C3_FINAL = 3, C3_SOLVE = 4 };
 
 // Grid (H / C3_TH bands, B slots); a slot at or past *count returns. TW is
 // the image width (8, 16 or 32), NT the 8-channel output tiles (c <= 8 NT),
@@ -110,21 +138,28 @@ enum { C3_STORE = 0, C3_RESID = 1, C3_CHAIN = 2, C3_FINAL = 3 };
 // pre-cast tile layout (nets, MID / 64, 9 * 8 NT, 64) bf16, out u (B, C,
 // H*W), scale s0, chain_acc += coef[kterm] * u. C3_FINAL: wt as the chain's
 // for wnets nets, slot s taking net (s / nb) % wnets, out (B, C, H*W).
-template <int TW, int NT, int IN, int EPI, typename ST>
-__global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
+// C3_SOLVE (PASSES 3 / 4): grid (H / C3_TH bands x groups, B slots), the
+// block's NT tiles those of group g = blockIdx.x % groups; wt and wtl W3's
+// hi and lo halves in the tile layout (MID / 64, 9 * 8 NT groups, 64) bf16;
+// out, base and sub (nullptr: none) by example, bias (C).
+template <int TW, int NT, int IN, int EPI, typename ST, int PASSES = 1>
+__global__ void __launch_bounds__(C3_THREADS, PASSES > 1 ? 2 : 3) conv3x3_out_tc_kernel(
     const float* __restrict__ w, const float* __restrict__ t,
     const float* __restrict__ th, float beta, const int* __restrict__ idx,
     const int* __restrict__ count, int C, int MID, int H,
     float* __restrict__ out, const float* __restrict__ base,
     const ST* __restrict__ scale, const float* __restrict__ sub,
     const __nv_bfloat16* __restrict__ wt, int nb, const float* __restrict__ coef, int kterm,
-    float* __restrict__ chain_acc, int wnets) {
-  static_assert((IN == IN_DSWISH && EPI == C3_STORE) || (IN == IN_ID && EPI == C3_RESID) ||
-                    (IN == IN_ID && EPI == C3_CHAIN) || (IN == IN_ID && EPI == C3_FINAL),
+    float* __restrict__ chain_acc, int wnets, const __nv_bfloat16* __restrict__ wtl,
+    const float* __restrict__ bias, float sgn, int groups) {
+  static_assert(((IN == IN_DSWISH && EPI == C3_STORE) || (IN == IN_ID && EPI == C3_RESID) ||
+                 (IN == IN_ID && EPI == C3_CHAIN) || (IN == IN_ID && EPI == C3_FINAL)) ==
+                        (PASSES == 1) &&
+                    (IN == IN_ID && EPI == C3_SOLVE) == (PASSES == 3 || PASSES == 4),
                 "the re-attachment's form, the backward solve's, the chain's or the final "
-                "pair's");
-  constexpr bool CHAIN = EPI == C3_CHAIN;
-  constexpr bool TILED = CHAIN || EPI == C3_FINAL;  // the pre-cast weights
+                "pair's (bf16), or the forward solve's (tf32 / tf32x)");
+  constexpr bool CHAIN = EPI == C3_CHAIN, SPLIT = EPI == C3_SOLVE;
+  constexpr bool TILED = CHAIN || EPI == C3_FINAL;  // the pre-cast weights, two buffers
   constexpr int HPW = TW + 2, HP = (C3_TH + 2) * HPW;  // halo row, halo pixels
   constexpr int NPAD = 8 * NT;
   constexpr int MT = C3_TH * TW / 16;                  // M tiles of the band
@@ -134,14 +169,18 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
   extern __shared__ uint8_t c3_smem[];
   const uint32_t raw = smem_u32(c3_smem);
   const uint32_t act = (raw + 127u) & ~127u;  // [HP][128 bytes], swizzled
-  uint8_t* const act_g = c3_smem + (act - raw);
-  uint8_t* const ws_g = act_g + HP * 128;     // [9 * NPAD][128 bytes], swizzled
-  constexpr int WS_BYTES = 9 * NPAD * 128;    // the pre-cast ones: two such, a chunk in turn
+  uint8_t* const act_g = c3_smem + (act - raw);  // SPLIT: hi, then lo HP * 128 on
+  constexpr int HALOS = SPLIT ? 2 : 1;
+  uint8_t* const ws_g = act_g + HALOS * HP * 128;  // [9 * NPAD][128 bytes], swizzled
+  // the pre-cast ones: two such, a chunk in turn; SPLIT: hi, then lo
+  constexpr int WS_BYTES = 9 * NPAD * 128;
 
   const int slot = blockIdx.y;
   if (count != nullptr && slot >= *count) return;
   const int e = idx != nullptr ? idx[slot] : slot;
-  const int HW = H * TW, y0 = blockIdx.x * C3_TH;
+  const int band = SPLIT ? blockIdx.x / groups : blockIdx.x;
+  const int g = SPLIT ? blockIdx.x % groups : 0;  // the block's group of output tiles
+  const int HW = H * TW, y0 = band * C3_TH;
   const int tid = threadIdx.x, lane = tid % 32;
   const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
   const int wm = warp % WM, wn = warp / WM;
@@ -149,7 +188,7 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
   const float* const hs = IN == IN_DSWISH ? th + (size_t)slot * MID * HW : nullptr;
 
   // the border pixels stay zero; the in-image ones are written every chunk
-  for (int i = tid; i < HP * 8; i += C3_THREADS)
+  for (int i = tid; i < HALOS * HP * 8; i += C3_THREADS)
     reinterpret_cast<uint4*>(act_g)[i] = make_uint4(0u, 0u, 0u, 0u);
 
   // the halo pixel of this lane's ldmatrix row (band pixel (mt * 16 + lane
@@ -160,13 +199,22 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
     const int q = (wm + i * WM) * 16 + lane % 16;
     hrow[i] = (q / TW + 1) * HPW + q % TW + 1;
   }
-  float acc[MPW][NPW][4];
+  // SPLIT: acc sums hi*hi, accl the small passes
+  float acc[MPW][NPW][4], accl[SPLIT ? MPW : 1][SPLIT ? NPW : 1][4];
 #pragma unroll
   for (int i = 0; i < MPW; ++i)
 #pragma unroll
     for (int j = 0; j < NPW; ++j)
 #pragma unroll
       for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
+  if constexpr (SPLIT) {
+#pragma unroll
+    for (int i = 0; i < MPW; ++i)
+#pragma unroll
+      for (int j = 0; j < NPW; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) accl[i][j][k] = 0.f;
+  }
 
   // the pre-cast weights: chunk ci's 9 NPAD rows of this net's tile layout
   // into buffer b, 16 bytes a copy
@@ -181,10 +229,25 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
     cp_async_commit();
   };
   if constexpr (TILED) stage_w(0, 0);
+  // SPLIT: chunk ci's rows of both halves, the block's group's NPAD rows
+  // of each tap (of the layout's NPAD groups), into the one buffer
+  auto stage_split = [&](int ci) {
+    const uint32_t dst = act + HALOS * HP * 128;
+    const int rows = 9 * NPAD * groups;
+    for (int i = tid; i < 2 * 9 * NPAD * 8; i += C3_THREADS) {
+      const int r = i / 8 % (9 * NPAD), half = i / (9 * NPAD * 8);
+      const int src = (ci * rows + r / NPAD * NPAD * groups + g * NPAD + r % NPAD) * 64;
+      cp_async16(dst + half * WS_BYTES + sw128(r, i % 8), (half ? wtl : wt) + src + i % 8 * 8,
+                 true);
+    }
+    cp_async_commit();
+  };
 
   for (int m0 = 0; m0 < MID; m0 += C3_MC) {
     __syncthreads();  // the zeroing, or the previous chunk's products, done
-    if constexpr (TILED) {
+    if constexpr (SPLIT) {
+      stage_split(m0 / C3_MC);  // under the halo's loads below
+    } else if constexpr (TILED) {
       // the next chunk's weights, under this chunk's loads and products
       if (m0 + C3_MC < MID) stage_w(m0 / C3_MC + 1, (m0 / C3_MC + 1) & 1);
     } else {
@@ -229,8 +292,21 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         *reinterpret_cast<uint32_t*>(act_g + sw128(hp0 + j, cp >> 2) + (cp & 3) * 4) = px[j];
+      if constexpr (SPLIT) {  // lo = rn(v - rn(v)), as conv_gemm.cuh's split()
+        const auto lo = [](float v) { return __fsub_rn(v, bf16_round(v)); };
+        px[0] = pack_bf16(lo(ta.x), lo(tb.x));
+        px[1] = pack_bf16(lo(ta.y), lo(tb.y));
+        px[2] = pack_bf16(lo(ta.z), lo(tb.z));
+        px[3] = pack_bf16(lo(ta.w), lo(tb.w));
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<uint32_t*>(act_g + HP * 128 + sw128(hp0 + j, cp >> 2) +
+                                       (cp & 3) * 4) = px[j];
+      }
     }
-    if constexpr (TILED) {  // this chunk's weights landed (the next chunk's may still fly)
+    if constexpr (SPLIT) {
+      cp_async_wait<0>();  // this chunk's weights landed
+    } else if constexpr (TILED) {  // this chunk's weights landed (the next chunk's may still fly)
       if (m0 + C3_MC < MID)
         cp_async_wait<1>();
       else
@@ -243,22 +319,34 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
 #pragma unroll 1
     for (int d = 0; d < 9; ++d) {
       const int shift = (d / 3 - 1) * HPW + d % 3 - 1;
-      float part[MPW][NPW][4];
+      float part[MPW][NPW][4], pl[SPLIT ? MPW : 1][SPLIT ? NPW : 1][4];
 #pragma unroll
       for (int i = 0; i < MPW; ++i)
 #pragma unroll
         for (int j = 0; j < NPW; ++j)
 #pragma unroll
           for (int k = 0; k < 4; ++k) part[i][j][k] = 0.f;
+      if constexpr (SPLIT) {
+#pragma unroll
+        for (int i = 0; i < MPW; ++i)
+#pragma unroll
+          for (int j = 0; j < NPW; ++j)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) pl[i][j][k] = 0.f;
+      }
 #pragma unroll
       for (int ks = 0; ks < C3_MC / 16; ++ks) {
-        uint32_t b[NPW][2];
+        uint32_t b[NPW][2], bl[SPLIT ? NPW : 1][2];
 #pragma unroll
         for (int j = 0; j < NPW; ++j) {
           const int r = d * NPAD + (wn * NPW + j) * 8 + lane / 4;
           const uint8_t* row = wbuf + (lane % 4) * 4;
           b[j][0] = wn * NPW + j < NT ? *reinterpret_cast<const uint32_t*>(row + sw128(r, 2 * ks)) : 0u;
           b[j][1] = wn * NPW + j < NT ? *reinterpret_cast<const uint32_t*>(row + sw128(r, 2 * ks + 1)) : 0u;
+          if constexpr (SPLIT) {
+            bl[j][0] = wn * NPW + j < NT ? *reinterpret_cast<const uint32_t*>(row + WS_BYTES + sw128(r, 2 * ks)) : 0u;
+            bl[j][1] = wn * NPW + j < NT ? *reinterpret_cast<const uint32_t*>(row + WS_BYTES + sw128(r, 2 * ks + 1)) : 0u;
+          }
         }
 #pragma unroll
         for (int i = 0; i < MPW; ++i) {
@@ -267,6 +355,17 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
 #pragma unroll
           for (int j = 0; j < NPW; ++j)
             if (wn * NPW + j < NT) mma_16816(part[i][j], a, b[j][0], b[j][1]);
+          if constexpr (SPLIT) {
+            uint32_t al[4];
+            ldmatrix_x4(al, act + HP * 128 + sw128(hrow[i] + shift, 2 * ks + lane / 16));
+#pragma unroll
+            for (int j = 0; j < NPW; ++j) {
+              if (wn * NPW + j >= NT) continue;
+              mma_16816(pl[i][j], a, bl[j][0], bl[j][1]);  // hi * lo
+              mma_16816(pl[i][j], al, b[j][0], b[j][1]);   // lo * hi
+              if constexpr (PASSES == 4) mma_16816(pl[i][j], al, bl[j][0], bl[j][1]);
+            }
+          }
         }
       }
 #pragma unroll
@@ -274,7 +373,10 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
 #pragma unroll
         for (int j = 0; j < NPW; ++j)
 #pragma unroll
-          for (int k = 0; k < 4; ++k) acc[i][j][k] = __fadd_rn(acc[i][j][k], part[i][j][k]);
+          for (int k = 0; k < 4; ++k) {
+            acc[i][j][k] = __fadd_rn(acc[i][j][k], part[i][j][k]);
+            if constexpr (SPLIT) accl[i][j][k] = __fadd_rn(accl[i][j][k], pl[i][j][k]);
+          }
     }
   }
 
@@ -289,8 +391,16 @@ __global__ void __launch_bounds__(C3_THREADS, 3) conv3x3_out_tc_kernel(
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int p = y0 * TW + (wm + i * WM) * 16 + lane / 4 + 8 * (k / 2);
-        const int co = nt * 8 + 2 * (lane % 4) + k % 2;
-        if constexpr (EPI == C3_RESID) {
+        const int co = (g * NT + nt) * 8 + 2 * (lane % 4) + k % 2;
+        if constexpr (EPI == C3_SOLVE) {  // hh + (hl + lh [+ ll]), + b3, then the residual
+          const size_t o = ((size_t)e * C + co) * HW + p;
+          if (co < C) {
+            const float r = __fadd_rn(__fadd_rn(acc[i][j][k], accl[i][j][k]), bias[co]);
+            float v = __fadd_rn(__fmul_rn(sgn, r), base[o]);
+            if (sub != nullptr) v = __fsub_rn(v, sub[o]);
+            out[o] = v;
+          }
+        } else if constexpr (EPI == C3_RESID) {
           const size_t o = ((size_t)e * C + co) * HW + p;
           if (co < C)
             out[o] = __fsub_rn(__fadd_rn(base[o], __fmul_rn(acc[i][j][k], ld(scale, o))), sub[o]);
@@ -330,7 +440,8 @@ static cudaError_t launch_c3_tc(const float* w, const float* t, const float* th,
   }
   kernel<<<dim3(H / C3_TH, B), C3_THREADS, bytes, s>>>(w, t, th, beta, idx, count, C, MID, H,
                                                         out, base, scale, sub, nullptr, 1,
-                                                        nullptr, 0, nullptr, 1);
+                                                        nullptr, 0, nullptr, 1, nullptr,
+                                                        nullptr, 0.f, 1);
   return cudaGetLastError();
 }
 
@@ -376,7 +487,7 @@ static cudaError_t launch_c3_chain(const __nv_bfloat16* wt, const float* t, int 
   kernel<<<dim3(H / C3_TH, B), C3_THREADS, bytes, s>>>(nullptr, t, nullptr, 0.f, nullptr,
                                                         nullptr, C, MID, H, u_out, nullptr, s0,
                                                         nullptr, wt, B / nets, coef, k, acc,
-                                                        nets);
+                                                        nets, nullptr, nullptr, 0.f, 1);
   return cudaGetLastError();
 }
 
@@ -427,14 +538,40 @@ static cudaError_t launch_c3_final(const __nv_bfloat16* wt, const float* t, int 
   kernel<<<dim3(H / C3_TH, B), C3_THREADS, bytes, s>>>(nullptr, t, nullptr, 0.f, nullptr,
                                                         nullptr, C, MID, H, out, nullptr,
                                                         no_scale, nullptr, wt, B / nets,
-                                                        nullptr, 0, nullptr, wnets);
+                                                        nullptr, 0, nullptr, wnets, nullptr,
+                                                        nullptr, 0.f, 1);
+  return cudaGetLastError();
+}
+
+// The forward solve's split form. static, as launch_c3_tc.
+template <int TW, int NT, int PASSES>
+static cudaError_t launch_c3_solve(const __nv_bfloat16* wt, const __nv_bfloat16* wtl,
+                                   const float* bias, const float* t, const int* idx,
+                                   const int* count, int B, int C, int MID, int H, int groups,
+                                   const float* base, float sgn, const float* sub, float* out,
+                                   cudaStream_t s) {
+  auto kernel = conv3x3_out_tc_kernel<TW, NT, IN_ID, C3_SOLVE, float, PASSES>;
+  constexpr int bytes = c3_smem_bytes(TW, NT, 2, 2);
+  static_assert(bytes <= TC_SMEM_MAX, "the split tiles fit a block");
+  static bool ready = false;  // once per instantiation
+  if (!ready) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  const float* no_scale = nullptr;
+  kernel<<<dim3(H / C3_TH * groups, B), C3_THREADS, bytes, s>>>(
+      nullptr, t, nullptr, 0.f, idx, count, C, MID, H, out, base, no_scale, sub, wt, 1, nullptr,
+      0, nullptr, 1, wtl, bias, sgn, groups);
   return cudaGetLastError();
 }
 
 // The final pair's public launcher is conv3x3_out_tc.cu's
 // conv3x3_out_tc_final (conv3x3_out_chain.cuh), defined there and not
 // inline here: an inline launcher would instantiate launch_c3_final's
-// kernels in every unit that includes this header (implicit_grad.cu).
+// kernels in every unit that includes this header (implicit_grad.cu). So is
+// the forward solve's, conv3x3_out_tc_solve.
 
 // out[idx[s]] = C1^T (t[s] swish'(th[s]; beta)) on the tensor cores, for
 // slots s < *count: w (C, MID, 3, 3) float32 holding bf16 values (the

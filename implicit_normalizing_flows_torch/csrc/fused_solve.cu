@@ -22,8 +22,9 @@
 //
 // The conv kernels and the precision model (modes f32 / bf16 / tf32 /
 // tf32x) are shared with the implicit-gradient kernels: conv_gemm.cuh, and
-// in the split modes mma_gemm.cuh for conv1x1_mid and conv3x3_in_tc.cuh
-// (linked from conv3x3_in_tc.cu) for conv3x3_in.
+// in the split modes mma_gemm.cuh for conv1x1_mid, conv3x3_in_tc.cuh
+// (linked from conv3x3_in_tc.cu) for conv3x3_in and conv3x3_out_tc.cuh
+// (linked from conv3x3_out_tc.cu) for conv3x3_out.
 //
 // What bounds them on H100: conv1x1_mid is ~90% of the MACs (268M of 296M
 // per example per net eval at 32x32). In modes tf32 / tf32x it runs on the
@@ -32,14 +33,16 @@
 // activation read and split once; that header gives its bound and design),
 // and so does conv3x3_in (conv3x3_in_tc.cuh's mma.sync kernel on an im2col
 // tile of the band, the split's 3 or 4 passes, its output's bytes bounding
-// it; the blocks of dead slots return at once). conv3x3_out and modes f32 /
-// bf16 of conv1x1_mid and conv3x3_in are bound by FP32 CUDA-core operations
-// (3-4 FMAs per MAC in the split modes); they keep 64x64 shared-memory tiles
-// with a 4x4 register micro-tile so each loaded element feeds 16 FMAs. broyden_step is bound by the bytes of the U/V
-// planes it streams (2 x nstep x D floats per example).
+// it; the blocks of dead slots return at once), and so does conv3x3_out
+// (conv3x3_out_tc.cuh's mma.sync kernel on hi / lo halo tiles of the band,
+// its input's bytes bounding it). Modes f32 / bf16 of the three run on the
+// CUDA cores (conv_gemm.cuh), bound by their FP32 operations. broyden_step
+// is bound by the bytes of the U/V planes it streams (2 x nstep x D floats
+// per example).
 
 #include "mma_gemm.cuh"
 #include "conv3x3_in_tc.cuh"
+#include "conv3x3_out_chain.cuh"
 
 namespace {
 
@@ -317,17 +320,25 @@ int imnf_conv1x1_mid(int mode, const void* w_hi, const void* w_lo,
   return (int)cudaErrorInvalidValue;
 }
 
-int imnf_conv3x3_out(int mode, const float* w_hi, const float* w_lo,
+// w_hi / w_lo: W3's split, bfloat16 in the tile layout in modes tf32 /
+// tf32x (the tensor cores' operands, cast once per solve; each band's
+// output tiles over `groups` blocks), float32 OIHW in modes f32 / bf16 (the
+// CUDA cores; w_lo unused there, and groups)
+int imnf_conv3x3_out(int mode, const void* w_hi, const void* w_lo,
                      const float* bias, const float* t2, const int* idx,
                      const int* count, int B, int C, int mid, int H, int W,
                      const float* base, float sgn, const float* sub,
-                     float* out, void* stream) {
+                     float* out, int groups, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const float* fh = static_cast<const float*>(w_hi);
+  const float* fl = static_cast<const float*>(w_lo);
+  const __nv_bfloat16* wh = static_cast<const __nv_bfloat16*>(w_hi);
+  const __nv_bfloat16* wl = static_cast<const __nv_bfloat16*>(w_lo);
   switch (mode) {
-    case MODE_F32: return (int)launch_conv3x3_out<MODE_F32, IN_ID>(w_hi, w_lo, bias, t2, nullptr, 0.f, idx, count, B, C, mid, H, W, base, sgn, nullptr, sub, out, s);
-    case MODE_BF16: return (int)launch_conv3x3_out<MODE_BF16, IN_ID>(w_hi, w_lo, bias, t2, nullptr, 0.f, idx, count, B, C, mid, H, W, base, sgn, nullptr, sub, out, s);
-    case MODE_TF32: return (int)launch_conv3x3_out<MODE_TF32, IN_ID>(w_hi, w_lo, bias, t2, nullptr, 0.f, idx, count, B, C, mid, H, W, base, sgn, nullptr, sub, out, s);
-    case MODE_TF32X: return (int)launch_conv3x3_out<MODE_TF32X, IN_ID>(w_hi, w_lo, bias, t2, nullptr, 0.f, idx, count, B, C, mid, H, W, base, sgn, nullptr, sub, out, s);
+    case MODE_F32: return (int)launch_conv3x3_out<MODE_F32, IN_ID>(fh, fl, bias, t2, nullptr, 0.f, idx, count, B, C, mid, H, W, base, sgn, nullptr, sub, out, s);
+    case MODE_BF16: return (int)launch_conv3x3_out<MODE_BF16, IN_ID>(fh, fl, bias, t2, nullptr, 0.f, idx, count, B, C, mid, H, W, base, sgn, nullptr, sub, out, s);
+    case MODE_TF32: return (int)conv3x3_out_tc_solve(3, groups, wh, wl, bias, t2, idx, count, B, C, mid, H, W, base, sgn, sub, out, s);
+    case MODE_TF32X: return (int)conv3x3_out_tc_solve(4, groups, wh, wl, bias, t2, idx, count, B, C, mid, H, W, base, sgn, sub, out, s);
   }
   return (int)cudaErrorInvalidValue;
 }

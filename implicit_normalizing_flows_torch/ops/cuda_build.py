@@ -32,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # library beside csrc/<name>.cu (conv3x3_in_tc.cuh says why)
 LINKED = {"estimator": ["conv3x3_in_tc", "conv3x3_out_tc"], "implicit_grad": ["conv3x3_in_tc"],
           "block_forward": ["conv3x3_in_tc"],
-          "fused_solve": ["conv3x3_in_tc"]}
+          "fused_solve": ["conv3x3_in_tc", "conv3x3_out_tc"]}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

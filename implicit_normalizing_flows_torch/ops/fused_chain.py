@@ -48,7 +48,8 @@ import ctypes
 import torch
 
 from .fused_solve import (C3_MID, C3_OUT_ROWS, MODES, _check_cuda, _launch, _mconv, _ptr,
-                          _wide, check_conv3x3_tc, conv3x3_in_rows)
+                          _wide, c3_out_npad, check_conv3x3_tc, conv3x3_in_rows, tile_w1t,
+                          untile_w1t)
 from .implicit_grad import _check_mid, _shapes, mid_weight_dtype, transpose_weights
 
 __all__ = ["fused_neumann_chain2", "fused_neumann_chain2_plain",
@@ -108,43 +109,6 @@ def _check(s, mode, **others):
         raise ValueError(f"chain mode {mode!r}: 'f32' | 'bf16'")
     _check_cuda(_dtypes=(s.dtype, torch.float32), s=s, **others)
     return int(s.dtype == torch.bfloat16)
-
-
-# ---------------------------------------------------------------------------
-# W1T in the mid -> c tensor-core kernel's tile layout (csrc/conv3x3_out_tc.cuh)
-
-def c3_out_npad(c):
-    """The output-channel rows of a tap in the mid -> c kernel's weight tile:
-    c padded to 8, 16 or 48 (its 1, 2 or 6 tiles of 8 channels), or past 48
-    (which the kernel refuses) to a multiple of 8."""
-    return next((n for n in (8, 16, 48) if c <= n), -(-c // 8) * 8)
-
-
-def tile_w1t(w1t):
-    """W1T (N, c, mid, 3, 3) in the mid -> c kernel's tile layout, cast to
-    bfloat16 (exactly, for bfloat16 values): (N, mid / 64, 9 npad, 64), for
-    each net and chunk of 64 mid channels m0 .. m0 + 63 the rows tap * npad
-    + co (tap = ky * 3 + kx, npad :func:`c3_out_npad`) of 128 bytes, zero
-    past c; mid is padded with zero channels to a multiple of 64. A block
-    copies a chunk's rows into shared memory with 16-byte copies, no
-    conversion."""
-    N, c, mid = w1t.shape[:3]
-    mc = C3_MID
-    nch = -(-mid // mc)
-    w = torch.nn.functional.pad(w1t.reshape(N, c, mid, 9), (0, 0, 0, nch * mc - mid))
-    w = w.reshape(N, c, nch, mc, 9).permute(0, 2, 4, 1, 3)  # (N, chunk, tap, co, ch)
-    w = torch.nn.functional.pad(w, (0, 0, 0, c3_out_npad(c) - c))
-    return w.reshape(N, nch, -1, mc).to(torch.bfloat16).contiguous()
-
-
-def untile_w1t(w, c, mid):
-    """:func:`tile_w1t`'s W1T back in OIHW (N, c, mid, 3, 3), float32; a
-    W1T already in OIHW is returned as it is."""
-    if w.dim() != 4:
-        return w
-    N, nch, rows, mc = w.shape
-    w = w.float().reshape(N, nch, 9, rows // 9, mc)[:, :, :, :c]  # (N, chunk, tap, co, ch)
-    return w.permute(0, 3, 1, 4, 2).reshape(N, c, nch * mc, 3, 3)[:, :, :mid].contiguous()
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,8 @@ says what bounds each on an H100 and what its design does about it):
   ``tf32`` / ``tf32x`` on the tensor cores, ``csrc/conv3x3_in_tc.cuh``)
 * ``conv1x1_mid`` ``mid->mid + b2 -> swish(b2)`` (modes ``tf32`` / ``tf32x``
   on the tensor cores, ``csrc/mma_gemm.cuh``)
-* ``conv3x3_out`` ``conv3x3 mid->c + b3`` fused with the residual
+* ``conv3x3_out`` ``conv3x3 mid->c + b3`` fused with the residual (modes
+  ``tf32`` / ``tf32x`` on the tensor cores, ``csrc/conv3x3_out_tc.cuh``)
 * ``broyden_step`` secant update, best iterate, protective break, stall
   exit, next direction (also the init and the ladder's re-arm)
 
@@ -48,7 +49,8 @@ __all__ = ["fused_broyden_solve", "fused_broyden_solve_plain",
            "broyden_step", "KERNELS", "launch_counts", "reset_launch_counts",
            "prep_weight", "prep_weights", "prep_conv1x1_mid", "check_mid_product",
            "check_conv3x3_tc", "conv3x3_in_rows", "conv3x3_in_smem", "C3_OUT_ROWS",
-           "norm_ladder",
+           "prep_conv3x3_out", "conv3x3_out_smem", "C3_SOLVE_GROUPS", "c3_out_npad",
+           "tile_w1t", "untile_w1t", "norm_ladder",
            "swish", "dswish", "dswish_dbeta", "d2swish", "ddswish_dbeta"]
 
 PROTECT_THRES = 1e6  # reference: broyden.py:150
@@ -56,7 +58,7 @@ MODES = {"f32": 0, "bf16": 1, "tf32": 2, "tf32x": 3}
 PHASE_INIT, PHASE_STEP, PHASE_REARM = 0, 1, 2
 KMAX = 64  # largest threshold broyden_step takes (its shared-memory rows)
 TC_KMAX = 512  # the largest K the tensor-core 1x1 product takes (csrc/mma_gemm.cuh)
-SPLIT_MODES = ("tf32", "tf32x")  # conv1x1_mid's and conv3x3_in's modes on the tensor cores
+SPLIT_MODES = ("tf32", "tf32x")  # the solve's conv kernels' modes on the tensor cores
 TC_SMEM_MAX = 232448  # the dynamic shared memory an SM grants a block (csrc/mma_gemm.cuh)
 
 
@@ -169,6 +171,70 @@ def prep_conv1x1_mid(wp, mode):
 C3_CMAX = 48  # the largest c the tensor-core 3x3 kernels take
 C3_MID = 64  # their mid channels come in multiples of this
 C3_OUT_ROWS = 8  # the image rows of a band of the mid -> c kernel (csrc/conv3x3_out_tc.cuh)
+# the blocks a band's output tiles are split over in the mid -> c kernel's
+# split form (conv3x3_out in tf32 / tf32x), by c3_out_npad(c): 1, 2 and 2
+# tiles of 8 channels a block (on an H100 c 12 at 16x16 in two blocks of
+# one tile, and c 48 at 8x8 in six, were slower)
+C3_SOLVE_GROUPS = {8: 1, 16: 1, 48: 3}
+
+
+# A mid -> c kernel in the tensor-core kernel's tile layout
+# (csrc/conv3x3_out_tc.cuh): the chain's and the final pair's W1T, the
+# solve's W3
+
+def c3_out_npad(c):
+    """The output-channel rows of a tap in the mid -> c kernel's weight tile:
+    c padded to 8, 16 or 48 (its 1, 2 or 6 tiles of 8 channels), or past 48
+    (which the kernel refuses) to a multiple of 8."""
+    return next((n for n in (8, 16, 48) if c <= n), -(-c // 8) * 8)
+
+
+def tile_w1t(w1t):
+    """W1T (N, c, mid, 3, 3), or any N mid -> c kernels, in the mid -> c
+    kernel's tile layout, cast to bfloat16 (exactly, for bfloat16 values):
+    (N, mid / 64, 9 npad, 64), for each net and chunk of 64 mid channels m0
+    .. m0 + 63 the rows tap * npad + co (tap = ky * 3 + kx, npad
+    :func:`c3_out_npad`) of 128 bytes, zero past c; mid is padded with zero
+    channels to a multiple of 64. A block copies a chunk's rows into shared
+    memory with 16-byte copies, no conversion."""
+    N, c, mid = w1t.shape[:3]
+    mc = C3_MID
+    nch = -(-mid // mc)
+    w = torch.nn.functional.pad(w1t.reshape(N, c, mid, 9), (0, 0, 0, nch * mc - mid))
+    w = w.reshape(N, c, nch, mc, 9).permute(0, 2, 4, 1, 3)  # (N, chunk, tap, co, ch)
+    w = torch.nn.functional.pad(w, (0, 0, 0, c3_out_npad(c) - c))
+    return w.reshape(N, nch, -1, mc).to(torch.bfloat16).contiguous()
+
+
+def untile_w1t(w, c, mid):
+    """:func:`tile_w1t`'s W1T back in OIHW (N, c, mid, 3, 3), float32; a
+    W1T already in OIHW is returned as it is."""
+    if w.dim() != 4:
+        return w
+    N, nch, rows, mc = w.shape
+    w = w.float().reshape(N, nch, 9, rows // 9, mc)[:, :, :, :c]  # (N, chunk, tap, co, ch)
+    return w.permute(0, 3, 1, 4, 2).reshape(N, c, nch * mc, 3, 3)[:, :, :mid].contiguous()
+
+
+def prep_conv3x3_out(wp, mode):
+    """``conv3x3_out``'s kernel from :func:`prep_weight`'s ``(hi, lo)`` of
+    W3 (c, mid, 3, 3): in the split modes both halves in the mid -> c
+    kernel's tile layout (:func:`tile_w1t`, bfloat16, exactly: their values
+    are bfloat16), the tensor cores' operands; modes f32 and bf16 keep
+    ``wp`` (float32 OIHW, the CUDA cores)."""
+    if mode not in SPLIT_MODES:
+        return wp
+    return tuple(tile_w1t(w[None])[0] for w in wp)
+
+
+def conv3x3_out_smem(c, W):
+    """The shared memory of a block of the mid -> c kernel's split form
+    (``c3_smem_bytes(TW, NT, 2, 2)``, ``csrc/conv3x3_out_tc.cuh``): its hi
+    and lo halo tiles, one buffer of a chunk's weights in both halves for
+    the block's NT output tiles, 128 bytes of slack."""
+    npad = c3_out_npad(c)
+    nt = npad // 8 // C3_SOLVE_GROUPS[npad]
+    return 2 * (C3_OUT_ROWS + 2) * (W + 2) * 128 + 2 * 9 * 8 * nt * 128 + 128
 
 
 def conv3x3_in_rows(W):
@@ -187,7 +253,7 @@ def conv3x3_in_smem(c, W, panels):
     return halo + up(kpad * 4, 128) + panels * npx * ((kpad // 8) | 1) * 16 + 128
 
 
-def check_conv3x3_tc(name, c, mid, H, W, rows, panels=None, **aligned):
+def check_conv3x3_tc(name, c, mid, H, W, rows, panels=None, split_out=False, **aligned):
     """Raise on what a tensor-core 3x3 kernel between c and mid channels
     (``csrc/conv3x3_in_tc.cuh``, c -> mid; ``csrc/conv3x3_out_tc.cuh``, mid
     -> c) does not take: c over C3_CMAX, mid not a multiple of C3_MID, W
@@ -195,27 +261,32 @@ def check_conv3x3_tc(name, c, mid, H, W, rows, panels=None, **aligned):
     ``rows`` image rows, or a tensor of ``aligned`` not 16-byte aligned;
     with ``panels`` (the c -> mid kernel's im2col tiles) also tiles that
     outgrow the shared memory an SM grants (the split modes' two at c 48
-    and W over 8)."""
+    and W over 8), and with ``split_out`` the mid -> c kernel's split tiles
+    (:func:`conv3x3_out_smem`) that would."""
     if c > C3_CMAX or mid % C3_MID or W not in (8, 16, 32) or H % rows:
         raise ValueError(f"{name} on the tensor cores takes c <= {C3_CMAX}, mid % {C3_MID} "
                          f"== 0, W 8 | 16 | 32 and H % {rows} == 0, not c {c}, mid {mid}, "
                          f"H {H}, W {W}")
-    if panels is not None and conv3x3_in_smem(c, W, panels) > TC_SMEM_MAX:
-        raise ValueError(f"{name} on the tensor cores takes no c {c} at W {W} with {panels} "
-                         f"im2col tiles: {conv3x3_in_smem(c, W, panels)} bytes of shared "
-                         f"memory a block, over {TC_SMEM_MAX}")
+    smem = (conv3x3_in_smem(c, W, panels) if panels is not None
+            else conv3x3_out_smem(c, W) if split_out else 0)
+    if smem > TC_SMEM_MAX:
+        tiles = f"{panels} im2col tiles" if panels is not None else "split halo tiles"
+        raise ValueError(f"{name} on the tensor cores takes no c {c} at W {W} with {tiles}: "
+                         f"{smem} bytes of shared memory a block, over {TC_SMEM_MAX}")
     _check_aligned(**aligned)
 
 
 def prep_weights(data, mode):
     """:func:`prep_weight` of ``data``'s w1/w2/w3, once per solve and mode:
     ``{'w1'|'w2'|'w3': (hi, lo)}``, and as the tensor-core kernels take them
-    in the split modes (:func:`prep_conv1x1_mid`): ``'w1_in'``, w1's for
-    ``conv3x3_in`` and the merged forward's ``lin_conv3x3_in``, and
-    ``'w2_mid'``, w2's for ``conv1x1_mid`` and ``lin_conv1x1_mid``."""
+    in the split modes: ``'w1_in'``, w1's for ``conv3x3_in`` and the merged
+    forward's ``lin_conv3x3_in``, ``'w2_mid'``, w2's for ``conv1x1_mid`` and
+    ``lin_conv1x1_mid`` (:func:`prep_conv1x1_mid`), and ``'w3_tc'``, w3's
+    for ``conv3x3_out`` (:func:`prep_conv3x3_out`)."""
     out = {k: prep_weight(data[k], mode) for k in ("w1", "w2", "w3")}
     out["w1_in"] = prep_conv1x1_mid(out["w1"], mode)
     out["w2_mid"] = prep_conv1x1_mid(out["w2"], mode)
+    out["w3_tc"] = prep_conv3x3_out(out["w3"], mode)
     return out
 
 
@@ -251,7 +322,7 @@ _ARGTYPES = {
                         _I, _I, _P, _P],
     "imnf_conv1x1_mid": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P, _P],
     "imnf_conv3x3_out": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                         _F, _P, _P, _P],
+                         _F, _P, _P, _I, _P],
     "imnf_broyden_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _F, _I, _P],
 }
@@ -414,33 +485,64 @@ def conv1x1_mid(t1, count, wp, b2, beta2, mode, out, H, W):
         conv1x1_mid.tc_launches += 1
 
 
-def _conv3x3_out_plain(t2, idx, count, wp, b3, mode, base, sgn, sub, out, H, W):
+def _conv3x3_out_by(product, t2, idx, count, wp, b3, mode, base, sgn, sub, out, H, W):
+    """``conv3x3_out``'s function with ``product(v, wp, mode)`` for its 3x3
+    product, wp W3's (hi, lo) in OIHW (untiled, float32, where the wrapper
+    takes the tile layout); ``+ b3`` and the residual as the kernels take
+    them."""
     n = int(count.item())
     e = idx[:n].long()
-    mid = t2.shape[1]
-    y = _mconv(t2[:n].reshape(n, mid, H, W), wp, mode, 1) + b3[None, :, None, None]
+    mid, c = t2.shape[1], out.shape[1] // (H * W)
+    wp = tuple(None if w is None else untile_w1t(w[None], c, mid)[0] if w.dim() == 3 else w
+               for w in wp)
+    y = product(t2[:n].reshape(n, mid, H, W), wp, mode) + b3[None, :, None, None]
     o = base.index_select(0, e) + sgn * y.reshape(n, -1)
     if sub is not None:
         o = o - sub.index_select(0, e)
     out[e] = o
 
 
+def _conv3x3_out_plain(t2, idx, count, wp, b3, mode, base, sgn, sub, out, H, W):
+    _conv3x3_out_by(lambda v, w, m: _mconv(v, w, m, 1), t2, idx, count, wp, b3, mode, base,
+                    sgn, sub, out, H, W)
+
+
 def conv3x3_out(t2, idx, count, wp, b3, mode, base, sgn, sub, out, H, W):
     """out[idx[s]] = base[idx[s]] + sgn * (conv3x3(t2[s]) + b3)
     [- sub[idx[s]]] for live slots s; base/sub/out are (B, D) with
     D = c*H*W (the residual g = x_embed - g_z(z) - z, or x_embed = x +
-    g_x(x))."""
+    g_x(x)); the rows of the other examples are not written. wp W3's
+    (hi, lo) from :func:`prep_conv3x3_out`: in the split modes, which run
+    on the tensor cores (``csrc/conv3x3_out_tc.cuh``; ``tc_launches``
+    counts those launches), bfloat16 halves in the tile layout, with what
+    :func:`check_conv3x3_tc` asks of the shapes and 16-byte aligned t2 and
+    halves; float32 OIHW in modes f32 / bf16 (the CUDA cores)."""
     if not t2.is_cuda:
         return _conv3x3_out_plain(t2, idx, count, wp, b3, mode, base, sgn,
                                   sub, out, H, W)
     B, mid, HW = t2.shape
-    c = wp[0].shape[0]
-    _check_cuda(t2=t2, idx=idx, count=count, w_hi=wp[0], w_lo=wp[1], b3=b3,
-                base=base, sub=sub, out=out)
+    c = out.shape[1] // HW
+    split = mode in SPLIT_MODES
+    _check_cuda(t2=t2, idx=idx, count=count, b3=b3, base=base, sub=sub, out=out)
+    _check_cuda(_dtypes=(torch.bfloat16 if split else torch.float32,), w_hi=wp[0],
+                w_lo=wp[1])
+    if split:
+        check_conv3x3_tc("conv3x3_out", c, mid, H, W, C3_OUT_ROWS, split_out=True, t2=t2,
+                         w_hi=wp[0], w_lo=wp[1])
+    wshape = (mid // C3_MID, 9 * c3_out_npad(c), C3_MID) if split else (c, mid, 3, 3)
+    if (tuple(wp[0].shape) != wshape or HW != H * W or out.shape[1] != c * HW
+            or tuple(base.shape) != tuple(out.shape)):
+        raise ValueError(f"conv3x3_out: t2 {tuple(t2.shape)}, w {tuple(wp[0].shape)}, base "
+                         f"{tuple(base.shape)}, out {tuple(out.shape)} at H {H}, W {W}")
+    if split and (wp[1] is None or tuple(wp[1].shape) != wshape):
+        raise ValueError(f"conv3x3_out in {mode} takes both halves of the split")
     _launch("imnf_conv3x3_out", MODES[mode], _ptr(wp[0]), _ptr(wp[1]),
             _ptr(b3), _ptr(t2), _ptr(idx), _ptr(count), B, c, mid, H, W,
-            _ptr(base), float(sgn), _ptr(sub), _ptr(out))
+            _ptr(base), float(sgn), _ptr(sub), _ptr(out),
+            C3_SOLVE_GROUPS[c3_out_npad(c)] if split else 1)
     conv3x3_out.launches += 1
+    if split:
+        conv3x3_out.tc_launches += 1
 
 
 def _broyden_step_plain(phase, idx_in, cnt_in, idx_out, cnt_out, st, *, eps,
@@ -557,7 +659,7 @@ _PLAIN = {"conv3x3_in": _conv3x3_in_plain, "conv1x1_mid": _conv1x1_mid_plain,
 for _fn in KERNELS.values():
     _fn.launches = 0
 conv1x1_mid.tc_launches = 0  # their launches on the tensor cores (split modes)
-conv3x3_in.tc_launches = 0
+conv3x3_in.tc_launches = conv3x3_out.tc_launches = 0
 
 
 def launch_counts() -> dict:
@@ -567,7 +669,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-    conv1x1_mid.tc_launches = conv3x3_in.tc_launches = 0
+    conv1x1_mid.tc_launches = conv3x3_in.tc_launches = conv3x3_out.tc_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -649,7 +751,7 @@ def _solve(x, data_x, data_z, ops, *, threshold, eps, stall_patience,
             ops["lin_conv1x1_mid"](T1, wp["w2_mid"], nd["b2"], nd["betas"][2], m, T2, s[2],
                                    H, W)
         if out is not None:
-            ops["conv3x3_out"](T2, idx, cnt, wp["w3"], nd["b3"], m, base, sgn, sub,
+            ops["conv3x3_out"](T2, idx, cnt, wp["w3_tc"], nd["b3"], m, base, sgn, sub,
                                out, H, W)
 
     def step(phase, cap):

@@ -1,5 +1,5 @@
-"""Plain versions of sixteen kernels with their products summed exactly,
-and thirteen with their products summed in the tensor cores' order.
+"""Plain versions of seventeen kernels with their products summed exactly,
+and fourteen with their products summed in the tensor cores' order.
 
 Each ``*_exact`` function here is a kernel's plain version with its rounded
 (bf16, or split) product summed in float64 and rounded once to float32: the
@@ -63,10 +63,13 @@ channels into a fresh float32 partial, the partials added in order:
 
 The 3x3 kernel (``csrc/conv3x3_out_tc.cuh``) takes the mid channels in
 chunks of ``C3_MC`` and, within a chunk, the 9 taps in order, each (chunk,
-tap) K tile into a fresh float32 partial added to the sum:
+tap) K tile into a fresh float32 partial added to the sum (in the split
+modes one partial and sum of hi*hi and one of the small passes, the two
+sums added before the bias):
 
 * :func:`jt_conv3x3_out_tiled`, :func:`nc_jt_out_acc_tiled` and
-  :func:`fp_conv_out_tiled` (mode bf16).
+  :func:`fp_conv_out_tiled` (mode bf16), :func:`conv3x3_out_tiled` (tf32 /
+  tf32x).
 
 The 3x3 c -> mid kernel (``csrc/conv3x3_in_tc.cuh``) sums over the im2col's
 k = ci * 9 + ky * 3 + kx in K tiles of ``C3I_BK``, each tile's products into
@@ -89,7 +92,7 @@ import torch
 import torch.nn.functional as F
 
 from .fused_solve import (SPLIT_MODES, _conv1x1_mid_plain, _conv3x3_in_by, _conv3x3_in_plain,
-                          _split, _widened, dswish, swish)
+                          _conv3x3_out_by, _conv3x3_out_plain, _split, _widened, dswish, swish)
 
 __all__ = ["jt_conv1x1_mid_exact", "rv_wgrad_exact", "rv_conv3x3_out_exact",
            "fp_conv_mid_exact", "fp_conv_mid_tiled", "conv1x1_mid_exact",
@@ -100,7 +103,8 @@ __all__ = ["jt_conv1x1_mid_exact", "rv_wgrad_exact", "rv_conv3x3_out_exact",
            "conv3x3_in_tiled", "nc_jt_out_acc_exact", "nc_jt_out_acc_tiled",
            "fp_conv_out_exact", "fp_conv_out_tiled", "jt_conv3x3_in_exact",
            "jt_conv3x3_in_tiled", "fp_conv_in_exact", "fp_conv_in_tiled",
-           "rv_conv3x3_in_exact", "rv_conv3x3_in_tiled", "TC_BK", "C3_MC", "C3I_BK"]
+           "rv_conv3x3_in_exact", "rv_conv3x3_in_tiled", "conv3x3_out_exact",
+           "conv3x3_out_tiled", "TC_BK", "C3_MC", "C3I_BK"]
 
 TC_BK = 64  # the K tile of the tensor-core 1x1 product (csrc/mma_gemm.cuh)
 C3_MC = 64  # the mid channels of a chunk of the tensor-core 3x3 product (csrc/conv3x3_out_tc.cuh)
@@ -177,22 +181,35 @@ def jt_conv3x3_out_exact(t, idx, count, wp, s0, mode, base, sub, out, H, W):
 
 
 def _conv3x3_tiled(v, wp, mode):
-    """The bf16 3x3 conv (padding 1) summed as the tensor-core kernel sums
-    it: for each chunk of C3_MC channels, and within it each tap in order,
-    a fresh float32 partial of the chunk's products, added to the sum."""
-    if mode != "bf16":
-        raise ValueError(f"the tensor cores' order is mode bf16's, not {mode!r}")
-    vh, wh = _split(v.float(), mode)[0], _split(wp[0].float(), mode)[0]
+    """The 3x3 mid -> c conv (padding 1) summed as the tensor-core kernel
+    sums it: for each chunk of C3_MC channels, and within it each tap in
+    order, a fresh float32 partial of the chunk's products, added to the
+    sum (mode bf16: w rounded here; the split modes: wp's (hi, lo) used as
+    they are, one partial and sum of hi*hi and one of hi*lo + lo*hi [+
+    lo*lo], the two sums added last)."""
+    if mode not in ("bf16",) + SPLIT_MODES:
+        raise ValueError(f"the tensor cores' order is modes bf16, tf32 and tf32x's, not {mode!r}")
+    split = mode in SPLIT_MODES
+    vh, vl = _split(v.float(), mode)
+    wh, wl = _widened(wp) if split else (_split(wp[0].float(), mode)[0], None)
     H, W = v.shape[2:]
-    vp = F.pad(vh, (1, 1, 1, 1))
-    acc = None
+    vph = F.pad(vh, (1, 1, 1, 1))
+    vpl = F.pad(vl, (1, 1, 1, 1)) if split else None
+    big = small = None
+    add = lambda a, b: b if a is None else a + b
     for k0 in range(0, v.shape[1], C3_MC):
         k = slice(k0, k0 + C3_MC)
         for ky in range(3):
             for kx in range(3):
-                part = F.conv2d(vp[:, k, ky:ky + H, kx:kx + W], wh[:, k, ky:ky + 1, kx:kx + 1])
-                acc = part if acc is None else acc + part
-    return acc
+                tap = lambda x, w: F.conv2d(x[:, k, ky:ky + H, kx:kx + W],
+                                            w[:, k, ky:ky + 1, kx:kx + 1])
+                big = add(big, tap(vph, wh))
+                if split:
+                    part = tap(vph, wl) + tap(vpl, wh)
+                    if mode == "tf32x":
+                        part = part + tap(vpl, wl)
+                    small = add(small, part)
+    return big if small is None else big + small
 
 
 def jt_conv3x3_out_tiled(t, idx, count, wp, s0, mode, base, sub, out, H, W):
@@ -326,7 +343,8 @@ def rv_conv1x1_mid_tiled(inp, inh, count, wp, bias, alpha, beta_in, act, mode, o
 
 def _conv3x3_in_exact(x, w, mode):
     """The 3x3 conv (padding 1) of x by w (one kernel, or a (hi, lo) pair
-    used as it is), every pass of the mode summed exactly."""
+    used as it is), every pass of the mode summed exactly (either
+    direction: also the solve's mid -> c conv3x3_out)."""
     return _exact(x, tuple(w) if isinstance(w, (tuple, list)) else w.float(), mode,
                   lambda a, k: F.conv2d(a, k, padding=1))
 
@@ -522,3 +540,23 @@ def rv_conv3x3_in_tiled(inp, idx, count, wp, bias, alpha, beta_in, act, mode, ou
         return _rv_conv3x3_in_plain(inp, idx, count, wp, bias, alpha, beta_in, act, mode, out)
     _rv_conv3x3_in_by(lambda h, w, m: _conv3x3_in_tiled(h, w[0], m), inp, idx, count, wp,
                       bias, alpha, beta_in, act, mode, out)
+
+
+def conv3x3_out_exact(t2, idx, count, wp, b3, mode, base, sgn, sub, out, H, W):
+    """``_conv3x3_out_plain`` with ``W3 t`` summed exactly (every pass of the
+    split, all mid x 9 terms, in float64, rounded once); wp as the wrapper
+    takes it (:func:`~.fused_solve.prep_conv3x3_out`), its (hi, lo) used as
+    they are."""
+    _conv3x3_out_by(_conv3x3_in_exact, t2, idx, count, wp, b3, mode, base, sgn, sub, out, H,
+                    W)
+
+
+def conv3x3_out_tiled(t2, idx, count, wp, b3, mode, base, sgn, sub, out, H, W):
+    """``conv3x3_out`` as its wrapper routes it: in mode tf32 / tf32x
+    ``_conv3x3_out_plain`` with ``W3 t`` summed in the tensor-core kernel's
+    order (chunks of ``C3_MC`` channels, then taps, each into fresh float32
+    partials, hi*hi apart from the small passes); in modes f32 / bf16, which
+    stay on the CUDA cores, the plain version."""
+    if mode not in SPLIT_MODES:
+        return _conv3x3_out_plain(t2, idx, count, wp, b3, mode, base, sgn, sub, out, H, W)
+    _conv3x3_out_by(_conv3x3_tiled, t2, idx, count, wp, b3, mode, base, sgn, sub, out, H, W)
