@@ -1,6 +1,6 @@
 """Readings for comparing two trees of the port on one NVIDIA GPU (H100).
 
-    python3 chip_ab.py checks    # chip_smoke.py phases 3, 6, 9 and 15
+    python3 chip_ab.py checks    # chip_smoke.py phases 3, 6, 9 and 15, 14's widths
     python3 chip_ab.py kernels   # device times of the tensor-core products
     python3 chip_ab.py step      # the main path's step and the eval batch
     python3 chip_ab.py sass DIR  # each kernel's SASS against the tree in DIR
@@ -18,13 +18,18 @@ kernel times, run ``kernels`` in both trees in one call, in turns.
   inputs of one training step, and the whole merged forward (phase 15, on
   one merged step's), each with its sum-order floors, from the committed checkpoint,
   the inputs captured as chip_smoke.py captures them (every plain version
-  forced). Every reading is printed; a failed phase is reported and the
-  others still run; the exit code is 1 if any failed.
+  forced), then phase 14's narrow widths (the 3x3 tensor-core kernels at
+  mid 64, 192 and 384 on NaN-started outputs). Every reading is printed; a
+  failed phase is reported and the others still run; the exit code is 1
+  if any failed.
 * ``step``: the main path, chip_smoke.py's flagship at --mem-eff False
   from the committed checkpoint: 5 settle and 5 timed training steps (host
   clock; their median) and one profiled step (device busy time, the union
   of the kernels' intervals, and the idle share), then one profiled eval
-  batch (the same readings).
+  batch (the same readings); then, from the checkpoint again, on three
+  batch seeds, one training step's gradients and one eval batch with each
+  solve's nstep summed by block and the forward solves' conv3x3_out
+  launches by ladder stage.
 * ``kernels``: device time per call (CUDA events around 30 calls, after a
   warm-up) of nc_jt_mid, jt_conv1x1_mid, fp_conv_mid (th2's dswish form),
   rv_conv3x3_out, jt_conv3x3_out (s0 bfloat16, on every slot) and
@@ -53,7 +58,11 @@ kernel times, run ``kernels`` in both trees in one call, in turns.
   on both nets (h1's swish and bias, th1's swish', r2's id; beside cuDNN
   conv2d bf16 on both nets' examples) and the re-attachment's
   rv_conv3x3_in in mode bf16 on every slot (h1's swish and bias, t2's
-  alpha -1; beside cuDNN conv2d bf16). A tree from before conv1x1_mid /
+  alpha -1; beside cuDNN conv2d bf16); then the two reductions:
+  broyden_step at nstep 1, 10 and 29 (B 64, D 3072, K 30; PHASE_STEP on
+  every slot, a fresh state a call) and fp_tdot at each scale (both nets,
+  mid 512), by their device time. A tree
+  from before conv1x1_mid /
   rv_conv1x1_mid / lin_conv1x1_mid / nc_jt_in / lin_conv3x3_in / conv3x3_in
   / nc_jt_out_acc / fp_conv_out / jt_conv3x3_in / fp_conv_in /
   rv_conv3x3_in / conv3x3_out took their tensor-core weights gets its own
@@ -127,7 +136,8 @@ def checks():
             (9, lambda: cs.capture_estimator_inputs(train_step(False), x_u8, tdraws(98)),
              cs.check_estimator_functions),
             (15, lambda: cs.capture_block_forward_inputs(train_step(False), x_u8, tdraws(97)),
-             cs.check_block_functions)):
+             cs.check_block_functions),
+            (14, lambda: dev, cs.check_conv3x3_in_widths)):
         try:
             check(capture())
         except AssertionError:
@@ -434,11 +444,126 @@ def kernels():
         times[f"cuDNN conv2d bf16 {tag} (rv_conv3x3_in's library call)"] = ms(
             lambda: F.conv2d(xrb, w1r, padding=1))
         del hf, ef, hfb, xr, xrb, oa, ob
+    reductions(times, errs, r)
     for name, v in times.items():
         print(f"kernel {name}{'' if ', c ' in name else ' 32x32'}: {v:.4f} ms", flush=True)
     for name, v in errs.items():
         print(f"{name} max_rel_err against its plain version {v:.3e}", flush=True)
     return 0
+
+
+def reductions(times, errs, r):
+    """Device time (chip_smoke.py's device_ms, the profiler's) of
+    broyden_step (PHASE_STEP on every slot of B 64, D 3072, K 30, at
+    nstep 1, 10 and 29, a fresh copy of the state a call, the wrapper's
+    zeroing of the next count included) and fp_tdot (both nets' 128
+    examples, mid 512, at each scale) into ``times``, and their errors
+    against their plain versions into ``errs``."""
+    import chip_smoke as cs
+    from implicit_normalizing_flows_torch.ops import fused_final as ff
+    from implicit_normalizing_flows_torch.ops import fused_solve as fs
+
+    dev = torch.device("cuda")
+    B, D, K, reps = 64, 3072, 30, 10
+    idx = torch.arange(B, dtype=torch.int32, device=dev)
+    cnt = torch.full((1,), B, dtype=torch.int32, device=dev)
+    io = torch.zeros(B, dtype=torch.int32, device=dev)
+    co = torch.zeros(1, dtype=torch.int32, device=dev)
+    kw = dict(eps=1e-3, cap=K, patience=5, rtol=0.05, guard_eps=3e-3, newton=True)
+    for nk in cs.STEP_NSTEPS:
+        st0 = cs.broyden_state(B, D, K, nk, nk, dev)
+        name = f"broyden_step (nstep {nk}) D {D}, c 3"
+        # device time (the profiler's, as chip_smoke.py's phase 2: the
+        # host's launch gaps exceed the kernel), a fresh state a call
+        copies = [{k: v.clone() for k, v in st0.items()} for _ in range(4 * reps + 1)]
+        it = iter(copies)
+        times[name] = cs.device_ms(
+            lambda i: fs.broyden_step(fs.PHASE_STEP, idx, cnt, io, co, next(it), **kw), reps)
+        stp = {k: v.clone() for k, v in st0.items()}
+        fs._broyden_step_plain(fs.PHASE_STEP, idx, cnt, io, co, stp, **kw)
+        torch.cuda.synchronize()
+        errs[name] = max(cs.rel_err(copies[0][k].float(), stp[k].float()) for k in stp)
+        del copies, it, stp
+    beta = torch.tensor([1.1, 0.9], device=dev)
+    for hs in (32, 16, 8):
+        rr, hh, tt = (r(2 * B, 512, hs * hs) for _ in range(3))
+        out, ref = (torch.empty(2 * B, device=dev) for _ in range(2))
+        name = f"fp_tdot {hs}x{hs}, c {3 * 1024 // (hs * hs)}"
+        times[name] = cs.device_ms(lambda i: ff.fp_tdot(rr, hh, tt, beta, out), 30)
+        ff._fp_tdot_plain(rr, hh, tt, beta, ref)
+        torch.cuda.synchronize()
+        errs[name] = float((out - ref).abs().max() / ref.abs().max())
+        del rr, hh, tt
+
+
+def solver_counts(dev, x_u8s):
+    """For each batch of ``x_u8s``, from the committed checkpoint: one
+    --mem-eff False training step's gradients and one eval batch, with
+    each forward and backward solve's nstep summed over its examples (by
+    block, in call order) and the forward solves' conv3x3_out launches by
+    precision stage (the ladder's tf32 / tf32x / f32), which a kernel's
+    sum order moves as it moves which iteration dips under the tolerance;
+    and the re-attachments' rv_chan_sums launches by width (M = mid or c)."""
+    import chip_smoke as cs
+    from implicit_normalizing_flows_torch.layers import implicit_block
+    from implicit_normalizing_flows_torch.ops import fused_solve as fs
+    from implicit_normalizing_flows_torch.ops import implicit_grad as ig
+    from implicit_normalizing_flows_torch.ops.logdet import Draws
+    from implicit_normalizing_flows_torch.training import (adam, linear_warmup,
+                                                           make_image_eval_step,
+                                                           make_image_train_step)
+
+    seen = {"forward": [], "backward": [], "stages": {}, "chan_sums": {}}
+
+    def rec(name, fn):
+        def run(*a, **k):
+            out = fn(*a, **k)
+            seen[name].append(int(out.nstep.sum()))
+            return out
+        return run
+
+    conv_out = fs.KERNELS["conv3x3_out"]
+
+    def counted(*a, **k):
+        seen["stages"][a[5]] = seen["stages"].get(a[5], 0) + 1
+        return conv_out(*a, **k)
+
+    chan_sums = ig.KERNELS["rv_chan_sums"]
+
+    def by_width(t, *a, **k):
+        width = f"M {t.shape[1]}"
+        seen["chan_sums"][width] = seen["chan_sums"].get(width, 0) + 1
+        return chan_sums(t, *a, **k)
+
+    model = cs.build_model(dev, grad_in_forward=False)
+    opt = adam(linear_warmup(1e-3, 1000), betas=(0.9, 0.99), grad_clip=1.0)
+    train = make_image_train_step(model, opt, ema_decay=0.999, n_lipschitz_iters=None,
+                                  imagesize=cs.SIZE)
+    evaluate = make_image_eval_step(model, imagesize=cs.SIZE)
+    fs.KERNELS["conv3x3_out"] = counted
+    ig.KERNELS["rv_chan_sums"] = by_width
+    try:
+        with cs.patched([(implicit_block, "fused_broyden_solve",
+                          rec("forward", implicit_block.fused_broyden_solve)),
+                         (implicit_block, "fused_backward_solve",
+                          rec("backward", implicit_block.fused_backward_solve))]):
+            for i, x_u8 in enumerate(x_u8s):
+                for what, run in (
+                        ("train step gradients", lambda: train.grads(x_u8, Draws(
+                            torch.Generator(device=dev).manual_seed(3000 + i)))),
+                        ("eval batch", lambda: evaluate(x_u8, Draws(
+                            torch.Generator(device=dev).manual_seed(4000 + i))))):
+                    seen.update(forward=[], backward=[], stages={}, chan_sums={})
+                    run()
+                    torch.cuda.synchronize()
+                    cs.log(f"batch seed {i + 1} {what}: forward nstep by block {seen['forward']} "
+                           f"(total {sum(seen['forward'])}), backward nstep by block "
+                           f"{seen['backward']} (total {sum(seen['backward'])}), conv3x3_out "
+                           f"launches by stage {dict(sorted(seen['stages'].items()))}, "
+                           f"rv_chan_sums launches by width {seen['chan_sums']}")
+    finally:
+        fs.KERNELS["conv3x3_out"] = conv_out
+        ig.KERNELS["rv_chan_sums"] = chan_sums
 
 
 def step():
@@ -467,6 +592,9 @@ def step():
     evaluate = make_image_eval_step(model, imagesize=cs.SIZE)
     evaluate(x_u8, draws(0))  # warm-up
     cs.profile_batch(model, evaluate, x_u8, draws(0))
+    del model, train, evaluate
+    solver_counts(dev, [torch.from_numpy(synthetic_structured(cs.BATCH, 3, cs.SIZE, cs.SIZE,
+                                                              seed=s)) for s in (1, 2, 3)])
     return 0
 
 

@@ -5,8 +5,9 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. build the CUDA kernels (csrc/fused_solve.cu, csrc/implicit_grad.cu,
      csrc/estimator.cu, csrc/broyden_update.cu and csrc/block_forward.cu,
-     with the headers they include, one nvcc each, in parallel, with the
-     compiler's register and spill report);
+     with the units linked beside them (ops/cuda_build.py LINKED) and the
+     headers they include, one nvcc each, in parallel, with the compiler's
+     register and spill report);
   2. each forward-solve kernel against its plain PyTorch version at the
      CIFAR-10 flagship's shapes (all three scales, batch 64, the committed
      checkpoint's weights, the blocks' real inputs, captured from an eval
@@ -22,11 +23,17 @@ Phases (any failure exits non-zero; nothing is caught):
      (csrc/mma_gemm.cuh, csrc/conv3x3_in_tc.cuh and csrc/conv3x3_out_tc.cuh,
      the bf16 split's 3 or 4 passes) and are also timed in tf32x;
      conv3x3_in and conv3x3_out are also read on a partial permuted active
-     list, their dead slots (examples) untouched;
+     list, their dead slots (examples) untouched; broyden_step (a
+     thread-block cluster a live example, csrc/broyden_step.cu) in its
+     three phases on states with 1, 10 and 29 planes written, on every slot
+     and on half the slots under a permuted list (ist and the next list
+     equal to the plain version's, the other examples untouched), timed at
+     each;
   3. the whole fused forward solve against its plain version, per scale and
      mode, each run beside its sum-order floors (the plain solve with
-     conv1x1_mid, conv3x3_in, both, conv3x3_out, or all three summed
-     exactly, ops/sum_order.py, against the plain solve: max|dz|, |d nstep|
+     conv1x1_mid, conv3x3_in, both, conv3x3_out, all three, or
+     broyden_step summed exactly, or broyden_step in its kernel's order,
+     ops/sum_order.py, against the plain solve: max|dz|, |d nstep|
      counts, flags that differ), every reading printed before any limit is
      checked;
   4. the flagship evaluation (bits/dim of 64 structured-synthetic images,
@@ -34,7 +41,8 @@ Phases (any failure exits non-zero; nothing is caught):
      kernels' launch counts over that run, a profiled batch (which must
      record the tensor-core kernels of conv1x1_mid, conv3x3_in and
      conv3x3_out as often as their wrappers launched them in the split
-     modes), and the plain path's bpd on the same draws;
+     modes, and broyden_step's cluster kernel as often as it launched), and
+     the plain path's bpd on the same draws;
   5. each implicit-gradient kernel (backward solve, re-attachment VJP)
      against its plain version at the flagship's shapes, on the blocks' real
      inputs and cotangents captured from one training step, in bf16 and f32:
@@ -100,14 +108,16 @@ Phases (any failure exits non-zero; nothing is caught):
      against the plain path with fp_conv_mid and fp_conv_in summed exactly
      (FINAL_TOL's comment), beside its reading against the plain path and
      the sum-order floors of fp_conv_mid, fp_conv_in, rv_wgrad and
-     fp_conv_out;
+     fp_conv_out, and T beside fp_tdot's (T with it summed exactly, or in
+     its cluster kernel's order, csrc/tdot.cu);
  10. the main path: flagship training steps at the users' default
      --mem-eff False (grad_in_forward=False) from the checkpoint, as phase
      7: 5 settle and 5 timed steps with every kernel's launch count over
      them (all must be > 0), peak memory, a time breakdown (forward solves,
      chains, final-pair primal and backward, backward solves,
      re-attachments, update, rest), a profiled step (which must record each
-     tensor-core kernel, TC_ROUTES, as many times as its wrapper launched
+     tensor-core kernel, TC_ROUTES, and each cluster-split reduction,
+     REDUCE_ROUTES, as many times as its wrapper launched
      it there, the instantiations fp_conv_mid and rv_conv1x1_mid share as
      often as the two launched them together, and none of the CUDA-core
      instantiations they replaced; a step whose record lost launches is
@@ -151,7 +161,8 @@ Phases (any failure exits non-zero; nothing is caught):
      precision probe; then the 3x3 tensor-core kernels (c -> mid: nc_jt_in,
      jt_conv3x3_in, fp_conv_in and rv_conv3x3_in in bf16, lin_conv3x3_in
      and conv3x3_in in tf32 and
-     tf32x; mid -> c: nc_jt_out_acc and fp_conv_out in bf16) at mid 64, 192
+     tf32x; mid -> c: conv3x3_out in tf32 and tf32x, nc_jt_out_acc and
+     fp_conv_out in bf16) at mid 64, 192
      and 384 on seeded random inputs
      at each scale, their outputs started as NaN so that a channel chunk
      left unwritten fails; the inputs of phases 14 and 15 come from a
@@ -160,8 +171,9 @@ Phases (any failure exits non-zero; nothing is caught):
  15. the whole merged forward against its plain version, per scale and
      mode (roots, flags, iteration counts, both accs, with a control), each
      run beside its sum-order floors (the plain forward with lin_conv1x1_mid,
-     lin_conv3x3_in or both, or the solve's conv3x3_in, summed exactly
-     against the plain forward, as phase 3), and the one-net
+     lin_conv3x3_in or both, or the solve's conv3x3_in or conv3x3_out,
+     summed exactly, or conv3x3_out in its kernel's order, against the
+     plain forward, as phase 3), and the one-net
      Neumann chain (fused_neumann_chain) against its plain version;
  16. the merged path: flagship training at --mem-eff False with
      IMNF_FUSED_BLOCK=1 from the checkpoint (the 32x32 and 16x16 blocks
@@ -233,7 +245,8 @@ REATTACH_TOL = {"bf16": 2e-5, "tf32": 2e-5}
 # plain path. A kernel that sums in another order than the plain version
 # (the tensor cores, by 64-k partials) reads near it, so a limit below it
 # would fail any such kernel. No limit is held to a floor.
-NO_ROUNDING = ("rv_wgrad_reduce", "rv_chan_sums",  # sums only: no mode
+NO_ROUNDING = ("rv_wgrad_reduce", "rv_chan_sums", "rv_chan_sums (b3)",  # sums only: no mode
+               "rv_chan_sums (T0)",
                "fp_tdot", "fp_second")
 # The chain's stages round their outputs to bfloat16 in mode bf16: an
 # output a few float32 ulps apart (sum order over up to 4,608 products)
@@ -381,6 +394,20 @@ TC_ROUTES = {
                     "mma.sync bf16, the 3- or 4-pass split of tf32 / tf32x; f32 and bf16 on CUDA "
                     "cores"),
 }
+# The two cluster-split reductions (csrc/cluster_reduce.cuh): broyden_step
+# on broyden_cluster_kernel<VPT, STAGE> (csrc/broyden_step.cu) and fp_tdot
+# on tdot_split_kernel (csrc/tdot.cu). A profiled run must record each as
+# many times as its wrapper launched it, and never the one-block-an-example
+# kernels they replaced (broyden_step_kernel, tdot_kernel: REPLACED_SIMT).
+REDUCE_ROUTES = {
+    "broyden_step": (re.compile(r"broyden_cluster_kernel<"),
+                     "implicit_normalizing_flows_torch/csrc/broyden_step.cu",
+                     "a thread-block cluster a live example, sums through distributed shared "
+                     "memory"),
+    "fp_tdot": (re.compile(r"tdot_split_kernel"), "implicit_normalizing_flows_torch/csrc/tdot.cu",
+                "a thread-block cluster an example, sums through distributed shared memory"),
+}
+ROUTES = {**TC_ROUTES, **REDUCE_ROUTES}
 TC_SPLIT = "conv1x1_mid (tensor cores)"  # launch_counts()'s key of those launches
 TC_LIN = "lin_conv1x1_mid (tensor cores)"
 TC_LIN3 = "lin_conv3x3_in (tensor cores)"
@@ -392,7 +419,7 @@ TC_COUNT = {"conv1x1_mid": TC_SPLIT, "lin_conv1x1_mid": TC_LIN, "lin_conv3x3_in"
 SHARED_TC = [("fp_conv_mid", "rv_conv1x1_mid")]
 # run only in --mem-eff False's estimator
 ESTIMATOR_ONLY = ("nc_jt_in", "nc_jt_mid", "nc_jt_out_acc", "fp_conv_mid", "fp_conv_out",
-                  "fp_conv_in")
+                  "fp_conv_in", "fp_tdot")
 # run only in the merged forward (IMNF_FUSED_BLOCK=1)
 MERGED_ONLY = ("lin_conv3x3_in", "lin_conv1x1_mid")
 REPLACED_SIMT = re.compile(r"conv_gemm_kernel<1, ?1, ?0, ?[123],|conv_gemm_kernel<1, ?1, ?[12], ?1,"
@@ -404,7 +431,8 @@ REPLACED_SIMT = re.compile(r"conv_gemm_kernel<1, ?1, ?0, ?[123],|conv_gemm_kerne
                            r"|conv_gemm_kernel<[23], ?0, ?[01], ?0,"
                            r"|conv_gemm_kernel<1, ?0, ?0, ?2,"
                            r"|conv_gemm_kernel<1, ?0, ?[012], ?1,"
-                           r"|conv3x3_out_kernel<[23], ?0, ?float, ?false>")
+                           r"|conv3x3_out_kernel<[23], ?0, ?float, ?false>"
+                           r"|\bbroyden_step_kernel\b|\btdot_kernel\b")
 ROUTE_ATTEMPTS = 3  # profiled steps that may show the routes (train_path)
 TAB_DIM, TAB_BATCH, TAB_EVAL_BATCH = 6, 1000, 4000
 TAB_WARMUP, TAB_SETTLE, TAB_TIMED = 110, 5, 10
@@ -447,8 +475,8 @@ def _self_ms(e):
 
 def is_port_kernel(name):
     """A kernel of csrc/ (by its symbol in the profiler)."""
-    return any(k in name for k in ("imnf::", "broyden_step", "wgrad", "chan_sums",
-                                   "tdot_kernel", "second_kernel", "broyden_update"))
+    return any(k in name for k in ("imnf::", "broyden_cluster", "wgrad", "chan_sums",
+                                   "tdot_split", "second_kernel", "broyden_update"))
 
 
 TIMINGS = {"runs": 0, "dropped": 0}  # device_ms's profiled runs, and those that dropped launches
@@ -651,44 +679,12 @@ def check_kernels(blocks, mode="tf32"):
                                                                   xf, -1.0, xf, o, H, W),
                 None, (B, D), True, m, f"scale{s} ({c}x{H}x{W}, B={B})", dev, tol=SPLIT_TOL)
 
-        # broyden_step on a mid-solve state: nk planes written per example
-        nk, K = 10, 30
-        gen = torch.Generator(device=dev).manual_seed(s)
-        rnd = lambda *shape: torch.randn(*shape, device=dev, generator=gen)
-        st0 = {k: rnd(B, D) for k in ("Z", "G", "UPD", "ZN", "GN", "BZ", "BG")}
-        # a secant-like step: delta_g = -0.5 delta_z keeps <vT, dg> away from 0
-        st0["G"] = st0["GN"] + 0.5 * st0["UPD"]
-        st0["U"], st0["V"] = torch.zeros(B, K, D, device=dev), torch.zeros(B, K, D, device=dev)
-        st0["U"][:, :nk], st0["V"][:, :nk] = 0.01 * rnd(B, nk, D), 0.01 * rnd(B, nk, D)
-        st0["ist"] = torch.tensor([nk, nk, 0, 0], dtype=torch.int32, device=dev).repeat(B, 1)
-        norm = st0["GN"].norm(dim=1)
-        st0["fst"] = torch.stack([norm * 1.5, norm * 2, norm * 3], 1).contiguous()
-        kw = dict(eps=1e-3, cap=K, patience=5, rtol=0.05, guard_eps=3e-3, newton=True)
-        outs, reps = {}, 10
-        for tag, fn in (("kernel", fs.broyden_step), ("plain", fs._broyden_step_plain)):
-            io = torch.zeros(B, dtype=torch.int32, device=dev)
-            co = torch.zeros(1, dtype=torch.int32, device=dev)
-            copies = [{k: v.clone() for k, v in st0.items()} for _ in range(reps)]
-            run = lambda i: fn(fs.PHASE_STEP, idx, cnt, io, co, copies[i], **kw)
-            outs[tag + "_ms"] = device_ms(run, reps)  # copy 0 ran twice: unused
-            st = {k: v.clone() for k, v in st0.items()}
-            fn(fs.PHASE_STEP, idx, cnt, io, co, st, **kw)
-            torch.cuda.synchronize()
-            outs[tag] = (st, io[:int(co.item())].sort().values)
-            del copies
-        (stk, ik), (stp, ip) = outs["kernel"], outs["plain"]
-        assert torch.equal(ik, ip), (s, ik, ip)
-        assert torch.equal(stk["ist"], stp["ist"]), s
-        err = max(rel_err(stk[k].float(), stp[k].float()) for k in stk)
-        assert math.isfinite(err) and err <= SPLIT_TOL, ("broyden_step", s, err)
-        nbytes = 4 * B * D * (2 * nk + 2 + 4 + 6)
-        bms, by = bound_ms(nbytes, 0, "f32")
-        ms, pms = outs["kernel_ms"], outs["plain_ms"]
-        log(f"kernel broyden_step scale{s} (B={B}, D={D}, nstep {nk}): max_rel_err "
-            f"{err:.3e} ms {ms:.4f} plain_ms {pms:.4f} bound_ms {bms:.4f} ({by})")
-        rows.setdefault("broyden_step", {})[s] = dict(
-            max_abs_err=max(float((stk[k].float() - stp[k].float()).abs().max()) for k in stk),
-            ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=by)
+        # broyden_step in its three phases on mid-solve states, on the whole
+        # list and on half the slots under a permuted list
+        step_rows, step_fails = check_broyden_step(s, B, D, dev)
+        for name, by_scale in step_rows.items():
+            rows.setdefault(name, {}).update(by_scale)
+        probe_fails += step_fails
 
         # the precision probe through each conv kernel at this scale's shapes
         PB = PROBE_BATCH
@@ -732,6 +728,99 @@ def check_kernels(blocks, mode="tf32"):
     assert not probe_fails, ("phase 2 probe or partial list (name, scale, mode, error, "
                              "controls)", probe_fails)
     return rows
+
+
+STEP_NSTEPS = (1, 10, 29)  # phase 2's broyden_step states: planes written (K 30)
+
+
+def broyden_state(B, D, K, nk, seed, dev):
+    """A mid-solve Broyden state of B examples: nk secant planes written,
+    a secant-like last step (delta_g = -0.5 delta_z keeps <vT, dg> away
+    from 0), the best objective above the residual's norm."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, device=dev, generator=gen)
+    st = {k: rnd(B, D) for k in ("Z", "G", "UPD", "ZN", "GN", "BZ", "BG")}
+    st["G"] = st["GN"] + 0.5 * st["UPD"]
+    st["U"], st["V"] = torch.zeros(B, K, D, device=dev), torch.zeros(B, K, D, device=dev)
+    st["U"][:, :nk], st["V"][:, :nk] = 0.01 * rnd(B, nk, D), 0.01 * rnd(B, nk, D)
+    st["ist"] = torch.tensor([nk, nk, 0, 0], dtype=torch.int32, device=dev).repeat(B, 1)
+    norm = st["GN"].norm(dim=1)
+    st["fst"] = torch.stack([norm * 1.5, norm * 2, norm * 3], 1).contiguous()
+    return st
+
+
+def check_broyden_step(s, B, D, dev):
+    """Phase 2's broyden_step at one scale's D: the kernel against its plain
+    version in PHASE_INIT, PHASE_STEP and PHASE_REARM on states with nstep
+    STEP_NSTEPS planes written (K 30), on every slot and on half the slots
+    under a permuted list: ist and the next active list equal, every state
+    tensor within SPLIT_TOL (max error over the largest entry, at least 1),
+    and on the half list the other examples' state bitwise as before. Times
+    PHASE_STEP on every slot (device time, plain time, bound: the bytes
+    4 B D (2 nstep + 12)). Returns (rows of nstep 10, failures)."""
+    from implicit_normalizing_flows_torch.ops import fused_solve as fs
+
+    K = 30
+    kw = dict(eps=1e-3, cap=K, patience=5, rtol=0.05, guard_eps=3e-3, newton=True)
+    gen = torch.Generator(device=dev).manual_seed(100 + s)
+    lists = {"every slot": torch.arange(B, dtype=torch.int32, device=dev),
+             "half the slots, permuted": torch.randperm(B, generator=gen, device=dev)[
+                 :B // 2].to(torch.int32)}
+    rows, fails = {}, []
+    for nk in STEP_NSTEPS:
+        st0 = broyden_state(B, D, K, nk, 10 * s + nk, dev)
+        for phase in (fs.PHASE_INIT, fs.PHASE_STEP, fs.PHASE_REARM):
+            for which, idx in lists.items():
+                cnt = torch.full((1,), len(idx), dtype=torch.int32, device=dev)
+                outs = {}
+                for tag, fn in (("kernel", fs.broyden_step), ("plain", fs._broyden_step_plain)):
+                    st = {k: v.clone() for k, v in st0.items()}
+                    io = torch.zeros(B, dtype=torch.int32, device=dev)
+                    co = torch.zeros(1, dtype=torch.int32, device=dev)
+                    fn(phase, idx, cnt, io, co, st, **kw)
+                    torch.cuda.synchronize()
+                    outs[tag] = (st, io[:int(co.item())].sort().values)
+                (stk, ik), (stp, ip) = outs["kernel"], outs["plain"]
+                err = max(rel_err(stk[k].float(), stp[k].float()) for k in stk)
+                dead = torch.ones(B, dtype=torch.bool, device=dev)
+                dead[idx.long()] = False
+                kept = all(torch.equal(stk[k][dead], st0[k][dead]) for k in stk)
+                same = torch.equal(ik, ip) and torch.equal(stk["ist"], stp["ist"])
+                log(f"broyden_step scale{s} (B={B}, D={D}) phase {phase} nstep {nk} {which}: "
+                    f"max_rel_err {err:.3e} (limit {SPLIT_TOL:g}), ist and next list equal "
+                    f"{same}, {len(ik)} next active, other examples untouched {kept}")
+                if not (math.isfinite(err) and err <= SPLIT_TOL and same and kept):
+                    fails.append(("broyden_step", s, phase, nk, which, err, same, kept))
+        # PHASE_STEP on every slot, timed: a fresh copy of the state a call
+        idx, reps = lists["every slot"], 10
+        cnt = torch.full((1,), B, dtype=torch.int32, device=dev)
+        io = torch.zeros(B, dtype=torch.int32, device=dev)
+        co = torch.zeros(1, dtype=torch.int32, device=dev)
+        times = {}
+        for tag, fn in (("kernel", fs.broyden_step), ("plain", fs._broyden_step_plain)):
+            # a fresh copy a call (the warm-up, and device_ms's repeats), so
+            # that every call steps from nstep nk
+            copies = iter([{k: v.clone() for k, v in st0.items()} for _ in range(4 * reps + 1)])
+            times[tag] = device_ms(lambda i: fn(fs.PHASE_STEP, idx, cnt, io, co, next(copies),
+                                                **kw), reps)
+            del copies
+        nbytes = 4 * B * D * (2 * nk + 12)
+        bms, by = bound_ms(nbytes, 0, "f32")
+        ms, pms = times["kernel"], times["plain"]
+        log(f"kernel broyden_step scale{s} (B={B}, D={D}, nstep {nk}): ms {ms:.4f} plain_ms "
+            f"{pms:.4f} bound_ms {bms:.4f} ({by}) share {bms / ms:.3f} bytes/s "
+            f"{nbytes / ms * 1e3:.4g}")
+        if nk == 10:
+            st = {k: v.clone() for k, v in st0.items()}
+            stp = {k: v.clone() for k, v in st0.items()}
+            fs.broyden_step(fs.PHASE_STEP, idx, cnt, io, co, st, **kw)
+            fs._broyden_step_plain(fs.PHASE_STEP, idx, cnt, io, co, stp, **kw)
+            torch.cuda.synchronize()
+            rows["broyden_step"] = {s: dict(
+                max_abs_err=max(float((st[k].float() - stp[k].float()).abs().max())
+                                for k in st),
+                ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=by)}
+    return rows, fails
 
 
 def probe_operands(batch, cin, cout, H, W, k, seed, dev):
@@ -779,9 +868,10 @@ def check_solves(blocks):
     must agree within one where the tolerance lies above the floor: in f32,
     and in the split modes at eps 1e-5. Each run also reads its sum-order
     floors: the plain solve with conv1x1_mid, conv3x3_in, both,
-    conv3x3_out, or all three summed exactly (ops/sum_order.py) against the
-    plain solve, by the same measures (no limit is held to them). Every reading is printed before any
-    limit is checked."""
+    conv3x3_out, all three, or broyden_step summed exactly, or broyden_step
+    summed in its cluster kernel's order (ops/sum_order.py), against the
+    plain solve, by the same measures (no limit is held to them). Every
+    reading is printed before any limit is checked."""
     from implicit_normalizing_flows_torch.ops import fused_solve as fs
     from implicit_normalizing_flows_torch.ops import sum_order as so
 
@@ -791,14 +881,17 @@ def check_solves(blocks):
     configs = [("f32", 1e-6, {}), ("tf32", 1e-6, {}), ("tf32x", 1e-6, {}),
                ("tf32", 1e-6, ladder(15)), ("tf32", 1e-5, {}),
                ("tf32x", 1e-5, {}), ("tf32", 1e-5, ladder(6))]
-    floor_ops = {"conv1x1_mid": dict(fs._PLAIN, conv1x1_mid=so.conv1x1_mid_exact),
-                 "conv3x3_in": dict(fs._PLAIN, conv3x3_in=so.conv3x3_in_exact),
-                 "both": dict(fs._PLAIN, conv1x1_mid=so.conv1x1_mid_exact,
-                              conv3x3_in=so.conv3x3_in_exact),
-                 "conv3x3_out": dict(fs._PLAIN, conv3x3_out=so.conv3x3_out_exact),
-                 "all three": dict(fs._PLAIN, conv1x1_mid=so.conv1x1_mid_exact,
-                                   conv3x3_in=so.conv3x3_in_exact,
-                                   conv3x3_out=so.conv3x3_out_exact)}
+    floor_ops = {"conv1x1_mid exact": dict(fs._PLAIN, conv1x1_mid=so.conv1x1_mid_exact),
+                 "conv3x3_in exact": dict(fs._PLAIN, conv3x3_in=so.conv3x3_in_exact),
+                 "both exact": dict(fs._PLAIN, conv1x1_mid=so.conv1x1_mid_exact,
+                                    conv3x3_in=so.conv3x3_in_exact),
+                 "conv3x3_out exact": dict(fs._PLAIN, conv3x3_out=so.conv3x3_out_exact),
+                 "all three exact": dict(fs._PLAIN, conv1x1_mid=so.conv1x1_mid_exact,
+                                         conv3x3_in=so.conv3x3_in_exact,
+                                         conv3x3_out=so.conv3x3_out_exact),
+                 "broyden_step exact": dict(fs._PLAIN, broyden_step=so.broyden_step_exact),
+                 "broyden_step in its kernel's order": dict(
+                     fs._PLAIN, broyden_step=so.broyden_step_tiled)}
     full = dict(stall_guard=None, newton_init=False, warm_start=False, tail_mode=None,
                 tail_start=None, line_search=False)
 
@@ -830,7 +923,7 @@ def check_solves(blocks):
                     rx = fs._solve(x, dx, dz, ops, **dict(full, **kw, **extra), mode=mode,
                                    eps=eps)[0]
                     fz, fcounts, _, fconv, fprot = against(rx, rp)
-                    floors.append(f"{what} exact vs plain: max|dz| {fz:.3e} |d nstep| counts "
+                    floors.append(f"{what} vs plain: max|dz| {fz:.3e} |d nstep| counts "
                                   f"{fcounts} converged flags differing {fconv} prot flags "
                                   f"differing {fprot}")
                     del rx
@@ -1011,7 +1104,8 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
             P = {k: new(B, mid, HW) for k in ("T2", "T1", "H1", "H2", "C2", "C1")}
             P.update(R=new(B, D), C0=new(B, D), part=new(S, mid, mid),
                      dW2=new(mid, mid), sums=new(mid), db=new(mid),
-                     db_k=new(mid), db_p=new(mid))
+                     db_k=new(mid), db_p=new(mid), s0_k=new(c), s0_p=new(c),
+                     db0_k=new(c), db0_p=new(c))
             ig._jt_conv3x3_in_plain(u, idx, cnt, jt3, S2, mode, P["T2"])
             ig._jt_conv1x1_mid_plain(P["T2"], idx, cnt, jt2, S1, mode, P["T1"], H, W)
             ig._jt_conv3x3_out_plain(P["T1"], idx, cnt, jt1, S0, mode, U, Gf, P["R"], H, W)
@@ -1028,6 +1122,10 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
             # shift(swish(h2))), dW1 with preact (t1 swish'(h1) x
             # shift(swish(x))) and without (x as it is)
             U3 = u.reshape(B, c, HW)
+            # rv_chan_sums' M = c form on net x's t0 (its plain C1^T product)
+            # and x under preact
+            T0 = P["C0"].view(B, c, HW)
+            H0 = x.reshape(B, c, HW) if act0 == "swish" else None
             wg3 = (U3, None, None, P["H2"], None, bd[2], "swish", True)
             wg1 = (P["C1"], P["H1"], bd[1], x, None, bd[0], "swish", True)
             wg1n = (P["C1"], P["H1"], bd[1], x, None, None, "id", True)
@@ -1121,6 +1219,21 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
                         lambda o: ig.rv_chan_sums(P["C2"], P["H2"], b2, 1.0, None, o, P["db_k"], None),
                         lambda o: ig._rv_chan_sums_plain(P["C2"], P["H2"], b2, 1.0, None, o, P["db_p"], None),
                         None, (mid,), (P["C2"], P["H2"], P["db_k"]), 0),
+                    # its M = c launches: b3's sums of u (no h), and net x's
+                    # t0 = C1^T(...) with d_x = u + t0 swish'(x) (h under
+                    # preact: the slope's sums too)
+                    "rv_chan_sums (b3)": (
+                        lambda o: ig.rv_chan_sums(U3, None, 0.0, -1.0, None, o, None, None),
+                        lambda o: ig._rv_chan_sums_plain(U3, None, 0.0, -1.0, None, o, None, None),
+                        None, (c,), (U3,), 0),
+                    "rv_chan_sums (T0)": (
+                        lambda o: ig.rv_chan_sums(T0, H0, bd[0], 1.0, U3, P["s0_k"],
+                                                  P["db0_k"] if H0 is not None else None, o),
+                        lambda o: ig._rv_chan_sums_plain(T0, H0, bd[0], 1.0, U3, P["s0_p"],
+                                                         P["db0_p"] if H0 is not None else None,
+                                                         o),
+                        None, (B, c, HW), (T0, U3, P["s0_k"]) + (
+                            () if H0 is None else (H0, P["db0_k"])), 0),
                 }
 
             ctrl = cases("f32", prep("f32")) if mode != "f32" else {}
@@ -1137,6 +1250,9 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
                 err = rel_max(ok_, op)
                 if name == "rv_chan_sums":
                     err = max(err, rel_max(P["db_k"], P["db_p"]))
+                if name == "rv_chan_sums (T0)":
+                    err = max([err, rel_max(P["s0_k"], P["s0_p"])]
+                              + ([rel_max(P["db0_k"], P["db0_p"])] if H0 is not None else []))
                 control = None
                 if name in ctrl and name not in NO_ROUNDING:
                     oc = new(*shape)
@@ -1705,8 +1821,10 @@ def check_estimator_functions(cap):
     and the plain path with the kernels' orders of fp_conv_mid (K tiles of
     64) and fp_conv_in (float64 sums) against the reference, and the same
     with fp_conv_in in K tiles of 16 (the float32 order of EPI_AFFINE,
-    which fp_conv_in does not take). Every reading is printed before the
-    limits are checked."""
+    which fp_conv_in does not take), and T of the reference with fp_tdot
+    summed exactly or in its cluster kernel's order against the reference's
+    (fp_tdot's floor). Every reading is printed before the limits are
+    checked."""
     from implicit_normalizing_flows_torch.ops import fused_chain as fc
     from implicit_normalizing_flows_torch.ops import fused_final as ff
     from implicit_normalizing_flows_torch.ops import sum_order as so
@@ -1795,6 +1913,15 @@ def check_estimator_functions(cap):
                                      fp_conv_in=so.fp_conv_in_exact), mode, wt), ref)
                 f32_in = vs(pair(dict(ff._PLAIN, fp_conv_mid=so.fp_conv_mid_tiled,
                                       fp_conv_in=so.fp_conv_in_tiled), mode, wt), ref)
+                # T, the pair's scalar: the reference's T with fp_tdot summed
+                # exactly or in its cluster kernel's order, beside the kernels'
+                ref_ops = dict(ff._PLAIN, fp_conv_mid=so.fp_conv_mid_exact,
+                               fp_conv_in=so.fp_conv_in_exact)
+                T_of = lambda ops: ff._primal(ops, mode, wt, *pair_inputs(d)[:3], preact)
+                t_ref = T_of(ref_ops)
+                t_floor = {what: rel_norm(T_of(dict(ref_ops, fp_tdot=f)), t_ref)
+                           for what, f in (("summed exactly", so.fp_tdot_exact),
+                                           ("in its kernel's order", so.fp_tdot_tiled))}
                 line += (f" against the plain path with fp_conv_mid and fp_conv_in exact (limit "
                          f"{FINAL_TOL[mode]:g}, least control {ctrl[0]:.3e} ({ctrl[1]})); "
                          f"against the plain path {old[0]:.3e} ({old[1]}); against the plain "
@@ -1806,7 +1933,10 @@ def check_estimator_functions(cap):
                          f"{out[0]:.3e} ({out[1]}), the plain path with fp_conv_mid in its "
                          f"kernel's order and fp_conv_in exact (the kernels' orders) against the "
                          f"reference {order[0]:.3e} ({order[1]}), with fp_conv_in in K tiles of "
-                         f"16 (float32 sums) instead {f32_in[0]:.3e} ({f32_in[1]})")
+                         f"16 (float32 sums) instead {f32_in[0]:.3e} ({f32_in[1]}); T: the "
+                         f"kernels against the reference {rel_norm(gk[0][1], ref[0][1]):.3e}, "
+                         f"the reference with fp_tdot "
+                         + ", ".join(f"{w} {v:.3e}" for w, v in t_floor.items()))
             log(line + f" s {tk:.3f}/{tp:.3f} (kernels/plain)")
             for n, a in gk:
                 assert torch.isfinite(a).all(), n
@@ -1960,7 +2090,8 @@ def profile_train_step(step, x_u8, draws):
 
 def check_tensor_core_route(events, launched):
     """A profiled run ran each wrapper of ``launched`` (its tensor-core
-    launches in that run) on its tensor-core kernel (TC_ROUTES): the
+    launches in that run) on its kernel (ROUTES: the tensor-core kernels
+    and the cluster-split reductions): the
     kernel's records (name, rank among the run's kernels by time, time,
     launches recorded), as many launches recorded as the wrapper made (the
     wrappers of a SHARED_TC group together), and no record of a CUDA-core
@@ -1973,14 +2104,14 @@ def check_tensor_core_route(events, launched):
     groups += [(n,) for n in launched if not any(n in g for g in groups)]
     fails = []
     for group in groups:
-        pattern = re.compile("|".join(TC_ROUTES[n][0].pattern for n in group))
+        pattern = re.compile("|".join(ROUTES[n][0].pattern for n in group))
         tc = [(i + 1, e) for i, e in enumerate(ranked) if pattern.search(e.key)]
         names = " + ".join(group)
         for rank, e in tc:
-            log(f"tensor-core kernel of {names}: rank {rank}, {_self_ms(e):.2f} ms x{e.count} "
+            log(f"route of {names}: rank {rank}, {_self_ms(e):.2f} ms x{e.count} "
                 f"{e.key[:140]}")
         recorded, n = sum(e.count for _, e in tc), sum(launched[k] for k in group)
-        log(f"tensor-core kernel of {names}: {recorded} launches recorded, {n} by the wrapper"
+        log(f"route of {names}: {recorded} launches recorded, {n} by the wrapper"
             + ("s" if len(group) > 1 else ""))
         if not (all(launched[k] > 0 for k in group) and n == recorded):
             fails.append((names, recorded, n))
@@ -2292,6 +2423,8 @@ def check_conv3x3_in_widths(dev, batch=4):
     against KERNEL_TOL) and the re-attachment's rv_conv3x3_in (bf16, every
     slot live under a permuted idx: h1's swish and bias, t2's alpha -1;
     against KERNEL_TOL); and the mid -> c kernel's
+    conv3x3_out (the forward solve's C3_SOLVE form, tf32 and tf32x, net z's
+    residual, every slot live under a permuted idx; against SPLIT_TOL),
     nc_jt_out_acc (bf16, two nets, s0 bfloat16; u by rel_norm against
     ROUNDED_TOL, acc += c_k u by rel_norm of its update over the update)
     and fp_conv_out (bf16, four nets on two nets' kernels; against
@@ -2349,6 +2482,24 @@ def check_conv3x3_in_widths(dev, batch=4):
                     f"(limit {SPLIT_TOL:g})")
                 if not (math.isfinite(err) and err <= SPLIT_TOL):
                     fails.append(("conv3x3_in", label, mode, err))
+            # the solve's conv3x3_out (C3_SOLVE: a band's output tiles over
+            # C3_SOLVE_GROUPS blocks), net z's residual, every slot live
+            # under a permuted idx
+            t2, w3 = r(batch, mid, HW), 0.02 * r(c, mid, 3, 3)
+            b3, base, sub = 0.1 * r(c), r(batch, c * HW), r(batch, c * HW)
+            pidx = torch.randperm(batch, generator=g, device=dev).to(torch.int32)
+            pcnt = torch.full((1,), batch, dtype=torch.int32, device=dev)
+            for mode in fs.SPLIT_MODES:
+                wk = fs.prep_conv3x3_out(fs.prep_weight(w3, mode), mode)
+                outs = [nan(batch, c * HW) for _ in range(2)]
+                for f, o in ((fs.conv3x3_out, outs[0]), (fs._conv3x3_out_plain, outs[1])):
+                    f(t2, pidx, pcnt, wk, b3, mode, base, -1.0, sub, o, H, H)
+                torch.cuda.synchronize()
+                err = rel_max(*outs)
+                log(f"kernel conv3x3_out {label}, {mode}: max_rel_err {err:.3e} "
+                    f"(limit {SPLIT_TOL:g})")
+                if not (math.isfinite(err) and err <= SPLIT_TOL):
+                    fails.append(("conv3x3_out", label, mode, err))
             t = r(2 * batch, mid, HW).to(torch.bfloat16).float()
             w1t = fc.tile_w1t((0.05 * r(2, c, mid, 3, 3)).to(torch.bfloat16))
             s0 = (0.5 + torch.rand(2 * batch, c * HW, generator=g, device=dev)).to(torch.bfloat16)
@@ -2427,9 +2578,11 @@ def check_block_functions(cap):
     BLOCK_ACC_TOL with the control (the plain version in mode f32 against
     the tf32 one) above it. Each run also reads its sum-order floor, as
     phase 3: the plain forward with lin_conv1x1_mid, lin_conv3x3_in or both,
-    or the solve's conv3x3_in, summed exactly (ops/sum_order.py) against the
-    plain forward, by the same measures (no limit is held to them). Then the one-net chain (fused_neumann_chain, the
-    row-2 kernels on one net) on net x's captured operands vs its plain
+    or the solve's conv3x3_in or conv3x3_out, summed exactly, or
+    conv3x3_out summed in its kernel's order (ops/sum_order.py) against the
+    plain forward, by the same measures (no limit is held to them). Then the
+    one-net chain (fused_neumann_chain, the row-2 kernels on one net) on net
+    x's captured operands vs its plain
     version, with its device time, plain time and bound. Every reading is
     printed before the limits are checked."""
     from implicit_normalizing_flows_torch.ops import fused_block as fb
@@ -2438,10 +2591,15 @@ def check_block_functions(cap):
 
     exact = dict(lin_conv1x1_mid=so.lin_conv1x1_mid_exact,
                  lin_conv3x3_in=so.lin_conv3x3_in_exact)
-    floor_ops = {"lin_conv1x1_mid": dict(fb._PLAIN_OPS, lin_conv1x1_mid=exact["lin_conv1x1_mid"]),
-                 "lin_conv3x3_in": dict(fb._PLAIN_OPS, lin_conv3x3_in=exact["lin_conv3x3_in"]),
-                 "both": dict(fb._PLAIN_OPS, **exact),
-                 "conv3x3_in": dict(fb._PLAIN_OPS, conv3x3_in=so.conv3x3_in_exact)}
+    floor_ops = {"lin_conv1x1_mid exact": dict(fb._PLAIN_OPS,
+                                               lin_conv1x1_mid=exact["lin_conv1x1_mid"]),
+                 "lin_conv3x3_in exact": dict(fb._PLAIN_OPS,
+                                              lin_conv3x3_in=exact["lin_conv3x3_in"]),
+                 "both exact": dict(fb._PLAIN_OPS, **exact),
+                 "conv3x3_in exact": dict(fb._PLAIN_OPS, conv3x3_in=so.conv3x3_in_exact),
+                 "conv3x3_out exact": dict(fb._PLAIN_OPS, conv3x3_out=so.conv3x3_out_exact),
+                 "conv3x3_out in its kernel's order": dict(
+                     fb._PLAIN_OPS, conv3x3_out=so.conv3x3_out_tiled)}
     full = dict(stall_guard=None, newton_init=False, warm_start=False, tail_mode=None,
                 tail_start=None, line_search=False)
     fails = []
@@ -2468,7 +2626,7 @@ def check_block_functions(cap):
                     fdn = (rx.nstep - rp.nstep).abs().long()
                     ferr = max(rel_norm(a, b, e) for a, b, e in zip(ax, ap, (eps_x, eps_z)))
                     floors.append(
-                        f"{what} exact vs plain: max|dz| "
+                        f"{what} vs plain: max|dz| "
                         f"{float((rx.result - rp.result).abs().max()):.3e} |d nstep| counts "
                         f"{torch.bincount(fdn).tolist()} converged flags differing "
                         f"{int((rx.converged != rp.converged).sum())} prot flags differing "
@@ -2932,7 +3090,7 @@ def main():
 
     # the eval profile, with the split-mode routes of the solve's conv kernels
     profiled_routes(lambda: profile_batch(model, eval_step, x_u8, draws(0)),
-                    ["conv1x1_mid", "conv3x3_in", "conv3x3_out"], "eval batch")
+                    ["conv1x1_mid", "conv3x3_in", "conv3x3_out", "broyden_step"], "eval batch")
 
     # the plain path on batch 0's draws
     implicit_block.fused_broyden_solve = fs.fused_broyden_solve_plain
@@ -2977,7 +3135,7 @@ def main():
         # one profiled step with every count exact shows the routes; a step
         # whose record lost launches is profiled again, up to ROUTE_ATTEMPTS
         profiled_routes(lambda: profile_train_step(step, x_u8, tdraws(n + 1)),
-                        [k for k in TC_ROUTES if (estimator or k not in ESTIMATOR_ONLY)
+                        [k for k in ROUTES if (estimator or k not in ESTIMATOR_ONLY)
                          and (merged or k not in MERGED_ONLY)], f"{label} step")
         compare_plain_step(step, x_u8, lambda: tdraws(n + 2),
                            plain_versions(estimator, merged))
@@ -3046,6 +3204,9 @@ def main():
                        launches=path[name], **rows[name][0])
             if name in TC_ROUTES:  # mode bf16 on the tensor cores
                 row.update(source=TC_ROUTES[name][1], cores=f"tensor ({TC_ROUTES[name][2]})")
+            elif name in REDUCE_ROUTES:  # in their own units
+                row.update(source=REDUCE_ROUTES[name][1],
+                           cores=f"CUDA ({REDUCE_ROUTES[name][2]})")
             if mod is fs:
                 row["eval_launches"] = eval_launches[name]
             if mod in (fs, ig):

@@ -35,7 +35,9 @@
 //   fp_conv_mid    h2 = W2 swish(h1) + b2; th2 = W2 (swish'(h1) th1);
 //                  ra1 = W2^T rh2 and p_a1 = W2^T p_h2 (four "nets") (bf16:
 //                  tensor cores, mma_gemm.cuh)
-//   fp_tdot        T[e] = sum r2 (swish'(h2) th2)   (one block per example)
+//   fp_tdot        T[e] = sum r2 (swish'(h2) th2)   (its own unit, tdot.cu,
+//                  linked into this library: a thread-block cluster an
+//                  example)
 // final pair, backward (the cotangent folded into acc by the caller):
 //   fp_second      rh = swish'(h) r, p = [swish'(h) q] + swish''(h) th r,
 //                  per-channel sums of p (db) and of the slope terms (dbeta)
@@ -110,25 +112,6 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
     for (int w = 0; w < RED_WARPS; ++w) s += red[w];
   __syncthreads();
   return s;
-}
-
-// T[e] = sum_{m,p} r * (swish'(h; beta_net[e / nb]) * th), one block per
-// example e of (B, M*HW) tensors.
-__global__ void __launch_bounds__(RED_THREADS) tdot_kernel(
-    const float* __restrict__ r, const float* __restrict__ h,
-    const float* __restrict__ th, const float* __restrict__ beta_net, int nb,
-    long long n, float* __restrict__ out) {
-  const int e = blockIdx.x;
-  const float beta = beta_net[e / nb];
-  const size_t base = (size_t)e * n;
-  float acc = 0.f;
-  for (long long i = threadIdx.x; i < n; i += RED_THREADS) {
-    const size_t off = base + i;
-    acc = __fadd_rn(acc, __fmul_rn(r[off], __fmul_rn(dswish(h[off], beta), th[off])));
-  }
-  __shared__ float red[RED_WARPS];
-  const float s = block_sum(acc, red);
-  if (threadIdx.x == 0) out[e] = s;
 }
 
 // One block per (channel m, net): over the net's nb examples and HW pixels
@@ -337,13 +320,6 @@ int imnf_fp_conv_out(int mode, const void* w, const float* t, int B, int nets,
     case MODE_BF16: return (int)conv3x3_out_tc_final(static_cast<const __nv_bfloat16*>(w), t, B, nets, wnets, C, mid, H, W, out, s);
   }
   return (int)cudaErrorInvalidValue;
-}
-
-int imnf_fp_tdot(const float* r, const float* h, const float* th,
-                 const float* beta_net, int B, int nets, long long n,
-                 float* out, void* stream) {
-  tdot_kernel<<<B, RED_THREADS, 0, (cudaStream_t)stream>>>(r, h, th, beta_net, B / nets, n, out);
-  return (int)cudaGetLastError();
 }
 
 int imnf_fp_second(const float* r, const float* q, const float* h,

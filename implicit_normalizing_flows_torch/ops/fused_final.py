@@ -20,8 +20,9 @@ two nets' examples stacked along the batch so that one launch covers both:
 * primal: ``fp_conv_in`` (``h1 = W1 a0 + b1``, ``th1 = W1 ta0``,
   ``r2 = C3^T acc``), ``fp_conv_mid`` (``h2 = W2 swish(h1) + b2``,
   ``th2 = W2 (swish'(h1) th1)``), ``fp_tdot`` (``T = sum r2 swish'(h2)
-  th2`` per example), with ``a0 = swish(h; b0)``, ``ta0 = swish'(h; b0) eps``
-  under preact and ``a0 = h``, ``ta0 = eps`` without;
+  th2`` per example; its own unit ``csrc/tdot.cu``, a thread-block cluster
+  an example, :func:`tdot_plan`), with ``a0 = swish(h; b0)``, ``ta0 =
+  swish'(h; b0) eps`` under preact and ``a0 = h``, ``ta0 = eps`` without;
 * backward (recomputes the primal's intermediates, as the TPU kernel
   does): ``fp_second`` (``rh = swish' r``, ``p = [swish' q] + swish'' th r``
   and the channel sums that give db and dbeta), ``fp_conv_mid`` with W2^T
@@ -57,13 +58,13 @@ import torch
 
 from . import implicit_grad as ig
 from .fused_chain import _nets, c3_out_npad, tile_w1t, untile_w1t
-from .fused_solve import (C3_MID, C3_OUT_ROWS, MODES, _check_cuda, _launch, _mconv, _ptr,
-                          check_conv3x3_tc, conv3x3_in_rows, d2swish, ddswish_dbeta, dswish,
-                          dswish_dbeta, prep_weight, swish)
+from .fused_solve import (C3_MID, C3_OUT_ROWS, MODES, _check_aligned, _check_cuda, _launch,
+                          _mconv, _ptr, check_conv3x3_tc, conv3x3_in_rows, d2swish,
+                          ddswish_dbeta, dswish, dswish_dbeta, prep_weight, swish)
 from .implicit_grad import (ACTS, DATA_KEYS, _check_mid, _shapes, transpose_weights,
                             wgrad_splits)
 
-__all__ = ["fused_final_pair", "fused_final_pair_plain", "FINAL_MODES",
+__all__ = ["fused_final_pair", "fused_final_pair_plain", "FINAL_MODES", "tdot_plan",
            "KERNELS", "launch_counts", "reset_launch_counts"]
 
 FINAL_MODES = ("f32", "bf16")
@@ -73,7 +74,7 @@ _ARGTYPES = {
     "imnf_fp_conv_in": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "imnf_fp_conv_mid": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "imnf_fp_conv_out": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    "imnf_fp_tdot": [_P, _P, _P, _P, _I, _I, _L, _P, _P],
+    "imnf_fp_tdot": [_P, _P, _P, _P, _I, _I, _L, _I, _L, _P, _P],
     "imnf_fp_second": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
@@ -259,28 +260,62 @@ def fp_conv_out(t, w, mode, out, H, W, nets=None):
     fp_conv_out.launches += 1
 
 
-def _fp_tdot_plain(r, h, th, beta_net, out):
+TDOT_THREADS = 256  # fp_tdot's CTA (csrc/tdot.cu)
+TDOT_CLUSTERS = (1, 2, 4, 8)  # its cluster sizes, the fewest first
+TDOT_SMS = 132  # an H100's SMs: the grid fp_tdot's plan fills on the card
+
+
+def tdot_plan(Bt, n, sms=TDOT_SMS):
+    """(cluster, chunk) of ``fp_tdot``'s kernel (``csrc/tdot.cu``) at Bt
+    examples of n elements: a thread-block cluster of ``cluster`` CTAs an
+    example, CTA r summing elements [r * chunk, (r + 1) * chunk) as
+    float4 vectors; the fewest CTAs of TDOT_CLUSTERS that give every SM 4
+    of them (the most, 8, where none does), halved until they split n into
+    whole vectors. Raises on n that is no multiple of 4."""
+    if n <= 0 or n % 4:
+        raise ValueError(f"fp_tdot reads float4 vectors: n % 4 == 0, not n {n}")
+    cluster = next((c for c in TDOT_CLUSTERS if Bt * c >= 4 * sms), TDOT_CLUSTERS[-1])
+    while n % (4 * cluster):
+        cluster //= 2
+    return cluster, n // cluster
+
+
+def _fp_tdot_by(total, r, h, th, beta_net, out):
+    """``fp_tdot``'s function with ``total`` summing each row of its (nb,
+    M*HW) products; the products as the plain version rounds them."""
     N = beta_net.shape[0]
     nb = r.shape[0] // N
     for n in range(N):
         e = slice(n * nb, (n + 1) * nb)
-        out[e] = (r[e] * (dswish(h[e], beta_net[n]) * th[e])).reshape(nb, -1).sum(1)
+        out[e] = total((r[e] * (dswish(h[e], beta_net[n]) * th[e])).reshape(nb, -1))
+
+
+def _fp_tdot_plain(r, h, th, beta_net, out):
+    _fp_tdot_by(lambda p: p.sum(1), r, h, th, beta_net, out)
 
 
 def fp_tdot(r, h, th, beta_net, out):
     """out[e] = sum r (swish'(h; beta_net[n]) th) over channels and pixels
-    of each example e of net n; r, h, th (N*nb, M, H*W); out (N*nb,)."""
+    of each example e of net n; r, h, th (N*nb, M, H*W); out (N*nb,). On the
+    card each example runs on a thread-block cluster (:func:`tdot_plan`)."""
     if not r.is_cuda:
         return _fp_tdot_plain(r, h, th, beta_net, out)
     Bt = r.shape[0]
     N = beta_net.shape[0]
     _check_cuda(r=r, h=h, th=th, beta_net=beta_net, out=out)
+    _check_aligned(r=r, h=h, th=th)
     _shapes(h=(h, r.shape), th=(th, r.shape), out=(out, (Bt,)))
     if Bt % N:
         raise ValueError(f"{Bt} examples do not split over {N} nets")
-    _run("imnf_fp_tdot", _ptr(r), _ptr(h), _ptr(th), _ptr(beta_net), Bt, N,
-         r[0].numel(), _ptr(out))
+    n = r[0].numel()
+    cluster, chunk = tdot_plan(Bt, n, _sms(r.device))
+    _run("imnf_fp_tdot", _ptr(r), _ptr(h), _ptr(th), _ptr(beta_net), Bt, N, n, cluster,
+         chunk, _ptr(out))
     fp_tdot.launches += 1
+
+
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _fp_second_plain(r, q, h, th, beta_net, rh, p, dsum, dbsum):

@@ -13,7 +13,9 @@ says what bounds each on an H100 and what its design does about it):
 * ``conv3x3_out`` ``conv3x3 mid->c + b3`` fused with the residual (modes
   ``tf32`` / ``tf32x`` on the tensor cores, ``csrc/conv3x3_out_tc.cuh``)
 * ``broyden_step`` secant update, best iterate, protective break, stall
-  exit, next direction (also the init and the ladder's re-arm)
+  exit, next direction (also the init and the ladder's re-arm); its own
+  unit ``csrc/broyden_step.cu``, a thread-block cluster a live example
+  (:func:`broyden_plan`)
 
 Every launch works on a device-resident list of active example indices, so
 an example that is done costs no further work (per-example early exit).
@@ -46,7 +48,8 @@ import torch.nn.functional as F
 
 __all__ = ["fused_broyden_solve", "fused_broyden_solve_plain",
            "FusedSolveResult", "conv3x3_in", "conv1x1_mid", "conv3x3_out",
-           "broyden_step", "KERNELS", "launch_counts", "reset_launch_counts",
+           "broyden_step", "broyden_plan", "StepPlan", "KERNELS", "launch_counts",
+           "reset_launch_counts",
            "prep_weight", "prep_weights", "prep_conv1x1_mid", "check_mid_product",
            "check_conv3x3_tc", "conv3x3_in_rows", "conv3x3_in_smem", "C3_OUT_ROWS",
            "prep_conv3x3_out", "conv3x3_out_smem", "C3_SOLVE_GROUPS", "c3_out_npad",
@@ -324,7 +327,8 @@ _ARGTYPES = {
     "imnf_conv3x3_out": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                          _F, _P, _P, _I, _P],
     "imnf_broyden_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _F, _I, _P],
+                          _P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _F, _I, _I, _I, _I,
+                          _I, _P],
 }
 
 
@@ -545,8 +549,69 @@ def conv3x3_out(t2, idx, count, wp, b3, mode, base, sgn, sub, out, H, W):
         conv3x3_out.tc_launches += 1
 
 
-def _broyden_step_plain(phase, idx_in, cnt_in, idx_out, cnt_out, st, *, eps,
-                        cap, patience, rtol, guard_eps, newton):
+class StepPlan(NamedTuple):
+    """How ``broyden_step``'s kernel (``csrc/broyden_step.cu``) cuts one
+    example's D elements: a thread-block cluster of ``cluster`` CTAs a live
+    example, CTA r owning elements [r * slice, (r + 1) * slice) as
+    slice / 4 float4 vectors, thread t of ``threads`` the vectors t + m *
+    threads, m < ``vpt``."""
+    cluster: int
+    slice: int
+    threads: int
+    vpt: int
+
+
+STEP_CLUSTERS = (8, 4)  # the cluster sizes broyden_step takes, the larger first
+STEP_MAX_THREADS = 256
+STEP_VPT = (1, 2, 4)  # the kernel's instantiations (float4 vectors a thread)
+
+
+def broyden_plan(D, K):
+    """:class:`StepPlan` of ``broyden_step`` at D elements an example and K
+    secant planes: the largest cluster of STEP_CLUSTERS that splits D into
+    whole float4 vectors, the fewest vectors a thread (STEP_VPT) that keep
+    a CTA at most STEP_MAX_THREADS threads (a multiple of 32). Raises on a
+    D it cannot split and on K over KMAX."""
+    if K > KMAX:
+        raise ValueError(f"threshold {K} > {KMAX} is not taken by broyden_step")
+    cluster = next((c for c in STEP_CLUSTERS if D > 0 and D % (4 * c) == 0), None)
+    if cluster is None:
+        raise ValueError(f"broyden_step splits D over {STEP_CLUSTERS} CTAs in float4 "
+                         f"vectors: D % {4 * STEP_CLUSTERS[-1]} == 0, not D {D}")
+    nv = D // cluster // 4
+    vpt = next((v for v in STEP_VPT if -(-nv // v) <= STEP_MAX_THREADS), None)
+    if vpt is None:
+        raise ValueError(f"broyden_step takes D <= "
+                         f"{4 * STEP_CLUSTERS[0] * STEP_MAX_THREADS * STEP_VPT[-1]}, not D {D}")
+    return StepPlan(cluster, D // cluster, (-(-nv // vpt) + 31) // 32 * 32, vpt)
+
+
+class _PlainSums:
+    """The plain version's sums (torch's own order): the norm, the
+    contractions over D, the combinations over k and the dot products."""
+
+    @staticmethod
+    def norm(v):
+        return torch.linalg.vector_norm(v, dim=1)
+
+    @staticmethod
+    def contract(planes, vec, live):  # (n, k) coefficients <plane_k, vec>, k < nk
+        return torch.where(live, torch.einsum("nkd,nd->nk", planes, vec), 0.0)
+
+    @staticmethod
+    def combine(coef, planes, live):  # sum_k coef_k plane_k
+        return torch.einsum("nk,nkd->nd", coef, planes)
+
+    @staticmethod
+    def dot(a, b):
+        return torch.sum(a * b, 1, keepdim=True)
+
+
+def _broyden_step_by(sums, phase, idx_in, cnt_in, idx_out, cnt_out, st, *, eps,
+                     cap, patience, rtol, guard_eps, newton):
+    """``broyden_step``'s function with ``sums`` (:class:`_PlainSums`'
+    methods) for its sums; every other operation as the plain version
+    rounds it."""
     n = int(cnt_in.item())
     e = idx_in[:n].long()
     Z, G, UPD, ZN, GN, BZ, BG, U, V, ist, fst = (
@@ -554,15 +619,11 @@ def _broyden_step_plain(phase, idx_in, cnt_in, idx_out, cnt_out, st, *, eps,
                         "ist", "fst"))
     gn = GN[e]
     nk = ist[e, 0]
-    obj = torch.linalg.vector_norm(gn, dim=1)
+    obj = sums.norm(gn)
     kmax = int(nk.max().item()) if n else 0
     live = torch.arange(kmax, device=gn.device)[None, :] < nk[:, None]
-
-    def contract(planes, vec):  # (n, k) coefficients <plane_k, vec>, k < nk
-        return torch.where(live, torch.einsum("nkd,nd->nk", planes, vec), 0.0)
-
-    def combine(coef, planes):  # sum_k coef_k plane_k
-        return torch.einsum("nk,nkd->nd", coef, planes)
+    contract = lambda planes, vec: sums.contract(planes, vec, live)
+    combine = lambda coef, planes: sums.combine(coef, planes, live)
 
     if phase == PHASE_INIT:
         z = ZN[e]
@@ -607,14 +668,14 @@ def _broyden_step_plain(phase, idx_in, cnt_in, idx_out, cnt_out, st, *, eps,
         uvd = combine(contract(Ve, dg), Ue)
         uvg = combine(contract(Ve, gn), Ue)
         vt = -dz + combine(contract(Ue, dz), Ve)
-        denom = torch.sum(vt * dg, 1, keepdim=True)
+        denom = sums.dot(vt, dg)
         u = (dz - (-dg + uvd)) / denom
         vt = torch.where(torch.isfinite(vt), vt, 0.0)
         u = torch.where(torch.isfinite(u), u, 0.0)
         cols = nk.long()
         U[e, cols] = u
         V[e, cols] = vt
-        upd = -(-gn + uvg) - u * torch.sum(vt * gn, 1, keepdim=True)
+        upd = -(-gn + uvg) - u * sums.dot(vt, gn)
         imp = improved[:, None]
         BZ[e] = torch.where(imp, zn, BZ[e])
         BG[e] = torch.where(imp, gn, BG[e])
@@ -627,28 +688,35 @@ def _broyden_step_plain(phase, idx_in, cnt_in, idx_out, cnt_out, st, *, eps,
     cnt_out.fill_(len(keep))
 
 
+def _broyden_step_plain(phase, idx_in, cnt_in, idx_out, cnt_out, st, **kw):
+    _broyden_step_by(_PlainSums, phase, idx_in, cnt_in, idx_out, cnt_out, st, **kw)
+
+
 def broyden_step(phase, idx_in, cnt_in, idx_out, cnt_out, st, *, eps, cap,
                  patience, rtol, guard_eps, newton):
     """One Broyden iteration (``phase`` PHASE_STEP), the initialisation
     (PHASE_INIT) or a ladder re-arm (PHASE_REARM) for every live example
     of ``idx_in``; the still-active examples are written to ``idx_out`` /
-    ``cnt_out``. ``st`` holds the solver state (see :func:`_solve`)."""
+    ``cnt_out``. ``st`` holds the solver state (see :func:`_solve`). On the
+    card each live example runs on a thread-block cluster
+    (:func:`broyden_plan`)."""
     if not st["Z"].is_cuda:
         return _broyden_step_plain(phase, idx_in, cnt_in, idx_out, cnt_out, st,
                                    eps=eps, cap=cap, patience=patience,
                                    rtol=rtol, guard_eps=guard_eps,
                                    newton=newton)
     B, K, D = st["U"].shape
-    if K > KMAX:
-        raise ValueError(f"threshold {K} > {KMAX} is not taken by broyden_step")
+    plan = broyden_plan(D, K)
     _check_cuda(idx_in=idx_in, cnt_in=cnt_in, idx_out=idx_out, cnt_out=cnt_out,
                 **st)
+    _check_aligned(**{k: st[k] for k in ("Z", "G", "UPD", "ZN", "GN", "BZ", "BG", "U", "V")})
     cnt_out.zero_()
     _launch("imnf_broyden_step", phase, _ptr(idx_in), _ptr(cnt_in),
             _ptr(idx_out), _ptr(cnt_out),
             *(_ptr(st[k]) for k in ("Z", "G", "UPD", "ZN", "GN", "BZ", "BG",
                                     "U", "V", "ist", "fst")),
-            B, D, K, eps, cap, patience, rtol, guard_eps, int(newton))
+            B, D, K, eps, cap, patience, rtol, guard_eps, int(newton),
+            *plan)
     broyden_step.launches += 1
 
 

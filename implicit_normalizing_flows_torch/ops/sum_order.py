@@ -1,5 +1,5 @@
-"""Plain versions of seventeen kernels with their products summed exactly,
-and fourteen with their products summed in the tensor cores' order.
+"""Plain versions of nineteen kernels with their products or sums summed
+exactly, and sixteen with them summed in their kernels' order.
 
 Each ``*_exact`` function here is a kernel's plain version with its rounded
 (bf16, or split) product summed in float64 and rounded once to float32: the
@@ -42,6 +42,11 @@ a floor fails every kernel that does not sum in the plain version's order.
 * :func:`rv_conv3x3_in_exact`: ``ops.implicit_grad._rv_conv3x3_in_plain``
   (``W1 [swish](h)`` or ``C3^T u`` over c x 9 terms, on the active list;
   alpha and ``+ b1`` as there).
+* :func:`broyden_step_exact`: ``ops.fused_solve._broyden_step_plain`` (the
+  norm, every contraction over D and combination over k and both dot
+  products in float64, rounded once; every other operation as there).
+* :func:`fp_tdot_exact`: ``ops.fused_final._fp_tdot_plain`` (each
+  example's products, rounded as there, summed in float64).
 
 :func:`fp_conv_in_exact` also stands in for its kernel on the CPU: the
 final pair's c -> mid kernel (``csrc/conv3x3_in_tc.cuh``,
@@ -84,6 +89,10 @@ sums added before the bias):
   ``EPI_AFFINE``, which the final pair does not take (its float64 form
   does); phase 9 of ``chip_smoke.py`` reads the pair with it.
 
+The two reductions split over a thread-block cluster
+(``csrc/cluster_reduce.cuh``) sum as :func:`_cluster_tree` says:
+:func:`broyden_step_tiled` and :func:`fp_tdot_tiled`.
+
 They run on whatever device their tensors lie on.
 """
 from __future__ import annotations
@@ -91,8 +100,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .fused_solve import (SPLIT_MODES, _conv1x1_mid_plain, _conv3x3_in_by, _conv3x3_in_plain,
-                          _conv3x3_out_by, _conv3x3_out_plain, _split, _widened, dswish, swish)
+from .fused_final import TDOT_THREADS, _fp_tdot_by, tdot_plan
+from .fused_solve import (SPLIT_MODES, _broyden_step_by, _conv1x1_mid_plain, _conv3x3_in_by,
+                          _conv3x3_in_plain, _conv3x3_out_by, _conv3x3_out_plain, _split,
+                          _widened, broyden_plan, dswish, swish)
 
 __all__ = ["jt_conv1x1_mid_exact", "rv_wgrad_exact", "rv_conv3x3_out_exact",
            "fp_conv_mid_exact", "fp_conv_mid_tiled", "conv1x1_mid_exact",
@@ -104,7 +115,8 @@ __all__ = ["jt_conv1x1_mid_exact", "rv_wgrad_exact", "rv_conv3x3_out_exact",
            "fp_conv_out_exact", "fp_conv_out_tiled", "jt_conv3x3_in_exact",
            "jt_conv3x3_in_tiled", "fp_conv_in_exact", "fp_conv_in_tiled",
            "rv_conv3x3_in_exact", "rv_conv3x3_in_tiled", "conv3x3_out_exact",
-           "conv3x3_out_tiled", "TC_BK", "C3_MC", "C3I_BK"]
+           "conv3x3_out_tiled", "broyden_step_exact", "broyden_step_tiled", "fp_tdot_exact",
+           "fp_tdot_tiled", "TC_BK", "C3_MC", "C3I_BK"]
 
 TC_BK = 64  # the K tile of the tensor-core 1x1 product (csrc/mma_gemm.cuh)
 C3_MC = 64  # the mid channels of a chunk of the tensor-core 3x3 product (csrc/conv3x3_out_tc.cuh)
@@ -560,3 +572,116 @@ def conv3x3_out_tiled(t2, idx, count, wp, b3, mode, base, sgn, sub, out, H, W):
     if mode not in SPLIT_MODES:
         return _conv3x3_out_plain(t2, idx, count, wp, b3, mode, base, sgn, sub, out, H, W)
     _conv3x3_out_by(_conv3x3_tiled, t2, idx, count, wp, b3, mode, base, sgn, sub, out, H, W)
+
+
+# ---------------------------------------------------------------------------
+# the reductions of the Broyden update and of the final pair's T
+
+def _cluster_tree(p, cluster, threads, vpt):
+    """Each row of ``p`` (..., n) summed as the cluster-split reductions of
+    ``csrc/cluster_reduce.cuh`` sum it: CTA r of ``cluster`` takes elements
+    [r n / cluster, (r + 1) n / cluster) as float4 vectors, thread t of
+    ``threads`` the vectors t + m threads (m < ``vpt``) into one float32
+    sum, each vector's four lanes in order; a warp adds its lanes by the xor
+    butterfly (offsets 16 .. 1), the CTA its warps in order, the cluster its
+    CTAs in order, each sum from 0."""
+    *lead, n = p.shape
+    nv = n // cluster // 4
+    P = F.pad(p.reshape(*lead, cluster, nv, 4), (0, 0, 0, vpt * threads - nv))
+    P = P.reshape(*lead, cluster, vpt, threads, 4)
+    acc = torch.zeros(*lead, cluster, threads, dtype=p.dtype, device=p.device)
+    for m in range(vpt):
+        for lane in range(4):
+            acc = acc + P[..., m, :, lane]
+    acc = acc.reshape(*lead, cluster, threads // 32, 32)
+    lanes = torch.arange(32, device=p.device)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lanes ^ o]
+    warps = acc[..., 0]
+    cta = torch.zeros(*lead, cluster, dtype=p.dtype, device=p.device)
+    for w in range(warps.shape[-1]):
+        cta = cta + warps[..., w]
+    out = torch.zeros(*lead, dtype=p.dtype, device=p.device)
+    for r in range(cluster):
+        out = out + cta[..., r]
+    return out
+
+
+class _ExactSums:
+    """``broyden_step``'s sums in float64, each rounded once."""
+
+    @staticmethod
+    def norm(v):
+        return torch.linalg.vector_norm(v.double(), dim=1).to(v.dtype)
+
+    @staticmethod
+    def contract(planes, vec, live):
+        return torch.where(live, torch.einsum("nkd,nd->nk", planes.double(),
+                                              vec.double()).to(vec.dtype), 0.0)
+
+    @staticmethod
+    def combine(coef, planes, live):
+        return torch.einsum("nk,nkd->nd", coef.double(), planes.double()).to(planes.dtype)
+
+    @staticmethod
+    def dot(a, b):
+        return (a.double() * b.double()).sum(1, keepdim=True).to(a.dtype)
+
+
+class _TiledSums:
+    """``broyden_step``'s sums as its kernel (``csrc/broyden_step.cu``)
+    takes them: over D the cluster's tree (:func:`_cluster_tree` on the
+    plan of :func:`~.fused_solve.broyden_plan`), over k in order from 0,
+    each example's k < nk only."""
+
+    @staticmethod
+    def _tree(p):
+        plan = broyden_plan(p.shape[-1], 1)
+        return _cluster_tree(p, plan.cluster, plan.threads, plan.vpt)
+
+    @classmethod
+    def norm(cls, v):
+        return torch.sqrt(cls._tree(v * v))
+
+    @classmethod
+    def contract(cls, planes, vec, live):
+        return torch.where(live, cls._tree(planes * vec[:, None, :]), 0.0)
+
+    @staticmethod
+    def combine(coef, planes, live):
+        acc = planes.new_zeros(planes.shape[0], planes.shape[2])
+        for k in range(planes.shape[1]):
+            acc = torch.where(live[:, k:k + 1], acc + coef[:, k:k + 1] * planes[:, k], acc)
+        return acc
+
+    @classmethod
+    def dot(cls, a, b):
+        return cls._tree(a * b)[:, None]
+
+
+def broyden_step_exact(phase, idx_in, cnt_in, idx_out, cnt_out, st, **kw):
+    """``_broyden_step_plain`` with every contraction over D and over k,
+    the norm and the two dot products summed in float64 and rounded once."""
+    _broyden_step_by(_ExactSums, phase, idx_in, cnt_in, idx_out, cnt_out, st, **kw)
+
+
+def broyden_step_tiled(phase, idx_in, cnt_in, idx_out, cnt_out, st, **kw):
+    """``_broyden_step_plain`` with its sums in the cluster kernel's order
+    (:class:`_TiledSums`); every other operation as the plain version."""
+    _broyden_step_by(_TiledSums, phase, idx_in, cnt_in, idx_out, cnt_out, st, **kw)
+
+
+def fp_tdot_exact(r, h, th, beta_net, out):
+    """``_fp_tdot_plain`` with each example's products summed in float64 and
+    rounded once."""
+    _fp_tdot_by(lambda p: p.double().sum(1).to(p.dtype), r, h, th, beta_net, out)
+
+
+def fp_tdot_tiled(r, h, th, beta_net, out):
+    """``_fp_tdot_plain`` with each example's products summed in the cluster
+    kernel's order (``csrc/tdot.cu``: :func:`_cluster_tree` on the plan of
+    :func:`~.fused_final.tdot_plan` at an H100's SMs, 256 threads a CTA)."""
+    cluster, chunk = tdot_plan(r.shape[0], r[0].numel())
+    vpt = -(-chunk // 4 // TDOT_THREADS)
+    _fp_tdot_by(lambda p: _cluster_tree(p, cluster, TDOT_THREADS, vpt), r, h, th, beta_net,
+                out)
