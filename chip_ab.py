@@ -61,7 +61,12 @@ kernel times, run ``kernels`` in both trees in one call, in turns.
   alpha -1; beside cuDNN conv2d bf16); then the two reductions:
   broyden_step at nstep 1, 10 and 29 (B 64, D 3072, K 30; PHASE_STEP on
   every slot, a fresh state a call) and fp_tdot at each scale (both nets,
-  mid 512), by their device time. A tree
+  mid 512), by their device time; then rv_chan_sums in the
+  re-attachment's three forms at each scale (M = mid with h; b3 at M = c,
+  beside one ``u.sum(dim=(0, 2))``; T0 at M = c with h, base and out), by
+  its device time beside its bound, and where the tree has the plan's
+  CS_CLUSTERS each form also on each cluster size (1 to 16 CTAs a
+  channel), forced. A tree
   from before conv1x1_mid /
   rv_conv1x1_mid / lin_conv1x1_mid / nc_jt_in / lin_conv3x3_in / conv3x3_in
   / nc_jt_out_acc / fp_conv_out / jt_conv3x3_in / fp_conv_in /
@@ -494,6 +499,62 @@ def reductions(times, errs, r):
         torch.cuda.synchronize()
         errs[name] = float((out - ref).abs().max() / ref.abs().max())
         del rr, hh, tt
+    chan_sums(times, errs, r)
+
+
+def chan_sums(times, errs, r):
+    """Device time of rv_chan_sums in the re-attachment's three forms at
+    each scale (batch 64; M = mid 512 with h and dbeta; M = c, b3's sums of
+    u, beside one u.sum call; M = c, net x's T0 with h, dbeta, base and
+    out), each with its bound (the bytes moved once at the card's peak
+    rate), into ``times``, and their errors against the plain version (the
+    largest over the outputs, relative to each one's largest entry) into
+    ``errs``; where the tree has CS_CLUSTERS, each form also on each of
+    its cluster sizes, forced."""
+    import chip_smoke as cs
+    from implicit_normalizing_flows_torch.ops import implicit_grad as ig
+
+    dev = torch.device("cuda")
+    B, mid = 64, 512
+    for hs in (32, 16, 8):
+        HW, c = hs * hs, 3 * 1024 // (hs * hs)
+        forms = []
+        for M, form in ((mid, "M = mid, h"), (c, "b3"), (c, "T0, h, base, out")):
+            t = r(B, M, HW)
+            h = None if form == "b3" else r(B, M, HW)
+            base = r(B, M, HW) if form.startswith("T0") else None
+            forms.append((form, M, t, h, base))
+        for form, M, t, h, base in forms:
+            outs = []
+            for _ in range(2):
+                sums = torch.empty(M, device=dev)
+                db = None if h is None else torch.empty(M, device=dev)
+                out = None if base is None else torch.empty_like(t)
+                outs.append((sums, db, out))
+            alpha = -1.0 if form == "b3" else 1.0
+            run = lambda f, o: f(t, h, 0.9, alpha, base, *o)
+            name = f"rv_chan_sums ({form}) {hs}x{hs}, c {c}"
+            nbytes = 4 * (sum(v.numel() for v in (t, h, base) if v is not None)
+                          + sum(v.numel() for v in outs[0] if v is not None))
+            times[name] = cs.device_ms(lambda i: run(ig.rv_chan_sums, outs[0]), 30)
+            times[f"bound of {name}"] = 1e3 * nbytes / cs.PEAK_BYTES
+            if hasattr(ig, "CS_CLUSTERS"):  # every cluster size, forced
+                keep = ig.CS_CLUSTERS
+                try:
+                    for k in keep:
+                        ig.CS_CLUSTERS = (k,)
+                        times[f"{name} on {k} CTAs a channel"] = cs.device_ms(
+                            lambda i: run(ig.rv_chan_sums, outs[0]), 30)
+                finally:
+                    ig.CS_CLUSTERS = keep
+            run(ig._rv_chan_sums_plain, outs[1])
+            torch.cuda.synchronize()
+            errs[name] = max(float((a - b).abs().max() / b.abs().max())
+                             for a, b in zip(*outs) if a is not None)
+            if form == "b3":
+                times[f"u.sum(dim=(0, 2)) {hs}x{hs}, c {c} (b3's library call)"] = \
+                    cs.device_ms(lambda i: t.sum(dim=(0, 2)), 30)
+        del forms, t, h, base, outs
 
 
 def solver_counts(dev, x_u8s):

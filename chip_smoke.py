@@ -53,7 +53,11 @@ Phases (any failure exits non-zero; nothing is caught):
      re-attachment launches (dW2, dW3, dW1 with and without preact),
      rv_conv1x1_mid in both its forms (h2, swish; t1, swish'),
      rv_conv3x3_in in both (h1, [swish] and bias; net z's t2, alpha -1),
-     and jt_conv3x3_in, jt_conv1x1_mid, jt_conv3x3_out, rv_conv3x3_out,
+     rv_chan_sums in its three (b2 / b1 and their slopes at M = mid; b3's
+     sums of u, beside one u.sum call; net x's t0 with d_x, at M = c) and
+     at HW 49 and on tensors off 16-byte alignment (M 48 and 512, batch 4,
+     outputs started as NaN; csrc/chan_sums.cu's single-float path), and
+     jt_conv3x3_in, jt_conv1x1_mid, jt_conv3x3_out, rv_conv3x3_out,
      rv_conv1x1_mid and rv_conv3x3_in also on a partial active list (count
      B/2, a permuted idx; rv_conv1x1_mid takes the count alone), whose dead
      slots (examples) must stay bitwise untouched. In mode bf16 all seven
@@ -65,9 +69,9 @@ Phases (any failure exits non-zero; nothing is caught):
      plain versions, per scale and mode, each rounding mode with its
      control and its sum-order floors (the plain path with jt_conv3x3_in,
      jt_conv1x1_mid, jt_conv3x3_out, the last two or all three; or with
-     rv_wgrad, rv_conv3x3_out, rv_conv1x1_mid or rv_conv3x3_in summed
-     exactly:
-     ops/sum_order.py), every reading
+     rv_wgrad, rv_conv3x3_out, rv_conv1x1_mid, rv_conv3x3_in or
+     rv_chan_sums summed exactly, or rv_chan_sums in its cluster kernel's
+     order: ops/sum_order.py), every reading
      printed before any limit is checked; phases 5 and 6 read inputs
      captured from a training step with every plain version forced, so that
      a floor measures its product and not how the port's kernels moved its
@@ -394,11 +398,13 @@ TC_ROUTES = {
                     "mma.sync bf16, the 3- or 4-pass split of tf32 / tf32x; f32 and bf16 on CUDA "
                     "cores"),
 }
-# The two cluster-split reductions (csrc/cluster_reduce.cuh): broyden_step
-# on broyden_cluster_kernel<VPT, STAGE> (csrc/broyden_step.cu) and fp_tdot
-# on tdot_split_kernel (csrc/tdot.cu). A profiled run must record each as
-# many times as its wrapper launched it, and never the one-block-an-example
-# kernels they replaced (broyden_step_kernel, tdot_kernel: REPLACED_SIMT).
+# The three cluster-split reductions (csrc/cluster_reduce.cuh): broyden_step
+# on broyden_cluster_kernel<VPT, STAGE> (csrc/broyden_step.cu), fp_tdot on
+# tdot_split_kernel (csrc/tdot.cu) and rv_chan_sums on
+# chan_sums_split_kernel<VEC, HAS_H, HAS_OUT> (csrc/chan_sums.cu). A
+# profiled run must record each as many times as its wrapper launched it,
+# and never the one-block-an-example (or a-channel) kernels they replaced
+# (broyden_step_kernel, tdot_kernel, chan_sums_kernel: REPLACED_SIMT).
 REDUCE_ROUTES = {
     "broyden_step": (re.compile(r"broyden_cluster_kernel<"),
                      "implicit_normalizing_flows_torch/csrc/broyden_step.cu",
@@ -406,6 +412,10 @@ REDUCE_ROUTES = {
                      "memory"),
     "fp_tdot": (re.compile(r"tdot_split_kernel"), "implicit_normalizing_flows_torch/csrc/tdot.cu",
                 "a thread-block cluster an example, sums through distributed shared memory"),
+    "rv_chan_sums": (re.compile(r"chan_sums_split_kernel<"),
+                     "implicit_normalizing_flows_torch/csrc/chan_sums.cu",
+                     "a thread-block cluster a channel, sums through distributed shared "
+                     "memory"),
 }
 ROUTES = {**TC_ROUTES, **REDUCE_ROUTES}
 TC_SPLIT = "conv1x1_mid (tensor cores)"  # launch_counts()'s key of those launches
@@ -432,7 +442,7 @@ REPLACED_SIMT = re.compile(r"conv_gemm_kernel<1, ?1, ?0, ?[123],|conv_gemm_kerne
                            r"|conv_gemm_kernel<1, ?0, ?0, ?2,"
                            r"|conv_gemm_kernel<1, ?0, ?[012], ?1,"
                            r"|conv3x3_out_kernel<[23], ?0, ?float, ?false>"
-                           r"|\bbroyden_step_kernel\b|\btdot_kernel\b")
+                           r"|\bbroyden_step_kernel\b|\btdot_kernel\b|\bchan_sums_kernel<")
 ROUTE_ATTEMPTS = 3  # profiled steps that may show the routes (train_path)
 TAB_DIM, TAB_BATCH, TAB_EVAL_BATCH = 6, 1000, 4000
 TAB_WARMUP, TAB_SETTLE, TAB_TIMED = 110, 5, 10
@@ -1225,7 +1235,7 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
                     "rv_chan_sums (b3)": (
                         lambda o: ig.rv_chan_sums(U3, None, 0.0, -1.0, None, o, None, None),
                         lambda o: ig._rv_chan_sums_plain(U3, None, 0.0, -1.0, None, o, None, None),
-                        None, (c,), (U3,), 0),
+                        lambda: U3.sum(dim=(0, 2)), (c,), (U3,), 0),
                     "rv_chan_sums (T0)": (
                         lambda o: ig.rv_chan_sums(T0, H0, bd[0], 1.0, U3, P["s0_k"],
                                                   P["db0_k"] if H0 is not None else None, o),
@@ -1325,8 +1335,51 @@ def check_grad_kernels(cap, modes=("bf16", "f32")):
                 "jt_conv3x3_out", jo(jt1, mode), jop(jt1, mode),
                 jop(ctrl_w[2], "f32") if mode != "f32" else None, (B, D), True, mode, label,
                 dev)
+    fails += check_chan_sums_shapes(dev)
     assert not fails, ("phase 5 (name, scale, mode, error, control)", fails)
     return rows
+
+
+def check_chan_sums_shapes(dev, batch=4):
+    """rv_chan_sums' kernel off the flagship's float4 path, against its
+    plain version on seeded random inputs, in its three forms (b3: no h,
+    alpha -1; M = mid: h and dbeta; T0: h, dbeta, base and out, out started
+    as NaN so that an element left unwritten fails): HW 49 (MNIST's 7x7,
+    single floats) at M 48 and 512, and HW 64 on tensors one float past a
+    16-byte boundary. Each output's max error over its largest entry, at
+    the sums' phase-5 limit; returns the failures."""
+    from implicit_normalizing_flows_torch.ops import implicit_grad as ig
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    tol = KERNEL_TOL["bf16"]
+    fails = []
+    for M, HW, skew in ((48, 49, 0), (512, 49, 0), (48, 64, 1)):
+        shape = (batch, M, HW)
+        n = math.prod(shape)
+        t, h, base = (torch.randn(n + skew, device=dev, generator=g)[skew:].view(shape)
+                      for _ in range(3))
+        for form, args in (("b3", (None, 0.0, -1.0, None)), ("mid", (h, 1.1, 1.0, None)),
+                           ("T0", (h, 0.9, 1.0, base))):
+            has_h, has_out = args[0] is not None, form == "T0"
+            outs = {}
+            for which, fn in (("kernel", ig.rv_chan_sums), ("plain", ig._rv_chan_sums_plain)):
+                sums, db = torch.full((M,), math.nan, device=dev), None
+                if has_h:
+                    db = torch.full((M,), math.nan, device=dev)
+                out = None
+                if has_out:
+                    out = torch.full((n + skew,), math.nan, device=dev)[skew:].view(shape)
+                fn(t, *args, sums, db, out)
+                outs[which] = [v for v in (sums, db, out) if v is not None]
+            torch.cuda.synchronize()
+            err = max(rel_max(a, b) for a, b in zip(outs["kernel"], outs["plain"]))
+            plan = ig.chan_sums_plan(M, batch, HW, ig._chan_sums_vec(t, h, base, out))
+            log(f"kernel rv_chan_sums ({form}) B={batch} M={M} HW={HW}"
+                f"{' one float off 16-byte alignment' if skew else ''} (cluster "
+                f"{plan.cluster}, vec {plan.vec}): max_rel_err {err:.3e} (limit {tol:g})")
+            if not (math.isfinite(err) and err <= tol):
+                fails.append((f"rv_chan_sums ({form})", f"M {M} HW {HW} skew {skew}", err))
+    return fails
 
 
 def check_partial_list(name, kern, plain, ctrl, shape, by_example, mode, label, dev,
@@ -1375,8 +1428,9 @@ def check_grad_functions(cap):
     sum-order floors: the plain path with one product summed exactly
     (ops/sum_order.py; in the backward solve jt_conv3x3_in, jt_conv1x1_mid,
     jt_conv3x3_out, the last two together, and all three; in the
-    re-attachment rv_wgrad, rv_conv3x3_out, rv_conv1x1_mid and
-    rv_conv3x3_in) against the plain path. No limit is held to them."""
+    re-attachment rv_wgrad, rv_conv3x3_out, rv_conv1x1_mid, rv_conv3x3_in
+    and rv_chan_sums, and rv_chan_sums in its cluster kernel's order)
+    against the plain path. No limit is held to them."""
     from implicit_normalizing_flows_torch.ops import implicit_grad as ig
     from implicit_normalizing_flows_torch.ops import sum_order as so
 
@@ -1457,14 +1511,16 @@ def check_grad_functions(cap):
                 ctrl = min((rel_norm(a, b, base(n)), n)
                            for (n, a), (_, b) in zip(gc, flat(gp)) if n not in unrounded)
                 line += f" (limit {REATTACH_TOL[mode]:g}, least control {ctrl[0]:.3e} ({ctrl[1]})"
-                for k, fn in (("rv_wgrad", so.rv_wgrad_exact),
-                              ("rv_conv3x3_out", so.rv_conv3x3_out_exact),
-                              ("rv_conv1x1_mid", so.rv_conv1x1_mid_exact),
-                              ("rv_conv3x3_in", so.rv_conv3x3_in_exact)):
+                for k, fn, how in (("rv_wgrad", so.rv_wgrad_exact, "exact"),
+                                   ("rv_conv3x3_out", so.rv_conv3x3_out_exact, "exact"),
+                                   ("rv_conv1x1_mid", so.rv_conv1x1_mid_exact, "exact"),
+                                   ("rv_conv3x3_in", so.rv_conv3x3_in_exact, "exact"),
+                                   ("rv_chan_sums", so.rv_chan_sums_exact, "exact"),
+                                   ("rv_chan_sums", so.rv_chan_sums_tiled, "in its kernel's order")):
                     ge = flat(ig._reattach_vjp(*args, dict(ig._PLAIN, **{k: fn}), mode))
                     floor = max((rel_norm(a, b, base(n)), n)
                                 for (n, a), (_, b) in zip(ge, flat(gp)))
-                    line += f", sum-order floor {floor[0]:.3e} ({floor[1]}; {k} exact)"
+                    line += f", sum-order floor {floor[0]:.3e} ({floor[1]}; {k} {how})"
                 line += ")"
             log(line + f" s {tk:.3f}/{tp:.3f} (kernels/plain)")
             for n, a, b in pairs:

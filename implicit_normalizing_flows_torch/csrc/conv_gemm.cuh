@@ -78,6 +78,13 @@ __device__ __forceinline__ float dswish_dbeta(float t, float beta) {
   return __fmul_rn(__fmul_rn(__fmul_rn(__fmul_rn(t, t), s), __fsub_rn(1.f, s)), INV_1_1);
 }
 
+// dswish and dswish_dbeta from one sigmoid, each rounded as those two round it
+__device__ __forceinline__ void dswish_pair(float t, float beta, float& d, float& db) {
+  const float tb = __fmul_rn(t, beta), s = sigm(tb), r = __fsub_rn(1.f, s);
+  d = __fmul_rn(__fadd_rn(s, __fmul_rn(__fmul_rn(tb, s), r)), INV_1_1);
+  db = __fmul_rn(__fmul_rn(__fmul_rn(__fmul_rn(t, t), s), r), INV_1_1);
+}
+
 // d^2/dt^2 and d/dbeta of swish'(t; b) (_d2swish, _ddswish_dbeta of the JAX
 // kernels), with sp = s (1 - s):
 //   ((2 b) sp + (((b b) t) (1 - 2 s)) sp) / 1.1

@@ -35,7 +35,8 @@
 //   make the weight gradients of the estimator's final pair, estimator.cu)
 //   rv_chan_sums    per-channel bias grads and swish-slope grads
 //                   (sum t swish'(h), sum t dswish/dbeta(h)), and
-//                   d_x = u + t0 swish'(x)
+//                   d_x = u + t0 swish'(x): its own unit, chan_sums.cu
+//                   (a thread-block cluster a channel), linked beside this
 //
 // Precision: the backward solve honours mode f32 | bf16 (IMNF_BWD_PRECISION),
 // the re-attachment f32 | bf16 | tf32 (IMNF_REATTACH_PRECISION): every
@@ -195,58 +196,6 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ part, int S,
   float s = 0.f;
   for (int k = 0; k < S; ++k) s += part[(size_t)k * MN + i];
   out[i] = alpha * s;
-}
-
-// ---------------------------------------------------------------------------
-// Per-channel sums, one block per channel m of t (Bn, M, HW):
-//   g = t * swish'(h; beta) (with h) or t (without)
-//   sums[m] = alpha * sum_{b,p} g;  dbeta[m] = sum_{b,p} t * dswish/dbeta(h)
-//   out[b][m][p] = [base[b][m][p]] + g   (when out is given)
-// The block's partial sums combine in a fixed tree: deterministic.
-constexpr int CS_THREADS = 256, CS_WARPS = CS_THREADS / 32;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <bool HAS_H>
-__global__ void __launch_bounds__(CS_THREADS) chan_sums_kernel(
-    const float* __restrict__ t, const float* __restrict__ h, float beta,
-    const float* __restrict__ base, int Bn, int M, int HW, float alpha,
-    float* __restrict__ sums, float* __restrict__ dbeta,
-    float* __restrict__ out) {
-  const int m = blockIdx.x;
-  const int n = Bn * HW;
-  float sg = 0.f, sb = 0.f;
-  for (int i = threadIdx.x; i < n; i += CS_THREADS) {
-    const int b = i / HW, p = i % HW;
-    const size_t off = ((size_t)b * M + m) * HW + p;
-    const float tv = t[off];
-    float g = tv;
-    if (HAS_H) {
-      const float hv = h[off];
-      g = tv * dswish(hv, beta);
-      sb += tv * dswish_dbeta(hv, beta);
-    }
-    sg += g;
-    if (out != nullptr) out[off] = (base != nullptr ? base[off] : 0.f) + g;
-  }
-  __shared__ float red[2][CS_WARPS];
-  sg = warp_sum(sg);
-  sb = warp_sum(sb);
-  if (threadIdx.x % 32 == 0) {
-    red[0][threadIdx.x / 32] = sg;
-    red[1][threadIdx.x / 32] = sb;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float a = 0.f, c = 0.f;
-    for (int w = 0; w < CS_WARPS; ++w) { a += red[0][w]; c += red[1][w]; }
-    sums[m] = alpha * a;
-    if (dbeta != nullptr) dbeta[m] = c;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -502,17 +451,6 @@ int imnf_rv_wgrad_reduce(const float* part, int S, long long MN, float alpha,
   const long long blocks = (MN + threads - 1) / threads;
   wgrad_reduce_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       part, S, MN, alpha, out);
-  return (int)cudaGetLastError();
-}
-
-int imnf_rv_chan_sums(const float* t, const float* h, float beta,
-                      const float* base, int Bn, int M, int HW, float alpha,
-                      float* sums, float* dbeta, float* out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (h != nullptr)
-    chan_sums_kernel<true><<<M, CS_THREADS, 0, s>>>(t, h, beta, base, Bn, M, HW, alpha, sums, dbeta, out);
-  else
-    chan_sums_kernel<false><<<M, CS_THREADS, 0, s>>>(t, h, beta, base, Bn, M, HW, alpha, sums, dbeta, out);
   return (int)cudaGetLastError();
 }
 

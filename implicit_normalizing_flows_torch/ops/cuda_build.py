@@ -30,9 +30,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # sources compiled as translation units of their own and linked into a
 # library beside csrc/<name>.cu (conv3x3_in_tc.cuh says why): the 3x3
-# tensor-core forms and the cluster-split reductions broyden_step and tdot
+# tensor-core forms and the cluster-split reductions broyden_step, tdot and
+# chan_sums
 LINKED = {"estimator": ["conv3x3_in_tc", "conv3x3_out_tc", "tdot"],
-          "implicit_grad": ["conv3x3_in_tc"], "block_forward": ["conv3x3_in_tc"],
+          "implicit_grad": ["conv3x3_in_tc", "chan_sums"], "block_forward": ["conv3x3_in_tc"],
           "fused_solve": ["conv3x3_in_tc", "conv3x3_out_tc", "broyden_step"]}
 
 _loaded: dict[str, ctypes.CDLL] = {}

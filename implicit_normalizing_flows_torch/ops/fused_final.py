@@ -61,7 +61,7 @@ from .fused_chain import _nets, c3_out_npad, tile_w1t, untile_w1t
 from .fused_solve import (C3_MID, C3_OUT_ROWS, MODES, _check_aligned, _check_cuda, _launch,
                           _mconv, _ptr, check_conv3x3_tc, conv3x3_in_rows, d2swish,
                           ddswish_dbeta, dswish, dswish_dbeta, prep_weight, swish)
-from .implicit_grad import (ACTS, DATA_KEYS, _check_mid, _shapes, transpose_weights,
+from .implicit_grad import (ACTS, DATA_KEYS, _check_mid, _shapes, _sms, transpose_weights,
                             wgrad_splits)
 
 __all__ = ["fused_final_pair", "fused_final_pair_plain", "FINAL_MODES", "tdot_plan",
@@ -312,10 +312,6 @@ def fp_tdot(r, h, th, beta_net, out):
     _run("imnf_fp_tdot", _ptr(r), _ptr(h), _ptr(th), _ptr(beta_net), Bt, N, n, cluster,
          chunk, _ptr(out))
     fp_tdot.launches += 1
-
-
-def _sms(device):
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _fp_second_plain(r, q, h, th, beta_net, rh, p, dsum, dbsum):

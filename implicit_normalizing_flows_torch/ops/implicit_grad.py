@@ -59,7 +59,7 @@ __all__ = ["fused_backward_solve", "fused_backward_solve_plain",
            "BackwardSolveResult", "transpose_weights", "KERNELS",
            "launch_counts", "reset_launch_counts", "BWD_MODES",
            "REATTACH_MODES", "DATA_KEYS", "mid_weight_dtype", "prep_mid_weight",
-           "prep_rv_mid_weight"]
+           "prep_rv_mid_weight", "chan_sums_plan", "ChanSumsPlan"]
 
 BWD_MODES = ("f32", "bf16")
 REATTACH_MODES = ("f32", "bf16", "tf32")
@@ -106,7 +106,7 @@ _ARGTYPES = {
     "imnf_rv_wgrad": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _I, _I, _L, _P, _P, _P, _P],
     "imnf_rv_wgrad_reduce": [_P, _I, _L, _F, _P, _P],
-    "imnf_rv_chan_sums": [_P, _P, _F, _P, _I, _I, _I, _F, _P, _P, _P, _P],
+    "imnf_rv_chan_sums": [_P, _P, _F, _P, _I, _I, _I, _F, _P, _P, _P, _I, _I, _P],
 }
 
 
@@ -548,30 +548,82 @@ def rv_wgrad_reduce(part, alpha, out):
     rv_wgrad_reduce.launches += 1
 
 
-def _rv_chan_sums_plain(t, h, beta, alpha, base, sums, dbeta, out):
-    Bn, M = t.shape[:2]
+class ChanSumsPlan(NamedTuple):
+    """How ``rv_chan_sums``' kernel (``csrc/chan_sums.cu``) cuts a channel's
+    Bn x HW elements, taken example by example: a thread-block cluster of
+    ``cluster`` CTAs a channel, CTA r owning elements [r * chunk, (r + 1) *
+    chunk) as chunk / vec vectors of ``vec`` floats, thread t of
+    CS_THREADS the vectors t + m * CS_THREADS."""
+    cluster: int
+    vec: int
+    chunk: int
+
+
+CS_THREADS = 256  # rv_chan_sums' CTA (csrc/chan_sums.cu)
+CS_CLUSTERS = (1, 2, 4, 8, 16)  # its cluster sizes, the fewest first (16: non-portable)
+CS_SMS = 132  # an H100's SMs: the grid the plan fills on the card
+
+
+def chan_sums_plan(M, Bn, HW, vec=4, sms=CS_SMS):
+    """:class:`ChanSumsPlan` of ``rv_chan_sums`` on t (Bn, M, HW): float4
+    vectors (``vec`` 4) where HW % 4 == 0 and the caller's tensors are
+    16-byte aligned (``vec`` 1 where not), and the fewest CTAs a channel of
+    CS_CLUSTERS that give every SM one (the most where none does), halved
+    until they split Bn * HW into whole vectors: 1 at M = mid 512, 16 at c 3
+    and 12, 4 at c 48. More CTAs a channel than that lose on the card to
+    their cluster barriers and half-idle threads (4 an SM: 1.3x at mid, 8x8;
+    ``PERF.md`` §6). Takes every shape."""
+    n = Bn * HW
+    vec = 4 if vec == 4 and HW % 4 == 0 else 1
+    cluster = next((c for c in CS_CLUSTERS if M * c >= sms), CS_CLUSTERS[-1])
+    while n % (vec * cluster):
+        cluster //= 2
+    return ChanSumsPlan(cluster, vec, n // cluster)
+
+
+def _rv_chan_sums_by(total, t, h, beta, alpha, base, sums, dbeta, out):
+    """``rv_chan_sums``' function with ``total`` summing each row of its
+    (M, Bn * HW) terms (a channel's, example by example); the terms as the
+    plain version rounds them."""
+    M = t.shape[1]
+    chan = lambda v: total(v.transpose(0, 1).reshape(M, -1))
     g = t if h is None else t * dswish(h, beta)
-    sums.copy_(alpha * g.transpose(0, 1).reshape(M, -1).sum(1))
+    sums.copy_(alpha * chan(g))
     if dbeta is not None:
-        dbeta.copy_((t * dswish_dbeta(h, beta)).transpose(0, 1).reshape(M, -1).sum(1))
+        dbeta.copy_(chan(t * dswish_dbeta(h, beta)))
     if out is not None:
         out.copy_(g if base is None else base + g)
+
+
+def _rv_chan_sums_plain(t, h, beta, alpha, base, sums, dbeta, out):
+    _rv_chan_sums_by(lambda p: p.sum(1), t, h, beta, alpha, base, sums, dbeta, out)
 
 
 def rv_chan_sums(t, h, beta, alpha, base, sums, dbeta, out):
     """Per channel m of t (B, M, HW): sums[m] = alpha * sum g with g =
     t * swish'(h; beta) (or t when h is None); dbeta[m] = sum t *
     dswish/dbeta(h; beta) (when h is given); out = [base] + g (when out is
-    given)."""
+    given). On the card each channel runs on a thread-block cluster
+    (:func:`chan_sums_plan`)."""
     if not t.is_cuda:
         return _rv_chan_sums_plain(t, h, beta, alpha, base, sums, dbeta, out)
     Bn, M, HW = t.shape
     _check_cuda(t=t, h=h, base=base, sums=sums, dbeta=dbeta, out=out)
     _shapes(h=(h, t.shape), base=(base, t.shape), out=(out, t.shape),
             sums=(sums, (M,)), dbeta=(dbeta, (M,)))
+    plan = chan_sums_plan(M, Bn, HW, _chan_sums_vec(t, h, base, out), _sms(t.device))
     _run("imnf_rv_chan_sums", _ptr(t), _ptr(h), float(beta), _ptr(base), Bn, M,
-         HW, float(alpha), _ptr(sums), _ptr(dbeta), _ptr(out))
+         HW, float(alpha), _ptr(sums), _ptr(dbeta), _ptr(out), plan.cluster, plan.vec)
     rv_chan_sums.launches += 1
+
+
+def _chan_sums_vec(*tensors):
+    """4 where every tensor (None skips) is 16-byte aligned, else 1."""
+    return 1 if any(t is not None and t.data_ptr() % 16 for t in tensors) else 4
+
+
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 KERNELS = {"jt_conv3x3_in": jt_conv3x3_in, "jt_conv1x1_mid": jt_conv1x1_mid,

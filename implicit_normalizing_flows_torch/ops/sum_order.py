@@ -1,5 +1,5 @@
-"""Plain versions of nineteen kernels with their products or sums summed
-exactly, and sixteen with them summed in their kernels' order.
+"""Plain versions of twenty kernels with their products or sums summed
+exactly, and seventeen with them summed in their kernels' order.
 
 Each ``*_exact`` function here is a kernel's plain version with its rounded
 (bf16, or split) product summed in float64 and rounded once to float32: the
@@ -47,6 +47,8 @@ a floor fails every kernel that does not sum in the plain version's order.
   products in float64, rounded once; every other operation as there).
 * :func:`fp_tdot_exact`: ``ops.fused_final._fp_tdot_plain`` (each
   example's products, rounded as there, summed in float64).
+* :func:`rv_chan_sums_exact`: ``ops.implicit_grad._rv_chan_sums_plain``
+  (each channel's terms, rounded as there, summed in float64).
 
 :func:`fp_conv_in_exact` also stands in for its kernel on the CPU: the
 final pair's c -> mid kernel (``csrc/conv3x3_in_tc.cuh``,
@@ -89,9 +91,10 @@ sums added before the bias):
   ``EPI_AFFINE``, which the final pair does not take (its float64 form
   does); phase 9 of ``chip_smoke.py`` reads the pair with it.
 
-The two reductions split over a thread-block cluster
+The three reductions split over a thread-block cluster
 (``csrc/cluster_reduce.cuh``) sum as :func:`_cluster_tree` says:
-:func:`broyden_step_tiled` and :func:`fp_tdot_tiled`.
+:func:`broyden_step_tiled`, :func:`fp_tdot_tiled` and
+:func:`rv_chan_sums_tiled`.
 
 They run on whatever device their tensors lie on.
 """
@@ -104,6 +107,7 @@ from .fused_final import TDOT_THREADS, _fp_tdot_by, tdot_plan
 from .fused_solve import (SPLIT_MODES, _broyden_step_by, _conv1x1_mid_plain, _conv3x3_in_by,
                           _conv3x3_in_plain, _conv3x3_out_by, _conv3x3_out_plain, _split,
                           _widened, broyden_plan, dswish, swish)
+from .implicit_grad import CS_THREADS, _chan_sums_vec, _rv_chan_sums_by, chan_sums_plan
 
 __all__ = ["jt_conv1x1_mid_exact", "rv_wgrad_exact", "rv_conv3x3_out_exact",
            "fp_conv_mid_exact", "fp_conv_mid_tiled", "conv1x1_mid_exact",
@@ -116,7 +120,8 @@ __all__ = ["jt_conv1x1_mid_exact", "rv_wgrad_exact", "rv_conv3x3_out_exact",
            "jt_conv3x3_in_tiled", "fp_conv_in_exact", "fp_conv_in_tiled",
            "rv_conv3x3_in_exact", "rv_conv3x3_in_tiled", "conv3x3_out_exact",
            "conv3x3_out_tiled", "broyden_step_exact", "broyden_step_tiled", "fp_tdot_exact",
-           "fp_tdot_tiled", "TC_BK", "C3_MC", "C3I_BK"]
+           "fp_tdot_tiled", "rv_chan_sums_exact", "rv_chan_sums_tiled", "TC_BK", "C3_MC",
+           "C3I_BK"]
 
 TC_BK = 64  # the K tile of the tensor-core 1x1 product (csrc/mma_gemm.cuh)
 C3_MC = 64  # the mid channels of a chunk of the tensor-core 3x3 product (csrc/conv3x3_out_tc.cuh)
@@ -575,23 +580,24 @@ def conv3x3_out_tiled(t2, idx, count, wp, b3, mode, base, sgn, sub, out, H, W):
 
 
 # ---------------------------------------------------------------------------
-# the reductions of the Broyden update and of the final pair's T
+# the reductions of the Broyden update, the final pair's T and the
+# re-attachment's channel sums
 
-def _cluster_tree(p, cluster, threads, vpt):
+def _cluster_tree(p, cluster, threads, vpt, vec=4):
     """Each row of ``p`` (..., n) summed as the cluster-split reductions of
     ``csrc/cluster_reduce.cuh`` sum it: CTA r of ``cluster`` takes elements
-    [r n / cluster, (r + 1) n / cluster) as float4 vectors, thread t of
-    ``threads`` the vectors t + m threads (m < ``vpt``) into one float32
-    sum, each vector's four lanes in order; a warp adds its lanes by the xor
-    butterfly (offsets 16 .. 1), the CTA its warps in order, the cluster its
-    CTAs in order, each sum from 0."""
+    [r n / cluster, (r + 1) n / cluster) as vectors of ``vec`` floats
+    (float4 where 4), thread t of ``threads`` the vectors t + m threads (m <
+    ``vpt``) into one float32 sum, each vector's lanes in order; a warp adds
+    its lanes by the xor butterfly (offsets 16 .. 1), the CTA its warps in
+    order, the cluster its CTAs in order, each sum from 0."""
     *lead, n = p.shape
-    nv = n // cluster // 4
-    P = F.pad(p.reshape(*lead, cluster, nv, 4), (0, 0, 0, vpt * threads - nv))
-    P = P.reshape(*lead, cluster, vpt, threads, 4)
+    nv = n // cluster // vec
+    P = F.pad(p.reshape(*lead, cluster, nv, vec), (0, 0, 0, vpt * threads - nv))
+    P = P.reshape(*lead, cluster, vpt, threads, vec)
     acc = torch.zeros(*lead, cluster, threads, dtype=p.dtype, device=p.device)
     for m in range(vpt):
-        for lane in range(4):
+        for lane in range(vec):
             acc = acc + P[..., m, :, lane]
     acc = acc.reshape(*lead, cluster, threads // 32, 32)
     lanes = torch.arange(32, device=p.device)
@@ -685,3 +691,22 @@ def fp_tdot_tiled(r, h, th, beta_net, out):
     vpt = -(-chunk // 4 // TDOT_THREADS)
     _fp_tdot_by(lambda p: _cluster_tree(p, cluster, TDOT_THREADS, vpt), r, h, th, beta_net,
                 out)
+
+
+def rv_chan_sums_exact(t, h, beta, alpha, base, sums, dbeta, out):
+    """``_rv_chan_sums_plain`` with each channel's terms summed in float64
+    and rounded once."""
+    _rv_chan_sums_by(lambda p: p.double().sum(1).to(p.dtype), t, h, beta, alpha, base, sums,
+                     dbeta, out)
+
+
+def rv_chan_sums_tiled(t, h, beta, alpha, base, sums, dbeta, out):
+    """``_rv_chan_sums_plain`` with each channel's terms summed in the
+    cluster kernel's order (``csrc/chan_sums.cu``: :func:`_cluster_tree` on
+    the plan of :func:`~.implicit_grad.chan_sums_plan` at an H100's SMs,
+    CS_THREADS threads a CTA, the vectors the tensors' alignment allows)."""
+    Bn, M, HW = t.shape
+    plan = chan_sums_plan(M, Bn, HW, _chan_sums_vec(t, h, base, out))
+    vpt = -(-plan.chunk // plan.vec // CS_THREADS)
+    _rv_chan_sums_by(lambda p: _cluster_tree(p, plan.cluster, CS_THREADS, vpt, plan.vec), t, h,
+                     beta, alpha, base, sums, dbeta, out)
