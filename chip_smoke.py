@@ -186,10 +186,30 @@ Phases (any failure exits non-zero; nothing is caught):
      memory, a breakdown (merged forwards, final terms, the 8x8 blocks'
      split parts, backward solves, re-attachments, update, rest), a
      profiled step and the step with every plain version forced; phase 10's
-     median beside its own.
+     median beside its own;
+ 17. sampling (run right after phase 4, on the eval model's checkpoint
+     weights): ImplicitFlow.inverse of 64 latents tau 0.8 * N(0, 1), whose
+     block solves are the forward solve's kernels with the nets' roles
+     swapped (net z embeds z, net x is solved, eps 1e-5). Each scale's
+     first block's inverse input is captured from one inverse with every
+     plain version forced; on it, as phases 2 and 3 read the forward: the
+     conv kernels with net x's weights in tf32, tf32x and f32 (timed, and
+     on a partial permuted list), broyden_step on the state its plain
+     solve reached at its sixth step, the precision probe with its
+     activations scaled to these operands' range (a power of two), the
+     f32 and native-TF32 controls on the real operands (printed), and the
+     whole inverse solves at phase 3's eps-1e-5 configurations beside their
+     sum-order floors, held to phase 3's limits; then one warm-up and 3
+     timed batches with the four kernels' launch counts over them (each >
+     0), peak memory, each block's nstep, protective breaks and the Banach
+     fallback's time, a profiled batch (busy time, idle share, the
+     tensor-core routes held), the round trip forward(inverse(z)) on both
+     paths, and the images against the plain path's within 1e-3 beside the
+     floor (SAMPLE_TOL's comment).
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
-it lists the kernels as JSON, the line before that the card's name and
+it lists the kernels as JSON (the forward solve's four with their launches
+in phase 17 as sample_launches), the line before that the card's name and
 power limit. Without a CUDA device it exits non-zero and prints no result.
 """
 import contextlib
@@ -579,17 +599,27 @@ def capture_block_inputs(model, step, x_u8, draws):
     return [seen[s] for s in sorted(seen)]
 
 
-def check_kernels(blocks, mode="tf32"):
-    """Phase 2: every kernel vs its plain version at each scale's shapes."""
+def check_kernels(blocks, mode="tf32", net="nnet_z", extra=("tf32x",), states=None,
+                  probe_range=False, phase="phase 2"):
+    """Phase 2: every kernel vs its plain version at each scale's shapes
+    (the conv kernels with the weights of the block's ``net``, in ``mode``
+    and in each mode of ``extra``, timed, and on a partial permuted list;
+    broyden_step on the mid-solve states of :func:`check_broyden_step`, or
+    with ``states`` on each scale's captured state, :func:`check_step_state`;
+    the precision probe, with ``probe_range`` its activations scaled by a
+    power of two to each operand's range and its errors read relative to
+    the largest entry, unclamped, so that they repeat the unscaled probe's
+    unless a kernel depends on its operands' exponent)."""
     from implicit_normalizing_flows_torch.ops import fused_solve as fs
 
     rows, probe_fails = {}, []
     for s, (block, x) in enumerate(blocks):
         B, c, H, W = x.shape
         HW, D, dev = H * W, c * H * W, x.device
-        data = block.nnet_z.conv_forward_data()
+        data = getattr(block, net).conv_forward_data()
         data = {k: (v.detach() if torch.is_tensor(v) else v) for k, v in data.items()}
-        wp, wxp = fs.prep_weights(data, mode), fs.prep_weights(data, "tf32x")
+        wp = fs.prep_weights(data, mode)
+        wm = {m: fs.prep_weights(data, m) for m in extra}
         mid = data["w2"].shape[0]
         betas = [float(v) for v in data["betas"].cpu()]
         idx = torch.arange(B, dtype=torch.int32, device=dev)
@@ -600,6 +630,7 @@ def check_kernels(blocks, mode="tf32"):
         gk, gp = (torch.zeros(B, D, device=dev) for _ in range(2))
         w1, w2, w3 = data["w1"].float(), data["w2"].float(), data["w3"].float()
         b1, b2, b3 = (data[k].float().contiguous() for k in ("b1", "b2", "b3"))
+        who = "" if net == "nnet_z" else f", {net}"
 
         calls = {
             # modes tf32 / tf32x on the tensor cores: W1's bf16 halves
@@ -634,64 +665,74 @@ def check_kernels(blocks, mode="tf32"):
                 4 * (B * mid * HW + c + 3 * B * D) + 4 * w3.numel(),
                 B * c * mid * 9 * HW),
         }
-        wx = wxp["w2_mid"]
-        calls["conv1x1_mid (tf32x)"] = (
-            lambda: fs.conv1x1_mid(t1p, cnt, wx, b2, betas[2], "tf32x", t2k, H, W),
-            lambda: fs._conv1x1_mid_plain(t1p, cnt, wx, b2, betas[2], "tf32x", t2p, H, W),
-            *calls["conv1x1_mid"][2:])
-        calls["conv3x3_out (tf32x)"] = (
-            lambda: fs.conv3x3_out(t2p, idx, cnt, wxp["w3_tc"], b3, "tf32x", xf, -1.0, xf, gk,
-                                   H, W),
-            lambda: fs._conv3x3_out_plain(t2p, idx, cnt, wxp["w3_tc"], b3, "tf32x", xf, -1.0, xf,
-                                          gp, H, W),
-            *calls["conv3x3_out"][2:])
-        calls["conv3x3_in (tf32x)"] = (  # last: it overwrites t1p
-            lambda: fs.conv3x3_in(x, idx, cnt, wxp["w1_in"], b1, betas, data["preact"],
-                                  "tf32x", t1k),
-            lambda: fs._conv3x3_in_plain(x, idx, cnt, wxp["w1_in"], b1, betas, data["preact"],
-                                         "tf32x", t1p),
-            *calls["conv3x3_in"][2:])
+        for m, wx in wm.items():
+            calls[f"conv1x1_mid ({m})"] = (
+                lambda m=m, wx=wx: fs.conv1x1_mid(t1p, cnt, wx["w2_mid"], b2, betas[2], m, t2k,
+                                                  H, W),
+                lambda m=m, wx=wx: fs._conv1x1_mid_plain(t1p, cnt, wx["w2_mid"], b2, betas[2], m,
+                                                         t2p, H, W),
+                *calls["conv1x1_mid"][2:])
+            calls[f"conv3x3_out ({m})"] = (
+                lambda m=m, wx=wx: fs.conv3x3_out(t2p, idx, cnt, wx["w3_tc"], b3, m, xf, -1.0, xf,
+                                                  gk, H, W),
+                lambda m=m, wx=wx: fs._conv3x3_out_plain(t2p, idx, cnt, wx["w3_tc"], b3, m, xf,
+                                                         -1.0, xf, gp, H, W),
+                *calls["conv3x3_out"][2:])
+        for m, wx in wm.items():  # last: they overwrite t1p
+            calls[f"conv3x3_in ({m})"] = (
+                lambda m=m, wx=wx: fs.conv3x3_in(x, idx, cnt, wx["w1_in"], b1, betas,
+                                                 data["preact"], m, t1k),
+                lambda m=m, wx=wx: fs._conv3x3_in_plain(x, idx, cnt, wx["w1_in"], b1, betas,
+                                                        data["preact"], m, t1p),
+                *calls["conv3x3_in"][2:])
+        op_max = {}  # each product's largest operand entry, for the scaled probe
         for name, (kern, plain, lib, (out_k, out_p), nbytes, macs) in calls.items():
-            m = "tf32x" if name.endswith("(tf32x)") else mode
+            m = name[name.index("(") + 1:-1] if name.endswith(")") else mode
             plain()
             kern()
             torch.cuda.synchronize()
             err = rel_err(out_k, out_p)
             # float32 sums in another order over K <= 4608 products
-            assert math.isfinite(err) and err <= SPLIT_TOL, (name, s, err)
+            tol = KERNEL_TOL["f32"] if m == "f32" else SPLIT_TOL
+            assert math.isfinite(err) and err <= tol, (phase, name, s, err)
+            if name in ("conv1x1_mid", "conv3x3_out"):  # their real operands' range
+                op_max[name] = float((t1p if name == "conv1x1_mid" else t2p).abs().max())
             ms, pms, lms = (device_ms(lambda i, f=f: f()) for f in (kern, plain, lib))
             bms, by = bound_ms(nbytes, macs, m)
-            log(f"kernel {name} scale{s} ({c}x{H}x{W}, B={B}, {m}): "
+            log(f"kernel {name} scale{s} ({c}x{H}x{W}, B={B}, {m}{who}): "
                 f"max_rel_err {err:.3e} ms {ms:.4f} plain_ms {pms:.4f} "
                 f"library_ms {lms:.4f} bound_ms {bms:.4f} ({by}) share {bms / ms:.3f} "
                 f"bytes/s {nbytes / ms * 1e3:.4g}")
             rows.setdefault(name, {})[s] = dict(
                 max_abs_err=float((out_k - out_p).abs().max()), ms=ms,
                 plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=by)
+        op_max["conv3x3_in"] = float(x.abs().max())
         # conv3x3_in on half the slots under a permuted idx, as late solve
         # iterations run it: the dead slots of out untouched
-        for m, wm in ((mode, wp), ("tf32x", wxp)):
+        for m, wq in ((mode, wp), *wm.items()):
+            tol = KERNEL_TOL["f32"] if m == "f32" else SPLIT_TOL
             probe_fails += check_partial_list(
                 "conv3x3_in",
-                lambda i, n, o, m=m, wm=wm: fs.conv3x3_in(x, i, n, wm["w1_in"], b1, betas,
+                lambda i, n, o, m=m, wq=wq: fs.conv3x3_in(x, i, n, wq["w1_in"], b1, betas,
                                                           data["preact"], m, o),
-                lambda i, n, o, m=m, wm=wm: fs._conv3x3_in_plain(x, i, n, wm["w1_in"], b1, betas,
+                lambda i, n, o, m=m, wq=wq: fs._conv3x3_in_plain(x, i, n, wq["w1_in"], b1, betas,
                                                                  data["preact"], m, o),
-                None, (B, mid, HW), False, m, f"scale{s} ({c}x{H}x{W}, B={B})", dev,
-                tol=SPLIT_TOL)
+                None, (B, mid, HW), False, m, f"scale{s} ({c}x{H}x{W}, B={B})", dev, tol=tol)
             # conv3x3_out's slots read t2[s] and write example idx[s]: the
             # other examples' rows untouched
             probe_fails += check_partial_list(
                 "conv3x3_out",
-                lambda i, n, o, wm=wm, m=m: fs.conv3x3_out(t2p, i, n, wm["w3_tc"], b3, m, xf, -1.0,
+                lambda i, n, o, wq=wq, m=m: fs.conv3x3_out(t2p, i, n, wq["w3_tc"], b3, m, xf, -1.0,
                                                            xf, o, H, W),
-                lambda i, n, o, wm=wm, m=m: fs._conv3x3_out_plain(t2p, i, n, wm["w3_tc"], b3, m,
+                lambda i, n, o, wq=wq, m=m: fs._conv3x3_out_plain(t2p, i, n, wq["w3_tc"], b3, m,
                                                                   xf, -1.0, xf, o, H, W),
-                None, (B, D), True, m, f"scale{s} ({c}x{H}x{W}, B={B})", dev, tol=SPLIT_TOL)
+                None, (B, D), True, m, f"scale{s} ({c}x{H}x{W}, B={B})", dev, tol=tol)
 
         # broyden_step in its three phases on mid-solve states, on the whole
-        # list and on half the slots under a permuted list
-        step_rows, step_fails = check_broyden_step(s, B, D, dev)
+        # list and on half the slots under a permuted list; or on the state
+        # captured at this scale
+        step_rows, step_fails = (check_broyden_step(s, B, D, dev) if states is None
+                                 else check_step_state(s, states[s]))
         for name, by_scale in step_rows.items():
             rows.setdefault(name, {}).update(by_scale)
         probe_fails += step_fails
@@ -728,15 +769,25 @@ def check_kernels(blocks, mode="tf32"):
         x1, w1p = probe_operands(PB, c, mid, H, W, 3, s, dev)
         t1p, w2p = probe_operands(PB, mid, mid, H, W, 1, s, dev)
         t2p, w3p = probe_operands(PB, mid, c, H, W, 3, s, dev)
+        if probe_range:
+            acts = {"conv3x3_in": x1, "conv1x1_mid": t1p, "conv3x3_out": t2p}
+            # powers of two: every entry scales exactly
+            scales = {n: 2.0 ** round(math.log2(op_max[n] / float(v.abs().max())))
+                      for n, v in acts.items()}
+            log(f"{phase} probe scale{s}: activations scaled to the operands' range "
+                f"(max {', '.join(f'{n} {op_max[n]:.3g}' for n in scales)}) by "
+                f"{', '.join(f'{n} {v:g}' for n, v in scales.items())}")
+            x1, t1p, t2p = (v * scales[n] for n, v in acts.items())
         check_tf32_probe({
             "conv3x3_in": (conv_in(fs.conv3x3_in), conv_in(fs._conv3x3_in_plain), x1, w1p),
             "conv1x1_mid": (conv_mid(fs.conv1x1_mid), conv_mid(fs._conv1x1_mid_plain),
                             t1p.reshape(PB, mid, HW), w2p),
             "conv3x3_out": (conv_out(fs.conv3x3_out), conv_out(fs._conv3x3_out_plain),
                             t2p.reshape(PB, mid, HW), w3p),
-        }, f"scale{s} ({c}x{H}x{W}, B={PB})", rel_err, SPLIT_TOL, probe_fails)
-    assert not probe_fails, ("phase 2 probe or partial list (name, scale, mode, error, "
-                             "controls)", probe_fails)
+        }, f"scale{s} ({c}x{H}x{W}, B={PB})", rel_max if probe_range else rel_err, SPLIT_TOL,
+            probe_fails)
+    assert not probe_fails, (f"{phase} probe, partial list or broyden_step (name, scale, mode, "
+                             "error, controls)", probe_fails)
     return rows
 
 
@@ -833,6 +884,50 @@ def check_broyden_step(s, B, D, dev):
     return rows, fails
 
 
+def check_step_state(s, snap):
+    """broyden_step on one captured solve state ``snap`` (phase, idx, cnt,
+    state and the solve's keywords, :func:`record_step_state`), kernel
+    against plain as :func:`check_broyden_step` holds them, and timed.
+    Returns (rows, failures)."""
+    from implicit_normalizing_flows_torch.ops import fused_solve as fs
+
+    phase, idx, cnt, st0, kw = snap
+    B, D = st0["Z"].shape
+    nk = int(st0["ist"][idx[:int(cnt.item())].long(), 0].float().mean())
+    dev = idx.device
+    outs = {}
+    for tag, fn in (("kernel", fs.broyden_step), ("plain", fs._broyden_step_plain)):
+        st = {k: v.clone() for k, v in st0.items()}
+        io = torch.zeros(B, dtype=torch.int32, device=dev)
+        co = torch.zeros(1, dtype=torch.int32, device=dev)
+        fn(phase, idx, cnt, io, co, st, **kw)
+        torch.cuda.synchronize()
+        outs[tag] = (st, io[:int(co.item())].sort().values)
+    (stk, ik), (stp, ip) = outs["kernel"], outs["plain"]
+    err = max(rel_err(stk[k].float(), stp[k].float()) for k in stk)
+    same = torch.equal(ik, ip) and torch.equal(stk["ist"], stp["ist"])
+    times = {}
+    for tag, fn in (("kernel", fs.broyden_step), ("plain", fs._broyden_step_plain)):
+        copies = iter([{k: v.clone() for k, v in st0.items()} for _ in range(41)])
+        io = torch.zeros(B, dtype=torch.int32, device=dev)
+        co = torch.zeros(1, dtype=torch.int32, device=dev)
+        times[tag] = device_ms(lambda i: fn(phase, idx, cnt, io, co, next(copies), **kw), 10)
+        del copies
+    live = int(cnt.item())
+    nbytes = 4 * live * D * (2 * nk + 12)
+    bms, by = bound_ms(nbytes, 0, "f32")
+    ms, pms = times["kernel"], times["plain"]
+    log(f"broyden_step scale{s} (B={B}, D={D}) captured state, phase {phase}, {live} live, "
+        f"mean nstep {nk}: max_rel_err {err:.3e} (limit {SPLIT_TOL:g}), ist and next list equal "
+        f"{same}, {len(ik)} next active; ms {ms:.4f} plain_ms {pms:.4f} bound_ms {bms:.4f} "
+        f"({by}) share {bms / ms:.3f}")
+    rows = {"broyden_step": {s: dict(
+        max_abs_err=max(float((stk[k].float() - stp[k].float()).abs().max()) for k in stk),
+        ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=by)}}
+    ok = math.isfinite(err) and err <= SPLIT_TOL and same
+    return rows, [] if ok else [("broyden_step", s, phase, nk, "captured state", err, same)]
+
+
 def probe_operands(batch, cin, cout, H, W, k, seed, dev):
     """The precision probe's (x, w) (ops/precision_probe.py) on the card."""
     from implicit_normalizing_flows_torch.ops.precision_probe import tf32_probe
@@ -866,8 +961,23 @@ def check_tf32_probe(cases, label, measure, tol, fails):
                 fails.append((name, label, mode, err, ctrl))
 
 
-def check_solves(blocks):
-    """Phase 3: whole solve, kernels vs plain, per scale and mode.
+def solve_configs(eps=None):
+    """Phase 3's solves (mode, eps, ladder keywords): each mode at eps 1e-6,
+    tf32 with the ladder from iteration 15, the split modes at eps 1e-5 and
+    tf32 with the ladder from iteration 6 there; those at ``eps`` alone
+    when given."""
+    ladder = lambda start: dict(tail_mode=("tf32x", "f32"), tail_start=start)
+    configs = [("f32", 1e-6, {}), ("tf32", 1e-6, {}), ("tf32x", 1e-6, {}),
+               ("tf32", 1e-6, ladder(15)), ("tf32", 1e-5, {}),
+               ("tf32x", 1e-5, {}), ("tf32", 1e-5, ladder(6))]
+    return [c for c in configs if eps is None or c[1] == eps]
+
+
+def check_solves(blocks, configs=None, inverse=False, phase="phase 3"):
+    """Phase 3: whole solve, kernels vs plain, per scale and mode
+    (``configs``, default :func:`solve_configs`); with ``inverse`` the
+    inverse's solve of x from the block's input z, net z embedding and net
+    x solved.
 
     Both are solves of the same map whose iterates differ only through
     float sums in another order. At the production tolerance (eps 1e-6,
@@ -887,10 +997,7 @@ def check_solves(blocks):
 
     kw = dict(threshold=30, stall_patience=5, stall_rtol=0.05, stall_guard=3.0,
               newton_init=True, warm_start=True)
-    ladder = lambda start: dict(tail_mode=("tf32x", "f32"), tail_start=start)
-    configs = [("f32", 1e-6, {}), ("tf32", 1e-6, {}), ("tf32x", 1e-6, {}),
-               ("tf32", 1e-6, ladder(15)), ("tf32", 1e-5, {}),
-               ("tf32x", 1e-5, {}), ("tf32", 1e-5, ladder(6))]
+    configs = solve_configs() if configs is None else configs
     floor_ops = {"conv1x1_mid exact": dict(fs._PLAIN, conv1x1_mid=so.conv1x1_mid_exact),
                  "conv3x3_in exact": dict(fs._PLAIN, conv3x3_in=so.conv3x3_in_exact),
                  "both exact": dict(fs._PLAIN, conv1x1_mid=so.conv1x1_mid_exact,
@@ -913,10 +1020,12 @@ def check_solves(blocks):
                 int(dn.max()), int((r.converged != ref.converged).sum()),
                 int((r.prot_break != ref.prot_break).sum()))
 
-    fails = []
+    fails, what_solve = [], "inverse solve" if inverse else "solve"
     for s, (block, x) in enumerate(blocks):
         dx = block.nnet_x.conv_forward_data()
         dz = block.nnet_z.conv_forward_data()
+        if inverse:
+            dx, dz = dz, dx
         with torch.no_grad():
             for mode, eps, extra in configs:
                 t0 = time.perf_counter()
@@ -939,7 +1048,7 @@ def check_solves(blocks):
                     del rx
                 dz_max, counts, dn_max, dconv, dprot = against(rk, rp)
                 label = f"{mode}{'+ladder' if extra else ''} eps {eps:g}"
-                log(f"solve scale{s} {label}: max|dz| {dz_max:.3e} "
+                log(f"{what_solve} scale{s} {label}: max|dz| {dz_max:.3e} "
                     f"|d nstep| counts {counts} "
                     f"nstep mean {rk.nstep.float().mean():.2f}/{rp.nstep.float().mean():.2f} "
                     f"converged {rk.converged.float().mean():.3f}/{rp.converged.float().mean():.3f} "
@@ -952,13 +1061,14 @@ def check_solves(blocks):
                     fails.append((s, label, "flags or dz", dprot, dconv, dz_max))
                 if (mode == "f32" or eps > 1e-6) and dn_max > 1:
                     fails.append((s, label, "nstep", dn_max))
-    assert not fails, ("phase 3 (scale, run, what, readings)", fails)
+    assert not fails, (f"{phase} (scale, run, what, readings)", fails)
 
 
-def profile_batch(model, step, x_u8, draws):
-    """Device time by kernel over one main-path batch, the device's idle
-    share (1 - busy time / wall time, :func:`device_busy`), and the host-clock time
-    spent in the blocks' solves (synchronised around each); returns the
+def profile_batch(model, step, x_u8, draws, solve="solve", label="batch"):
+    """Device time by kernel over one main-path batch, ``step(x_u8,
+    draws)``, the device's idle share (1 - busy time / wall time,
+    :func:`device_busy`), and the host-clock time spent in the blocks'
+    solves (their method ``solve``, synchronised around each); returns the
     kernels' profiler records."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -976,7 +1086,7 @@ def profile_batch(model, step, x_u8, draws):
 
     blocks = model.implicit_blocks()
     for b in blocks:
-        b.solve = timed(b.solve)
+        setattr(b, solve, timed(getattr(b, solve)))
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -986,14 +1096,14 @@ def profile_batch(model, step, x_u8, draws):
             wall = 1e3 * (time.perf_counter() - t0)
     finally:
         for b in blocks:
-            del b.solve
-    log(f"profile batch: solves {sum(solve_ms):.1f} ms wall "
+            delattr(b, solve)
+    log(f"profile {label}: solves {sum(solve_ms):.1f} ms wall "
         f"({', '.join(f'{t:.1f}' for t in solve_ms)} per block), rest "
         f"{wall - sum(solve_ms):.1f} ms")
     events = _kernel_events(prof)
     total, busy, span = device_busy(prof)
     ours = sum(_self_ms(e) for e in events if is_port_kernel(e.key))
-    log(f"profile batch: wall {wall:.1f} ms, device busy {busy:.1f} ms (summed "
+    log(f"profile {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms (summed "
         f"{total:.1f}, span {span:.1f}), idle share {1 - busy / wall:.3f}, solve kernels "
         f"{ours:.1f} ms, other device work {total - ours:.1f} ms")
     for e in sorted(events, key=_self_ms, reverse=True)[:15]:
@@ -3069,6 +3179,216 @@ def tabular_path(dev, rows):
     return launches, eval_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: sampling (ImplicitFlow.inverse), the forward solve's kernels with
+# the nets' roles swapped
+
+SAMPLE_TAU = 0.8  # qualitative_samples.py's temperature
+SAMPLE_BATCHES = 3
+# Phase 17 holds the kernel path's images against the plain path's, max|dx|
+# over pixels in [0, 1]; when the plain path's sum-order floor (the plain
+# path with the solve's three products summed exactly) lies above it, the
+# plain path is the faulty reference, and the exactly summed path takes its
+# place at the same limit.
+SAMPLE_TOL = 1e-3
+NO_LADDER = dict(tail_mode=None, tail_start=None)  # _solve's keywords the blocks may omit
+
+
+def sample_latents(model, seed, dev):
+    """BATCH flat latents tau * N(0, 1) from a generator seeded on the card
+    (``qualitative_samples.py:84-88``)."""
+    dim = sum(math.prod(d) for d in model.dims)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return SAMPLE_TAU * torch.randn(BATCH, dim, generator=gen, device=dev)
+
+
+def exact_solve(x, data_x, data_z, **kw):
+    """The plain fused solve with its three products summed exactly
+    (``ops/sum_order.py``)."""
+    from implicit_normalizing_flows_torch.ops import fused_solve as fs
+    from implicit_normalizing_flows_torch.ops import sum_order as so
+
+    ops = dict(fs._PLAIN, conv1x1_mid=so.conv1x1_mid_exact, conv3x3_in=so.conv3x3_in_exact,
+               conv3x3_out=so.conv3x3_out_exact)
+    return fs._solve(x, data_x, data_z, ops, **dict(NO_LADDER, **kw))[0]
+
+
+STATE_STEP = 6  # phase 17 reads broyden_step on its input at this step of a solve
+
+
+def record_step_state(z, data_a, data_b, kw):
+    """The input of broyden_step's STATE_STEP-th step (or its last, if
+    fewer) in the plain solve of z with ``data_a`` embedding and ``data_b``
+    solved, mid-way through the inverse solves' 5-17 iterations: (phase,
+    idx, cnt, state, keywords), cloned."""
+    from implicit_normalizing_flows_torch.ops import fused_solve as fs
+
+    seen = {"steps": 0}
+
+    def rec(phase, idx_in, cnt_in, idx_out, cnt_out, st, **k):
+        if phase == fs.PHASE_STEP and seen["steps"] < STATE_STEP:
+            seen["steps"] += 1
+            seen["snap"] = (phase, idx_in.clone(), cnt_in.clone(),
+                            {n: v.clone() for n, v in st.items()}, k)
+        return fs._broyden_step_plain(phase, idx_in, cnt_in, idx_out, cnt_out, st, **k)
+
+    fs._solve(z, data_a, data_b, dict(fs._PLAIN, broyden_step=rec), **dict(NO_LADDER, **kw))
+    return seen["snap"]
+
+
+def capture_inverse_inputs(model, z):
+    """Each scale's first implicit block (the last one the inverse reaches;
+    scale 0's nets have no preact) with its input in one inverse of z with
+    every plain version forced (plain_versions: the inverse solves through
+    the same fused_broyden_solve), so that the inputs, and the floors read
+    on them, do not move with the port's kernels; and each one's
+    broyden_step input mid-way through its plain solve
+    (:func:`record_step_state`). Returns (blocks, states)."""
+    from implicit_normalizing_flows_torch.layers import ImplicitBlock
+
+    blocks = [next(m for m in scale if isinstance(m, ImplicitBlock)) for scale in model.transforms]
+    seen = {}
+
+    def recorder(s, inverse):
+        def run(zz, *a):
+            seen[s] = zz.detach().clone()
+            return inverse(zz, *a)
+        return run
+
+    for s, b in enumerate(blocks):
+        b.inverse = recorder(s, b.inverse)
+    try:
+        with patched(plain_versions(False)):
+            model.inverse(z)
+    finally:
+        for b in blocks:
+            del b.inverse
+    states = []
+    with torch.no_grad():
+        for s, b in enumerate(blocks):
+            dx, dz = b._forward_data()
+            states.append(record_step_state(seen[s], dz, dx,
+                                            b._fused_solve_kwargs(b.solver_cfg.eps_sample)))
+    return [(b, seen[s]) for s, b in enumerate(blocks)], states
+
+
+@torch.no_grad()
+def real_operand_controls(blocks):
+    """Phase 17's controls on the inverse's real operands: each product of
+    the solved net (net x) at the block's input z, every input the plain
+    tf32 output of the stage before, in f32 and with native TF32 emulated
+    (both operands rounded to 10 mantissa bits), against tf32 (printed, no
+    limit: on real data the split sits within about 2^-16 of float32, below
+    the sum order's noise, which is why the probe is scaled to these
+    operands and held)."""
+    from implicit_normalizing_flows_torch.ops import fused_solve as fs
+    from implicit_normalizing_flows_torch.ops.precision_probe import round_tf32
+
+    for s, (block, z) in enumerate(blocks):
+        d = block.nnet_x.conv_forward_data()
+        betas = [float(v) for v in d["betas"].cpu()]
+        a = fs.swish(z, betas[0]) if d["preact"] else z
+        for k, (w, b, pad) in enumerate(((d["w1"], d["b1"], 1), (d["w2"], d["b2"], 0),
+                                         (d["w3"], d["b3"], 1))):
+            w = w.detach().float()
+            ref = fs._mconv(a, fs.prep_weight(w, "tf32"), "tf32", pad)
+            f32 = fs._mconv(a, fs.prep_weight(w, "f32"), "f32", pad)
+            nat = fs._mconv(round_tf32(a.contiguous()), fs.prep_weight(round_tf32(w), "f32"),
+                            "f32", pad)
+            log(f"phase 17 controls scale{s} product {k + 1} (input max "
+                f"{float(a.abs().max()):.3g}): f32 against tf32 {rel_err(f32, ref):.3e}, native "
+                f"TF32 against tf32 {rel_err(nat, ref):.3e} (SPLIT_TOL {SPLIT_TOL:g})")
+            if k < 2:
+                a = fs.swish(ref + b.detach()[None, :, None, None], betas[k + 1])
+
+
+def sample_path(model, dev):
+    """Phase 17's end-to-end part: one warm-up, then SAMPLE_BATCHES batches
+    of BATCH samples through ``ImplicitFlow.inverse`` (host clock around
+    synchronised work, peak memory, each block's nstep, protective breaks
+    and the Banach fallback's time) with the four kernels' launch counts
+    over them (each > 0), a profiled batch (busy time, idle share and the
+    tensor-core routes held), the round trip forward(inverse(z)) on the
+    kernel and the plain paths, and the kernel path's images against the
+    plain path's beside its floor (SAMPLE_TOL's comment). Returns the
+    launch counts."""
+    from implicit_normalizing_flows_torch.layers import implicit_block
+    from implicit_normalizing_flows_torch.ops import fused_solve as fs
+
+    blocks = model.implicit_blocks()[::-1]  # in the order the inverse solves them
+    model.inverse(sample_latents(model, 100, dev))  # warm-up
+    solves, banach = [], []
+    solve, fpi = implicit_block.fused_broyden_solve, implicit_block.fixed_point_iteration
+
+    def rec_solve(*a, **k):
+        res = solve(*a, **k)
+        solves.append((res.nstep, res.prot_break))
+        return res
+
+    def timed_fpi(g, y, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fpi(g, y, **k)
+        torch.cuda.synchronize()
+        banach.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with patched([(implicit_block, "fused_broyden_solve", rec_solve),
+                  (implicit_block, "fixed_point_iteration", timed_fpi)]):
+        for i in range(SAMPLE_BATCHES):
+            z = sample_latents(model, i, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, _ = model.inverse(z)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            assert x.shape == (BATCH, 3, SIZE, SIZE) and torch.isfinite(x).all()
+            log(f"sample batch {i}: {ms:.1f} ms, {BATCH / ms * 1e3:.1f} samples/s, images in "
+                f"[{float(x.min()):.4f}, {float(x.max()):.4f}]")
+    launches = launch_counts()
+    log(f"sampling peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("sampling path kernels " + json.dumps(launches))
+    for j, block in enumerate(blocks):
+        n = torch.cat([solves[k][0] for k in range(j, len(solves), len(blocks))]).float()
+        prot = sum(int(solves[k][1].sum()) for k in range(j, len(solves), len(blocks)))
+        log(f"sampling block {model.implicit_blocks().index(block)} (inverse solve {j + 1} of "
+            f"{len(blocks)}): nstep mean {float(n.mean()):.2f} max {int(n.max())}, protective "
+            f"breaks {prot}")
+    log(f"sampling protective-break rows {sum(int(p.sum()) for _, p in solves)}, Banach "
+        f"fallback calls {len(banach)} (each iterating the whole batch until its rows "
+        f"settle), {sum(banach):.1f} ms")
+    assert all(launches[n] > 0 for n in fs.KERNELS), launches
+
+    z = sample_latents(model, 0, dev)
+    profiled_routes(lambda: profile_batch(model, lambda *_: model.inverse(z), None, None,
+                                          "solve_inverse", "sampling batch"),
+                    ["conv1x1_mid", "conv3x3_in", "conv3x3_out", "broyden_step"],
+                    "sampling batch")
+
+    with torch.no_grad():
+        xk, _ = model.inverse(z)
+        zk, _ = model(xk)
+        with patched(plain_versions(False)):
+            xp, _ = model.inverse(z)
+            zp, _ = model(xp)
+        with patched([(implicit_block, "fused_broyden_solve", exact_solve)]):
+            xe, _ = model.inverse(z)
+    log(f"sampling round trip max|forward(inverse(z)) - z|: kernels "
+        f"{float((zk - z).abs().max()):.3e}, plain {float((zp - z).abs().max()):.3e}")
+    floor = float((xe - xp).abs().max())
+    vs_plain, vs_exact = float((xk - xp).abs().max()), float((xk - xe).abs().max())
+    ref, reading = (("plain", vs_plain) if floor <= SAMPLE_TOL else
+                    ("exactly summed", vs_exact))
+    log(f"sampling images, kernels against plain: max|dx| {vs_plain:.3e}; against the plain "
+        f"path with the solve's products summed exactly: {vs_exact:.3e}; floor (that path "
+        f"against plain) {floor:.3e}; held against the {ref} path at {SAMPLE_TOL:g}")
+    assert math.isfinite(reading) and reading <= SAMPLE_TOL, (ref, reading)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3163,6 +3483,19 @@ def main():
         f"max|d bpd_vec| {float((mp['bpd_vec'] - bpd0).abs().max()):.2e} ms {pms:.1f}")
     assert dbpd <= 1e-3, dbpd
     assert 1.0 < bpds[0] < 8.0, bpds
+
+    # phase 17: sampling (ImplicitFlow.inverse) on the eval model, before
+    # training moves its weights: the kernels and whole solves on the
+    # inverse's real operands, then the path end to end
+    t17 = time.perf_counter()
+    inv_blocks, inv_states = capture_inverse_inputs(model, sample_latents(model, 99, dev))
+    check_kernels(inv_blocks, net="nnet_x", extra=("tf32x", "f32"), states=inv_states,
+                  probe_range=True, phase="phase 17")
+    real_operand_controls(inv_blocks)
+    check_solves(inv_blocks, solve_configs(1e-5), inverse=True, phase="phase 17")
+    del inv_states
+    sample_launches = sample_path(model, dev)
+    log(f"phase 17 {time.perf_counter() - t17:.1f} s")
 
     # phases 5 and 6: the implicit-gradient kernels and functions on one
     # training step's real inputs (gradients only: the weights stay put)
@@ -3265,6 +3598,7 @@ def main():
                            cores=f"CUDA ({REDUCE_ROUTES[name][2]})")
             if mod is fs:
                 row["eval_launches"] = eval_launches[name]
+                row["sample_launches"] = sample_launches[name]
             if mod in (fs, ig):
                 row["memeff_true_launches"] = memeff_launches[name]
             if mod not in (bu, fb):
@@ -3274,6 +3608,7 @@ def main():
             kernels.append(row)
     log(f"device_ms: {TIMINGS['dropped']} of {TIMINGS['runs']} profiled runs recorded a "
         "launch count that is no multiple of the calls (dropped launches)")
+    log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

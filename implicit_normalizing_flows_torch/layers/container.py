@@ -1,4 +1,4 @@
-"""``SequentialFlow`` (``layers/container.py:10-60`` of the JAX package):
+"""``SequentialFlow`` (``layers/container.py:10-66`` of the JAX package):
 children are named "0", "1", ... like the JAX variables list. Inputs of
 any rank pass through: (B, c, H, W) images or (B, D) tabular rows."""
 from __future__ import annotations
@@ -15,6 +15,12 @@ class SequentialFlow(nn.ModuleList):
         for layer in self:
             x, logpx = layer(x, logpx, draws, train=train)
         return x, logpx
+
+    def inverse(self, y, logpy=None, draws=None):
+        """The children's inverses in reverse order (``container.py:62-66``)."""
+        for layer in reversed(self):
+            y, logpy = layer.inverse(y, logpy, draws)
+        return y, logpy
 
     def implicit_blocks(self):
         return [m for m in self.modules() if isinstance(m, ImplicitBlock)]

@@ -1,5 +1,6 @@
 """``LogitTransform`` (``layers/elemwise.py:51-74`` of the JAX package):
-``y = logit(alpha + (1 - 2 alpha) x)``."""
+``y = logit(alpha + (1 - 2 alpha) x)``, and its inverse ``x = (sigmoid(y) -
+alpha) / (1 - 2 alpha)``."""
 from __future__ import annotations
 
 import math
@@ -25,3 +26,9 @@ class LogitTransform(Flow):
         if logpx is None:
             return y, None
         return y, logpx - self._logdetgrad(x)
+
+    def inverse(self, y, logpy=None, draws=None):
+        x = (torch.sigmoid(y) - self.alpha) / (1 - 2 * self.alpha)
+        if logpy is None:
+            return x, None
+        return x, logpy + self._logdetgrad(x)

@@ -53,7 +53,20 @@ never uses native TF32). Its log-det is the exact brute force in evaluation
 of flat inputs with D <= 10, else the basic estimator, differentiable in
 training (``neumann_grad=False``, ``:834-840, 857-898``).
 
-The inverse (sampling) is a later slice.
+The inverse (sampling, ``ImplicitBlock.inverse``, ``:753-823``) solves
+``x : x + g_x(x) = z + g_z(z)`` for a latent z: the same fused solve with
+the nets' roles swapped (net z embeds z, net x is solved, warm start x0 =
+z) at ``eps_sample`` (``_fused_inverse``, ``:791-823``), so on CUDA tensors
+it launches row 1's four kernels (``conv3x3_in``, ``conv1x1_mid``,
+``conv3x3_out``, ``broyden_step``); the protective-break rows take the
+Banach fallback ``x <- z + g_z(z) - g_x(x)`` from z (:meth:`_banach_patch`,
+shared with the forward). With ``logpz`` it adds the evaluation
+estimator's log-det at the solved x (``:765-768``). No gradient flows
+through it (the JAX package stops every gradient there). Its 8x8 solves
+run the kernels where the JAX package would send them to XLA (its
+``IMNF_FUSED_SOLVE_MIN_HW`` gate, ``:213``), as the forward's do: the same
+semantics on another route. On the generic path (tabular and toy nets) the
+inverse raises.
 """
 from __future__ import annotations
 
@@ -77,9 +90,11 @@ from .protocol import Flow
 
 @dataclass(frozen=True)
 class SolverConfig:
-    """Solver budgets (``implicit_block.py:53-105``)."""
+    """Solver budgets (``implicit_block.py:53-105``); ``eps_sample`` is the
+    inverse's tolerance."""
     eps_forward: float = 1e-6
     eps_backward: float = 1e-10
+    eps_sample: float = 1e-5
     threshold: int = 30
     threshold_backward: int = 4
     banach_threshold: int = 1000
@@ -287,40 +302,61 @@ class ImplicitBlock(Flow):
         if data_x is None or data_z is None:
             data_x, data_z = self._forward_data()
         res = fused_broyden_solve(x, data_x, data_z, **self._fused_solve_kwargs())
-        zf, gf, diag = self._banach_patch(x, res)
+        zf, gf, diag = self._banach_patch(x, res, self.nnet_x, self.nnet_z,
+                                          self.solver_cfg.eps_forward)
         return zf.reshape(x.shape), (zf + gf).reshape(x.shape), diag
 
-    def _fused_solve_kwargs(self):
-        """The fused forward solve's budget, tolerances, precision mode and
-        ladder (``implicit_block.py:230-250``)."""
+    @torch.no_grad()
+    def solve_inverse(self, z):
+        """(x, diag): the root of ``x + g_x(x) = z + g_z(z)`` and its
+        telemetry (``_fused_inverse``, ``implicit_block.py:791-823``): the
+        fused solve with net z embedding z and net x solved, at
+        ``eps_sample``, then the Banach fallback from z on the
+        protective-break rows."""
+        if self.generic():
+            raise NotImplementedError(
+                "the inverse off the recipe conv stack (the generic solver path of the "
+                "tabular and toy nets) is not ported: ROADMAP module item 6")
+        data_x, data_z = self._forward_data()
+        eps = self.solver_cfg.eps_sample
+        res = fused_broyden_solve(z, data_z, data_x, **self._fused_solve_kwargs(eps))
+        xf, _, diag = self._banach_patch(z, res, self.nnet_z, self.nnet_x, eps, "inv")
+        return xf.reshape(z.shape), diag
+
+    def _fused_solve_kwargs(self, eps=None):
+        """The fused solve's budget, tolerance (default ``eps_forward``),
+        precision mode and ladder (``implicit_block.py:230-250``)."""
         cfg = self.solver_cfg
-        return dict(threshold=cfg.threshold, eps=cfg.eps_forward,
+        return dict(threshold=cfg.threshold, eps=cfg.eps_forward if eps is None else eps,
                     stall_patience=cfg.stall_patience, stall_rtol=cfg.stall_rtol,
                     stall_guard=cfg.stall_guard, newton_init=cfg.newton_init,
                     warm_start=cfg.warm_start, mode=fused_solve_mode(),
                     line_search=cfg.line_search, **ladder_args(cfg.threshold))
 
-    def _banach_patch(self, x, res):
-        """(z, g, diag) of a fused solve's result ``res``, flat (B, D), with
-        the protective-break rows' root and residual taken from the Banach
-        fallback from x (``implicit_block.py:230-271``), and the telemetry."""
+    def _banach_patch(self, a, res, net_a, net_b, eps, label="fwd"):
+        """(b, g, diag) of a fused solve's result ``res`` for the root b of
+        ``a + net_a(a) = b + net_b(b)``, flat (B, D), with the
+        protective-break rows' root and residual taken from the Banach
+        fallback ``b <- a + net_a(a) - net_b(b)`` from a at ``eps``, and the
+        telemetry (``implicit_block.py:230-271, 808-821``). The forward
+        passes net x, net z and ``eps_forward``; the inverse net z, net x
+        and ``eps_sample``."""
         cfg = self.solver_cfg
-        B = x.shape[0]
-        zf, gf = res.result.reshape(B, -1), res.gx.reshape(B, -1)
+        B = a.shape[0]
+        bf, gf = res.result.reshape(B, -1), res.gx.reshape(B, -1)
         if bool(res.prot_break.any()):
-            x_embed = (self.nnet_x(x) + x).reshape(B, -1)
-            bg = lambda zz: x_embed - self.nnet_z(zz.reshape(x.shape)).reshape(B, -1)
-            fb = fixed_point_iteration(bg, x.reshape(B, -1),
-                                       threshold=cfg.banach_threshold,
-                                       eps=cfg.eps_forward)
+            a_embed = (net_a(a) + a).reshape(B, -1)
+            bg = lambda bb: a_embed - net_b(bb.reshape(a.shape)).reshape(B, -1)
+            fb = fixed_point_iteration(bg, a.reshape(B, -1),
+                                       threshold=cfg.banach_threshold, eps=eps)
             take = res.prot_break[:, None]
-            zf = torch.where(take, fb, zf)
+            bf = torch.where(take, fb, bf)
             gf = torch.where(take, bg(fb) - fb, gf)
-        eps_i = cfg.eps_forward * (x[0].numel() ** 0.5)
+        eps_i = eps * (a[0].numel() ** 0.5)
         diag = solver_diag(res.nstep, res.converged, res.prot_break, res.diff, eps_i)
         if kernel_config().debug_solver:
-            print(f"fwd solve: nstep={res.nstep.tolist()} diag={diag.tolist()}")
-        return zf, gf, diag
+            print(f"{label} solve: nstep={res.nstep.tolist()} diag={diag.tolist()}")
+        return bf, gf, diag
 
     @torch.no_grad()
     def solve_merged(self, x, data_x, data_z, eps_x, eps_z, signed, n_power):
@@ -330,7 +366,8 @@ class ImplicitBlock(Flow):
         protective-break rows, whose accs are reset to the probes."""
         res, acc_x, acc_z = fused_block_forward(x, data_x, data_z, eps_x, eps_z, signed,
                                                 n_power, **self._fused_solve_kwargs())
-        zf, gf, diag = self._banach_patch(x, res)
+        zf, gf, diag = self._banach_patch(x, res, self.nnet_x, self.nnet_z,
+                                          self.solver_cfg.eps_forward)
         take = res.prot_break[:, None, None, None]
         acc_x = torch.where(take, eps_x.float(), acc_x)
         acc_z = torch.where(take, eps_z.float(), acc_z)
@@ -553,6 +590,19 @@ class ImplicitBlock(Flow):
         if draws is None:
             raise ValueError("stochastic logdet estimation requires draws")
         return z, logpx - self.logdetgrad(z, x, draws, train)
+
+    @torch.no_grad()
+    def inverse(self, z, logpz=None, draws=None):
+        """(x, logpx): x solves ``x + g_x(x) = z + g_z(z)``
+        (:meth:`solve_inverse`); with ``logpz``, ``logpz`` plus the
+        evaluation estimator's log-det at (x, z) from ``draws``
+        (``implicit_block.py:753-789``)."""
+        x, _ = self.solve_inverse(z)
+        if logpz is None:
+            return x, None
+        if draws is None:
+            raise ValueError("stochastic logdet estimation requires draws")
+        return x, logpz + self.logdetgrad(z, x, draws, train=False)
 
     @torch.no_grad()
     def update_lipschitz(self, n_iterations=None):

@@ -7,7 +7,9 @@ the module path of every tensor equals its path in the JAX pytree
 (``training.convert`` maps one onto the other).
 
 ``forward(x, logpx=None, draws=None, train=False) -> (y, logpy)``;
-``logpy`` is None iff ``logpx`` is None. ``draws`` (``ops.logdet.Draws``)
+``logpy`` is None iff ``logpx`` is None. ``inverse(y, logpy=None,
+draws=None) -> (x, logpx)`` runs the layer backwards (sampling), adding
+the log-det that ``forward`` subtracts. ``draws`` (``ops.logdet.Draws``)
 supplies every random number; ``train`` selects the training estimator and
 the implicit gradient of the implicit blocks. Layers run under autograd.
 """
@@ -26,4 +28,7 @@ class Flow(nn.Module):
     """Base class of invertible layers."""
 
     def forward(self, x, logpx=None, draws=None, train=False):
+        raise NotImplementedError
+
+    def inverse(self, y, logpy=None, draws=None):
         raise NotImplementedError

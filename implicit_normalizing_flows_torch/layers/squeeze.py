@@ -12,6 +12,15 @@ def squeeze(x, factor=2):
     return x.reshape(b, c * factor * factor, oh, ow)
 
 
+def unsqueeze(x, factor=2):
+    """Inverse of :func:`squeeze`, [B, C*r^2, H, W] -> [B, C, H*r, W*r]
+    (squeeze.py:16-22)."""
+    b, c, h, w = x.shape
+    oc = c // (factor * factor)
+    x = x.reshape(b, oc, factor, factor, h, w).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(b, oc, h * factor, w * factor)
+
+
 class SqueezeLayer(Flow):
     """Volume preserving: logp passes through."""
 
@@ -21,3 +30,6 @@ class SqueezeLayer(Flow):
 
     def forward(self, x, logpx=None, draws=None, train=False):
         return squeeze(x, self.downscale_factor), logpx
+
+    def inverse(self, y, logpy=None, draws=None):
+        return unsqueeze(y, self.downscale_factor), logpy

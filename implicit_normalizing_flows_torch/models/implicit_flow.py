@@ -8,7 +8,12 @@ squeeze?]``, the channels growing 3 -> 12 -> 48 as the image shrinks
 32x32 -> 16x16 -> 8x8. Module paths equal the JAX variables' paths
 (``transforms.<scale>.<layer>...``). ``forward(..., train=True)`` runs the
 training estimator and the implicit gradient; ``update_lipschitz`` is the
-post-step power iteration.
+post-step power iteration. ``inverse(z)`` (``:535-559``, its
+``factor_out=False`` branch) reshapes flat latents to ``dims[-1]`` (48 x 8
+x 8 for the CIFAR-10 flagship) and runs the scales backwards: each block's
+inverse is the fused solve with the nets' roles swapped
+(``layers/implicit_block.py``), then the ActNorm, squeeze and
+``LogitTransform`` inverses back to images in [0, 1].
 """
 from __future__ import annotations
 
@@ -108,12 +113,26 @@ class ImplicitFlow(nn.Module):
                 first_resblock=i == 0, generator=generator, device=device))
             c, h, w = c * 4, h // 2, w // 2
         self.transforms = nn.ModuleList(scales)
+        # the output shapes (calc_output_size, implicit_flow.py:372, 387-391):
+        # one, the last scale's, without factor_out
+        k = self.n_scale - 1
+        self.dims = [(input_size[1] * 4 ** k, input_size[2] // 2 ** k, input_size[3] // 2 ** k)]
 
     def forward(self, x, logpx=None, draws=None, train=False):
         """(z flattened to (B, D), logpz)."""
         for t in self.transforms:
             x, logpx = t(x, logpx, draws, train=train)
         return x.reshape(x.shape[0], -1), logpx
+
+    @torch.no_grad()
+    def inverse(self, z, logpz=None, draws=None):
+        """(x, logpx): latents z (B, D) or (B, *dims[-1]) back to inputs,
+        the scales in reverse (``implicit_flow.py:553-559``), without
+        gradient (the blocks' solves stop it, as in the JAX package)."""
+        z = z.reshape((z.shape[0],) + tuple(self.dims[-1]))
+        for t in reversed(self.transforms):
+            z, logpz = t.inverse(z, logpz, draws)
+        return z, logpz
 
     def implicit_blocks(self):
         return [m for m in self.modules() if isinstance(m, ImplicitBlock)]
