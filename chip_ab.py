@@ -711,8 +711,18 @@ def sass():
     same = differ = 0
     for src in srcs:
         old, new = got.get((other, src), {}), got.get((".", src), {})
-        new = {n[:-4] + ">" if n.endswith(", 1>") and n not in old and n[:-4] + ">" in old
-               else n: v for n, v in new.items()}
+        # an instantiation that gained a trailing template argument is read
+        # against its old name: of several such, the one with the old SASS
+        short = lambda n: re.sub(r", \w+>$", ">", n)
+        renamed = {}
+        for n in sorted(new):
+            o = short(n)
+            if n in old or o not in old or o in new:
+                continue
+            if o not in renamed or new[n][2] == old[o][2]:
+                renamed[o] = n
+        for o, n in renamed.items():
+            new[o] = new.pop(n)
         for name in sorted(set(old) | set(new)):
             a, b = old.get(name), new.get(name)
             if a is None or b is None:

@@ -206,11 +206,32 @@ Phases (any failure exits non-zero; nothing is caught):
      tensor-core routes held), the round trip forward(inverse(z)) on both
      paths, and the images against the plain path's within 1e-3 beside the
      floor (SAMPLE_TOL's comment).
+ 18. the Armijo line search (IMNF_LINE_SEARCH=1; line_search on
+     csrc/line_search.cu, a thread-block cluster a live example, three
+     steps around the trial residuals, which the solves' own conv kernels
+     evaluate on device-side lists), in two parts. Right after phase 6, on
+     the checkpoint's blocks: the whole forward (phase 2's inputs, eps
+     1e-6, tf32 with the ladder), inverse (phase 17's, eps 1e-5) and bf16
+     backward (phase 5's) solves with the search, newton_init True and
+     False, kernels against plain beside their floors (the plain path with
+     the search's sums exact, or in its kernel's order), every reading
+     printed first, then held at phases 3 / 17 and 6's limits; each solve's
+     tally of examples that failed the test and took the quadratic, halved
+     or full step (the newton_init=False solves must take a shortened
+     step); then line_search against its plain version and its kernel's
+     order on each scale's state captured mid-solve (every slot, half the
+     slots permuted, NaN / inf residuals injected), each step timed. After
+     phase 13, the paths end to end under the search, each against its
+     plain path on the same draws: one eval batch and one sampling batch
+     (profiled), 3 settle and 3 timed --mem-eff False steps (as phase 10,
+     the profiled step's routes with line_search's), one merged step and 3
+     tabular steps from phase 13's state.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it lists the kernels as JSON (the forward solve's four with their launches
-in phase 17 as sample_launches), the line before that the card's name and
-power limit. Without a CUDA device it exits non-zero and prints no result.
+in phase 17 as sample_launches; line_search with its launches in phase 18's
+paths), the line before that the card's name and power limit. Without a
+CUDA device it exits non-zero and prints no result.
 """
 import contextlib
 import json
@@ -418,10 +439,12 @@ TC_ROUTES = {
                     "mma.sync bf16, the 3- or 4-pass split of tf32 / tf32x; f32 and bf16 on CUDA "
                     "cores"),
 }
-# The three cluster-split reductions (csrc/cluster_reduce.cuh): broyden_step
-# on broyden_cluster_kernel<VPT, STAGE> (csrc/broyden_step.cu), fp_tdot on
-# tdot_split_kernel (csrc/tdot.cu) and rv_chan_sums on
-# chan_sums_split_kernel<VEC, HAS_H, HAS_OUT> (csrc/chan_sums.cu). A
+# The four cluster-split reductions (csrc/cluster_reduce.cuh): broyden_step
+# on broyden_cluster_kernel<VPT, DZ_TAKEN> (csrc/broyden_step.cu), fp_tdot on
+# tdot_split_kernel (csrc/tdot.cu), rv_chan_sums on
+# chan_sums_split_kernel<VEC, HAS_H, HAS_OUT> (csrc/chan_sums.cu) and, under
+# IMNF_LINE_SEARCH=1 (phase 18), line_search on line_search_kernel<VPT>
+# (csrc/line_search.cu). A
 # profiled run must record each as many times as its wrapper launched it,
 # and never the one-block-an-example (or a-channel) kernels they replaced
 # (broyden_step_kernel, tdot_kernel, chan_sums_kernel: REPLACED_SIMT).
@@ -436,6 +459,10 @@ REDUCE_ROUTES = {
                      "implicit_normalizing_flows_torch/csrc/chan_sums.cu",
                      "a thread-block cluster a channel, sums through distributed shared "
                      "memory"),
+    "line_search": (re.compile(r"line_search_kernel<"),
+                    "implicit_normalizing_flows_torch/csrc/line_search.cu",
+                    "a thread-block cluster a live example, sums through distributed shared "
+                    "memory"),
 }
 ROUTES = {**TC_ROUTES, **REDUCE_ROUTES}
 TC_SPLIT = "conv1x1_mid (tensor cores)"  # launch_counts()'s key of those launches
@@ -506,7 +533,8 @@ def _self_ms(e):
 def is_port_kernel(name):
     """A kernel of csrc/ (by its symbol in the profiler)."""
     return any(k in name for k in ("imnf::", "broyden_cluster", "wgrad", "chan_sums",
-                                   "tdot_split", "second_kernel", "broyden_update"))
+                                   "tdot_split", "second_kernel", "broyden_update",
+                                   "line_search"))
 
 
 TIMINGS = {"runs": 0, "dropped": 0}  # device_ms's profiled runs, and those that dropped launches
@@ -2119,8 +2147,10 @@ def kernel_modules():
     from implicit_normalizing_flows_torch.ops import fused_final as ff
     from implicit_normalizing_flows_torch.ops import fused_solve as fs
     from implicit_normalizing_flows_torch.ops import implicit_grad as ig
+    from implicit_normalizing_flows_torch.ops import line_search as lsm
 
     return [("fused_solve", fs, lambda n: TPU_SOLVE),
+            ("fused_solve", lsm, lambda n: TPU_SEARCH),
             ("block_forward", fb, lambda n: TPU_BLOCK),
             ("implicit_grad", ig, lambda n: TPU_BWD if n.startswith("jt_") else TPU_REATTACH),
             ("estimator", fc, lambda n: TPU_CHAIN),
@@ -3095,7 +3125,8 @@ def check_generic_solves(inputs):
 
 def tabular_path(dev, rows):
     """Phases 11-13 on the POWER recipe; returns the broyden_update launch
-    counts of the timed steps and of the evaluation batch."""
+    counts of the timed steps and of the evaluation batch, and the state it
+    leaves (model, step, batch, draws, the next step's index)."""
     from implicit_normalizing_flows_torch.layers import ImplicitBlock
     from implicit_normalizing_flows_torch.ops import broyden as bmod
     from implicit_normalizing_flows_torch.ops import broyden_update as bu
@@ -3176,7 +3207,7 @@ def tabular_path(dev, rows):
     assert mk["z"].shape == (TAB_EVAL_BATCH, TAB_DIM) and torch.isfinite(mk["z"]).all()
     assert d <= 1e-4, d
     assert eval_launches["broyden_update"] > 0, eval_launches
-    return launches, eval_launches
+    return launches, eval_launches, (model, step, batch, draws, n + 4)
 
 
 # ---------------------------------------------------------------------------
@@ -3208,8 +3239,8 @@ def exact_solve(x, data_x, data_z, **kw):
     from implicit_normalizing_flows_torch.ops import fused_solve as fs
     from implicit_normalizing_flows_torch.ops import sum_order as so
 
-    ops = dict(fs._PLAIN, conv1x1_mid=so.conv1x1_mid_exact, conv3x3_in=so.conv3x3_in_exact,
-               conv3x3_out=so.conv3x3_out_exact)
+    ops = dict(fs.solve_ops(plain=True), conv1x1_mid=so.conv1x1_mid_exact,
+               conv3x3_in=so.conv3x3_in_exact, conv3x3_out=so.conv3x3_out_exact)
     return fs._solve(x, data_x, data_z, ops, **dict(NO_LADDER, **kw))[0]
 
 
@@ -3389,6 +3420,431 @@ def sample_path(model, dev):
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# phase 18: the Armijo line search (IMNF_LINE_SEARCH=1,
+# csrc/line_search.cu) in the forward, inverse, merged and backward solves,
+# and the generic solver's
+
+TPU_SEARCH = "implicit_normalizing_flows_tpu/ops/fused_solve.py:610"
+SEARCH_ONLY = ("line_search",)  # routes held only where the search runs
+SEARCH_SETTLE, SEARCH_TIMED = 3, 3  # phase 18's --mem-eff False steps
+SEARCH_NAN = ((3, 5, "nan"), (7, 9, "inf"))  # (example, element, value) of GN
+
+
+def search_ops():
+    """The plain fused solve's ops with the line search's sums exact or in
+    its kernel's order (ops/sum_order.py): {label: ops}."""
+    from implicit_normalizing_flows_torch.ops import fused_solve as fs
+    from implicit_normalizing_flows_torch.ops import sum_order as so
+
+    plain = fs.solve_ops(plain=True)
+    return {"search sums exact": dict(plain, line_search=so.line_search_exact),
+            "search sums in the kernel's order": dict(plain, line_search=so.line_search_tiled)}
+
+
+def tally_of(run):
+    """(run()'s result, the line search's tally over it)."""
+    from implicit_normalizing_flows_torch.ops import line_search as lsm
+
+    lsm.reset_tally()
+    out = run()
+    torch.cuda.synchronize()
+    return out, lsm.read_tally()
+
+
+def fmt_tally(t):
+    return (f"failed {t['failed']}: quadratic {t['quadratic']}, halved {t['halved']}, "
+            f"full {t['full']}")
+
+
+@torch.no_grad()
+def check_search_solves(blocks, inv_blocks, cap):
+    """Phase 18, whole solves with the search, kernels against plain, on the
+    checkpoint's blocks: the forward (phase 2's inputs, eps 1e-6, tf32 with
+    the ladder), the inverse (phase 17's, eps 1e-5) and the backward (phase
+    5's, bf16), each with newton_init True and False. Every reading and
+    its floors (the plain path with the search's sums exact, or in its
+    kernel's order, against the plain path) is printed before any limit is
+    checked; the limits are phase 3's (17's) and phase 6's, against the
+    plain path, or against the exactly summed path where a floor lies
+    above them. Also prints each solve's tally (examples that failed the
+    test and took the quadratic, halved or full step), and asserts that the
+    newton_init=False solves took a shortened step. Returns each scale's
+    state of the search captured mid-solve (:func:`capture_search_state`)."""
+    from implicit_normalizing_flows_torch.ops import fused_solve as fs
+    from implicit_normalizing_flows_torch.ops import implicit_grad as ig
+    from implicit_normalizing_flows_torch.ops import sum_order as so
+
+    def against(r, ref):
+        dn = (r.nstep - ref.nstep).abs().long()
+        return dict(dz=float((r.result - ref.result).abs().max()),
+                    counts=torch.bincount(dn).tolist(), dn=int(dn.max()),
+                    conv=int((r.converged != ref.converged).sum()),
+                    prot=int((r.prot_break != ref.prot_break).sum()))
+
+    def forward_fails(a, hold_nstep):
+        return (a["prot"] or a["conv"] or not a["dz"] <= 5e-4
+                or (hold_nstep and a["dn"] > 1))
+
+    readings, states, shortened = [], [], 0
+    for what, blks, inverse in (("forward", blocks, False), ("inverse", inv_blocks, True)):
+        for s, (block, x) in enumerate(blks):
+            dx, dz = block.nnet_x.conv_forward_data(), block.nnet_z.conv_forward_data()
+            eps = block.solver_cfg.eps_sample if inverse else block.solver_cfg.eps_forward
+            if inverse:
+                dx, dz = dz, dx
+            for newton in (True, False):
+                kw = dict(block._fused_solve_kwargs(eps), newton_init=newton, line_search=True)
+                t0 = time.perf_counter()
+                rk, tk = tally_of(lambda: fs.fused_broyden_solve(x, dx, dz, **kw))
+                sk = time.perf_counter() - t0
+                rp, tp = tally_of(lambda: fs.fused_broyden_solve_plain(x, dx, dz, **kw))
+                floors = {k: fs._solve(x, dx, dz, ops, **dict(NO_LADDER, **kw))[0]
+                          for k, ops in search_ops().items()}
+                a = against(rk, rp)
+                fa = {k: against(r, rp) for k, r in floors.items()}
+                hold_nstep = kw["mode"] == "f32" or eps > 1e-6  # phase 3's rule
+                label = (f"{what} solve scale{s} {kw['mode']} eps {eps:g} newton_init "
+                         f"{newton}")
+                log(f"phase 18 {label}: max|dz| {a['dz']:.3e} |d nstep| counts {a['counts']} "
+                    f"converged flags differing {a['conv']} prot {a['prot']}; nstep mean "
+                    f"{rk.nstep.float().mean():.2f}/{rp.nstep.float().mean():.2f}; kernels "
+                    f"{fmt_tally(tk)}; plain {fmt_tally(tp)}; s {sk:.3f}; floors: "
+                    + "; ".join(f"{k} vs plain: max|dz| {f['dz']:.3e} |d nstep| counts "
+                                f"{f['counts']} converged {f['conv']} prot {f['prot']}"
+                                for k, f in fa.items()))
+                if not newton:
+                    shortened += tk["quadratic"] + tk["halved"]
+                floor_over = any(forward_fails(f, hold_nstep) for f in fa.values())
+                ref = floors["search sums exact"] if floor_over else rp
+                held = against(rk, ref)
+                readings.append((label, "exactly summed" if floor_over else "plain", held,
+                                 bool(torch.isfinite(rk.result).all()) and
+                                 not forward_fails(held, hold_nstep)))
+                if not inverse and not newton:
+                    states.append(capture_search_state(x, dx, dz, kw))
+    for s, (c, d) in enumerate(cap.items()):
+        grad = d["grad"]
+        cd = d["block"].nnet_z.conv_chain_data(d["z"], torch.bfloat16)
+        for newton in (True, False):
+            kw = dict(threshold=4, eps=1e-10, stall_patience=5, stall_rtol=0.05, stall_guard=3.0,
+                      newton_init=newton, line_search=True, mode="bf16")
+            rk, tk = tally_of(lambda: ig.fused_backward_solve(grad, cd, **kw))
+            rp, tp = tally_of(lambda: ig.fused_backward_solve_plain(grad, cd, **kw))
+            fl = {k: ig._backward_solve(grad, cd, dict(ig._PLAIN, line_search=fn), **kw).u
+                  for k, fn in (("search sums exact", so.line_search_exact),
+                                ("search sums in the kernel's order", so.line_search_tiled))}
+            err = rel_norm(rk.u, rp.u, grad)
+            ferr = {k: rel_norm(u, rp.u, grad) for k, u in fl.items()}
+            label = f"backward solve scale{s} bf16 newton_init {newton}"
+            log(f"phase 18 {label}: rel_norm {err:.3e} (limit {BWD_TOL['bf16']:g}); nstep "
+                f"{rk.nstep.float().mean():.2f}/{rp.nstep.float().mean():.2f} prot "
+                f"{int(rk.prot_break.sum())}/{int(rp.prot_break.sum())}; kernels "
+                f"{fmt_tally(tk)}; plain {fmt_tally(tp)}; floors: "
+                + "; ".join(f"{k} vs plain {v:.3e}" for k, v in ferr.items()))
+            if not newton:
+                shortened += tk["quadratic"] + tk["halved"]
+            floor_over = any(v > BWD_TOL["bf16"] for v in ferr.values())
+            held = rel_norm(rk.u, fl["search sums exact"] if floor_over else rp.u, grad)
+            ok = (bool(torch.isfinite(rk.u).all()) and held <= BWD_TOL["bf16"]
+                  and torch.equal(rk.nstep, rp.nstep)
+                  and torch.equal(rk.prot_break, rp.prot_break))
+            readings.append((label, "exactly summed" if floor_over else "plain", held, ok))
+    log(f"phase 18: shortened steps (quadratic + halved) of the newton_init=False solves "
+        f"{shortened}")
+    fails = [r for r in readings if not r[3]]
+    assert not fails, ("phase 18 (solve, held against, reading, ok)", fails)
+    assert shortened > 0, "no newton_init=False solve took a shortened step"
+    return states
+
+
+def capture_search_state(x, dx, dz, kw):
+    """The search's inputs at the iteration of the plain solve that took the
+    most shortened steps (the first failing one if none did): the solver
+    vectors and active list at its test, the quadratic and halved trials'
+    residuals as the solve evaluated them, cloned: (st, idx, cnt, GQ, GH)."""
+    from implicit_normalizing_flows_torch.ops import fused_solve as fs
+    from implicit_normalizing_flows_torch.ops import line_search as lsm
+
+    best, cur = {"score": -1}, {}
+    keys = ("Z", "G", "UPD", "ZN", "GN")
+
+    def rec(phase, st, ls, idx=None, cnt=None):
+        if phase == lsm.PHASE_TEST:
+            cur.clear()
+            cur.update(st={k: st[k].clone() for k in keys}, idx=idx.clone(), cnt=cnt.clone(),
+                       before=ls["tally"].clone())
+        elif phase == lsm.PHASE_HALF:
+            cur["GQ"] = ls["GQ"].clone()
+        else:
+            cur["GH"] = ls["GH"].clone()
+        lsm._line_search_plain(phase, st, ls, idx, cnt)
+        if phase == lsm.PHASE_PICK:
+            d = (ls["tally"] - cur["before"]).tolist()
+            score = d[1] + d[2] if d[0] else -1
+            if score > best["score"] or "st" not in best:
+                best.update(score=score, **{k: v for k, v in cur.items() if k != "before"})
+
+    fs._solve(x, dx, dz, dict(fs.solve_ops(plain=True), line_search=rec),
+              **dict(NO_LADDER, **kw))
+    return best["st"], best["idx"], best["cnt"], best["GQ"], best["GH"]
+
+
+def search_bytes(D, n, nf, nq, nh, nok):
+    """The bytes each step of the search must move (float32): the test reads
+    G and GN of the n live examples and Z and UPD of the nf failing ones,
+    writes their ZQ; the quadratic pick reads GQ of the nf, ZQ of the nq
+    taking it and writes their ZN and GN, reads Z and UPD of the nh others
+    and writes their ZH; the halved pick reads GH of the nh, ZH of the nok
+    taking it and writes their ZN and GN."""
+    return {"test": 4 * D * (2 * n + 3 * nf), "half": 4 * D * (nf + 3 * nq + 3 * nh),
+            "pick": 4 * D * (nh + 3 * nok)}
+
+
+def check_search_kernel(states):
+    """Phase 18: line_search against its plain version and against the plain
+    version in its kernel's order (ops/sum_order.py line_search_tiled) on
+    each scale's captured state, on every slot and on half the slots under
+    a permuted list, and on the state with NaN and inf residuals injected
+    (SEARCH_NAN; a NaN in a quadratic residual): the three steps in turn
+    (the captured trial residuals taken as the solve evaluated them). Held:
+    the fail and half lists (sorted), their counts and the tally equal to
+    both; every output bitwise equal to the kernel's order; the values
+    (lsf's sq, ZQ, ZH, ZN, GN) within SPLIT_TOL of the plain version's;
+    the examples off the list bitwise untouched. Each step timed on every
+    slot (device time, plain time, bound). Returns the kernels row (the
+    test step at 32x32)."""
+    from implicit_normalizing_flows_torch.ops import line_search as lsm
+    from implicit_normalizing_flows_torch.ops import sum_order as so
+
+    same = lambda a, b: bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+    def finite_err(a, b):
+        """rel_err over the entries finite in both; inf where the non-finite
+        entries differ in place."""
+        fa, fb = torch.isfinite(a), torch.isfinite(b)
+        if not torch.equal(fa, fb):
+            return math.inf
+        return rel_err(torch.where(fa, a, 0.0), torch.where(fb, b, 0.0))
+
+    impls = {"kernel": lsm.line_search, "plain": lsm._line_search_plain,
+             "kernel's order": so.line_search_tiled}
+    outs_of = ("ZQ", "ZH", "lsf")
+    fails, rows = [], {}
+
+    def replay(fn, st0, idx, cnt, GQ, GH):
+        B, D = st0["Z"].shape
+        st = {k: v.clone() for k, v in st0.items()}
+        ls = lsm.line_search_buffers(B, D, st0["Z"].device)
+        lsm.reset_tally()
+        fn(lsm.PHASE_TEST, st, ls, idx, cnt)
+        ls["GQ"].copy_(GQ)
+        fn(lsm.PHASE_HALF, st, ls)
+        ls["GH"].copy_(GH)
+        fn(lsm.PHASE_PICK, st, ls)
+        torch.cuda.synchronize()
+        lists = [sorted(ls[k][:int(ls["n" + k])].tolist()) for k in ("fail", "half")]
+        return st, ls, lists, lsm.read_tally()
+
+    for s, (st0, idx0, cnt0, GQ, GH) in enumerate(states):
+        B, D = st0["Z"].shape
+        dev = st0["Z"].device
+        gen = torch.Generator(device=dev).manual_seed(180 + s)
+        nan_st = {k: v.clone() for k, v in st0.items()}
+        for e, j, v in SEARCH_NAN:
+            nan_st["GN"][e, j] = float(v)
+        nan_gq = GQ.clone()
+        cases = {"captured, every slot": (st0, torch.arange(B, dtype=torch.int32, device=dev),
+                                          GQ),
+                 "captured, half the slots permuted": (
+                     st0, torch.randperm(B, generator=gen, device=dev)[:B // 2].int(), GQ),
+                 "NaN / inf residuals, every slot": (
+                     nan_st, torch.arange(B, dtype=torch.int32, device=dev), nan_gq)}
+        for which, (sti, idx, gq) in cases.items():
+            cnt = torch.full((1,), len(idx), dtype=torch.int32, device=dev)
+            got = {k: replay(fn, sti, idx, cnt, gq, GH) for k, fn in impls.items()}
+            if which.startswith("NaN"):  # a NaN in a failing example's quadratic residual
+                fail = got["plain"][2][0]
+                if fail:
+                    nan_gq[fail[0], 0] = float("nan")
+                    got = {k: replay(fn, sti, idx, cnt, nan_gq, GH) for k, fn in impls.items()}
+            (stk, lk, listk, tk) = got["kernel"]
+            off = torch.ones(B, dtype=torch.bool, device=dev)
+            off[idx.long()] = False
+            untouched = all(torch.equal(stk[k][off], sti[k][off]) for k in stk) and all(
+                not bool(lk[k][off].any()) for k in outs_of)
+            line = []
+            ok = untouched
+            for ref in ("plain", "kernel's order"):
+                stp, lp, listp, tp = got[ref]
+                lists_eq = listk == listp and tk == tp
+                bitwise = all(same(stk[k], stp[k]) for k in ("ZN", "GN")) and all(
+                    same(lk[k], lp[k]) for k in outs_of)
+                err = max(finite_err(a, b) for a, b in (
+                    (stk["ZN"], stp["ZN"]), (stk["GN"], stp["GN"]), (lk["ZQ"], lp["ZQ"]),
+                    (lk["ZH"], lp["ZH"]), (lk["lsf"][:, 1], lp["lsf"][:, 1])))
+                line.append(f"against {ref}: lists, counts and tally equal {lists_eq}, bitwise "
+                            f"{bitwise}, max_rel_err {err:.3e}")
+                ok = ok and lists_eq and (bitwise if ref == "kernel's order"
+                                          else math.isfinite(err) and err <= SPLIT_TOL)
+            log(f"line_search scale{s} (B={B}, D={D}) {which}: {fmt_tally(tk)}, lists "
+                f"{[len(v) for v in listk]}; " + "; ".join(line)
+                + f"; other examples untouched {untouched}")
+            if not ok:
+                fails.append((s, which))
+
+        # each step timed on every slot, on the captured state
+        idx = torch.arange(B, dtype=torch.int32, device=dev)
+        cnt = torch.full((1,), B, dtype=torch.int32, device=dev)
+        st, ls, (fl, hl), t = replay(impls["plain"], st0, idx, cnt, GQ, GH)
+        n = int(cnt.item())
+        nbytes = search_bytes(D, n, len(fl), t["quadratic"], len(hl), t["halved"])
+        times = {}
+        for tag in ("kernel", "plain"):
+            fn = impls[tag]
+            st = {k: v.clone() for k, v in st0.items()}
+            ls = lsm.line_search_buffers(B, D, dev)
+            # the test leaves the solver state as it found it
+            times[tag, "test"] = device_ms(lambda i: fn(lsm.PHASE_TEST, st, ls, idx, cnt))
+            ls["GQ"].copy_(GQ)
+            # the quadratic pick halves lsf's step and appends to the half
+            # list: a fresh copy of both a call (its picks write the same
+            # values each time)
+            copies = iter([dict(ls, lsf=ls["lsf"].clone(), counts=c, nfail=c[0:1],
+                                nhalf=c[1:2].zero_(), half=ls["half"].clone())
+                           for c in (ls["counts"].clone() for _ in range(41))])
+            times[tag, "half"] = device_ms(lambda i: fn(lsm.PHASE_HALF, st, next(copies)))
+            del copies
+            fn(lsm.PHASE_HALF, st, ls)
+            ls["GH"].copy_(GH)
+            times[tag, "pick"] = device_ms(lambda i: fn(lsm.PHASE_PICK, st, ls))
+        for step in ("test", "half", "pick"):
+            bms, by = bound_ms(nbytes[step], 0, "f32")
+            ms, pms = times["kernel", step], times["plain", step]
+            log(f"kernel line_search scale{s} (B={B}, D={D}) {step} step ({n} live, "
+                f"{len(fl)} failed, {len(hl)} halved trials): ms {ms:.4f} plain_ms {pms:.4f} "
+                f"bound_ms {bms:.6f} ({by}) share {bms / ms:.3f}")
+        if s == 0:
+            (stk, lk, _, _), (stp, lp, _, _) = (replay(impls[k], st0, idx, cnt, GQ, GH)
+                                                for k in ("kernel", "plain"))
+            bms, by = bound_ms(nbytes["test"], 0, "f32")
+            rows["line_search"] = {0: dict(
+                max_abs_err=max(float((a - b).abs().max()) for a, b in (
+                    (stk["ZN"], stp["ZN"]), (stk["GN"], stp["GN"]), (lk["ZQ"], lp["ZQ"]),
+                    (lk["ZH"], lp["ZH"]))),
+                ms=times["kernel", "test"], plain_ms=times["plain", "test"], library_ms=None,
+                bound_ms=bms, bound_by=by)}
+    assert not fails, ("phase 18 line_search (scale, case)", fails)
+    return rows
+
+
+@contextlib.contextmanager
+def searching(models=()):
+    """IMNF_LINE_SEARCH=1 for the duration, with the implicit blocks of
+    ``models`` (built before it) taking it from the environment too."""
+    import dataclasses
+
+    from implicit_normalizing_flows_torch.config import kernel_config
+
+    with environ(IMNF_LINE_SEARCH="1"):
+        blocks = [b for m in models for b in m.implicit_blocks()]
+        with patched([(b, "solver_cfg", dataclasses.replace(
+                b.solver_cfg, line_search=kernel_config().line_search)) for b in blocks]):
+            yield
+
+
+
+def search_eval_sample(model, eval_step, x_u8, draws, dev):
+    """Phase 18's eval batch and sampling batch under the search, from the
+    checkpoint: each timed (host clock around synchronised work) with the
+    launch counts over it (every forward-solve kernel and line_search > 0)
+    and the search's tally, a profiled run (idle share; the routes of the
+    solve's kernels and the search's held), and the plain path on the same
+    draws: |d mean bpd| <= 1e-3; the images within SAMPLE_TOL of the plain
+    path's (or of the exactly summed path's where its floor lies above).
+    Returns the two runs' launch counts."""
+    from implicit_normalizing_flows_torch.layers import implicit_block
+    from implicit_normalizing_flows_torch.ops import fused_solve as fs
+
+    solve_routes = ["conv1x1_mid", "conv3x3_in", "conv3x3_out", "broyden_step", "line_search"]
+    runs = {}
+    for label in ("eval batch", "sampling batch"):
+        z = sample_latents(model, 0, dev)
+        run = ((lambda: eval_step(x_u8, draws(0))) if label == "eval batch"
+               else (lambda: model.inverse(z)))
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, tk = tally_of(run)
+        ms = 1e3 * (time.perf_counter() - t0)
+        runs[label] = launch_counts()
+        log(f"phase 18 {label} (line search): {ms:.1f} ms, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {fmt_tally(tk)}; kernels "
+            + json.dumps(runs[label]))
+        assert all(runs[label][n] > 0 for n in list(fs.KERNELS) + ["line_search"]), runs[label]
+        if label == "eval batch":
+            profiled_routes(lambda: profile_batch(model, eval_step, x_u8, draws(0),
+                                                  label="eval batch, line search"),
+                            solve_routes, "eval batch, line search")
+            with patched(plain_versions(False)):
+                mp = eval_step(x_u8, draws(0))
+            dbpd = abs(float(mp["bpd"]) - float(out["bpd"]))
+            log(f"phase 18 eval batch: bpd {float(out['bpd']):.5f}, plain {float(mp['bpd']):.5f}, "
+                f"|d mean bpd| {dbpd:.2e}, nstep {float(out['broyden_nstep']):.2f}, converged "
+                f"{float(out['broyden_converged']):.3f}")
+            assert torch.isfinite(out["bpd_vec"]).all() and 1.0 < float(out["bpd"]) < 8.0
+            assert dbpd <= 1e-3, dbpd
+            continue
+        xk, _ = out
+        assert xk.shape == (BATCH, 3, SIZE, SIZE) and torch.isfinite(xk).all()
+        profiled_routes(lambda: profile_batch(model, lambda *_: model.inverse(z), None, None,
+                                              "solve_inverse", "sampling batch, line search"),
+                        solve_routes, "sampling batch, line search")
+        with torch.no_grad():
+            with patched(plain_versions(False)):
+                xp, _ = model.inverse(z)
+            with patched([(implicit_block, "fused_broyden_solve", exact_solve)]):
+                xe, _ = model.inverse(z)
+        floor = float((xe - xp).abs().max())
+        vs_plain, vs_exact = float((xk - xp).abs().max()), float((xk - xe).abs().max())
+        ref, reading = (("plain", vs_plain) if floor <= SAMPLE_TOL else
+                        ("exactly summed", vs_exact))
+        log(f"phase 18 sampling images, kernels against plain: max|dx| {vs_plain:.3e}; against "
+            f"the exactly summed path {vs_exact:.3e}; floor {floor:.3e}; held against the {ref} "
+            f"path at {SAMPLE_TOL:g}")
+        assert math.isfinite(reading) and reading <= SAMPLE_TOL, (ref, reading)
+    return runs["eval batch"], runs["sampling batch"]
+
+
+def search_tabular(tab):
+    """Phase 18's tabular steps: 3 steps of the POWER recipe from the state
+    phase 13 leaves with the generic solver's search (ops/broyden.py, plain
+    PyTorch around the rank-1 update kernel): host-clock ms, peak memory,
+    the update kernel's launches (> 0), a profiled step (idle share) and one
+    step with the plain update against the kernel's (|d loss| <= 1e-4)."""
+    from implicit_normalizing_flows_torch.ops import broyden as bmod
+    from implicit_normalizing_flows_torch.ops import broyden_update as bu
+
+    model, step, batch, draws, n = tab
+    with searching([model]):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        timed = tabular_steps(step, batch, draws, n, SEARCH_TIMED)
+        launches = launch_counts()
+        log(f"phase 18 tabular steps (line search): ms "
+            f"{', '.join(f'{t:.1f}' for _, t in timed)}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, broyden_update launches "
+            f"{launches['broyden_update']}")
+        assert launches["broyden_update"] > 0, launches
+        n += SEARCH_TIMED
+        profile_train_step(step, batch(n), draws(n))
+        compare_plain_step(step, batch(n + 1), lambda: draws(n + 1),
+                           [(bmod, "broyden_update", bu.broyden_update_plain)], dl_max=1e-4)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3401,6 +3857,7 @@ def main():
     from implicit_normalizing_flows_torch.ops import fused_block as fb
     from implicit_normalizing_flows_torch.ops import fused_solve as fs
     from implicit_normalizing_flows_torch.ops import implicit_grad as ig
+    from implicit_normalizing_flows_torch.ops import line_search as lsm
     from implicit_normalizing_flows_torch.ops.broyden import triage_metrics
     from implicit_normalizing_flows_torch.ops.logdet import Draws
     from implicit_normalizing_flows_torch.training import (adam, linear_warmup,
@@ -3503,21 +3960,34 @@ def main():
     rows.update(check_grad_kernels(cap))
     check_grad_functions(cap)
 
-    def train_path(model, step, estimator, label, merged=False):
-        """5 settle and 5 timed steps with the launch counts over them, a
-        breakdown, a profiled step and the plain comparison; returns the
-        launch counts and the timed steps' median ms."""
+    # phase 18, first part: the line search's whole solves and kernel on the
+    # checkpoint's blocks (phases 2, 17 and 5's inputs), before training
+    # moves the weights
+    t18 = time.perf_counter()
+    rows.update(check_search_kernel(check_search_solves(blocks, inv_blocks, cap)))
+    t18 = time.perf_counter() - t18
+
+    def train_path(model, step, estimator, label, merged=False, n_settle=SETTLE_STEPS,
+                   n_timed=TIMED_STEPS, search=False):
+        """``n_settle`` and ``n_timed`` steps with the launch counts over them, a
+        breakdown, a profiled step and the plain comparison (with
+        ``search``, the line search's route held and its tally printed);
+        returns the launch counts and the timed steps' median ms."""
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        settle = train_steps(step, x_u8, tdraws, 0, SETTLE_STEPS)
-        timed = train_steps(step, x_u8, tdraws, SETTLE_STEPS, TIMED_STEPS)
+        settle = train_steps(step, x_u8, tdraws, 0, n_settle)
+        lsm.reset_tally()
+        timed = train_steps(step, x_u8, tdraws, n_settle, n_timed)
         launches = launch_counts()
         log(f"train path ({label}) kernels " + json.dumps(launches))
+        if search:
+            log(f"train path ({label}) line search over the timed steps: "
+                + fmt_tally(lsm.read_tally()))
         ms = sorted(t for _, t in timed)
         log(f"train steps ({label}): settle bpd {settle[-1][0]['bpd']:.5f}, timed ms "
             f"{', '.join(f'{t:.1f}' for _, t in timed)} (median {ms[len(ms) // 2]:.1f}), "
             f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        n = SETTLE_STEPS + TIMED_STEPS
+        n = n_settle + n_timed
         breakdown_step(step, x_u8, tdraws(n), train_parts(model, step, estimator, merged),
                        "the rest" if estimator else "estimator and the rest")
         # a record holds a launch that ran and never one that did not, so
@@ -3525,7 +3995,8 @@ def main():
         # whose record lost launches is profiled again, up to ROUTE_ATTEMPTS
         profiled_routes(lambda: profile_train_step(step, x_u8, tdraws(n + 1)),
                         [k for k in ROUTES if (estimator or k not in ESTIMATOR_ONLY)
-                         and (merged or k not in MERGED_ONLY)], f"{label} step")
+                         and (merged or k not in MERGED_ONLY)
+                         and (search or k not in SEARCH_ONLY)], f"{label} step")
         compare_plain_step(step, x_u8, lambda: tdraws(n + 2),
                            plain_versions(estimator, merged))
         return launches, ms[len(ms) // 2]
@@ -3548,7 +4019,8 @@ def main():
 
     # phase 10, the main path: training at the users' default --mem-eff False
     launches, split_ms = train_path(model_d, step_d, True, "--mem-eff False")
-    conv_kernels = [n for _, m, _ in kernel_modules() if m not in (bu, fb) for n in m.KERNELS]
+    conv_kernels = [n for _, m, _ in kernel_modules() if m not in (bu, fb, lsm)
+                    for n in m.KERNELS]
     assert all(launches[n] > 0 for n in conv_kernels), launches
     del model_d, step_d
     t_conv = time.perf_counter() - t_start
@@ -3581,14 +4053,57 @@ def main():
     t_merged = time.perf_counter() - t_start - t_conv
 
     # phases 11-13: the tabular POWER recipe on the generic solver
-    tab_launches, tab_eval_launches = tabular_path(dev, rows)
+    tab_launches, tab_eval_launches, tab = tabular_path(dev, rows)
+    t_tab = time.perf_counter() - t_start - t_conv - t_merged
     log(f"phases 1-10 {t_conv:.1f} s, phases 14-16 {t_merged:.1f} s, phases 11-13 "
-        f"{time.perf_counter() - t_start - t_conv - t_merged:.1f} s")
+        f"{t_tab:.1f} s")
+
+    # phase 18, second part: the paths end to end with IMNF_LINE_SEARCH=1,
+    # each against its plain path on the same draws
+    t0 = time.perf_counter()
+    with searching():
+        model_s = build_model(dev)
+        search_eval_launches, search_sample_launches = search_eval_sample(
+            model_s, make_image_eval_step(model_s, imagesize=SIZE), x_u8, draws, dev)
+        model_s = build_model(dev, grad_in_forward=False)
+        optimizer_s = adam(linear_warmup(1e-3, 1000), betas=(0.9, 0.99), grad_clip=1.0)
+        step_s = make_image_train_step(model_s, optimizer_s, ema_decay=0.999,
+                                       n_lipschitz_iters=None, imagesize=SIZE)
+        search_launches, _ = train_path(model_s, step_s, True, "--mem-eff False, line search",
+                                        n_settle=SEARCH_SETTLE, n_timed=SEARCH_TIMED,
+                                        search=True)
+        assert all(search_launches[n] > 0 for n in conv_kernels + ["line_search"]), \
+            search_launches
+        model_s = build_model(dev, grad_in_forward=False)
+        optimizer_s = adam(linear_warmup(1e-3, 1000), betas=(0.9, 0.99), grad_clip=1.0)
+        step_s = make_image_train_step(model_s, optimizer_s, ema_decay=0.999,
+                                       n_lipschitz_iters=None, imagesize=SIZE)
+        with environ(IMNF_FUSED_BLOCK="1"):
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            lsm.reset_tally()
+            train_steps(step_s, x_u8, tdraws, 0, 1)
+            merged_search_launches = launch_counts()
+            log("phase 18 merged step (IMNF_FUSED_BLOCK=1, line search): peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+                f"{fmt_tally(lsm.read_tally())}; kernels " + json.dumps(merged_search_launches))
+            assert all(merged_search_launches[n] > 0
+                       for n in conv_kernels + list(fb.KERNELS) + ["line_search"]), \
+                merged_search_launches
+            profile_train_step(step_s, x_u8, tdraws(1))
+            compare_plain_step(step_s, x_u8, lambda: tdraws(2), plain_versions(True, merged=True))
+        del model_s, step_s, optimizer_s
+    search_tab_launches = search_tabular(tab)
+    del tab
+    t18 += time.perf_counter() - t0
+    log(f"phase 18 {t18:.1f} s (tabular steps' update launches "
+        f"{search_tab_launches['broyden_update']})")
 
     kernels = []
     for lib, mod, tpu in kernel_modules():
         for name in mod.KERNELS:
-            path = tab_launches if mod is bu else merged_launches if mod is fb else launches
+            path = (tab_launches if mod is bu else merged_launches if mod is fb
+                    else search_launches if mod is lsm else launches)
             row = dict(name=name, route="cuda", source=SOURCES[lib], replaces=tpu(name),
                        launches=path[name], **rows[name][0])
             if name in TC_ROUTES:  # mode bf16 on the tensor cores
@@ -3601,7 +4116,11 @@ def main():
                 row["sample_launches"] = sample_launches[name]
             if mod in (fs, ig):
                 row["memeff_true_launches"] = memeff_launches[name]
-            if mod not in (bu, fb):
+            if mod is lsm:  # phase 18's paths, IMNF_LINE_SEARCH=1
+                row.update(eval_launches=search_eval_launches[name],
+                           sample_launches=search_sample_launches[name],
+                           merged_launches=merged_search_launches[name])
+            elif mod not in (bu, fb):
                 row["merged_launches"] = merged_launches[name]
             if mod is bu:
                 row["eval_launches"] = tab_eval_launches[name]

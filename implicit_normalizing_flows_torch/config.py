@@ -58,7 +58,8 @@ class KernelConfig:
     stall_guard: float = 3.0
     # first Broyden direction +g instead of -g.             [IMNF_NEWTON_INIT]
     newton_init: bool = True
-    # Armijo line search (not ported yet: raises).          [IMNF_LINE_SEARCH]
+    # Armijo line search in every Broyden solve (ops/line_search.py;
+    # the generic solver's in ops/broyden.py).            [IMNF_LINE_SEARCH]
     line_search: bool = False
     # print per-block solver diagnostics.                  [IMNF_DEBUG_SOLVER]
     debug_solver: bool = False

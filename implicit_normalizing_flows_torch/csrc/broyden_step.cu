@@ -32,6 +32,9 @@
 // shared memory from pass A instead, as many as left the grid's CTAs
 // resident, was slower at every nstep on an H100: PERF.md row 1d.)
 // Every other value is rounded op by op as _broyden_step_plain rounds it.
+// Under the line search (ops/line_search.py) the step taken is
+// delta_z = ZN - Z (the search may have shortened it; DZ_TAKEN), else UPD;
+// the instantiations without it are those from before the search.
 // Rank 0 of a cluster writes the example's scalar state and appends it;
 // every CTA reads that state before the first cluster barrier, and rank 0
 // writes it after.
@@ -96,22 +99,7 @@ __device__ __forceinline__ float4 scrub4(float4 a) {
   return make_float4(scrub(a.x), scrub(a.y), scrub(a.z), scrub(a.w));
 }
 
-// The cluster's sums of the n values every thread staged into part: each
-// CTA adds its warps' sums, pushes them into every CTA's slots, and after
-// the barrier adds the slots in rank order into red (every CTA the same).
-__device__ __forceinline__ void cluster_reduce(float* part, float* slots, float* red, int n,
-                                               int stride, unsigned rank, unsigned ncta) {
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float s = cta_sum(part, i);
-    for (unsigned to = 0; to < ncta; ++to) push(s, slots, rank, stride, i, to);
-  }
-  cluster_sync();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) red[i] = ranks_sum(slots, ncta, stride, i);
-  __syncthreads();
-}
-
-template <int VPT>
+template <int VPT, bool DZ_TAKEN>
 __global__ void __launch_bounds__(MAX_THREADS) broyden_cluster_kernel(const StepArgs a) {
   // planes a batch: loaded together (their loads in flight at once), and
   // kept in registers for pass B while nk <= KB
@@ -247,7 +235,8 @@ __global__ void __launch_bounds__(MAX_THREADS) broyden_cluster_kernel(const Step
     return;
   }
 
-  // PHASE_STEP: z_new = zn, g_new = gn, delta_z = upd, delta_g = gn - g.
+  // PHASE_STEP: z_new = zn, g_new = gn, delta_z = upd (ZN - Z under the
+  // line search), delta_g = gn - g.
   // Pass A: ||g_new||^2 and the 3 nk contractions <V_k, dg>, <V_k, g_new>,
   // <U_k, dz>.
   float4 dz[VPT], dg[VPT], zn[VPT];
@@ -255,7 +244,10 @@ __global__ void __launch_bounds__(MAX_THREADS) broyden_cluster_kernel(const Step
   for (int m = 0; m < VPT; ++m) {
     const int j = tid + m * T;
     if (j < nv) {
-      dz[m] = ld4(a.UPD + row, j);
+      if constexpr (DZ_TAKEN)
+        dz[m] = sub4(ld4(a.ZN + row, j), ld4(a.Z + row, j));
+      else
+        dz[m] = ld4(a.UPD + row, j);
       dg[m] = sub4(gn[m], ld4(a.G + row, j));
       zn[m] = ld4(a.ZN + row, j);
     }
@@ -367,7 +359,7 @@ __global__ void __launch_bounds__(MAX_THREADS) broyden_cluster_kernel(const Step
   }
 }
 
-template <int VPT>
+template <int VPT, bool DZ_TAKEN>
 cudaError_t launch(const StepArgs& a, int B, int ncta, int threads, cudaStream_t s) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * ncta);
@@ -380,7 +372,7 @@ cudaError_t launch(const StepArgs& a, int B, int ncta, int threads, cudaStream_t
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, broyden_cluster_kernel<VPT>, a);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, broyden_cluster_kernel<VPT, DZ_TAKEN>, a);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -390,14 +382,16 @@ extern "C" {
 
 // Launches on `stream`, does not synchronise, returns the launch's error
 // (0 on success). cluster, slice, threads and vpt: the plan of
-// ops/fused_solve.py broyden_plan.
+// ops/fused_solve.py broyden_plan. dz_taken: the step taken is ZN - Z
+// (the line search's), else UPD.
 int imnf_broyden_step(int phase, const int* idx_in, const int* cnt_in,
                       int* idx_out, int* cnt_out, float* Z, float* G,
                       float* UPD, float* ZN, const float* GN, float* BZ,
                       float* BG, float* U, float* V, int* istate,
                       float* fstate, int B, int D, int K, float eps, int cap,
                       int patience, float rtol, float guard_eps, int newton,
-                      int cluster, int slice, int threads, int vpt, void* stream) {
+                      int dz_taken, int cluster, int slice, int threads, int vpt,
+                      void* stream) {
   if (K > KMAX || cluster < 1 || cluster > MAX_CLUSTER || cluster * slice != D ||
       slice % 4 || threads < 32 || threads > MAX_THREADS || threads % 32 ||
       vpt * threads < slice / 4)
@@ -405,10 +399,18 @@ int imnf_broyden_step(int phase, const int* idx_in, const int* cnt_in,
   const StepArgs a{phase, idx_in, cnt_in, idx_out, cnt_out, Z, G, UPD, ZN, GN, BZ, BG, U, V,
                    istate, fstate, D, K, slice, eps, cap, patience, rtol, guard_eps, newton};
   cudaStream_t s = (cudaStream_t)stream;
+  if (dz_taken) {
+    switch (vpt) {
+      case 1: return (int)launch<1, true>(a, B, cluster, threads, s);
+      case 2: return (int)launch<2, true>(a, B, cluster, threads, s);
+      case 4: return (int)launch<4, true>(a, B, cluster, threads, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (vpt) {
-    case 1: return (int)launch<1>(a, B, cluster, threads, s);
-    case 2: return (int)launch<2>(a, B, cluster, threads, s);
-    case 4: return (int)launch<4>(a, B, cluster, threads, s);
+    case 1: return (int)launch<1, false>(a, B, cluster, threads, s);
+    case 2: return (int)launch<2, false>(a, B, cluster, threads, s);
+    case 4: return (int)launch<4, false>(a, B, cluster, threads, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
 // Fixed-order sums split over a thread-block cluster (Hopper, sm_90a): the
-// reduction helper of broyden_step.cu and tdot.cu.
+// reduction helpers of broyden_step.cu, tdot.cu, chan_sums.cu and
+// line_search.cu.
 //
 // A cluster's CTAs each sum their part of a row, then exchange the CTA sums
 // through distributed shared memory: every CTA pushes its sums into a slot
@@ -85,6 +86,22 @@ __device__ __forceinline__ float ranks_sum(const float* slot, int n, int stride,
   float s = 0.f;
   for (int r = 0; r < n; ++r) s = __fadd_rn(s, slot[r * stride + i]);
   return s;
+}
+
+// The cluster's sums of the n values every thread staged into part (after
+// the first cluster barrier's wait): each CTA adds its warps' sums, pushes
+// them into every CTA's slots (stride values a rank), and after the barrier
+// adds the slots in rank order into red, every CTA the same bits.
+__device__ __forceinline__ void cluster_reduce(float* part, float* slots, float* red, int n,
+                                               int stride, unsigned rank, unsigned ncta) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float s = cta_sum(part, i);
+    for (unsigned to = 0; to < ncta; ++to) push(s, slots, rank, stride, i, to);
+  }
+  cluster_sync();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) red[i] = ranks_sum(slots, ncta, stride, i);
+  __syncthreads();
 }
 
 }  // namespace imnf

@@ -13,9 +13,11 @@ conv stack solve with it; the recipe stack has its fused solve
 The same semantics as the JAX solver: per-example tolerance ``eps *
 sqrt(D)``, per-example freezing (a frozen row keeps its residual bit for
 bit), best-iterate return, the protective break at ``1e6`` times the initial
-objective, the guarded stall window, ``newton_init``. The JAX loop is one
+objective, the guarded stall window, ``newton_init``, and with ``line_search`` the bounded
+two-trial Armijo backtracking (``broyden.py:212-246``). The JAX loop is one
 ``lax.while_loop`` on the device; here it is a host loop that reads
-``active.any()`` once per iteration. ``line_search`` is not ported (raises).
+``active.any()`` once per iteration, and under the search ``fail.any()``
+once more (JAX's ``lax.cond`` on it).
 """
 from __future__ import annotations
 
@@ -49,8 +51,6 @@ def broyden(g, x0, threshold, eps, *, stall_patience=None, stall_rtol=1e-3,
     """Solve ``g(x) = 0`` for a batch of independent (B, D) problems from
     ``x0`` with at most ``threshold`` iterations (``broyden``,
     ``broyden.py:99-337``; the arguments are the JAX function's)."""
-    if line_search:
-        raise NotImplementedError("line_search on the generic Broyden solver is not ported")
     if x0.ndim != 2:
         raise ValueError(f"broyden expects (B, D) input, got {tuple(x0.shape)}")
     B, D = x0.shape
@@ -72,6 +72,9 @@ def broyden(g, x0, threshold, eps, *, stall_patience=None, stall_rtol=1e-3,
         delta_x = torch.where(act, update, 0.0)
         x_new = x + delta_x
         gx_new = torch.where(act, g(x_new), gx)
+        if line_search:
+            x_new, gx_new = _armijo(g, x, gx, delta_x, x_new, gx_new, active)
+            delta_x = torch.where(act, x_new - x, 0.0)
         delta_gx = gx_new - gx
         nstep += 1
         obj = _norm(gx_new)
@@ -95,6 +98,32 @@ def broyden(g, x0, threshold, eps, *, stall_patience=None, stall_rtol=1e-3,
         x, gx, active = x_new, gx_new, next_active
     return BroydenResult(best_x, best_gx, torch.tensor(nstep, dtype=torch.int32, device=dev),
                          best_obj, best_step, prot, best_obj < eps_i, eps_i)
+
+
+C1 = 1e-4  # the Armijo constant (reference scalar_search_armijo, broyden.py:24)
+
+
+def _armijo(g, x, gx, delta_x, x1, g1, active):
+    """The accepted (x_new, gx_new) of one iteration (``broyden.py:
+    212-246``): rows failing ``phi1 <= phi0 (1 - c1)`` try the quadratic
+    step ``sq = clip(phi0 / (2 phi1 + 1e-30), 1e-2, 1)``, then its half,
+    each on the whole batch, and keep the full step where both fail."""
+    act = active[:, None]
+    phi0, phi1 = torch.sum(gx * gx, 1), torch.sum(g1 * g1, 1)
+    fail = active & (phi1 > phi0 * (1.0 - C1))
+    if not bool(fail.any()):
+        return x1, g1
+    sq = torch.clamp(phi0 / (2.0 * phi1 + 1e-30), 1e-2, 1.0)
+    x_q = x + sq[:, None] * delta_x
+    g_q = torch.where(act, g(x_q), gx)
+    ok_q = torch.sum(g_q * g_q, 1) <= phi0 * (1.0 - C1 * sq)
+    sh = sq * 0.5
+    x_h = x + sh[:, None] * delta_x
+    g_h = torch.where(act, g(x_h), gx)
+    ok_h = torch.sum(g_h * g_h, 1) <= phi0 * (1.0 - C1 * sh)
+    take_q, take_h = (fail & ok_q)[:, None], (fail & ~ok_q & ok_h)[:, None]
+    return (torch.where(take_q, x_q, torch.where(take_h, x_h, x1)),
+            torch.where(take_q, g_q, torch.where(take_h, g_h, g1)))
 
 
 @torch.no_grad()

@@ -30,11 +30,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # sources compiled as translation units of their own and linked into a
 # library beside csrc/<name>.cu (conv3x3_in_tc.cuh says why): the 3x3
-# tensor-core forms and the cluster-split reductions broyden_step, tdot and
-# chan_sums
+# tensor-core forms and the cluster-split reductions broyden_step, tdot,
+# chan_sums and line_search
 LINKED = {"estimator": ["conv3x3_in_tc", "conv3x3_out_tc", "tdot"],
           "implicit_grad": ["conv3x3_in_tc", "chan_sums"], "block_forward": ["conv3x3_in_tc"],
-          "fused_solve": ["conv3x3_in_tc", "conv3x3_out_tc", "broyden_step"]}
+          "fused_solve": ["conv3x3_in_tc", "conv3x3_out_tc", "broyden_step", "line_search"]}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

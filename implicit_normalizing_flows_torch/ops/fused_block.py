@@ -40,6 +40,7 @@ import torch
 
 from . import fused_chain as fc
 from . import fused_solve as fs
+from . import line_search as lsm
 from .fused_solve import MODES, _check_cuda, _launch, _mconv, _ptr, _widened, dswish, swish
 from .implicit_grad import _shapes
 
@@ -175,10 +176,10 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 # the block forward
 
-# the whole forward's kernels (the solve's, this module's and the chain's),
-# or their plain versions
-_OPS = {**fs.KERNELS, **KERNELS, **fc.KERNELS}
-_PLAIN_OPS = {**fs._PLAIN, **_PLAIN, **fc._PLAIN}
+# the whole forward's kernels (the solve's with its line search's, this
+# module's and the chain's), or their plain versions
+_OPS = {**fs.KERNELS, **lsm.KERNELS, **KERNELS, **fc.KERNELS}
+_PLAIN_OPS = {**fs._PLAIN, **lsm._PLAIN, **_PLAIN, **fc._PLAIN}
 
 
 def _block_forward(ops, x, data_x, data_z, eps_x, eps_z, signed_coeffs, n_power,

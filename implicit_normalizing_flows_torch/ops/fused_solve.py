@@ -35,7 +35,10 @@ best iterate, tolerance ``eps * sqrt(D)`` on the true D, protective break at
 and the precision ladder (``:725-770``): at each stage start, re-arm the
 still-unconverged, unbroken examples from their best iterate, with
 ``x_embed`` and the residual re-evaluated at the stage precision and the
-secant planes kept. The TPU lane packing (``reps``) and K-packing are tile
+secant planes kept. Under ``line_search`` (``IMNF_LINE_SEARCH=1``) every
+iteration of every stage runs the Armijo search of ``ops/line_search.py``
+(``:610-642``) after its residual, and the secant update takes the step
+taken, ``ZN - Z``. The TPU lane packing (``reps``) and K-packing are tile
 devices, not semantics, and are not ported.
 """
 from __future__ import annotations
@@ -48,7 +51,7 @@ import torch.nn.functional as F
 
 __all__ = ["fused_broyden_solve", "fused_broyden_solve_plain",
            "FusedSolveResult", "conv3x3_in", "conv1x1_mid", "conv3x3_out",
-           "broyden_step", "broyden_plan", "StepPlan", "KERNELS", "launch_counts",
+           "broyden_step", "broyden_plan", "StepPlan", "KERNELS", "solve_ops", "launch_counts",
            "reset_launch_counts",
            "prep_weight", "prep_weights", "prep_conv1x1_mid", "check_mid_product",
            "check_conv3x3_tc", "conv3x3_in_rows", "conv3x3_in_smem", "C3_OUT_ROWS",
@@ -328,7 +331,7 @@ _ARGTYPES = {
                          _F, _P, _P, _I, _P],
     "imnf_broyden_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _I, _I, _I, _F, _I, _I, _F, _F, _I, _I, _I, _I,
-                          _I, _P],
+                          _I, _I, _P],
 }
 
 
@@ -394,7 +397,7 @@ def _conv3x3_in_by(product, inp, idx, count, wp, b1, betas, preact, mode, out):
     if preact:
         h = swish(h, betas[0])
     y = swish(product(h, wp, mode) + b1[None, :, None, None], betas[1])
-    out[:n] = y.reshape(n, -1, H * W)
+    out[:n] = y.flatten(2)
 
 
 def _conv3x3_in_plain(inp, idx, count, wp, b1, betas, preact, mode, out):
@@ -500,7 +503,7 @@ def _conv3x3_out_by(product, t2, idx, count, wp, b3, mode, base, sgn, sub, out, 
     wp = tuple(None if w is None else untile_w1t(w[None], c, mid)[0] if w.dim() == 3 else w
                for w in wp)
     y = product(t2[:n].reshape(n, mid, H, W), wp, mode) + b3[None, :, None, None]
-    o = base.index_select(0, e) + sgn * y.reshape(n, -1)
+    o = base.index_select(0, e) + sgn * y.flatten(1)
     if sub is not None:
         o = o - sub.index_select(0, e)
     out[e] = o
@@ -608,7 +611,7 @@ class _PlainSums:
 
 
 def _broyden_step_by(sums, phase, idx_in, cnt_in, idx_out, cnt_out, st, *, eps,
-                     cap, patience, rtol, guard_eps, newton):
+                     cap, patience, rtol, guard_eps, newton, line_search=False):
     """``broyden_step``'s function with ``sums`` (:class:`_PlainSums`'
     methods) for its sums; every other operation as the plain version
     rounds it."""
@@ -648,7 +651,8 @@ def _broyden_step_by(sums, phase, idx_in, cnt_in, idx_out, cnt_out, st, *, eps,
         fst[e, 1] = obj
         nstep = nk
     else:
-        zn, dz, dg = ZN[e], UPD[e], gn - G[e]
+        zn, dg = ZN[e], gn - G[e]
+        dz = zn - Z[e] if line_search else UPD[e]  # the step taken
         nstep = nk + 1
         best_obj, best_snap, init_obj = fst[e].unbind(1)
         improved = obj < best_obj
@@ -693,18 +697,20 @@ def _broyden_step_plain(phase, idx_in, cnt_in, idx_out, cnt_out, st, **kw):
 
 
 def broyden_step(phase, idx_in, cnt_in, idx_out, cnt_out, st, *, eps, cap,
-                 patience, rtol, guard_eps, newton):
+                 patience, rtol, guard_eps, newton, line_search=False):
     """One Broyden iteration (``phase`` PHASE_STEP), the initialisation
     (PHASE_INIT) or a ladder re-arm (PHASE_REARM) for every live example
     of ``idx_in``; the still-active examples are written to ``idx_out`` /
-    ``cnt_out``. ``st`` holds the solver state (see :func:`_solve`). On the
-    card each live example runs on a thread-block cluster
+    ``cnt_out``. ``st`` holds the solver state (see :func:`_solve`). With
+    ``line_search`` the secant update takes the step actually taken,
+    ``ZN - Z`` (``ops.line_search`` may have shortened it), else ``UPD``.
+    On the card each live example runs on a thread-block cluster
     (:func:`broyden_plan`)."""
     if not st["Z"].is_cuda:
         return _broyden_step_plain(phase, idx_in, cnt_in, idx_out, cnt_out, st,
                                    eps=eps, cap=cap, patience=patience,
                                    rtol=rtol, guard_eps=guard_eps,
-                                   newton=newton)
+                                   newton=newton, line_search=line_search)
     B, K, D = st["U"].shape
     plan = broyden_plan(D, K)
     _check_cuda(idx_in=idx_in, cnt_in=cnt_in, idx_out=idx_out, cnt_out=cnt_out,
@@ -716,7 +722,7 @@ def broyden_step(phase, idx_in, cnt_in, idx_out, cnt_out, st, *, eps, cap,
             *(_ptr(st[k]) for k in ("Z", "G", "UPD", "ZN", "GN", "BZ", "BG",
                                     "U", "V", "ist", "fst")),
             B, D, K, eps, cap, patience, rtol, guard_eps, int(newton),
-            *plan)
+            int(line_search), *plan)
     broyden_step.launches += 1
 
 
@@ -728,6 +734,14 @@ for _fn in KERNELS.values():
     _fn.launches = 0
 conv1x1_mid.tc_launches = 0  # their launches on the tensor cores (split modes)
 conv3x3_in.tc_launches = conv3x3_out.tc_launches = 0
+
+
+def solve_ops(plain=False) -> dict:
+    """The solve's kernels (or, with ``plain``, their plain versions) with
+    the line search's (``ops/line_search.py``, which imports this module)."""
+    from . import line_search as lsm
+
+    return {**_PLAIN, **lsm._PLAIN} if plain else {**KERNELS, **lsm.KERNELS}
 
 
 def launch_counts() -> dict:
@@ -752,9 +766,12 @@ def _solve(x, data_x, data_z, ops, *, threshold, eps, stall_patience,
     at x and one more evaluation of net z at the best iterate, in the
     phase-1 mode, run ``ops``' ``lin_conv3x3_in`` / ``lin_conv1x1_mid``, and
     ``lin`` is ``{'x' | 'z': (s0 (B, c*H*W), s1, s2 (B, mid, H*W))}``, the
-    float32 swish derivatives (s0 ones without preact); else lin is None."""
-    if line_search:
-        raise NotImplementedError("line_search is not ported to the fused solve yet")
+    float32 swish derivatives (s0 ones without preact); else lin is None.
+    With ``line_search`` every iteration of every stage runs the Armijo
+    search (``ops.line_search``) on ``ops["line_search"]``, its trial
+    residuals through ``net`` in the stage's mode."""
+    from .line_search import PHASE_HALF, PHASE_PICK, PHASE_TEST, line_search_buffers
+
     if mode not in MODES:
         raise ValueError(f"unknown precision mode {mode!r}; valid: {sorted(MODES)}")
     B, c, H, W = x.shape
@@ -793,6 +810,7 @@ def _solve(x, data_x, data_z, ops, *, threshold, eps, stall_patience,
     T1, T2 = zeros(B, mid, HW), zeros(B, mid, HW)
     lists = [zeros(B, dt=torch.int32), zeros(B, dt=torch.int32)]
     counts = [zeros(1, dt=torch.int32), zeros(1, dt=torch.int32)]
+    ls = line_search_buffers(B, D, dev) if line_search else None
 
     lin = None
     if linearise:
@@ -826,14 +844,26 @@ def _solve(x, data_x, data_z, ops, *, threshold, eps, stall_patience,
         ops["broyden_step"](phase, lists[0], counts[0], lists[1], counts[1], st,
                             eps=eps_f, cap=cap, patience=patience,
                             rtol=float(stall_rtol), guard_eps=guard_eps,
-                            newton=bool(newton_init))
+                            newton=bool(newton_init), line_search=bool(line_search))
         lists.reverse()
         counts.reverse()
         return int(counts[0].item())  # the one host read per iteration
 
+    def search(m):
+        """The Armijo search after GN = g(ZN): the test, the quadratic
+        trial's residual on the fail list, its pick, the halved trial's on
+        the half list and its pick (``ops.line_search``; no host read)."""
+        ops["line_search"](PHASE_TEST, st, ls, lists[0], counts[0])
+        net("z", m, ls["ZQ"], ls["fail"], ls["nfail"], XE, -1.0, ls["ZQ"], ls["GQ"])
+        ops["line_search"](PHASE_HALF, st, ls)
+        net("z", m, ls["ZH"], ls["half"], ls["nhalf"], XE, -1.0, ls["ZH"], ls["GH"])
+        ops["line_search"](PHASE_PICK, st, ls)
+
     def run(m, cap, n):
         while n > 0:
             net("z", m, st["ZN"], lists[0], counts[0], XE, -1.0, st["ZN"], st["GN"])
+            if line_search:
+                search(m)
             n = step(PHASE_STEP, cap)
 
     stage_modes = (mode,) + tuple(modes)
@@ -876,8 +906,9 @@ def fused_broyden_solve(x, data_x, data_z, *, threshold, eps, stall_patience,
     dicts of the embedding net (evaluated at x) and the solved net.
     mode: phase-1 precision 'f32' | 'tf32' | 'tf32x' | 'bf16';
     tail_mode / tail_start: the precision ladder (:func:`norm_ladder`).
+    line_search: the Armijo search (``ops.line_search``) every iteration.
     CUDA tensors run the kernels, CPU tensors their plain versions."""
-    return _solve(x, data_x, data_z, KERNELS, threshold=threshold, eps=eps,
+    return _solve(x, data_x, data_z, solve_ops(), threshold=threshold, eps=eps,
                   stall_patience=stall_patience, stall_rtol=stall_rtol,
                   stall_guard=stall_guard, newton_init=newton_init,
                   warm_start=warm_start, mode=mode, tail_mode=tail_mode,
@@ -894,4 +925,4 @@ def fused_broyden_solve_plain(x, data_x, data_z, **kwargs) -> FusedSolveResult:
     kwargs.setdefault("tail_mode", None)
     kwargs.setdefault("tail_start", None)
     kwargs.setdefault("line_search", False)
-    return _solve(x, data_x, data_z, _PLAIN, **kwargs)[0]
+    return _solve(x, data_x, data_z, solve_ops(plain=True), **kwargs)[0]

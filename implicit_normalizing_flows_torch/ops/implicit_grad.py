@@ -24,7 +24,10 @@ kernel's ``EPI_AFFINE``, W1 and W3^T cast the same way), ``rv_wgrad``
   ``u + J^T u - grad`` for the live examples, and the forward solve's
   ``broyden_step`` does the secant algebra. Zero init, Newton first step,
   best iterate returned, the forward solve's protective break and stall
-  exit, no precision ladder (``fused_solve.py:893-1000``).
+  exit, no precision ladder (``fused_solve.py:893-1000``); under
+  ``line_search`` the Armijo search of ``ops.line_search`` after each
+  residual, its trial residuals through the same three kernels on the
+  search's lists.
 * re-attachment VJP of ``(x, data_x, data_z) -> x + g_x(x) - g_z(z_hat)``
   with cotangent ``u``: per net ``rv_conv3x3_in`` / ``rv_conv1x1_mid``
   recompute the pre-activations and run the cotangent products,
@@ -49,6 +52,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from . import line_search as lsm
 from .fused_solve import (C3_OUT_ROWS, MODES, PHASE_INIT, PHASE_STEP, TC_KMAX,
                           _broyden_step_plain, _check_aligned, _check_cuda, _launch, _mconv,
                           _ptr, _split, _wide, _widened, broyden_step, check_conv3x3_tc,
@@ -209,7 +213,7 @@ def _jt_conv3x3_in_by(product, u, idx, count, wp, s2, mode, out):
     e = idx[:n].long()
     mid = wp[0].shape[0]
     y = product(u.index_select(0, e), _widened(wp), mode)
-    out[:n] = _scaled(y, s2.index_select(0, e)).reshape(n, mid, -1)
+    out[:n] = _scaled(y, s2.index_select(0, e)).flatten(2)
 
 
 def _jt_conv3x3_in_plain(u, idx, count, wp, s2, mode, out):
@@ -266,7 +270,7 @@ def _jt_conv3x3_out_plain(t, idx, count, wp, s0, mode, base, sub, out, H, W):
     n = int(count.item())
     e = idx[:n].long()
     mid = t.shape[1]
-    y = _mconv(t[:n].reshape(n, mid, H, W), wp, mode, 1).reshape(n, -1)
+    y = _mconv(t[:n].reshape(n, mid, H, W), wp, mode, 1).flatten(1)
     out[e] = base.index_select(0, e) + y * s0.index_select(0, e) - sub.index_select(0, e)
 
 
@@ -639,7 +643,7 @@ _PLAIN = {"jt_conv3x3_in": _jt_conv3x3_in_plain,
           "rv_conv3x3_out": _rv_conv3x3_out_plain,
           "rv_wgrad": _rv_wgrad_plain, "rv_wgrad_reduce": _rv_wgrad_reduce_plain,
           "rv_chan_sums": _rv_chan_sums_plain,
-          "broyden_step": _broyden_step_plain}
+          "broyden_step": _broyden_step_plain, **lsm._PLAIN}
 for _fn in KERNELS.values():
     _fn.launches = 0
 
@@ -659,8 +663,6 @@ def reset_launch_counts() -> None:
 def _backward_solve(grad, chain_data, ops, *, threshold, eps, stall_patience,
                     stall_rtol, stall_guard=None, newton_init=False, mode="bf16",
                     line_search=False):
-    if line_search:
-        raise NotImplementedError("line_search is not ported to the backward solve yet")
     _mode(mode, BWD_MODES)
     B, c, H, W = grad.shape
     HW, D, K = H * W, c * H * W, int(threshold)
@@ -692,18 +694,28 @@ def _backward_solve(grad, chain_data, ops, *, threshold, eps, stall_patience,
     lists = [torch.arange(B, dtype=torch.int32, device=dev), zeros(B, dt=torch.int32)]
     counts = [torch.full((1,), B, dtype=torch.int32, device=dev),
               zeros(1, dt=torch.int32)]
+    ls = lsm.line_search_buffers(B, D, dev) if line_search else None
 
-    def resid():  # GN[e] = ZN[e] + J^T ZN[e] - grad[e] for the live examples
-        idx, cnt = lists[0], counts[0]
-        ops["jt_conv3x3_in"](st["ZN"].view(B, c, H, W), idx, cnt, wp3, S2, mode, T2)
+    def resid(z=st["ZN"], out=st["GN"], idx=None, cnt=None):
+        """out[e] = z[e] + J^T z[e] - grad[e] for the examples of the list
+        (default: the live ones)."""
+        idx, cnt = (lists[0], counts[0]) if idx is None else (idx, cnt)
+        ops["jt_conv3x3_in"](z.view(B, c, H, W), idx, cnt, wp3, S2, mode, T2)
         ops["jt_conv1x1_mid"](T2, idx, cnt, wp2, S1, mode, T1, H, W)
-        ops["jt_conv3x3_out"](T1, idx, cnt, wp1, S0, mode, st["ZN"], G, st["GN"], H, W)
+        ops["jt_conv3x3_out"](T1, idx, cnt, wp1, S0, mode, z, G, out, H, W)
+
+    def search():  # the Armijo search after GN = g(ZN) (ops.line_search; no host read)
+        ops["line_search"](lsm.PHASE_TEST, st, ls, lists[0], counts[0])
+        resid(ls["ZQ"], ls["GQ"], ls["fail"], ls["nfail"])
+        ops["line_search"](lsm.PHASE_HALF, st, ls)
+        resid(ls["ZH"], ls["GH"], ls["half"], ls["nhalf"])
+        ops["line_search"](lsm.PHASE_PICK, st, ls)
 
     def step(phase):
         ops["broyden_step"](phase, lists[0], counts[0], lists[1], counts[1], st,
                             eps=eps_f, cap=K, patience=patience,
                             rtol=float(stall_rtol), guard_eps=guard_eps,
-                            newton=bool(newton_init))
+                            newton=bool(newton_init), line_search=bool(line_search))
         lists.reverse()
         counts.reverse()
         return int(counts[0].item())  # the one host read per iteration
@@ -712,13 +724,15 @@ def _backward_solve(grad, chain_data, ops, *, threshold, eps, stall_patience,
     n = step(PHASE_INIT)
     while n > 0:
         resid()
+        if line_search:
+            search()
         n = step(PHASE_STEP)
     return BackwardSolveResult(
         u=st["BZ"].reshape(B, c, H, W), nstep=st["ist"][:, 0].clone(),
         diff=st["fst"][:, 0].clone(), prot_break=st["ist"][:, 2] > 0)
 
 
-_SOLVE_OPS = {**KERNELS, "broyden_step": broyden_step}
+_SOLVE_OPS = {**KERNELS, "broyden_step": broyden_step, **lsm.KERNELS}
 
 
 def fused_backward_solve(grad, chain_data, **kwargs) -> BackwardSolveResult:
@@ -728,7 +742,8 @@ def fused_backward_solve(grad, chain_data, **kwargs) -> BackwardSolveResult:
     re-attached z), in the caller's precision cast. Keywords: threshold,
     eps, stall_patience, stall_rtol, stall_guard (None), newton_init
     (False), mode 'bf16' | 'f32' (rounds the J^T products' operands; the
-    solver state stays float32), line_search (False; True raises). CUDA
+    solver state stays float32), line_search (False: the Armijo search of
+    ``ops.line_search`` after each residual). CUDA
     tensors run the kernels, CPU tensors their plain versions."""
     return _backward_solve(grad, chain_data, _SOLVE_OPS, **kwargs)
 

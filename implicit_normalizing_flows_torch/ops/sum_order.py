@@ -1,5 +1,5 @@
-"""Plain versions of twenty kernels with their products or sums summed
-exactly, and seventeen with them summed in their kernels' order.
+"""Plain versions of twenty-one kernels with their products or sums summed
+exactly, and eighteen with them summed in their kernels' order.
 
 Each ``*_exact`` function here is a kernel's plain version with its rounded
 (bf16, or split) product summed in float64 and rounded once to float32: the
@@ -49,6 +49,9 @@ a floor fails every kernel that does not sum in the plain version's order.
   example's products, rounded as there, summed in float64).
 * :func:`rv_chan_sums_exact`: ``ops.implicit_grad._rv_chan_sums_plain``
   (each channel's terms, rounded as there, summed in float64).
+* :func:`line_search_exact`: ``ops.line_search._line_search_plain`` (each
+  sum of squares in float64, rounded once; every other operation as
+  there).
 
 :func:`fp_conv_in_exact` also stands in for its kernel on the CPU: the
 final pair's c -> mid kernel (``csrc/conv3x3_in_tc.cuh``,
@@ -91,10 +94,10 @@ sums added before the bias):
   ``EPI_AFFINE``, which the final pair does not take (its float64 form
   does); phase 9 of ``chip_smoke.py`` reads the pair with it.
 
-The three reductions split over a thread-block cluster
+The four reductions split over a thread-block cluster
 (``csrc/cluster_reduce.cuh``) sum as :func:`_cluster_tree` says:
-:func:`broyden_step_tiled`, :func:`fp_tdot_tiled` and
-:func:`rv_chan_sums_tiled`.
+:func:`broyden_step_tiled`, :func:`fp_tdot_tiled`,
+:func:`rv_chan_sums_tiled` and :func:`line_search_tiled`.
 
 They run on whatever device their tensors lie on.
 """
@@ -108,6 +111,7 @@ from .fused_solve import (SPLIT_MODES, _broyden_step_by, _conv1x1_mid_plain, _co
                           _conv3x3_in_plain, _conv3x3_out_by, _conv3x3_out_plain, _split,
                           _widened, broyden_plan, dswish, swish)
 from .implicit_grad import CS_THREADS, _chan_sums_vec, _rv_chan_sums_by, chan_sums_plan
+from .line_search import _line_search_by
 
 __all__ = ["jt_conv1x1_mid_exact", "rv_wgrad_exact", "rv_conv3x3_out_exact",
            "fp_conv_mid_exact", "fp_conv_mid_tiled", "conv1x1_mid_exact",
@@ -120,8 +124,8 @@ __all__ = ["jt_conv1x1_mid_exact", "rv_wgrad_exact", "rv_conv3x3_out_exact",
            "jt_conv3x3_in_tiled", "fp_conv_in_exact", "fp_conv_in_tiled",
            "rv_conv3x3_in_exact", "rv_conv3x3_in_tiled", "conv3x3_out_exact",
            "conv3x3_out_tiled", "broyden_step_exact", "broyden_step_tiled", "fp_tdot_exact",
-           "fp_tdot_tiled", "rv_chan_sums_exact", "rv_chan_sums_tiled", "TC_BK", "C3_MC",
-           "C3I_BK"]
+           "fp_tdot_tiled", "rv_chan_sums_exact", "rv_chan_sums_tiled", "line_search_exact",
+           "line_search_tiled", "TC_BK", "C3_MC", "C3I_BK"]
 
 TC_BK = 64  # the K tile of the tensor-core 1x1 product (csrc/mma_gemm.cuh)
 C3_MC = 64  # the mid channels of a chunk of the tensor-core 3x3 product (csrc/conv3x3_out_tc.cuh)
@@ -187,7 +191,7 @@ def _jt_conv3x3_out_by(product, t, idx, count, wp, s0, mode, base, sub, out, H, 
     n = int(count.item())
     e = idx[:n].long()
     mid = t.shape[1]
-    y = product(t[:n].reshape(n, mid, H, W), wp, mode).reshape(n, -1)
+    y = product(t[:n].reshape(n, mid, H, W), wp, mode).flatten(1)
     out[e] = base.index_select(0, e) + y * s0.index_select(0, e) - sub.index_select(0, e)
 
 
@@ -710,3 +714,17 @@ def rv_chan_sums_tiled(t, h, beta, alpha, base, sums, dbeta, out):
     vpt = -(-plan.chunk // plan.vec // CS_THREADS)
     _rv_chan_sums_by(lambda p: _cluster_tree(p, plan.cluster, CS_THREADS, vpt, plan.vec), t, h,
                      beta, alpha, base, sums, dbeta, out)
+
+
+def line_search_exact(phase, st, ls, idx=None, cnt=None):
+    """``_line_search_plain`` with each sum of squares in float64, rounded
+    once."""
+    _line_search_by(lambda v: (v.double() * v.double()).sum(1).to(v.dtype), phase, st, ls, idx,
+                    cnt)
+
+
+def line_search_tiled(phase, st, ls, idx=None, cnt=None):
+    """``_line_search_plain`` with each sum of squares in the cluster
+    kernel's order (``csrc/line_search.cu``: :func:`_cluster_tree` on the
+    plan of :func:`~.fused_solve.broyden_plan`, as broyden_step's)."""
+    _line_search_by(lambda v: _TiledSums._tree(v * v), phase, st, ls, idx, cnt)

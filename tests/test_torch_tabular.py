@@ -18,7 +18,8 @@ replaced by fixed numpy arrays that the port's ``Draws`` replays.
 (b) float32 training (``IMNF_BWD_PRECISION=f32``): loss within rtol 1e-5,
     every gradient within rtol 5e-4 / atol 1e-5, and after 3 full steps
     (clip, Adam at warmup, adaptive power iteration, EMA) the parameters,
-    the u / v / sigma buffers and the EMA within atol 1e-5;
+    the u / v / sigma buffers and the EMA within atol 1e-5; at D 6 also
+    with the Armijo line search (``IMNF_LINE_SEARCH=1``);
 (c) the bf16 backward solve (the default): loss within 1e-3 relative and
     every gradient's cosine with JAX's >= 0.999;
 (d) the dense power iteration's u, v and sigma, of one layer and of a
@@ -167,7 +168,20 @@ def test_eval_matches_jax(monkeypatch, setup):
 
 
 def test_train_step_f32_matches_jax(monkeypatch, setup):
-    jmodel, params, state, x, draws = setup
+    check_train_step_f32(monkeypatch, *setup)
+
+
+def test_train_step_f32_line_search_matches_jax(monkeypatch, setup6):
+    """(b) with ``IMNF_LINE_SEARCH=1``: the generic solver's Armijo search
+    in every forward and backward solve (the backward's first step, +g,
+    fails the test), both models built under it."""
+    monkeypatch.setenv("IMNF_LINE_SEARCH", "1")
+    _, params, state, x, draws = setup6
+    check_train_step_f32(monkeypatch, jbuild(6, eps_forward=1e-5, **SMALL), params, state, x,
+                         draws)
+
+
+def check_train_step_f32(monkeypatch, jmodel, params, state, x, draws):
     D = x.shape[1]
     monkeypatch.setenv("IMNF_BWD_PRECISION", "f32")
     inject_jax_draws(monkeypatch, draws)
@@ -294,5 +308,3 @@ def test_unported_options_raise(monkeypatch, setup6):
     step_raises("neumann_grad=True", neumann_grad=True)
     step_raises("grad_in_forward", grad_in_forward=True)
     step_raises("brute-force", brute_force=True)
-    monkeypatch.setenv("IMNF_LINE_SEARCH", "1")
-    step_raises("line_search")
