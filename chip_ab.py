@@ -5,6 +5,7 @@
     python3 chip_ab.py step      # the main path's step and the eval batch
     python3 chip_ab.py sass DIR  # each kernel's SASS against the tree in DIR
     python3 chip_ab.py slopes    # the swish slopes' gradients by precision
+    python3 chip_ab.py update    # row 8a (broyden_update) alone
 
 Run from the root of a checkout; it drives the port and the chip_smoke.py
 found there. To read another commit (a parent) with this commit's checks,
@@ -77,7 +78,7 @@ kernel times, run ``kernels`` in both trees in one call, in turns.
   beside one ``u.sum(dim=(0, 2))``; T0 at M = c with h, base and out), by
   its device time beside its bound, and where the tree has the plan's
   CS_CLUSTERS each form also on each cluster size (1 to 16 CTAs a
-  channel), forced. A tree
+  channel), forced; then broyden_update as ``update`` times it. A tree
   from before conv1x1_mid /
   rv_conv1x1_mid / lin_conv1x1_mid / nc_jt_in / lin_conv3x3_in / conv3x3_in
   / nc_jt_out_acc / fp_conv_out / jt_conv3x3_in / fp_conv_in /
@@ -85,6 +86,20 @@ kernel times, run ``kernels`` in both trees in one call, in turns.
   float32 ones
   (and rv_conv1x1_mid and rv_conv3x3_in their slopes as floats;
   fp_conv_out both nets' kernels twice for its four nets).
+* ``update``: broyden_update (row 8a) alone: its build report; the
+  kernel against its plain version at chip_smoke.py's UPDATE_TOL and,
+  where the tree has it, against the model of its order of sums
+  (ops/sum_order.py broyden_update_tiled), at every shape of UPDATE_SWEEP
+  (each form, float4 and scalar loads, ragged slices, several reduction
+  rounds, past the registers); its device time (the profiler's) at
+  UPDATE_SHAPES (B 64, D 3072 and 1024 at columns 0, 1, 10 and 29; B 1000,
+  D 6 at column 3) beside the plain version's and its bound, and at the
+  image widths on each cluster size, forced, where the tree has CLUSTERS;
+  then the generic solver (ops/broyden.py) on a seeded contraction with
+  the kernel and with the plain version forced: nstep, the examples
+  converged, the best steps summed. It reads a tree from before the
+  plane-major panels (the parent's) in that tree's layout: to time both in
+  turns, copy this file alone over the parent.
 * ``sass DIR``: every ``csrc/*.cu`` of this tree and of the tree in DIR
   (a parent, unpacked) compiled for sm_90a with the flags of
   ``ops/cuda_build.py``, one nvcc each, all started together; for each
@@ -511,6 +526,151 @@ def reductions(times, errs, r):
         errs[name] = float((out - ref).abs().max() / ref.abs().max())
         del rr, hh, tt
     chan_sums(times, errs, r)
+    update_times(times, errs)
+
+
+# broyden_update's timed shapes: (B, D, K, columns); the image widths first
+UPDATE_SHAPES = ((64, 3072, 30, (0, 1, 10, 29)), (64, 1024, 30, (0, 1, 10, 29)),
+                 (1000, 6, 30, (3,)))
+# the correctness sweep's (B, D, K, columns): every form, the float4 and
+# scalar loads, ragged slices, several reduction rounds, the stream kernel
+# (B >= 6: the inputs' inactive rows 1 and 5)
+UPDATE_SWEEP = ((1000, 6, 30, (0, 3, 29)), (1000, 6, 4, (3,)), (4000, 6, 30, (3,)),
+                (1000, 8, 30, (5,)), (1000, 21, 30, (5,)), (1000, 43, 30, (5,)),
+                (1000, 63, 30, (0, 9, 29)), (7, 1, 30, (1,)), (7, 2, 30, (1,)),
+                (7, 100, 30, (10,)), (7, 128, 30, (10,)), (64, 129, 30, (10,)),
+                (64, 784, 30, (10,)), (64, 1027, 30, (0, 10)), (64, 1024, 30, (0, 1, 10, 29)),
+                (64, 3072, 30, (0, 1, 8, 9, 10, 29)), (8, 3072, 140, (64, 65, 139)),
+                (8, 12288, 30, (10,)), (6, 32768, 30, (10,)), (6, 32772, 30, (0, 10)),
+                (6, 40000, 140, (70,)), (6, 65539, 8, (3,)))
+
+
+def update_inputs(B, D, K, col, seed):
+    """chip_smoke.py's synthetic broyden_update inputs (solver-scale planes
+    in the tree's layout, planes >= col zero, two inactive rows, a zero
+    denominator)."""
+    import chip_smoke as cs
+
+    return cs.synthetic_update_inputs(B, D, K, col, torch.device("cuda"), seed)
+
+
+def update_times(times, errs):
+    """Device time (chip_smoke.py's device_ms, the profiler's) of
+    broyden_update at UPDATE_SHAPES on seeded inputs, beside its plain
+    version's and its bound, into ``times``, and its error against the
+    plain version into ``errs``; where the tree has the cluster form's
+    CLUSTERS, the image widths also on each cluster size, forced."""
+    import chip_smoke as cs
+    from implicit_normalizing_flows_torch.ops import broyden_update as bu
+
+    def timed(name, inputs, col, reps=20):
+        UTs, VTs, dx, dgx, gx, act = inputs
+        uk, vk, up, vp = UTs.clone(), VTs.clone(), UTs.clone(), VTs.clone()
+        times[name] = cs.device_ms(lambda i: bu.broyden_update(uk, vk, dx, dgx, gx, act, col),
+                                   reps)
+        return uk, vk, up, vp
+
+    for B, D, K, cols in UPDATE_SHAPES:
+        for col in cols:
+            inputs = update_inputs(B, D, K, col, col)
+            name = f"broyden_update B {B} D {D} col {col}, c {D}"
+            uk, vk, up, vp = timed(name, inputs, col)
+            dx, dgx, gx, act = inputs[2:]
+            times[f"plain of {name}"] = cs.device_ms(
+                lambda i: bu.broyden_update_plain(up, vp, dx, dgx, gx, act, col), 20)
+            times[f"bound of {name}"] = cs.bound_ms(4 * B * D * (2 * col + 6) + B,
+                                                    6 * B * D * max(col, 1), "f32")[0]
+            dk = bu.broyden_update(uk, vk, dx, dgx, gx, act, col)
+            dp = bu.broyden_update_plain(up, vp, dx, dgx, gx, act, col)
+            torch.cuda.synchronize()
+            errs[name] = max(cs.rel_max(a, b) for a, b in ((uk, up), (vk, vp), (dk, dp)))
+            if hasattr(bu, "CLUSTERS") and D > bu.WARP_MAX_D:  # every cluster size, forced
+                keep = bu.CLUSTERS
+                try:
+                    for k in keep:
+                        bu.CLUSTERS = (k,)
+                        timed(f"{name} on {bu.update_plan(D)}", inputs, col)
+                finally:
+                    bu.CLUSTERS = keep
+            del inputs, uk, vk, up, vp
+
+
+def update_solves(dev):
+    """The generic solver (ops/broyden.py) with the kernel and with its
+    plain version forced, on a seeded contraction g(x) = x - 0.3 tanh(x W)
+    - c (W of spectral norm about 2) from x = 0, threshold 30, eps 1e-6:
+    nstep, the examples converged, the sum of the best steps and the mean
+    best objective, at B 64 / D 3072, B 64 / D 1024 and B 1000 / D 6."""
+    import chip_smoke as cs
+    from implicit_normalizing_flows_torch.ops import broyden as bmod
+    from implicit_normalizing_flows_torch.ops import broyden_update as bu
+
+    for B, D in ((64, 3072), (64, 1024), (1000, 6)):
+        gen = torch.Generator(device=dev).manual_seed(D)
+        W = torch.randn(D, D, generator=gen, device=dev) / D ** 0.5
+        c = torch.randn(B, D, generator=gen, device=dev)
+        g = lambda x: x - 0.3 * torch.tanh(x @ W) - c
+        for label, fn in (("kernel", bu.broyden_update), ("plain", bu.broyden_update_plain)):
+            with cs.patched([(bmod, "broyden_update", fn)]):
+                r = bmod.broyden(g, torch.zeros(B, D, device=dev), 30, 1e-6)
+            print(f"generic solve B {B} D {D} ({label}): nstep {int(r.nstep)}, converged "
+                  f"{int(r.converged.sum())} of {B}, best steps summed "
+                  f"{int(r.best_step.sum())}, mean best objective {float(r.diff.mean()):.6e}, "
+                  f"prot {int(r.prot_break.sum())}", flush=True)
+
+
+def update():
+    """Row 8a alone: its build report, the correctness sweep (UPDATE_SWEEP:
+    the kernel against its plain version at chip_smoke.py's UPDATE_TOL and,
+    where the tree has it, against the model of its order of sums), the
+    device times of update_times and the generic solves of
+    update_solves."""
+    import chip_smoke as cs
+    from implicit_normalizing_flows_torch.ops import broyden_update as bu
+    from implicit_normalizing_flows_torch.ops import cuda_build
+    from implicit_normalizing_flows_torch.ops import sum_order as so
+
+    dev = torch.device("cuda")
+    cuda_build.build("broyden_update", report=True)
+    tiled = getattr(so, "broyden_update_tiled", None)
+    failed = 0
+    for B, D, K, cols in UPDATE_SWEEP:
+        for col in cols:
+            UTs, VTs, dx, dgx, gx, act = update_inputs(B, D, K, col, 1000 + col)
+            args = (dx, dgx, gx, act, col)
+            outs = {}
+            for name, fn in (("kernel", bu.broyden_update), ("plain", bu.broyden_update_plain),
+                             ("tiled", tiled)):
+                if fn is not None:
+                    u, v = UTs.clone(), VTs.clone()
+                    outs[name] = (u, v, fn(u, v, *args))
+            if D % 4 == 0:  # the scalar loads: the vectors one float off 16 bytes
+                u, v, x = (torch.empty(t.numel() + 1, device=dev)[1:].view_as(t).copy_(t)
+                           for t in (UTs, VTs, dx))
+                outs["kernel, rows off 16 bytes"] = (u, v, bu.broyden_update(u, v, x, *args[1:]))
+            torch.cuda.synchronize()
+            errs = {k: max(cs.rel_max(a, b) for a, b in zip(o, outs["plain"]))
+                    for k, o in outs.items() if k != "plain"}
+            ok = all(e <= cs.UPDATE_TOL for k, e in errs.items() if k != "tiled")
+            model = ""
+            if "tiled" in outs:
+                model = ", kernel against its order's model max|d| " + " ".join(
+                    f"{float((a - b).abs().max()):.1e}" for a, b in zip(outs["kernel"],
+                                                                        outs["tiled"]))
+            plan = bu.update_plan(D) if hasattr(bu, "update_plan") else ""
+            print(f"sweep B {B} D {D} K {K} col {col} {plan}: max_rel_err against plain "
+                  + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()) + model
+                  + ("" if ok else "  FAILED"), flush=True)
+            failed |= not ok
+            del UTs, VTs, dx, dgx, gx, act, outs
+    times, errs = {}, {}
+    update_times(times, errs)
+    for name, v in times.items():
+        print(f"{name}: {v:.4f} ms", flush=True)
+    for name, v in errs.items():
+        print(f"{name} max_rel_err against its plain version {v:.3e}", flush=True)
+    update_solves(dev)
+    return int(failed)
 
 
 def chan_sums(times, errs, r):
@@ -803,10 +963,11 @@ def sass():
 
 def main():
     modes = {"checks": checks, "kernels": kernels, "step": step, "sass": sass,
-             "slopes": slopes}
+             "slopes": slopes, "update": update}
     nargs = 3 if sys.argv[1:2] == ["sass"] else 2
     if not torch.cuda.is_available() or len(sys.argv) != nargs or sys.argv[1] not in modes:
-        print("usage, on a CUDA device: python3 chip_ab.py checks|kernels|step|slopes|sass DIR",
+        print("usage, on a CUDA device: python3 chip_ab.py "
+              "checks|kernels|step|slopes|update|sass DIR",
               file=sys.stderr)
         return 1
     print(card(), flush=True)

@@ -134,9 +134,9 @@ Phases (any failure exits non-zero; nothing is caught):
      K - 1) on the real inputs of one block of the phase-13 model after its
      warm-up (the columns past a solve's last one zero, as the solver
      leaves them), and on synthetic ones at BSDS300's width (D 63) and with
-     inactive rows and a zero denominator (the scrub): each output's max
-     error relative to its largest entry, device time, plain time and
-     bound;
+     inactive rows and a zero denominator (the scrub), all on its warp
+     form: each output's max error relative to its largest entry, device
+     time, plain time, bound, share of the bound and bytes/s;
  12. the whole generic forward and backward solves (bf16 and f32
      linearisation) on every block of that model, kernel against plain:
      roots, converged and protective-break flags, iteration counts;
@@ -280,9 +280,13 @@ Phases (any failure exits non-zero; nothing is caught):
      as one vector, and every step of (a), (b) and (c) also in F32_STEP's
      modes, each slope's gradient there within SCALAR_F32_TOL
      (compare_plain_step's f32_scalars); (d)
-     broyden_update against its plain version and timed on (a)'s
-     forward-solve states at D 3072, B 64, columns 1, 10 and 29, beside its
-     bound.
+     broyden_update (its cluster form) against its plain version and timed
+     on the forward-solve states of (a)'s first block (D 3072, B 64; the
+     solve run to its 30 iterations) and of (b)'s first FC block (D 1024;
+     columns past its last on its last state, as phase 11), at columns 0,
+     1, 10 and 29, beside its bound, with the floors read
+     first (the float64-summed model and the model of the kernel's order
+     against the plain version) and the kernel against its order's model.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it lists the kernels as JSON (the forward solve's four with their launches
@@ -3082,14 +3086,14 @@ def capture_tabular_inputs(step, batch, draws, eval_step, x_eval, eval_draws):
 
 def record_updates(run):
     """The inputs of every broyden_update call of run(), cloned before the
-    call (it writes in place): [(Us, VTs, dx, dgx, gx, active, col)]."""
+    call (it writes in place): [(UTs, VTs, dx, dgx, gx, active, col)]."""
     from implicit_normalizing_flows_torch.ops import broyden as bmod
 
     calls, orig = [], bmod.broyden_update
 
-    def rec(Us, VTs, dx, dgx, gx, active, col):
-        calls.append(tuple(t.clone() for t in (Us, VTs, dx, dgx, gx, active)) + (col,))
-        return orig(Us, VTs, dx, dgx, gx, active, col)
+    def rec(UTs, VTs, dx, dgx, gx, active, col):
+        calls.append(tuple(t.clone() for t in (UTs, VTs, dx, dgx, gx, active)) + (col,))
+        return orig(UTs, VTs, dx, dgx, gx, active, col)
 
     with patched([(bmod, "broyden_update", rec)]):
         run()
@@ -3097,19 +3101,69 @@ def record_updates(run):
 
 
 def synthetic_update_inputs(B, D, K, col, dev, seed):
-    """Solver-scale factors with the columns >= col zero, a secant-like
-    step, two inactive rows and one zero-denominator row (delta_gx = 0)."""
+    """Solver-scale factors (both plane-major, (B, K, D)) with the planes
+    >= col zero, a secant-like step, two inactive rows and one
+    zero-denominator row (delta_gx = 0)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     rnd = lambda *shape, s=1.0: s * torch.randn(*shape, device=dev, generator=gen)
-    Us, VTs = rnd(B, D, K, s=0.3 / D ** 0.5), rnd(B, K, D, s=0.3 / D ** 0.5)
-    Us[:, :, col:] = 0.0
+    UTs, VTs = rnd(B, K, D, s=0.3 / D ** 0.5), rnd(B, K, D, s=0.3 / D ** 0.5)
+    UTs[:, col:, :] = 0.0
     VTs[:, col:, :] = 0.0
     dx = rnd(B, D)
     dgx = -dx + rnd(B, D, s=0.3)
     dgx[3] = 0.0
     active = torch.ones(B, dtype=torch.bool, device=dev)
     active[[1, 5]] = False
-    return Us, VTs, dx, dgx, rnd(B, D), active
+    return UTs, VTs, dx, dgx, rnd(B, D), active
+
+
+def update_row(label, inputs, col, floors=False):
+    """broyden_update on ``inputs`` (UTs, VTs, dx, dgx, gx, active; not
+    written) at plane ``col`` against its plain version at UPDATE_TOL (each
+    output's max error relative to its largest entry), its device time, the
+    plain version's, its bound, share of the bound and bytes/s; with
+    ``floors`` first the float64-summed model and the model of the kernel's
+    order (ops/sum_order.py) against the plain version, and after the check
+    the kernel against that model. Returns the row."""
+    from implicit_normalizing_flows_torch.ops import broyden_update as bu
+    from implicit_normalizing_flows_torch.ops import sum_order as so
+
+    UTs, VTs, dx, dgx, gx, act = inputs
+    B, K, D = UTs.shape
+
+    def run(fn):
+        u, v = UTs.clone(), VTs.clone()
+        return u, v, fn(u, v, dx, dgx, gx, act, col)
+
+    plain = run(bu.broyden_update_plain)
+    if floors:
+        exact, model = run(so.broyden_update_exact), run(so.broyden_update_tiled)
+        log(f"{label}: the floors against the plain version, max_rel_err (Us, VTs, update): "
+            + "; ".join(f"{name} " + " ".join(f"{rel_max(a, b):.2e}" for a, b in zip(m, plain))
+                        for name, m in (("float64 sums", exact), ("the kernel's order", model))))
+    uk, vk, dk = got = run(bu.broyden_update)
+    torch.cuda.synchronize()
+    errs = [rel_max(a, b) for a, b in zip(got, plain)]
+    # repeated calls rewrite the same plane from the same inputs
+    ms = device_ms(lambda i: bu.broyden_update(uk, vk, dx, dgx, gx, act, col))
+    up, vp = plain[0], plain[1]
+    pms = device_ms(lambda i: bu.broyden_update_plain(up, vp, dx, dgx, gx, act, col))
+    # live planes of U and V^T, three vectors and the mask read; two planes
+    # and the update written
+    nb = 4 * B * D * (2 * col + 6) + B
+    bms, by = bound_ms(nb, 6 * B * D * max(col, 1), "f32")
+    tiled = ""
+    if floors:
+        tiled = (", against its order's model max|d| "
+                 f"{max(float((a - b).abs().max()) for a, b in zip(got, model)):.2e}")
+    log(f"{label}: B {B} D {D} K {K} col {col} ({bu.update_plan(D)}): max_rel_err Us "
+        f"{errs[0]:.2e} VTs {errs[1]:.2e} update {errs[2]:.2e}{tiled}, ms {ms:.4f} plain_ms "
+        f"{pms:.4f} bound_ms {bms:.6f} ({by}), share {bms / ms:.3f}, {nb / (ms / 1e3):.3e} B/s")
+    assert all(math.isfinite(e) and e <= UPDATE_TOL for e in errs), (label, col, errs)
+    assert torch.isfinite(uk).all() and torch.isfinite(vk).all(), (label, col)
+    worst = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+    return dict(ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=by,
+                max_abs_err=worst)
 
 
 def check_update_kernel(inputs, dev):
@@ -3119,8 +3173,6 @@ def check_update_kernel(inputs, dev):
     a column past a solve's last is taken on the state of its last call,
     whose later columns are zero, as the solver leaves them. Synthetic
     inputs at BSDS300's width and a scrub case."""
-    from implicit_normalizing_flows_torch.ops import broyden_update as bu
-
     fwd = [(record_updates(lambda: blk.solve(x)), blk, bwd_args, x_ev)
            for blk, x, bwd_args, x_ev in inputs]
     fwd_calls, blk, bwd_args, x_ev = max(fwd, key=lambda t: len(t[0]))
@@ -3140,29 +3192,11 @@ def check_update_kernel(inputs, dev):
     cases.append(("synthetic D 6, scrub rows",
                   synthetic_update_inputs(TAB_BATCH, TAB_DIM, 30, 3, dev, 99), 3))
     row, worst = None, 0.0
-    for label, (Us, VTs, dx, dgx, gx, act), col in cases:
-        B, D, K = Us.shape
-        uk, vk, up, vp = Us.clone(), VTs.clone(), Us.clone(), VTs.clone()
-        dk = bu.broyden_update(uk, vk, dx, dgx, gx, act, col)
-        dp = bu.broyden_update_plain(up, vp, dx, dgx, gx, act, col)
-        torch.cuda.synchronize()
-        errs = [rel_max(uk, up), rel_max(vk, vp), rel_max(dk, dp)]
-        # repeated calls rewrite the same column from the same inputs
-        ms = device_ms(lambda i: bu.broyden_update(uk, vk, dx, dgx, gx, act, col))
-        pms = device_ms(lambda i: bu.broyden_update_plain(up, vp, dx, dgx, gx, act, col))
-        # live columns of U and V^T, three vectors and the mask read; a
-        # column, a row and the update written
-        nb = 4 * B * D * (2 * col + 6) + B
-        bms, by = bound_ms(nb, 6 * B * D * max(col, 1), "f32")
-        log(f"kernel broyden_update {label}: B {B} D {D} K {K} col {col}: max_rel_err "
-            f"Us {errs[0]:.2e} VTs {errs[1]:.2e} update {errs[2]:.2e}, ms {ms:.4f} "
-            f"plain_ms {pms:.4f} bound_ms {bms:.6f} ({by})")
-        assert all(math.isfinite(e) and e <= UPDATE_TOL for e in errs), (label, col, errs)
-        assert torch.isfinite(uk).all() and torch.isfinite(vk).all(), (label, col)
-        worst = max(worst, *(float((a - b).abs().max())
-                             for a, b in ((uk, up), (vk, vp), (dk, dp))))
+    for label, inputs, col in cases:
+        r = update_row(f"kernel broyden_update {label}", inputs, col)
+        worst = max(worst, r["max_abs_err"])
         if label.startswith("forward") and col == 3:  # the main path's shape
-            row = dict(ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=by)
+            row = r
     return {"broyden_update": {0: dict(row, max_abs_err=worst)}}
 
 
@@ -4334,7 +4368,7 @@ OPTIONS22 = RECIPE + (  # argparse takes the last --fc-end
 RUN22 = ("--nepochs 1 --max-iters-per-epoch 5 --seed 0 --print-freq 1 --vis-freq 0").split()
 SETTLE22 = 2  # of the 5 steps a fresh run takes; the other 3 timed
 EVAL22 = 64  # the test set cut to one evaluation batch
-UPDATE22_COLS = (1, 10, 29)  # the columns 8a is read and timed at, image widths
+UPDATE22_COLS = (0, 1, 10, 29)  # the columns 8a is read and timed at, image widths
 OPTION_TOL = 1e-4  # phase 21's |d loss| limit, held by phase 22 (c)
 
 
@@ -4361,9 +4395,9 @@ class Slice22Tracker:
         update, solve = bmod.broyden_update, implicit_block.fused_broyden_solve
         call, evaluate, load = ImageTrainStep.__call__, drv.evaluate, dmod.load_dataset
 
-        def counted_update(Us, *a):
-            self.updates[(self.part, Us.shape[1])] += 1
-            return update(Us, *a)
+        def counted_update(UTs, *a):
+            self.updates[(self.part, UTs.shape[2])] += 1
+            return update(UTs, *a)
 
         def counted_solve(x, *a, **k):
             self.solves[(self.part, x.shape[1])] += 1
@@ -4440,57 +4474,55 @@ def driver22(label, flags, save):
     return rec, launches, tr
 
 
-def update_image_shapes(model, x_u8, dev):
-    """Phase 22 (d): broyden_update on the states of the first 32x32 block's
-    forward solve of (a)'s model (D 3072, B 64, K 30) at UPDATE22_COLS. The
-    fresh nets' solves stop after 3-4 iterations, so the states are those
-    of the same solve run to its whole budget (eps 1e-12, no stall exit):
-    every column up to 29 holds a real secant pair. Returns {col: row}."""
+def solve_states(model, run, whole_budget=True):
+    """The inputs of every broyden_update call of run(), the calls of the
+    first solve only; with ``whole_budget`` the model's generic blocks
+    solve to their whole budget (eps 1e-12, no stall exit: the fresh sin
+    nets' solves stop after 3-4 iterations, so every plane up to 29 then
+    holds a real secant pair), else at their own settings."""
     import dataclasses
 
-    from implicit_normalizing_flows_torch.ops import broyden_update as bu
-    from implicit_normalizing_flows_torch.training import dequantize
-
-    scale = model.transforms[0]
-    x = dequantize(torch.as_tensor(x_u8, device=dev), None)
-    with torch.no_grad():
-        for layer in scale:
-            if hasattr(layer, "solve"):
-                block = layer
-                break
-            x, _ = layer(x)
-    cfg = block.solver_cfg
-    block.solver_cfg = dataclasses.replace(cfg, eps_forward=1e-12, stall_patience=None,
+    blocks = [b for b in model.implicit_blocks() if b.generic()] if whole_budget else []
+    cfgs = [b.solver_cfg for b in blocks]
+    for b, cfg in zip(blocks, cfgs):
+        b.solver_cfg = dataclasses.replace(cfg, eps_forward=1e-12, stall_patience=None,
                                            stall_guard=None)
     try:
-        calls = record_updates(lambda: block.solve(x))
+        with torch.no_grad():
+            calls = record_updates(run)
     finally:
-        block.solver_cfg = cfg
-    log(f"phase 22 (d) the first block's forward solve at eps 1e-12: {len(calls)} updates")
+        for b, cfg in zip(blocks, cfgs):
+            b.solver_cfg = cfg
+    first = next((i for i in range(1, len(calls)) if calls[i][-1] <= calls[i - 1][-1]),
+                 len(calls))
+    return calls[:first]
+
+
+def first_block_solve(model, x_u8, dev):
+    """The forward solve of the first implicit block of the model's first
+    scale on the images ``x_u8``, as a function of no arguments."""
+    from implicit_normalizing_flows_torch.training import dequantize
+
+    x = dequantize(torch.as_tensor(x_u8, device=dev), None)
+    with torch.no_grad():
+        for layer in model.transforms[0]:
+            if hasattr(layer, "solve"):
+                return lambda: layer.solve(x)
+            x, _ = layer(x)
+    raise ValueError("no implicit block in the first scale")
+
+
+def update_image_shapes(label, calls):
+    """Phase 22 (d): broyden_update against its plain version, with the
+    floors read first, and timed on the recorded states ``calls`` (one
+    solve) at UPDATE22_COLS. Returns {"B b D d col c": row}."""
     rows = {}
     for col in UPDATE22_COLS:
         real = max((c for c in calls if c[-1] <= col), key=lambda c: c[-1])
-        Us, VTs, dx, dgx, gx, act = real[:6]
-        B, D, K = Us.shape
-        uk, vk, up, vp = Us.clone(), VTs.clone(), Us.clone(), VTs.clone()
-        dk = bu.broyden_update(uk, vk, dx, dgx, gx, act, col)
-        dp = bu.broyden_update_plain(up, vp, dx, dgx, gx, act, col)
-        torch.cuda.synchronize()
-        errs = [rel_max(uk, up), rel_max(vk, vp), rel_max(dk, dp)]
-        ms = device_ms(lambda i: bu.broyden_update(uk, vk, dx, dgx, gx, act, col))
-        pms = device_ms(lambda i: bu.broyden_update_plain(up, vp, dx, dgx, gx, act, col))
-        # live columns of U and V^T, three vectors and the mask read; a
-        # column, a row and the update written
-        nb = 4 * B * D * (2 * col + 6) + B
-        bms, by = bound_ms(nb, 6 * B * D * max(col, 1), "f32")
-        worst = max(float((a - b).abs().max()) for a, b in ((uk, up), (vk, vp), (dk, dp)))
-        log(f"phase 22 (d) broyden_update B {B} D {D} K {K} col {col} (last real column "
-            f"{real[-1]}): max_rel_err Us {errs[0]:.2e} VTs {errs[1]:.2e} update "
-            f"{errs[2]:.2e}, ms {ms:.4f} plain_ms {pms:.4f} bound_ms {bms:.6f} ({by}), share "
-            f"{bms / ms:.3f}, {nb / (ms / 1e3):.3e} B/s")
-        assert all(math.isfinite(v) and v <= UPDATE_TOL for v in errs), (col, errs)
-        rows[col] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, max_abs_err=worst,
-                         last_real_column=real[-1])
+        B, _, D = real[0].shape
+        row = update_row(f"phase 22 (d) broyden_update {label} (last real column {real[-1]})",
+                         real[:6], col, floors=True)
+        rows[f"B {B} D {D} col {col}"] = dict(row, last_real_column=real[-1])
     return rows
 
 
@@ -4539,8 +4571,9 @@ def slice22_path(dev):
     ``--n-power-series 5``, and on (a)'s ``--mem-eff True`` under sin,
     against the plain versions at OPTION_TOL. Each step of (a), (b) and (c)
     is also held in float32 (``f32_scalars``). (d) broyden_update at D 3072
-    on (a)'s solve states. Returns (the kernels' launches in (a), (b) and
-    (b)'s sampling, summed; (d)'s rows)."""
+    on (a)'s solve states and at D 1024 on (b)'s FC block's. Returns (the
+    kernels' launches in (a), (b) and (b)'s sampling, summed; (d)'s
+    rows)."""
     import tempfile
 
     import train_img_torch as drv
@@ -4587,7 +4620,8 @@ def slice22_path(dev):
                            f32_scalars=True)
         options22("--mem-eff True under sin", step_a, x_u8, dev,
                   plain_versions(True) + plain_update, grad_in_forward=True)
-        rows = update_image_shapes(rec_a["model"], x_u8, dev)
+        rows = update_image_shapes("on the first 32x32 block's forward solve", solve_states(
+            rec_a["model"], first_block_solve(rec_a["model"], x_u8, dev)))
         del rec_a, step_a
         log(f"phase 22 (a), (c) mem-eff and (d): {time.perf_counter() - t0:.1f} s")
 
@@ -4619,6 +4653,13 @@ def slice22_path(dev):
             xp, _ = model_b.inverse(z)
         with torch.no_grad():
             zk, _ = model_b(xk)
+        # the FC blocks' solve at its own settings: run to eps 1e-12 it
+        # reaches its noise floor, where the update's terms cancel; there
+        # the float64-summed model read 5.6e-6 and the kernel's order 9.5e-6
+        # from the plain version in one run (UPDATE_TOL 1e-5), 1e-7 in another
+        rows.update(update_image_shapes(
+            "on the first FC block's forward solve",
+            solve_states(model_b, lambda: model_b(xk), whole_budget=False)))
         dx = float((xk[:, :3] - xp[:, :3]).abs().max())
         log(f"phase 22 (b) sampling batch of {BATCH} through the factor-out inverse (latent "
             f"{z.shape[1]}): {sms:.1f} ms; images {tuple(xk.shape)}, kernels against plain "
@@ -4943,12 +4984,14 @@ def main():
                 row["merged_launches"] = merged_launches[name]
                 row["driver_launches"] = driver_launches[name]
             if mod is bu:  # phase 13's eval batch, phase 20's driver run, phase 21
-                row.update(eval_launches=tab_eval_launches[name],
+                row.update(cores="CUDA (a warp an example at D <= 128, the timed POWER "
+                                 "shape; a thread-block cluster an example above, sums "
+                                 "through distributed shared memory)",
+                           eval_launches=tab_eval_launches[name],
                            driver_launches=tab_driver_launches,
                            option_step_launches=option_launches,
                            inverse_launches=inverse_launches,
-                           image_shapes={f"B 64 D 3072 col {c}": r
-                                         for c, r in update_rows.items()})
+                           image_shapes=update_rows)
             row["slice22_launches"] = slice22_launches.get(name, 0)
             kernels.append(row)
     log(f"device_ms: {TIMINGS['dropped']} of {TIMINGS['runs']} profiled runs recorded a "

@@ -1,6 +1,6 @@
 // Fixed-order sums split over a thread-block cluster (Hopper, sm_90a): the
-// reduction helpers of broyden_step.cu, tdot.cu, chan_sums.cu and
-// line_search.cu.
+// reduction helpers of broyden_step.cu, tdot.cu, chan_sums.cu,
+// line_search.cu and broyden_update.cu.
 //
 // A cluster's CTAs each sum their part of a row, then exchange the CTA sums
 // through distributed shared memory: every CTA pushes its sums into a slot

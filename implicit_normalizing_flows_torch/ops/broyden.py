@@ -59,7 +59,8 @@ def broyden(g, x0, threshold, eps, *, stall_patience=None, stall_rtol=1e-3,
     x, gx = x0, g(x0)
     init_obj = _norm(gx)
     update = gx if newton_init else -gx
-    Us = torch.zeros(B, D, threshold, dtype=dt, device=dev)
+    # both panels plane-major (B, K, D): the JAX solver's Us is (B, D, K)
+    UTs = torch.zeros(B, threshold, D, dtype=dt, device=dev)
     VTs = torch.zeros(B, threshold, D, dtype=dt, device=dev)
     active = init_obj >= eps_i
     best_x, best_gx, best_obj = x, gx, init_obj
@@ -93,7 +94,7 @@ def broyden(g, x0, threshold, eps, *, stall_patience=None, stall_rtol=1e-3,
                 stalled = stalled & (best_obj < stall_guard * eps_i)
             next_active = next_active & ~stalled
             snapshot = best_obj
-        update = broyden_update(Us, VTs, delta_x, delta_gx, gx_new, active,
+        update = broyden_update(UTs, VTs, delta_x, delta_gx, gx_new, active,
                                 (nstep - 1) % threshold)
         x, gx, active = x_new, gx_new, next_active
     return BroydenResult(best_x, best_gx, torch.tensor(nstep, dtype=torch.int32, device=dev),

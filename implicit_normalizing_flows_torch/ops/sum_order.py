@@ -1,5 +1,5 @@
-"""Plain versions of twenty-one kernels with their products or sums summed
-exactly, and eighteen with them summed in their kernels' order.
+"""Plain versions of twenty-two kernels with their products or sums summed
+exactly, and nineteen with them summed in their kernels' order.
 
 Each ``*_exact`` function here is a kernel's plain version with its rounded
 (bf16, or split) product summed in float64 and rounded once to float32: the
@@ -52,6 +52,9 @@ a floor fails every kernel that does not sum in the plain version's order.
 * :func:`line_search_exact`: ``ops.line_search._line_search_plain`` (each
   sum of squares in float64, rounded once; every other operation as
   there).
+* :func:`broyden_update_exact`: ``ops.broyden_update.broyden_update_plain``
+  (every contraction over D and combination over k and both dot products
+  in float64, rounded once; every other operation as there).
 
 :func:`fp_conv_in_exact` also stands in for its kernel on the CPU: the
 final pair's c -> mid kernel (``csrc/conv3x3_in_tc.cuh``,
@@ -94,10 +97,11 @@ sums added before the bias):
   ``EPI_AFFINE``, which the final pair does not take (its float64 form
   does); phase 9 of ``chip_smoke.py`` reads the pair with it.
 
-The four reductions split over a thread-block cluster
+The five reductions split over a thread-block cluster
 (``csrc/cluster_reduce.cuh``) sum as :func:`_cluster_tree` says:
 :func:`broyden_step_tiled`, :func:`fp_tdot_tiled`,
-:func:`rv_chan_sums_tiled` and :func:`line_search_tiled`.
+:func:`rv_chan_sums_tiled`, :func:`line_search_tiled` and
+:func:`broyden_update_tiled` (whose warp form is a cluster of one warp).
 
 They run on whatever device their tensors lie on.
 """
@@ -106,6 +110,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .broyden_update import _broyden_update_by, update_plan
 from .fused_final import TDOT_THREADS, _fp_tdot_by, tdot_plan
 from .fused_solve import (SPLIT_MODES, _broyden_step_by, _conv1x1_mid_plain, _conv3x3_in_by,
                           _conv3x3_in_plain, _conv3x3_out_by, _conv3x3_out_plain, _split,
@@ -125,7 +130,8 @@ __all__ = ["jt_conv1x1_mid_exact", "rv_wgrad_exact", "rv_conv3x3_out_exact",
            "rv_conv3x3_in_exact", "rv_conv3x3_in_tiled", "conv3x3_out_exact",
            "conv3x3_out_tiled", "broyden_step_exact", "broyden_step_tiled", "fp_tdot_exact",
            "fp_tdot_tiled", "rv_chan_sums_exact", "rv_chan_sums_tiled", "line_search_exact",
-           "line_search_tiled", "TC_BK", "C3_MC", "C3I_BK"]
+           "line_search_tiled", "broyden_update_exact", "broyden_update_tiled", "TC_BK",
+           "C3_MC", "C3I_BK"]
 
 TC_BK = 64  # the K tile of the tensor-core 1x1 product (csrc/mma_gemm.cuh)
 C3_MC = 64  # the mid channels of a chunk of the tensor-core 3x3 product (csrc/conv3x3_out_tc.cuh)
@@ -679,6 +685,37 @@ def broyden_step_tiled(phase, idx_in, cnt_in, idx_out, cnt_out, st, **kw):
     """``_broyden_step_plain`` with its sums in the cluster kernel's order
     (:class:`_TiledSums`); every other operation as the plain version."""
     _broyden_step_by(_TiledSums, phase, idx_in, cnt_in, idx_out, cnt_out, st, **kw)
+
+
+class _UpdateTiledSums(_TiledSums):
+    """``broyden_update``'s sums as its kernel (``csrc/broyden_update.cu``)
+    takes them: over D in the order of the form that
+    :func:`~.broyden_update.update_plan` picks (the warp form: one warp's
+    tree over elements lane + 32 m; the cluster form: the cluster's tree
+    over float4 vectors, the row padded with zeros to the plan's slices),
+    over k in order from 0."""
+
+    @staticmethod
+    def _tree(p):
+        D = p.shape[-1]
+        plan = update_plan(D)
+        if plan.cluster == 0:
+            return _cluster_tree(p, 1, 32, plan.vpt, vec=1)
+        n = 4 * plan.cluster * plan.slice
+        return _cluster_tree(F.pad(p, (0, n - D)), plan.cluster, plan.threads, plan.vpt)
+
+
+def broyden_update_exact(UTs, VTs, delta_x, delta_gx, gx, active, col):
+    """``broyden_update_plain`` with every contraction over D and over k
+    and both dot products summed in float64 and rounded once."""
+    return _broyden_update_by(_ExactSums, UTs, VTs, delta_x, delta_gx, gx, active, col)
+
+
+def broyden_update_tiled(UTs, VTs, delta_x, delta_gx, gx, active, col):
+    """``broyden_update_plain`` with its sums in its kernel's order
+    (:class:`_UpdateTiledSums`); every other operation as the plain
+    version."""
+    return _broyden_update_by(_UpdateTiledSums, UTs, VTs, delta_x, delta_gx, gx, active, col)
 
 
 def fp_tdot_exact(r, h, th, beta_net, out):
